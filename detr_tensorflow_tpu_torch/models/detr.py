@@ -1,0 +1,99 @@
+"""DETR assembly (port of ``detr_tensorflow_tpu/models/detr.py``):
+backbone -> exact feature mask -> sine positions -> 1x1 projection ->
+transformer -> heads. Detection heads only: no segmentation head, no int8
+backbone, no pipeline stages."""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from .layers import MLP, feature_valid_mask
+from .position import sine_position_embedding
+from .resnet import ResNetBackbone
+from .transformer import Transformer
+
+HEADS = ("detr", "finetune", "none")
+STAGE_SIZES = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
+
+
+class DETR(nn.Module):
+    """End-to-end DETR: NHWC images -> set predictions.
+
+    head:
+      * ``"detr"``: ``class_embed`` Linear(num_classes) + ``bbox_embed`` MLP;
+      * ``"finetune"``: fresh ``cls_layer`` Linear(nb_class) + ``pos_layer`` MLP;
+      * ``"none"``: headless, returns ``hs`` (L, B, Q, D) and ``memory``.
+
+    ``dtype`` is the compute dtype (float32 or bfloat16). The caller casts
+    the Linear/Conv/LayerNorm parameters to it (``api.build_detr`` does);
+    FrozenBN buffers and ``query_embed`` stay float32, as in JAX.
+    """
+
+    def __init__(self, num_classes: int = 92, num_queries: int = 100,
+                 model_dim: int = 256, num_heads: int = 8,
+                 num_encoder_layers: int = 6, num_decoder_layers: int = 6,
+                 dim_feedforward: int = 2048, backbone_depth: int = 50,
+                 backbone_stage_sizes: Optional[Sequence[int]] = None,
+                 head: str = "detr", nb_class: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32, attn_impl: str = "auto"):
+        super().__init__()
+        if head not in HEADS:
+            raise ValueError(f"unknown head: {head}")
+        if head == "finetune" and nb_class is None:
+            raise ValueError("finetune head needs nb_class")
+        self.model_dim, self.head, self.dtype = model_dim, head, dtype
+        self.backbone = ResNetBackbone(backbone_stage_sizes or STAGE_SIZES[backbone_depth])
+        self.input_proj = nn.Conv2d(2048, model_dim, 1)
+        self.query_embed = nn.Parameter(torch.zeros(num_queries, model_dim))
+        self.transformer = Transformer(model_dim, num_heads, num_encoder_layers,
+                                       num_decoder_layers, dim_feedforward, attn_impl)
+        if head == "detr":
+            self.class_embed = nn.Linear(model_dim, num_classes)
+            self.bbox_embed = MLP(model_dim, model_dim, 4)
+        elif head == "finetune":
+            self.cls_layer = nn.Linear(model_dim, nb_class)
+            self.pos_layer = MLP(model_dim, model_dim, 4)
+
+    def forward(self, images: torch.Tensor, pixel_mask: Optional[torch.Tensor] = None):
+        """images: (B, H, W, 3) normalized, NHWC. pixel_mask: optional
+        (B, H, W) bool, True = valid; omitted means all valid."""
+        feats = self.backbone(images.to(self.dtype), pixel_mask)  # (B, C, h, w)
+        b, _, fh, fw = feats.shape
+        if pixel_mask is None:
+            valid = torch.ones((b, fh, fw), device=feats.device)
+            key_padding_mask = None
+        else:
+            valid = feature_valid_mask(pixel_mask, fh, fw)
+            key_padding_mask = (valid < 0.5).reshape(b, fh * fw)
+        pos = sine_position_embedding(valid, self.model_dim // 2, dtype=self.dtype)
+        pos = pos.reshape(b, fh * fw, self.model_dim)
+        src = self.input_proj(feats).flatten(2).transpose(1, 2)  # (B, S, D)
+
+        hs, memory = self.transformer(src, pos, self.query_embed, key_padding_mask)
+        if self.head == "none":
+            return {"hs": hs, "memory": memory.reshape(b, fh, fw, self.model_dim)}
+        if self.head == "detr":
+            logits, boxes = self.class_embed(hs), self.bbox_embed(hs)
+        else:
+            logits, boxes = self.cls_layer(hs), self.pos_layer(hs)
+        logits, boxes = logits.float(), boxes.float()
+        return {
+            "pred_logits": logits[-1],
+            "pred_boxes": boxes[-1],
+            "aux_logits": logits[:-1],
+            "aux_boxes": boxes[:-1],
+        }
+
+
+def as_aux_list(outputs):
+    """Stacked aux outputs -> the reference's list-of-dicts form."""
+    out = {"pred_logits": outputs["pred_logits"], "pred_boxes": outputs["pred_boxes"]}
+    if "aux_logits" in outputs:
+        out["aux"] = [
+            {"pred_logits": lg, "pred_boxes": bx}
+            for lg, bx in zip(outputs["aux_logits"], outputs["aux_boxes"])
+        ]
+    return out
