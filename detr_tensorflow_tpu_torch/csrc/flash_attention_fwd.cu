@@ -4,19 +4,25 @@
 // detr_tensorflow_tpu/ops/pallas/flash_attention.py (launched by
 // `_mha_fwd_call` through `pl.pallas_call`). It computes the same function:
 //
-//   out[b, i, h, :] = sum_j softmax_j(q[b, i, h, :] . k[b, j, h, :] + bias[b, j]) v[b, j, h, :]
+//   out[b, i, h, :] = sum_j drop_ij softmax_j(q[b, i, h, :] . k[b, j, h, :] + bias[b, j]) v[b, j, h, :]
 //
 // with scores and softmax in fp32, bias = -1e30 on padded keys (mask true)
 // and 0 elsewhere, and q already scaled by head_dim ** -0.5 by the caller.
-// Tensors keep the model's (B, L, H, Dh) layout; the kernel reads them with
-// strides, so the caller folds and pads nothing.
+// drop_ij is 1 without dropout; with dropout it is the Philox keep bit of
+// flash_attention_common.cuh times 1 / (1 - rate), as the TPU kernel's
+// `_dropout_mask`. Tensors keep the model's (B, L, H, Dh) layout; the
+// kernel reads them with strides, so the caller folds and pads nothing.
+// For the backward (flash_attention_bwd.cu) the kernel can also write the
+// row log-sum-exp lse[b, h, i] = max_j s_ij + log sum_j exp(s_ij - max);
+// the served path passes a null pointer and does no extra work.
 //
 // What bounds it on the card: at DETR's shapes (Dh = 32, at most ~1.2k keys)
 // each (query, key) pair costs 2 * Dh fused multiply-adds and one exp, while
 // K and V of one head are only 2 * Lk * Dh elements. The work is arithmetic,
 // not bytes: this first version runs it on the fp32 FMA pipes, and shared
-// memory bandwidth for the K/V reads is its second limit. Tensor cores
-// (mma/wgmma) and TMA are left for later work.
+// memory bandwidth for the K/V reads is its second limit. With dropout
+// each pair also runs one Philox4x32-10 (10 rounds of two 32-bit
+// multiplies). Tensor cores (mma/wgmma) and TMA are left for later work.
 //
 // Design, rethought for the GPU instead of copied from the TPU's blocks:
 //   * one CTA per (batch * head, tile of 16 query rows); 128 threads;
@@ -29,80 +35,66 @@
 //     on the way in, rows padded to Dh + 4 floats so the 8 lanes of a row
 //     group read 8 different keys without bank conflicts;
 //   * online softmax (running max and sum) instead of the TPU kernel's
-//     single pass over all keys: nothing of size Lk is kept per row;
+//     single pass over all keys: nothing of size Lk is kept per row. The
+//     running sum takes every key; only the PV accumulator sees dropout;
 //   * the ragged edges are masked in the kernel (no padding of Lq or Lk),
 //     and padded keys get the -1e30 additive bias, as on the TPU.
 //
 // Numerics: in bf16 the TPU kernel normalises P and then rounds it to bf16
-// before the PV product; here the unnormalised P (in [0, 1]) is rounded to
-// bf16 and the sum is divided out at the end, so bf16 results differ from
-// the TPU kernel's by rounding only. In fp32 the two agree to summation
-// order.
+// before the PV product; here the unnormalised P (in [0, 1], times the
+// dropout scale) is rounded to bf16 and the sum is divided out at the end,
+// so bf16 results differ from the TPU kernel's by rounding only. In fp32
+// the two agree to summation order. A row whose keys are all padded has
+// every score at -1e30 exactly (the dot product is below half an ulp of
+// 1e30), so its softmax is uniform, as on the TPU; its lse is then -1e30
+// and the backward recognises the row by that.
 //
-// Entry point: a plain C function, built with nvcc into a shared library
-// and called through ctypes. It launches on the given stream, allocates
-// nothing, does not synchronise, and returns cudaGetLastError().
+// Entry points: plain C functions, built with nvcc into a shared library
+// and called through ctypes. They launch on the given stream, allocate
+// nothing, do not synchronise, and return cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 
+#include "flash_attention_common.cuh"
+
 namespace {
+
+using fa::kMaskBias;
 
 constexpr int kThreads = 128;
 constexpr int kSplit = 8;                          // lanes sharing one query row
 constexpr int kRows = kThreads / kSplit;           // query rows per CTA
 constexpr int kTileK = 64;                         // keys staged per step
 constexpr int kKeysPerLane = kTileK / kSplit;      // keys of a tile per lane
-constexpr float kMaskBias = -1e30f;
 
-__device__ __forceinline__ void load8(const float* src, float* dst) {
-  const float4 a = *reinterpret_cast<const float4*>(src);
-  const float4 b = *reinterpret_cast<const float4*>(src + 4);
-  dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
-  dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* src, float* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(pairs[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store_out(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* dst, float x) {
-  *dst = __float2bfloat16(x);
-}
-
-// P takes V's type before the PV product (the TPU kernel's probs.astype(v.dtype)).
-__device__ __forceinline__ float round_p(float p, const float*) { return p; }
-__device__ __forceinline__ float round_p(float p, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(p));
-}
-
-template <typename T, int Dh>
+// kTraining (dropout or a row lse to write) is a template flag so that the
+// served variant compiles to the inference-only kernel: with the Philox code
+// and the lse store merely present, it took 0.304 ms instead of 0.276 ms at
+// (1232, 1232) fp32, B=2, on an H100 at 700 W.
+template <typename T, int Dh, bool kTraining>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v,
                            const unsigned char* __restrict__ mask,
-                           T* __restrict__ out, int lq, int lk, int heads) {
+                           const unsigned long long* __restrict__ seed,
+                           unsigned threshold, float keep_scale,
+                           T* __restrict__ out, float* __restrict__ lse,
+                           int lq, int lk, int heads) {
   constexpr int kStride = Dh + 4;
   constexpr int kChunksPerRow = Dh / 8;
   __shared__ __align__(16) float k_tile[kTileK * kStride];
   __shared__ __align__(16) float v_tile[kTileK * kStride];
   __shared__ float bias_tile[kTileK];
 
-  const int b = blockIdx.y / heads;
-  const int h = blockIdx.y % heads;
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh % heads;
   const int tid = threadIdx.x;
   const int lane_key = tid % kSplit;
   const int row = blockIdx.x * kRows + tid / kSplit;
   const bool row_ok = row < lq;
+  const bool dropout = kTraining && threshold != 0u;
+  const uint2 key = dropout ? fa::seed_key(seed) : make_uint2(0u, 0u);
   const long token_stride = static_cast<long>(heads) * Dh;
   const T* k_head = k + (static_cast<long>(b) * lk * heads + h) * Dh;
   const T* v_head = v + (static_cast<long>(b) * lk * heads + h) * Dh;
@@ -111,7 +103,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (row_ok) {
     const T* q_ptr = q + ((static_cast<long>(b) * lq + row) * heads + h) * Dh;
 #pragma unroll
-    for (int d = 0; d < Dh; d += 8) load8(q_ptr + d, q_row + d);
+    for (int d = 0; d < Dh; d += 8) fa::load8(q_ptr + d, q_row + d);
   } else {
 #pragma unroll
     for (int d = 0; d < Dh; ++d) q_row[d] = 0.f;
@@ -121,7 +113,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int d = 0; d < Dh; ++d) acc[d] = 0.f;
   float m = -INFINITY;  // running max of this lane's scores
-  float l = 0.f;        // running sum of exp(score - m)
+  float l = 0.f;        // running sum of exp(score - m), dropped keys included
 
   for (int k0 = 0; k0 < lk; k0 += kTileK) {
     for (int c = tid; c < kTileK * kChunksPerRow; c += kThreads) {
@@ -130,8 +122,8 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = k0 + r;
       float kv[8], vv[8];
       if (j < lk) {
-        load8(k_head + j * token_stride + col, kv);
-        load8(v_head + j * token_stride + col, vv);
+        fa::load8(k_head + j * token_stride + col, kv);
+        fa::load8(v_head + j * token_stride + col, vv);
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e) kv[e] = vv[e] = 0.f;
@@ -180,7 +172,11 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < kKeysPerLane; ++i) {
         const float p = __expf(s[i] - m_new);
         l += p;
-        const float pv = round_p(p, q);
+        float pd = p;
+        if (dropout && row_ok && k0 + lane_key + i * kSplit < lk)
+          pd *= fa::dropout_factor(key, bh, row, k0 + lane_key + i * kSplit, threshold,
+                                   keep_scale);
+        const float pv = fa::round_to(pd, q);
         const float* v_row = v_tile + (lane_key + i * kSplit) * kStride;
 #pragma unroll
         for (int d = 0; d < Dh; d += 4) {
@@ -218,43 +214,88 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     constexpr int kPerLane = Dh / kSplit;  // each lane writes its own slice
 #pragma unroll
     for (int d = 0; d < Dh; ++d) {
-      if (d / kPerLane == lane_key) store_out(out_ptr + d, acc[d] * inv_l);
+      if (d / kPerLane == lane_key) fa::store_out(out_ptr + d, acc[d] * inv_l);
     }
+    if (kTraining && lse != nullptr && lane_key == 0)
+      lse[static_cast<long>(bh) * lq + row] = m_row + logf(l);
+  }
+}
+
+// keep[bh, i, j] = 1 if the dropout of (bh, i, j) keeps the element.
+__global__ void keep_mask_kernel(const unsigned long long* __restrict__ seed,
+                                 unsigned char* __restrict__ keep, long total,
+                                 int lq, int lk, unsigned threshold) {
+  const uint2 key = fa::seed_key(seed);
+  for (long e = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x; e < total;
+       e += static_cast<long>(gridDim.x) * blockDim.x) {
+    const int j = static_cast<int>(e % lk);
+    const long rest = e / lk;
+    const int i = static_cast<int>(rest % lq);
+    const unsigned bh = static_cast<unsigned>(rest / lq);
+    keep[e] = fa::dropout_factor(key, bh, i, j, threshold, 1.f) != 0.f;
   }
 }
 
 template <typename T, int Dh>
 void launch(const void* q, const void* k, const void* v, const void* mask,
-            void* out, int batch, int lq, int lk, int heads,
-            cudaStream_t stream) {
+            const void* seed, unsigned threshold, float keep_scale, void* out,
+            float* lse, int batch, int lq, int lk, int heads, cudaStream_t stream) {
   const dim3 grid((lq + kRows - 1) / kRows, batch * heads);
-  flash_attention_fwd_kernel<T, Dh><<<grid, kThreads, 0, stream>>>(
+  auto kernel = threshold != 0u || lse != nullptr ? flash_attention_fwd_kernel<T, Dh, true>
+                                                 : flash_attention_fwd_kernel<T, Dh, false>;
+  kernel<<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const unsigned char*>(mask),
-      static_cast<T*>(out), lq, lk, heads);
+      static_cast<const unsigned long long*>(seed), threshold, keep_scale,
+      static_cast<T*>(out), lse, lq, lk, heads);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. mask: (batch, lk) bytes, nonzero = padded
-// key, or null for no mask. Returns a cudaError_t as int (0 = launched).
+// key, or null for no mask. threshold: 0 for no dropout, else
+// ceil(rate * 2^32) with seed a device pointer to one 64-bit seed and
+// keep_scale = 1 / (1 - rate). lse: (batch, heads, lq) fp32, or null.
+// Returns a cudaError_t as int (0 = launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   const void* mask, void* out, int batch,
-                                   int lq, int lk, int heads, int head_dim,
-                                   int dtype, void* stream) {
-  if (batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || batch * heads > 65535)
+                                   const void* mask, const void* seed,
+                                   unsigned threshold, float keep_scale, void* out,
+                                   void* lse, int batch, int lq, int lk, int heads,
+                                   int head_dim, int dtype, void* stream) {
+  if (batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || batch * heads > 65535 ||
+      (threshold != 0u && seed == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0 && head_dim == 32) {
-    launch<float, 32>(q, k, v, mask, out, batch, lq, lk, heads, s);
+    launch<float, 32>(q, k, v, mask, seed, threshold, keep_scale, out, l, batch, lq, lk, heads, s);
   } else if (dtype == 0 && head_dim == 64) {
-    launch<float, 64>(q, k, v, mask, out, batch, lq, lk, heads, s);
+    launch<float, 64>(q, k, v, mask, seed, threshold, keep_scale, out, l, batch, lq, lk, heads, s);
   } else if (dtype == 1 && head_dim == 32) {
-    launch<__nv_bfloat16, 32>(q, k, v, mask, out, batch, lq, lk, heads, s);
+    launch<__nv_bfloat16, 32>(q, k, v, mask, seed, threshold, keep_scale, out, l, batch, lq,
+                              lk, heads, s);
   } else if (dtype == 1 && head_dim == 64) {
-    launch<__nv_bfloat16, 64>(q, k, v, mask, out, batch, lq, lk, heads, s);
+    launch<__nv_bfloat16, 64>(q, k, v, mask, seed, threshold, keep_scale, out, l, batch, lq,
+                              lk, heads, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dropout keep mask of one attention call, (batch * heads, lq, lk)
+// bytes: the bits the kernels above and in flash_attention_bwd.cu draw for
+// the same seed and threshold. For tests; the training path never
+// materialises it.
+extern "C" int flash_attention_keep_mask(const void* seed, void* keep, int batch_heads,
+                                         int lq, int lk, unsigned threshold,
+                                         void* stream) {
+  if (batch_heads <= 0 || lq <= 0 || lk <= 0 || seed == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long total = static_cast<long>(batch_heads) * lq * lk;
+  const int blocks = static_cast<int>((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
+  keep_mask_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned long long*>(seed), static_cast<unsigned char*>(keep), total,
+      lq, lk, threshold);
   return static_cast<int>(cudaGetLastError());
 }

@@ -38,7 +38,8 @@ class DETR(nn.Module):
                  dim_feedforward: int = 2048, backbone_depth: int = 50,
                  backbone_stage_sizes: Optional[Sequence[int]] = None,
                  head: str = "detr", nb_class: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32, attn_impl: str = "auto"):
+                 dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
+                 dropout: float = 0.1):
         super().__init__()
         if head not in HEADS:
             raise ValueError(f"unknown head: {head}")
@@ -49,7 +50,8 @@ class DETR(nn.Module):
         self.input_proj = nn.Conv2d(2048, model_dim, 1)
         self.query_embed = nn.Parameter(torch.zeros(num_queries, model_dim))
         self.transformer = Transformer(model_dim, num_heads, num_encoder_layers,
-                                       num_decoder_layers, dim_feedforward, attn_impl)
+                                       num_decoder_layers, dim_feedforward, attn_impl,
+                                       dropout)
         if head == "detr":
             self.class_embed = nn.Linear(model_dim, num_classes)
             self.bbox_embed = MLP(model_dim, model_dim, 4)
@@ -57,9 +59,12 @@ class DETR(nn.Module):
             self.cls_layer = nn.Linear(model_dim, nb_class)
             self.pos_layer = MLP(model_dim, model_dim, 4)
 
-    def forward(self, images: torch.Tensor, pixel_mask: Optional[torch.Tensor] = None):
+    def forward(self, images: torch.Tensor, pixel_mask: Optional[torch.Tensor] = None,
+                train: bool = False, generator: Optional[torch.Generator] = None):
         """images: (B, H, W, 3) normalized, NHWC. pixel_mask: optional
-        (B, H, W) bool, True = valid; omitted means all valid."""
+        (B, H, W) bool, True = valid; omitted means all valid. ``train``
+        turns on the transformer's dropout, drawn from ``generator`` (a
+        generator on the model's device)."""
         feats = self.backbone(images.to(self.dtype), pixel_mask)  # (B, C, h, w)
         b, _, fh, fw = feats.shape
         if pixel_mask is None:
@@ -72,7 +77,8 @@ class DETR(nn.Module):
         pos = pos.reshape(b, fh * fw, self.model_dim)
         src = self.input_proj(feats).flatten(2).transpose(1, 2)  # (B, S, D)
 
-        hs, memory = self.transformer(src, pos, self.query_embed, key_padding_mask)
+        hs, memory = self.transformer(src, pos, self.query_embed, key_padding_mask,
+                                      train, generator)
         if self.head == "none":
             return {"hs": hs, "memory": memory.reshape(b, fh, fw, self.model_dim)}
         if self.head == "detr":

@@ -1,14 +1,22 @@
 """DETR transformer: post-norm encoder-decoder over batch-first tensors
-(port of ``detr_tensorflow_tpu/models/transformer.py``, inference only:
-no dropout, no remat, no pipeline stages).
+(port of ``detr_tensorflow_tpu/models/transformer.py``; no remat, no
+pipeline stages).
 
 ``attn_impl`` picks the attention of every ``MultiHeadAttention``:
-  * ``"auto"``: the CUDA kernel (``ops.flash_attention.mha``) for every
-    call on a CUDA tensor, the plain version for CPU tensors;
+  * ``"auto"``: the CUDA kernels (``ops.flash_attention.mha``) for every
+    call on a CUDA tensor, whether or not autograd is recording, and the
+    plain version for CPU tensors;
   * ``"kernel"``: always ``ops.flash_attention.mha``, which itself takes a
     CPU tensor to its plain reference;
   * ``"plain"``: materialised scores and softmax in PyTorch.
 ``return_weights=True`` always takes the plain version.
+
+``train=True`` turns on dropout where the JAX layers have it: on the
+attention weights (inside the kernel, or on the plain version's
+probabilities with the same Philox mask), on each residual branch and
+after the FFN's ReLU. Every draw comes from the ``generator`` the caller
+passes (the trainer owns it), never from the global RNG; the attention
+takes one 64-bit seed per call from it, on the device.
 """
 
 from __future__ import annotations
@@ -29,22 +37,41 @@ def _layer_norm(d: int) -> nn.LayerNorm:
     return nn.LayerNorm(d, eps=1e-5)
 
 
+def _check_generator(rate: float, train: bool, generator) -> bool:
+    """Whether dropout is on; training with dropout needs a generator."""
+    if not train or rate == 0.0:
+        return False
+    if generator is None:
+        raise ValueError("training with dropout needs a torch.Generator (generator=)")
+    return True
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool, generator) -> torch.Tensor:
+    """Inverted dropout whose keep mask comes from ``generator``."""
+    if not _check_generator(rate, train, generator):
+        return x
+    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    return x * keep * (1.0 / (1.0 - rate))
+
+
 class MultiHeadAttention(nn.Module):
     """Multi-head attention with separate Q/K/V inputs and projections
     ``q_proj``, ``k_proj``, ``v_proj``, ``out_proj``."""
 
-    def __init__(self, model_dim: int, num_heads: int, attn_impl: str = "auto"):
+    def __init__(self, model_dim: int, num_heads: int, attn_impl: str = "auto",
+                 dropout: float = 0.0):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
         self.model_dim, self.num_heads, self.attn_impl = model_dim, num_heads, attn_impl
+        self.dropout = dropout
         self.q_proj = nn.Linear(model_dim, model_dim)
         self.k_proj = nn.Linear(model_dim, model_dim)
         self.v_proj = nn.Linear(model_dim, model_dim)
         self.out_proj = nn.Linear(model_dim, model_dim)
 
     def forward(self, query, key, value, key_padding_mask: Optional[torch.Tensor] = None,
-                return_weights: bool = False):
+                return_weights: bool = False, train: bool = False, generator=None):
         d, h = self.model_dim, self.num_heads
         dh = d // h
         b, lq, lk = query.shape[0], query.shape[1], key.shape[1]
@@ -54,16 +81,24 @@ class MultiHeadAttention(nn.Module):
         k = self.k_proj(key).view(b, lk, h, dh)
         v = self.v_proj(value).view(b, lk, h, dh)
 
+        rate, seed = 0.0, None
+        if _check_generator(self.dropout, train, generator):
+            rate = self.dropout
+            seed = torch.randint(0, 2**62, (1,), generator=generator, device=q.device)
         impl = self.attn_impl
         if impl == "auto":
             impl = "kernel" if q.is_cuda else "plain"
         if impl == "kernel" and not return_weights:
-            out, attn = flash_attention.mha(q, k, v, key_padding_mask), None
+            out, attn = flash_attention.mha(q, k, v, key_padding_mask, rate, seed), None
         else:
             logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
             if key_padding_mask is not None:
                 logits = logits.masked_fill(key_padding_mask[:, None, None, :], _NEG_INF)
-            attn = torch.softmax(logits, dim=-1).to(q.dtype)
+            attn = torch.softmax(logits, dim=-1)
+            if rate:
+                keep = flash_attention.keep_mask(seed, b * h, lq, lk, rate).view(b, h, lq, lk)
+                attn = attn * (keep * (1.0 / (1.0 - rate)))
+            attn = attn.to(q.dtype)
             out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
         out = self.out_proj(out.reshape(b, lq, d))
         if return_weights:
@@ -75,18 +110,22 @@ class EncoderLayer(nn.Module):
     """Post-norm encoder layer."""
 
     def __init__(self, model_dim: int, num_heads: int, dim_feedforward: int,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiHeadAttention(model_dim, num_heads, attn_impl)
+        self.dropout = dropout
+        self.self_attn = MultiHeadAttention(model_dim, num_heads, attn_impl, dropout)
         self.norm1 = _layer_norm(model_dim)
         self.linear1 = nn.Linear(model_dim, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, model_dim)
         self.norm2 = _layer_norm(model_dim)
 
-    def forward(self, src, pos, key_padding_mask=None):
+    def forward(self, src, pos, key_padding_mask=None, train=False, generator=None):
+        drop = lambda x: dropout(x, self.dropout, train, generator)  # noqa: E731
         qk = src + pos
-        src = self.norm1(src + self.self_attn(qk, qk, src, key_padding_mask))
-        return self.norm2(src + self.linear2(F.relu(self.linear1(src))))
+        attn = self.self_attn(qk, qk, src, key_padding_mask, train=train, generator=generator)
+        src = self.norm1(src + drop(attn))
+        x = self.linear2(drop(F.relu(self.linear1(src))))
+        return self.norm2(src + drop(x))
 
 
 class DecoderLayer(nn.Module):
@@ -94,23 +133,28 @@ class DecoderLayer(nn.Module):
     cross-attention to the memory, FFN."""
 
     def __init__(self, model_dim: int, num_heads: int, dim_feedforward: int,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiHeadAttention(model_dim, num_heads, attn_impl)
+        self.dropout = dropout
+        self.self_attn = MultiHeadAttention(model_dim, num_heads, attn_impl, dropout)
         self.norm1 = _layer_norm(model_dim)
-        self.cross_attn = MultiHeadAttention(model_dim, num_heads, attn_impl)
+        self.cross_attn = MultiHeadAttention(model_dim, num_heads, attn_impl, dropout)
         self.norm2 = _layer_norm(model_dim)
         self.linear1 = nn.Linear(model_dim, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, model_dim)
         self.norm3 = _layer_norm(model_dim)
 
-    def forward(self, tgt, memory, pos, query_pos, memory_key_padding_mask=None):
+    def forward(self, tgt, memory, pos, query_pos, memory_key_padding_mask=None,
+                train=False, generator=None):
+        drop = lambda x: dropout(x, self.dropout, train, generator)  # noqa: E731
         qk = tgt + query_pos
-        tgt = self.norm1(tgt + self.self_attn(qk, qk, tgt))
+        attn = self.self_attn(qk, qk, tgt, train=train, generator=generator)
+        tgt = self.norm1(tgt + drop(attn))
         attn = self.cross_attn(tgt + query_pos, memory + pos, memory,
-                               memory_key_padding_mask)
-        tgt = self.norm2(tgt + attn)
-        return self.norm3(tgt + self.linear2(F.relu(self.linear1(tgt))))
+                               memory_key_padding_mask, train=train, generator=generator)
+        tgt = self.norm2(tgt + drop(attn))
+        x = self.linear2(drop(F.relu(self.linear1(tgt))))
+        return self.norm3(tgt + drop(x))
 
 
 class Transformer(nn.Module):
@@ -120,27 +164,30 @@ class Transformer(nn.Module):
 
     def __init__(self, model_dim: int = 256, num_heads: int = 8,
                  num_encoder_layers: int = 6, num_decoder_layers: int = 6,
-                 dim_feedforward: int = 2048, attn_impl: str = "auto"):
+                 dim_feedforward: int = 2048, attn_impl: str = "auto",
+                 dropout: float = 0.1):
         super().__init__()
         self.num_encoder_layers = num_encoder_layers
         self.num_decoder_layers = num_decoder_layers
         for i in range(num_encoder_layers):
             self.add_module(f"encoder_layer_{i}", EncoderLayer(
-                model_dim, num_heads, dim_feedforward, attn_impl))
+                model_dim, num_heads, dim_feedforward, attn_impl, dropout))
         for i in range(num_decoder_layers):
             self.add_module(f"decoder_layer_{i}", DecoderLayer(
-                model_dim, num_heads, dim_feedforward, attn_impl))
+                model_dim, num_heads, dim_feedforward, attn_impl, dropout))
         self.decoder_norm = _layer_norm(model_dim)
 
-    def forward(self, src, pos, query_embed, key_padding_mask=None):
+    def forward(self, src, pos, query_embed, key_padding_mask=None, train=False,
+                generator=None):
         memory = src
         for i in range(self.num_encoder_layers):
-            memory = getattr(self, f"encoder_layer_{i}")(memory, pos, key_padding_mask)
+            memory = getattr(self, f"encoder_layer_{i}")(
+                memory, pos, key_padding_mask, train, generator)
         query_pos = query_embed[None].expand(src.shape[0], -1, -1).to(src.dtype)
         tgt = torch.zeros_like(query_pos)
         intermediate = []
         for i in range(self.num_decoder_layers):
             tgt = getattr(self, f"decoder_layer_{i}")(
-                tgt, memory, pos, query_pos, key_padding_mask)
+                tgt, memory, pos, query_pos, key_padding_mask, train, generator)
             intermediate.append(self.decoder_norm(tgt))
         return torch.stack(intermediate, dim=0), memory

@@ -1,5 +1,6 @@
-"""Box format converters (port of ``detr_tensorflow_tpu/ops/boxes.py``),
-the ones ``inference.postprocess`` uses, over ``(..., 4)`` tensors.
+"""Box geometry (port of ``detr_tensorflow_tpu/ops/boxes.py``) over
+``(..., 4)`` tensors: the format converters, pairwise intersection, IoU
+and GIoU, and the aligned-pair GIoU of the loss.
 
 Formats: ``xcycwh`` (x_center, y_center, width, height), ``xyxy``
 (xmin, ymin, xmax, ymax), ``yxyx`` (ymin, xmin, ymax, xmax).
@@ -24,3 +25,56 @@ def xyxy_to_yxyx(b: torch.Tensor) -> torch.Tensor:
 
 def xcycwh_to_yxyx(b: torch.Tensor, clip: bool = True) -> torch.Tensor:
     return xyxy_to_yxyx(xcycwh_to_xyxy(b, clip=clip))
+
+
+def area(b: torch.Tensor) -> torch.Tensor:
+    """Area of xyxy boxes, shape (...,)."""
+    return (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+
+
+def intersect(box_a: torch.Tensor, box_b: torch.Tensor) -> torch.Tensor:
+    """Pairwise intersection area of xyxy sets: (..., A, 4) x (..., B, 4)
+    -> (..., A, B)."""
+    max_xy = torch.minimum(box_a[..., :, None, 2:], box_b[..., None, :, 2:])
+    min_xy = torch.maximum(box_a[..., :, None, :2], box_b[..., None, :, :2])
+    wh = (max_xy - min_xy).clamp(min=0.0)
+    return wh[..., 0] * wh[..., 1]
+
+
+def jaccard(box_a: torch.Tensor, box_b: torch.Tensor, return_union: bool = False):
+    """Pairwise IoU of xyxy sets -> (..., A, B) (and the union areas)."""
+    inter = intersect(box_a, box_b)
+    union = area(box_a)[..., :, None] + area(box_b)[..., None, :] - inter
+    iou = inter / union
+    return (iou, union) if return_union else iou
+
+
+def merge(box_a: torch.Tensor, box_b: torch.Tensor):
+    """Tile two sets to (..., A, B, 4) each."""
+    shape = box_a.shape[:-2] + (box_a.shape[-2], box_b.shape[-2], 4)
+    return box_a[..., :, None, :].expand(shape), box_b[..., None, :, :].expand(shape)
+
+
+def giou(box_a: torch.Tensor, box_b: torch.Tensor, return_iou: bool = False):
+    """Pairwise generalized IoU of xyxy sets -> (..., A, B):
+    iou - (enclosing area - union) / enclosing area."""
+    iou, union = jaccard(box_a, box_b, return_union=True)
+    top_left = torch.minimum(box_a[..., :, None, :2], box_b[..., None, :, :2])
+    bottom_right = torch.maximum(box_a[..., :, None, 2:], box_b[..., None, :, 2:])
+    wh = (bottom_right - top_left).clamp(min=0.0)
+    enclose = wh[..., 0] * wh[..., 1]
+    g = iou - (enclose - union) / enclose
+    return (g, iou) if return_iou else g
+
+
+def elementwise_giou(box_a: torch.Tensor, box_b: torch.Tensor) -> torch.Tensor:
+    """GIoU of aligned pairs of xyxy boxes: (..., 4) x (..., 4) -> (...),
+    the diagonal of ``giou`` without the pairwise matrix."""
+    inter_wh = (torch.minimum(box_a[..., 2:], box_b[..., 2:])
+                - torch.maximum(box_a[..., :2], box_b[..., :2])).clamp(min=0.0)
+    inter = inter_wh[..., 0] * inter_wh[..., 1]
+    union = area(box_a) + area(box_b) - inter
+    enc_wh = (torch.maximum(box_a[..., 2:], box_b[..., 2:])
+              - torch.minimum(box_a[..., :2], box_b[..., :2])).clamp(min=0.0)
+    enclose = enc_wh[..., 0] * enc_wh[..., 1]
+    return inter / union - (enclose - union) / enclose

@@ -1,43 +1,108 @@
-"""Fused multi-head attention forward: the hand-written Hopper kernel and
-its plain PyTorch version.
+"""Fused multi-head attention, forward and backward: the hand-written Hopper
+kernels and their plain PyTorch version.
 
-Replaces the TPU kernel ``_fwd_kernel`` of
-``detr_tensorflow_tpu/ops/pallas/flash_attention.py`` (reached through
-its ``mha``). The CUDA source is ``csrc/flash_attention_fwd.cu``; its
-header note says what bounds the kernel on the card and how it is laid
-out. In short: one CTA per (batch * head, 16 query rows), K/V streamed
-through shared memory in tiles of 64 keys with an online softmax, fp32
-accumulators in registers, ragged edges masked in the kernel.
+Replaces the TPU kernels ``_fwd_kernel`` and ``_bwd_kernel`` of
+``detr_tensorflow_tpu/ops/pallas/flash_attention.py`` (reached through its
+``mha``). The CUDA sources are ``csrc/flash_attention_fwd.cu`` and
+``csrc/flash_attention_bwd.cu``; their header notes say what bounds each
+kernel on the card and how it is laid out. In short: the forward streams
+K/V in 64-key tiles with an online softmax and, when autograd needs it,
+writes the row log-sum-exp; the backward recomputes the softmax from it in
+two kernels, one over key tiles for dK/dV and one over query tiles for dQ.
 
-``mha`` takes CUDA tensors to the kernel and CPU tensors to
-``reference_mha``; there is no fallback from one to the other. The
-backward and in-kernel dropout are not ported yet: ``dropout_rate > 0``
-raises.
+Attention-weight dropout runs inside the kernels. Its keep bit is a pure
+function of the call's 64-bit seed and the element's coordinates
+(Philox4x32-10, ``csrc/flash_attention_common.cuh``), so the backward
+replays the forward's mask without storing it. ``keep_mask`` is the same
+generator in PyTorch: the plain version draws its mask from it, so both
+give the same result for the same seed.
+
+``mha`` takes CUDA tensors to the kernels and CPU tensors to
+``reference_mha``; there is no fallback from one to the other. On a CUDA
+tensor under autograd it is a ``torch.autograd.Function`` whose backward is
+the backward kernel; without autograd it launches the forward alone.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 _NEG_INF = -1e30
-_SOURCE = "flash_attention_fwd.cu"
+_FWD_SOURCE = "flash_attention_fwd.cu"
+_BWD_SOURCE = "flash_attention_bwd.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
 
+# Philox4x32-10 constants (Salmon et al., SC'11; Random123).
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+_MASK32 = 0xFFFFFFFF
 
-def reference_mha(q, k, v, key_padding_mask=None):
-    """Plain PyTorch attention with the kernel's numerics: fp32 scores and
-    softmax, -1e30 on padded keys, probabilities cast to V's dtype."""
+
+def reference_mha(q, k, v, key_padding_mask=None, keep_mask=None, dropout_rate: float = 0.0):
+    """Plain PyTorch attention with the kernels' numerics: fp32 scores and
+    softmax, -1e30 on padded keys, the dropout multiplier applied in fp32,
+    probabilities cast to V's dtype. ``keep_mask`` is a (B, H, Lq, Lk) bool
+    tensor (True = kept); kept probabilities are scaled by
+    ``1 / (1 - dropout_rate)``. Differentiable."""
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     if key_padding_mask is not None:
         logits = logits.masked_fill(key_padding_mask[:, None, None, :], _NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    probs = torch.softmax(logits, dim=-1)
+    if keep_mask is not None:
+        probs = probs * (keep_mask * (1.0 / (1.0 - dropout_rate)))
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
 
-def _check(q, k, v, key_padding_mask):
+def dropout_threshold(rate: float) -> int:
+    """The kernels drop an element iff its 32 random bits are below this."""
+    return min(_MASK32, math.ceil(rate * 2**32)) if rate > 0.0 else 0
+
+
+def _mulhilo(a: int, b: torch.Tensor):
+    """High and low 32-bit words of ``a * b`` for 32-bit values held in
+    int64 tensors (split in 16-bit halves so nothing overflows)."""
+    t1 = a * (b & 0xFFFF)
+    t2 = a * (b >> 16)
+    mid = t1 + ((t2 & 0xFFFF) << 16)
+    return (t2 >> 16) + (mid >> 32), mid & _MASK32
+
+
+def philox4x32_10(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 on int64 tensors holding 32-bit words (broadcasting),
+    as ``fa::philox4x32_10`` in ``csrc/flash_attention_common.cuh``."""
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _W0) & _MASK32
+        k1 = (k1 + _W1) & _MASK32
+    return c0, c1, c2, c3
+
+
+def keep_mask(seed: torch.Tensor, batch_heads: int, lq: int, lk: int, rate: float):
+    """The dropout keep mask of one attention call, (batch_heads, Lq, Lk)
+    bool on ``seed``'s device: bit j % 4 of Philox4x32-10 with counter
+    (j // 4, i, bh, 0) and key (seed low word, seed high word), kept iff
+    the bits reach ``dropout_threshold(rate)``. ``seed`` is a one-element
+    int64 tensor; nothing is read back to the host."""
+    dev = seed.device
+    s = seed.reshape(())
+    n4 = (lk + 3) // 4
+    c0 = torch.arange(n4, device=dev, dtype=torch.int64)[None, None, :]
+    c1 = torch.arange(lq, device=dev, dtype=torch.int64)[None, :, None]
+    c2 = torch.arange(batch_heads, device=dev, dtype=torch.int64)[:, None, None]
+    c3 = torch.zeros((), device=dev, dtype=torch.int64)
+    words = philox4x32_10(c0, c1, c2, c3, s & _MASK32, (s >> 32) & _MASK32)
+    bits = torch.stack(torch.broadcast_tensors(*words), dim=-1)
+    bits = bits.reshape(batch_heads, lq, 4 * n4)[..., :lk]
+    return bits >= dropout_threshold(rate)
+
+
+def _check(q, k, v, key_padding_mask, dropout_rate, dropout_seed):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, L, H, Dh)")
     b, _, h, dh = q.shape
@@ -67,59 +132,164 @@ def _check(q, k, v, key_padding_mask):
             )
         if key_padding_mask.device != q.device:
             raise ValueError("key_padding_mask lies on another device")
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate {dropout_rate} outside [0, 1)")
+    if dropout_rate > 0.0:
+        if dropout_seed is None:
+            raise ValueError("dropout_rate > 0 needs dropout_seed")
+        if (dropout_seed.dtype != torch.int64 or dropout_seed.numel() != 1
+                or dropout_seed.device != q.device):
+            raise ValueError("dropout_seed must be one int64 element on q's device")
 
 
-def _library() -> ctypes.CDLL:
+def _library(source: str) -> ctypes.CDLL:
     from .nvcc_build import load_library
 
-    lib = load_library(_SOURCE)
-    fn = lib.flash_attention_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    lib = load_library(source)
+    vp, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    signatures = {
+        "flash_attention_fwd": [vp] * 5 + [u, f, vp, vp] + [i] * 6 + [vp],
+        "flash_attention_keep_mask": [vp, vp, i, i, i, u, vp],
+        "flash_attention_bwd": [vp] * 8 + [u, f] + [vp] * 4 + [i] * 6 + [vp],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name, None)
+        if fn is not None and fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 
-def _launch(q, k, v, key_padding_mask):
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check_kernel_inputs(*tensors):
+    for t in tensors:
+        if t is None:
+            continue
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:  # the kernel reads 16-byte vectors
-            raise ValueError(f"{name} must be 16-byte aligned")
-    if key_padding_mask is not None and not key_padding_mask.is_contiguous():
-        raise ValueError("key_padding_mask must be contiguous")
+            raise ValueError("attention kernel inputs must be contiguous")
+        if t.data_ptr() % 16:  # the kernels read 16-byte vectors
+            raise ValueError("attention kernel inputs must be 16-byte aligned")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _dropout_args(dropout_rate):
+    threshold = dropout_threshold(dropout_rate)
+    return threshold, (1.0 / (1.0 - dropout_rate)) if threshold else 1.0
+
+
+def launch_forward(q, k, v, key_padding_mask, dropout_seed, dropout_rate, with_lse):
+    """One launch of the forward kernel on CUDA tensors: (out, lse or None)."""
+    _check_kernel_inputs(q, k, v, key_padding_mask)
     b, lq, h, dh = q.shape
     lk = k.shape[1]
+    threshold, keep_scale = _dropout_args(dropout_rate)
     out = torch.empty_like(q)
+    lse = torch.empty((b * h, lq), device=q.device, dtype=torch.float32) if with_lse else None
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _library().flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if key_padding_mask is None else key_padding_mask.data_ptr(),
-            out.data_ptr(), b, lq, lk, h, dh, _DTYPE_CODES[q.dtype], stream,
+        err = _library(_FWD_SOURCE).flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
+            _ptr(dropout_seed) if threshold else None, threshold, keep_scale,
+            out.data_ptr(), _ptr(lse), b, lq, lk, h, dh, _DTYPE_CODES[q.dtype],
+            _stream(q.device),
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {err}")
     mha.launches += 1
-    return out
+    return out, lse
 
 
-def mha(q, k, v, key_padding_mask=None, dropout_rate: float = 0.0):
+def launch_backward(q, k, v, out, dout, lse, key_padding_mask, dropout_seed, dropout_rate):
+    """One launch of the backward kernels on CUDA tensors: (dq, dk, dv)."""
+    dout = dout.contiguous()
+    _check_kernel_inputs(dout)
+    b, lq, h, dh = q.shape
+    lk = k.shape[1]
+    threshold, keep_scale = _dropout_args(dropout_rate)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b * h, lq), device=q.device, dtype=torch.float32)
+    with torch.cuda.device(q.device):
+        err = _library(_BWD_SOURCE).flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), _ptr(key_padding_mask),
+            _ptr(dropout_seed) if threshold else None, threshold, keep_scale,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            b, lq, lk, h, dh, _DTYPE_CODES[q.dtype], _stream(q.device),
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: cudaError {err}")
+    mha.backward_launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernels under autograd: the forward saves its row log-sum-exp,
+    the backward kernel recomputes the softmax and replays the dropout."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_padding_mask, dropout_seed, dropout_rate):
+        out, lse = launch_forward(q, k, v, key_padding_mask, dropout_seed, dropout_rate, True)
+        ctx.save_for_backward(q, k, v, out, lse, key_padding_mask, dropout_seed)
+        ctx.dropout_rate = dropout_rate
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, key_padding_mask, dropout_seed = ctx.saved_tensors
+        dq, dk, dv = launch_backward(q, k, v, out, dout, lse, key_padding_mask, dropout_seed,
+                                 ctx.dropout_rate)
+        return dq, dk, dv, None, None, None
+
+
+def mha(q, k, v, key_padding_mask=None, dropout_rate: float = 0.0, dropout_seed=None):
     """Fused attention over batch-first (B, L, H, Dh) tensors.
 
     Q must already be scaled by ``Dh ** -0.5``. ``key_padding_mask`` is an
-    optional (B, Lk) bool tensor, True = padded key. Returns (B, Lq, H, Dh)
-    in Q's dtype. A CUDA tensor launches the kernel (``mha.launches``
-    counts those launches); a CPU tensor goes to ``reference_mha``.
+    optional (B, Lk) bool tensor, True = padded key. ``dropout_rate`` > 0
+    drops attention weights with the mask ``keep_mask(dropout_seed, ...)``,
+    ``dropout_seed`` a one-element int64 tensor on Q's device. Returns
+    (B, Lq, H, Dh) in Q's dtype, differentiable in q, k and v.
+
+    A CUDA tensor launches the kernels (``mha.launches`` counts forward
+    launches, ``mha.backward_launches`` backward ones); a CPU tensor goes
+    to ``reference_mha``; any other device raises.
     """
-    if dropout_rate > 0.0:
-        raise NotImplementedError("attention dropout is not ported yet")
-    _check(q, k, v, key_padding_mask)
+    _check(q, k, v, key_padding_mask, dropout_rate, dropout_seed)
     if q.device.type == "cpu":
-        return reference_mha(q, k, v, key_padding_mask)
+        keep = None
+        if dropout_rate > 0.0:
+            b, lq, h, _ = q.shape
+            keep = keep_mask(dropout_seed, b * h, lq, k.shape[1], dropout_rate)
+            keep = keep.view(b, h, lq, k.shape[1])
+        return reference_mha(q, k, v, key_padding_mask, keep, dropout_rate)
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
-    return _launch(q, k, v, key_padding_mask)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, key_padding_mask, dropout_seed, float(dropout_rate))
+    return launch_forward(q, k, v, key_padding_mask, dropout_seed, dropout_rate, False)[0]
 
 
 mha.launches = 0
+mha.backward_launches = 0
+
+
+def kernel_keep_mask(seed: torch.Tensor, batch_heads: int, lq: int, lk: int, rate: float):
+    """The keep mask the CUDA kernels draw for ``seed``, written out by the
+    kernel library itself, (batch_heads, Lq, Lk) bool. For tests: training
+    never materialises it."""
+    if seed.device.type != "cuda" or seed.dtype != torch.int64 or seed.numel() != 1:
+        raise ValueError("seed must be one int64 element on a CUDA device")
+    keep = torch.empty((batch_heads, lq, lk), device=seed.device, dtype=torch.uint8)
+    with torch.cuda.device(seed.device):
+        err = _library(_FWD_SOURCE).flash_attention_keep_mask(
+            seed.data_ptr(), keep.data_ptr(), batch_heads, lq, lk,
+            dropout_threshold(rate), _stream(seed.device),
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_keep_mask launch failed: cudaError {err}")
+    return keep.bool()

@@ -2,9 +2,11 @@
 
 Each ``csrc/*.cu`` file exposes plain C entry points. It is compiled for
 Hopper (``sm_90a``) into ``build/kernels/`` at the repository root, under
-a name that carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused. Nothing is built when a
-module is imported: the first launch of a kernel builds it.
+a name that carries a hash of the source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source is rebuilt and an unchanged one
+is reused. Nothing is built when a module is imported: the first launch of
+a kernel builds it, and ``build_all`` compiles several sources at once,
+one nvcc process each.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -39,6 +42,7 @@ class Build:
 
 
 _lock = threading.Lock()
+_source_locks: dict[str, threading.Lock] = {}
 _builds: dict[str, Build] = {}
 _libraries: dict[str, ctypes.CDLL] = {}
 
@@ -59,12 +63,14 @@ def nvcc_path() -> str:
 def build(source: str) -> Build:
     """Compile ``csrc/<source>`` once per process (and once per content)."""
     with _lock:
+        source_lock = _source_locks.setdefault(source, threading.Lock())
+    with source_lock:
         if source in _builds:
             return _builds[source]
         src = CSRC_DIR / source
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:12]
+        content = src.read_bytes() + b"".join(
+            h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+        digest = hashlib.sha256(content + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
         lib_path = BUILD_DIR / f"lib{src.stem}_{digest}.so"
         seconds, log = 0.0, ""
         if not lib_path.exists():
@@ -80,6 +86,13 @@ def build(source: str) -> Build:
             os.replace(tmp, lib_path)
         _builds[source] = Build(lib_path, seconds, log)
         return _builds[source]
+
+
+def build_all(sources) -> list[Build]:
+    """Compile several sources concurrently, one nvcc process each."""
+    sources = list(sources)
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        return list(pool.map(build, sources))
 
 
 def load_library(source: str) -> ctypes.CDLL:

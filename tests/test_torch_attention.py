@@ -8,6 +8,7 @@ and by ``chip_smoke.py``.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -70,7 +71,8 @@ def test_mha_rejects_what_the_kernel_does_not_take(case):
     kwargs = {"key_padding_mask": mask}
     expected = ValueError
     if case == "dropout":
-        kwargs["dropout_rate"], expected = 0.1, NotImplementedError
+        # Dropout without a seed: the mask would have no source.
+        kwargs["dropout_rate"] = 0.1
     elif case == "head_dim":
         q, k, v = q[..., :16], k[..., :16], v[..., :16]
     elif case == "dtype":
@@ -109,3 +111,87 @@ def test_model_attention_kernel_route_equals_plain(masked):
     assert weights.shape == (2, 12, 40)
     if masked:
         assert float(weights[1, :, 17:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dropout_case", ["rate_above_one", "int32_seed"])
+def test_mha_rejects_bad_dropout_arguments(dropout_case):
+    q, k, v, mask = (torch.from_numpy(x) for x in _inputs(1, 2, 8, 9, 2, 32, True))
+    rate, seed = 0.1, torch.tensor([3])
+    if dropout_case == "rate_above_one":
+        rate = 1.0
+    else:
+        seed = seed.int()
+    with pytest.raises(ValueError):
+        fa.mha(q, k, v, mask, dropout_rate=rate, dropout_seed=seed)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("lq,lk", [(24, 40), (40, 40)])
+def test_mha_gradients_match_jax_kernel(lq, lk, masked):
+    """dQ, dK, dV of the port's attention (plain version under autograd on
+    the CPU) against jax.grad through the Pallas kernel's custom VJP in
+    interpret mode, for the same output cotangent. No row is fully
+    padded: there the TPU kernel spreads over its 128-padded keys."""
+    q, k, v, mask = _inputs(lq * 7 + lk, 2, lq, lk, 2, 32, masked)
+    g = np.random.default_rng(lq).normal(size=q.shape).astype(np.float32)
+    jmask = None if mask is None else jnp.asarray(mask)
+
+    def loss(q_, k_, v_):
+        out = jax_fa.mha(q_, k_, v_, key_padding_mask=jmask, interpret=True)
+        return jnp.sum(out * jnp.asarray(g))
+
+    jgrads = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = fa.mha(tq, tk, tv, None if mask is None else torch.from_numpy(mask))
+    out.backward(torch.from_numpy(g))
+    for ours, ref in zip((tq.grad, tk.grad, tv.grad), jgrads):
+        np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=ATOL, rtol=RTOL)
+
+
+def test_philox_known_answers():
+    """The PyTorch Philox4x32-10 reproduces Random123's known-answer vectors
+    (the CUDA kernels' generator is held against it on the card)."""
+    cases = [
+        ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+        ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2, (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+        ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+         (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+    ]
+    for ctr, key, want in cases:
+        words = fa.philox4x32_10(*(torch.tensor(x) for x in ctr + key))
+        assert tuple(int(w) for w in words) == want
+
+
+def test_dropout_keep_rate_and_replay_on_cpu():
+    """keep_mask at the training shape keeps 0.9 of the weights within 5
+    sigma, is a pure function of the seed, and differs between seeds; the
+    CPU mha with dropout equals the plain version given that mask."""
+    seed = torch.tensor([2024])
+    keep = fa.keep_mask(seed, 64, 100, 252, 0.1)
+    n = keep.numel()
+    assert abs(float(keep.float().mean()) - 0.9) <= 5 * (0.09 / n) ** 0.5
+    assert torch.equal(keep, fa.keep_mask(seed.clone(), 64, 100, 252, 0.1))
+    assert not torch.equal(keep, fa.keep_mask(seed + 1, 64, 100, 252, 0.1))
+    q, k, v, mask = (torch.from_numpy(x) for x in _inputs(5, 2, 30, 50, 2, 32, True))
+    ours = fa.mha(q, k, v, mask, dropout_rate=0.1, dropout_seed=seed)
+    keep = fa.keep_mask(seed, 4, 30, 50, 0.1).view(2, 2, 30, 50)
+    ref = fa.reference_mha(q, k, v, mask, keep, 0.1)
+    torch.testing.assert_close(ours, ref, rtol=0, atol=0)
+    assert not torch.allclose(ours, fa.mha(q, k, v, mask))
+
+
+def test_model_attention_dropout_routes_agree():
+    """In training, "kernel" and "plain" attention draw the same seed from
+    the same generator and the same Philox mask, so they agree."""
+    rng = np.random.default_rng(8)
+    query = torch.from_numpy(rng.normal(size=(2, 12, 64)).astype(np.float32))
+    torch.manual_seed(0)
+    plain = MultiHeadAttention(64, 2, "plain", dropout=0.1)
+    kernel = MultiHeadAttention(64, 2, "kernel", dropout=0.1)
+    kernel.load_state_dict(plain.state_dict())
+    a = plain(query, query, query, train=True, generator=torch.Generator().manual_seed(5))
+    b = kernel(query, query, query, train=True, generator=torch.Generator().manual_seed(5))
+    torch.testing.assert_close(a, b, atol=ATOL, rtol=RTOL)
+    assert not torch.allclose(a, plain(query, query, query))
+    with pytest.raises(ValueError, match="Generator"):
+        plain(query, query, query, train=True)

@@ -3,7 +3,7 @@
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports no JAX, so it also runs where only PyTorch is installed:
 
-  python -m pytest tests/test_torch_cuda.py -m cuda
+  python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 """
 
 import numpy as np
@@ -12,6 +12,7 @@ import torch
 
 from detr_tensorflow_tpu_torch.models import api
 from detr_tensorflow_tpu_torch.ops import flash_attention as fa
+from detr_tensorflow_tpu_torch.ops import lap
 
 pytestmark = pytest.mark.cuda
 
@@ -75,3 +76,163 @@ def test_model_forward_launches_kernel(cuda_device):
     ref = plain(x)
     assert float((out["pred_boxes"] - ref["pred_boxes"]).abs().max()) <= 5e-4
     assert float((out["pred_logits"] - ref["pred_logits"]).abs().max()) <= 5e-3
+
+
+# Gradient tolerances, relative to the largest reference value: fp32 differs
+# by summation order; bf16 rounds P and dS to bf16 at the TPU kernel's
+# points, the plain version at autograd's (its dP comes out of a bf16
+# einsum), a few bf16 ulps apart.
+GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+def _rel_err(got, ref):
+    return float((got.float() - ref.float()).abs().max()) / max(1.0, float(ref.float().abs().max()))
+
+
+def _grads(fn, q, k, v, dout):
+    q, k, v = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = fn(q, k, v)
+    out.backward(dout)
+    return out.detach(), q.grad, k.grad, v.grad
+
+
+def test_attention_output_is_differentiable(cuda_device):
+    """On a CUDA tensor under autograd the kernel's output carries a
+    grad_fn, and the gradients come from the backward kernel."""
+    q, k, v, mask = _inputs(cuda_device, torch.float32, 2, 100, 252, 8, 32, seed=4)
+    q.requires_grad_()
+    before = fa.mha.backward_launches
+    out = fa.mha(q, k, v, mask)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert fa.mha.backward_launches == before + 1
+    ref_q = q.detach().clone().requires_grad_()
+    fa.reference_mha(ref_q, k, v, mask).sum().backward()
+    assert _rel_err(q.grad, ref_q.grad) <= GRAD_RTOL[torch.float32]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,lq,lk,dh", [(8, 252, 252, 32), (8, 100, 252, 32), (8, 100, 100, 32),
+                                         (3, 37, 5, 32), (2, 130, 300, 64)])
+def test_attention_backward_matches_plain(cuda_device, b, lq, lk, dh, dtype, rate):
+    """Kernel forward and dQ/dK/dV against plain autograd; with dropout,
+    the plain version gets the mask the kernel library materialises for
+    the same seed, so forward and backward must use that one mask."""
+    q, k, v, mask = _inputs(cuda_device, dtype, b, lq, lk, 8, dh, seed=lq * 3 + lk)
+    dout = torch.randn(q.shape, generator=torch.Generator(device=cuda_device).manual_seed(lk),
+                       device=cuda_device).to(dtype)
+    seed = torch.tensor([lq * 1000 + lk], device=cuda_device)
+    keep = fa.kernel_keep_mask(seed, b * 8, lq, lk, rate).view(b, 8, lq, lk) if rate else None
+    got = _grads(lambda *t: fa.mha(*t, mask, rate, seed), q, k, v, dout)
+    ref = _grads(lambda *t: fa.reference_mha(*t, mask, keep, rate), q, k, v, dout)
+    torch.cuda.synchronize()
+    assert _rel_err(got[0], ref[0]) <= (1e-4 if dtype == torch.float32 else 2e-2)
+    for g, r in zip(got[1:], ref[1:]):
+        assert g.dtype == dtype and g.shape == r.shape
+        assert _rel_err(g, r) <= GRAD_RTOL[dtype]
+
+
+def test_attention_fully_padded_row(cuda_device):
+    """A batch element whose keys are all padded: uniform softmax over the
+    keys, as the plain version, forward and backward."""
+    q, k, v, _ = _inputs(cuda_device, torch.float32, 2, 40, 70, 8, 32, seed=9)
+    mask = torch.zeros((2, 70), dtype=torch.bool, device=cuda_device)
+    mask[1] = True
+    mask[0, 50:] = True
+    dout = torch.randn(q.shape, device=cuda_device)
+    got = _grads(lambda *t: fa.mha(*t, mask), q, k, v, dout)
+    ref = _grads(lambda *t: fa.reference_mha(*t, mask), q, k, v, dout)
+    for g, r in zip(got, ref):
+        assert _rel_err(g, r) <= 1e-4
+
+
+def test_kernel_keep_mask_is_the_torch_philox(cuda_device):
+    """The bits the kernels draw equal ``keep_mask`` (PyTorch Philox) bit for
+    bit, and the keep rate is 0.9 within 5 sigma."""
+    seed = torch.tensor([0x1234_5678_9ABC], device=cuda_device)
+    got = fa.kernel_keep_mask(seed, 64, 252, 252, 0.1)
+    assert torch.equal(got, fa.keep_mask(seed, 64, 252, 252, 0.1))
+    n = got.numel()
+    assert abs(float(got.float().mean()) - 0.9) <= 5 * (0.09 / n) ** 0.5
+
+
+def _lap_problems(seed, p=48, r=100, c=100, max_real=30, ties=False):
+    rng = np.random.default_rng(seed)
+    if ties:
+        cost = rng.integers(0, 4, size=(p, r, c)).astype(np.float32)
+    else:
+        cost = rng.normal(size=(p, r, c)).astype(np.float32)
+    n_real = rng.integers(0, max_real + 1, size=p)
+    n_real[:2] = 0, max_real
+    mask = np.arange(r)[None, :] < n_real[:, None]
+    return cost, mask, n_real
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_lap_kernel_matches_plain_and_scipy(cuda_device, ties):
+    from scipy.optimize import linear_sum_assignment
+
+    cost, mask, n_real = _lap_problems(1 + ties, ties=ties)
+    before = lap.solve_lap_masked.launches
+    got = lap.solve_lap_masked(torch.from_numpy(cost).to(cuda_device),
+                               torch.from_numpy(mask).to(cuda_device)).cpu().numpy()
+    assert lap.solve_lap_masked.launches == before + 1
+    plain = lap.reference_solve_lap_masked(torch.from_numpy(cost), torch.from_numpy(mask)).numpy()
+    for i, n in enumerate(n_real):
+        assert (got[i, n:] == -1).all()
+        rows, cols = linear_sum_assignment(cost[i, :n])
+        assert len(set(got[i, :n].tolist())) == n
+        ours = cost[i, np.arange(n), got[i, :n]].sum()
+        assert abs(ours - cost[i, rows, cols].sum()) <= 1e-4 * max(1.0, abs(ours))
+        if not ties:
+            assert (got[i, :n] == cols).all() and (plain[i] == got[i]).all()
+
+
+def test_train_step_kernel_route_matches_plain(cuda_device):
+    """A reduced-depth DETR train step on the card. At dropout 0, with the
+    kernel route's matching handed to the plain route, loss (rel 1e-4) and
+    every parameter's gradient (per tensor, rel 1e-3; tensors with an
+    exactly-zero gradient, such as every k_proj bias, within 1e-6 of the
+    largest tensor gradient) agree; then two dropout-0.1 ``Trainer`` steps
+    launch A, A' and B as designed."""
+    from detr_tensorflow_tpu_torch.data import pad_targets
+    from detr_tensorflow_tpu_torch.ops import losses
+    from detr_tensorflow_tpu_torch.train import Trainer, TrainingConfig
+    from detr_tensorflow_tpu_torch.train.engine import batch_to_device
+
+    rng = np.random.default_rng(0)
+    boxes, classes, mask = zip(*(
+        pad_targets(np.concatenate([rng.uniform(0.2, 0.8, (n, 2)),
+                                    rng.uniform(0.05, 0.4, (n, 2))], -1),
+                    rng.integers(0, 91, size=n)) for n in (3, 7)))
+    batch = batch_to_device({"images": rng.normal(size=(2, 128, 192, 3)).astype(np.float32),
+                             "boxes": np.stack(boxes), "classes": np.stack(classes),
+                             "mask": np.stack(mask)}, cuda_device)
+    targets = [batch[k] for k in ("boxes", "classes", "mask")]
+    cfg = dict(backbone_stage_sizes=(1, 1, 1, 1), num_encoder_layers=2, num_decoder_layers=2,
+               device=cuda_device)
+    results, match = [], None
+    for impl in ("auto", "plain"):
+        model = api.build_detr(dropout=0.0, attn_impl=impl, **cfg).module
+        out = model(batch["images"], train=True)
+        if match is None:
+            match = losses.match_all_layers(out, *targets)
+        total, _ = losses.detr_loss(out, *targets, 91, match=match)
+        total.backward()
+        results.append((float(total.detach()), {n: p.grad for n, p in model.named_parameters()}))
+    (loss_k, grads_k), (loss_p, grads_p) = results
+    assert abs(loss_k - loss_p) <= 1e-4 * abs(loss_p)
+    floor = 1e-6 * max(float(g.norm()) for g in grads_p.values())
+    for name, g in grads_p.items():
+        diff = float((grads_k[name] - g).norm())
+        assert diff <= (floor if float(g.norm()) <= floor else 1e-3 * float(g.norm())), name
+
+    config = TrainingConfig(background_class=91, train_backbone=True, train_transformers=True,
+                            batch_size=2, backbone_lr=1e-3, transformers_lr=1e-3)
+    trainer = Trainer(api.build_detr(**cfg).module, config, seed=0)
+    before = (fa.mha.launches, fa.mha.backward_launches, lap.solve_lap_masked.launches)
+    logs = [trainer.step(batch) for _ in range(2)]
+    after = (fa.mha.launches, fa.mha.backward_launches, lap.solve_lap_masked.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (2 * 6, 2 * 6, 2)
+    assert all(bool(torch.isfinite(log["total_loss"])) for log in logs)

@@ -275,15 +275,15 @@ def test_get_detr_model_heads():
 
 
 def test_port_imports_no_jax():
-    """Importing the port and every submodule loads neither JAX, flax nor
-    the JAX package."""
+    """Importing the port and every submodule loads neither JAX, flax,
+    optax, orbax, cv2 nor the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import detr_tensorflow_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'detr_tensorflow_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'cv2', 'detr_tensorflow_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok', len(list(pkgutil.walk_packages(p.__path__))))\n"
     )
