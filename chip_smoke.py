@@ -10,7 +10,7 @@ Phases, one status line each; any failure raises and exits non-zero:
      csrc/, one process per source, all at once;
   3. kernels: each kernel against its plain PyTorch version on the card,
      at the shapes the served path gives it, fp32 (TF32 off) and bf16,
-     with kernel and plain times; then the attention forward with dropout
+     with kernel, plain and library times; then the attention forward with dropout
      and its backward at the training shapes, against plain autograd at
      dropout 0 and given the mask the kernel library materialises;
   4. lap: the LAP kernel on 48 problems (6 decoder layers x batch 8)
@@ -20,16 +20,31 @@ Phases, one status line each; any failure raises and exits non-zero:
      the whole forward against the plain-attention model, padded against
      exact, and one bf16 request;
   6. http: the port's HTTP service on 127.0.0.1, 3 POSTs and /healthz;
-  7. training: full-width DETR-R50 at b8 376x672 fp32: one step's loss and
+  7. int8 kernels: F (fused int8 1x1) and G (int8 3x3, stride 1 and 2) at
+     every distinct shape of the b1 896x1408 int8 forward against their
+     plain versions (integer-equal), with kernel, plain and library times
+     from CUDA graphs and each shape's bound;
+  8. int8 serving: full-width DETR-R50 at bf16 compute with the int8
+     backbone quantized from its own fp32 backbone on two seeded 800x1333
+     images, 3 requests through ``Predictor`` with the counters reset just
+     before (32 F, 16 G, 18 A per forward), median latency, and c5 on the
+     kernel route against the plain int8 route and the fp32 backbone;
+  9. training: full-width DETR-R50 at b8 376x672 fp32: one step's loss and
      gradients, kernel route against plain route at dropout 0; eight
      dropout-0.1 steps through ``fit`` with the counters reset just before;
      matching and loss under ``torch.cuda.set_sync_debug_mode("error")``.
+Kernel times: A, A' and B from CUDA events around a loop of calls; F and G,
+whose calls are shorter than the wrapper's host cost, from CUDA graphs.
+Every kernel's record carries its bound (bytes over 3.35 TB/s or operations
+over the published peak of their type) and, where one PyTorch call computes
+the same function, that call's time as a yardstick the port never calls.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import collections
 import io
 import json
 import statistics
@@ -50,14 +65,21 @@ ATOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LAUNCHES_PER_FORWARD = 18  # 6 encoder self + 6 decoder self + 6 decoder cross
 BOX_ATOL, LOGIT_ATOL = 5e-4, 5e-3  # kernel model vs plain-attention model, fp32
 PADDED_BOX_ATOL = 1e-3
-SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "lap.cu")
+SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "lap.cu", "int8_matmul.cu",
+           "int8_conv.cu")
 CSRC = "detr_tensorflow_tpu_torch/csrc/"
 REPLACES = {
     "flash_attention_fwd": "detr_tensorflow_tpu/ops/pallas/flash_attention.py:77",
     "flash_attention_bwd": "detr_tensorflow_tpu/ops/pallas/flash_attention.py:115",
     "lap": "detr_tensorflow_tpu/ops/pallas/lap.py:77",
+    "int8_matmul": "detr_tensorflow_tpu/ops/pallas/int8_matmul.py:96",
+    "int8_conv": "detr_tensorflow_tpu/ops/pallas/int8_conv.py:64",
 }
 DEVICE = "cuda"
+# Published H100 SXM peaks (dense tensor-core rates; fp32 without them): bound_ms is the larger
+# of bytes over the memory rate and operations over the peak of their type.
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"int8": 1.979e15, "bfloat16": 989e12, "float32": 67e12}
 
 # Training: (Lq, Lk) of encoder self, decoder cross and decoder self
 # attention at 376x672 (a 12x21 = 252-key map), batch 8, 8 heads, Dh 32.
@@ -73,9 +95,61 @@ TRAIN_BATCH, TRAIN_HW, TRAIN_STEPS = 8, (376, 672), 8
 BACKGROUND = 91  # DETR-R50's "no object" logit of 92
 LOSS_RTOL, TENSOR_GRAD_RTOL, NOISE_FLOOR = 1e-4, 1e-3, 1e-6
 
+# int8 serving: one DETR-R50 forward at the 896x1408 bucket launches F 32
+# times (conv1 x16, conv3 tail x16) and G 16 times (13 stride 1, 3 stride 2).
+INT8_BUCKET = (896, 1408)
+F_PER_FORWARD = {"plain": 16, "residual": 12, "residual2": 4}
+G_PER_FORWARD = {1: 13, 2: 3}
+# c5 against the fp32 backbone: the PTQ bounds of tests/test_quantized.py.
+C5_MAX_REL, C5_MIN_CORR = 0.10, 0.99
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound_ms(nbytes: float, ops: dict) -> tuple:
+    """(least time in ms, "bytes" or "operations") for moving ``nbytes`` and
+    doing ``ops`` ({dtype: count}) at the card's published peaks."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = sum(n / PEAK_OPS_S[dtype] for dtype, n in ops.items())
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sdpa(torch, q, k, v, mask, dropout_p=0.0):
+    """The library call for attention, yardstick only: PyTorch's
+    scaled_dot_product_attention on (B, H, L, Dh) views, Q already scaled,
+    ``mask`` True = padded key."""
+    keep = None if mask is None else ~mask[:, None, None, :]
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=keep,
+        dropout_p=dropout_p, scale=1.0)
+
+
+def graph_ms(torch, fn, iters: int = 20, replays: int = 3) -> float:
+    """Device time of one ``fn`` call in ms: ``iters`` calls captured in a
+    CUDA graph, replayed ``replays`` times between CUDA events, so the host's
+    cost of launching (the Python wrapper, ~40 us a call) is not in it."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
@@ -125,10 +199,17 @@ def phase_kernels(torch, fa):
             if (lq, lk) in TIMED_SHAPES:
                 kernel = lambda: fa.mha(q, k, v, mask)  # noqa: E731
                 plain = lambda: fa.reference_mha(q, k, v, mask)  # noqa: E731
+                library = lambda: sdpa(torch, q, k, v, mask)  # noqa: E731
                 p1, k1, k2, p2 = (time_ms(torch, f) for f in (plain, kernel, kernel, plain))
-                times[(lq, lk, name)] = ((k1 + k2) / 2, (p1 + p2) / 2)
+                lib_ms = time_ms(torch, library)
+                size = 2 if name == "bfloat16" else 4
+                bound = bound_ms(2 * 8 * 32 * (2 * lq + 2 * lk) * size + 2 * lk,
+                                 {name: 4 * 2 * 8 * lq * lk * 32})
+                times[(lq, lk, name)] = ((k1 + k2) / 2, (p1 + p2) / 2, lib_ms, bound)
                 log(f"  attention ({lq},{lk}) {name} B=2 H=8 Dh=32: kernel "
-                    f"{(k1 + k2) / 2:.4f} ms, plain {(p1 + p2) / 2:.4f} ms")
+                    f"{(k1 + k2) / 2:.4f} ms, plain {(p1 + p2) / 2:.4f} ms, library "
+                    f"scaled_dot_product_attention {lib_ms:.4f} ms, bound {bound[0]:.4f} ms "
+                    f"({bound[1]})")
     return worst, times
 
 
@@ -199,9 +280,20 @@ def phase_train_kernels(torch, fa):
                 plain = lambda: torch.autograd.grad(  # noqa: E731
                     ref_out, (qr, kr, vr), dout, retain_graph=True)
                 p1, k1, k2, p2 = (time_ms(torch, f, iters=20) for f in (plain, kernel, kernel, plain))
-                times[(lq, lk)] = ((k1 + k2) / 2, (p1 + p2) / 2)
+                qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+                lib_out = sdpa(torch, qs, ks, vs, mask, DROPOUT)
+                library = lambda: torch.autograd.grad(  # noqa: E731
+                    lib_out, (qs, ks, vs), dout.transpose(1, 2), retain_graph=True)
+                lib_ms = time_ms(torch, library, iters=20)
+                # q, k, v, out, dout in; dq, dk, dv out; the row lse; the mask.
+                bound = bound_ms(8 * 8 * 32 * (4 * lq + 4 * lk) * 4 + 8 * 8 * lq * 4
+                                 + (8 * lk if masked else 0),
+                                 {"float32": 10 * 8 * 8 * lq * lk * 32})
+                times[(lq, lk)] = ((k1 + k2) / 2, (p1 + p2) / 2, lib_ms, bound)
                 log(f"  attention backward ({lq},{lk}) fp32 B=8 H=8 Dh=32 dropout {DROPOUT}: "
-                    f"kernel {(k1 + k2) / 2:.4f} ms, plain {(p1 + p2) / 2:.4f} ms")
+                    f"kernel {(k1 + k2) / 2:.4f} ms, plain {(p1 + p2) / 2:.4f} ms, library "
+                    f"scaled_dot_product_attention backward {lib_ms:.4f} ms, bound "
+                    f"{bound[0]:.4f} ms ({bound[1]})")
     return worst, times
 
 
@@ -240,10 +332,14 @@ def phase_lap(torch, lap):
                 raise AssertionError(f"problem {i}: assignment differs from plain/scipy")
         if not ties:
             ms = time_ms(torch, lambda: lap.solve_lap_masked(ct, mt), iters=20, warmup=3)
-            times = (ms, plain_ms, scipy_ms)
+            # The kernel reads the cost rows of real targets only; the
+            # operations of the augmenting paths are a few per cost read.
+            bound = bound_ms(4 * LAP_SLOTS * int(n_real.sum()) + 5 * mask.size, {})
+            times = (ms, plain_ms, scipy_ms, bound)
             log(f"  lap {LAP_PROBLEMS}x{LAP_SLOTS}x{LAP_SLOTS}, n_real 0..{LAP_MAX_REAL}: "
                 f"kernel {ms:.4f} ms, plain (on the card's tensors) {plain_ms:.2f} ms, "
-                f"scipy host loop {scipy_ms:.2f} ms; assignments equal to plain and scipy")
+                f"scipy host loop {scipy_ms:.2f} ms (no single PyTorch call solves it), "
+                f"bound {bound[0]:.5f} ms ({bound[1]}); assignments equal to plain and scipy")
         else:
             log("  lap tied costs: optimal cost equal to scipy's on every problem")
     return worst, times
@@ -297,7 +393,8 @@ def phase_serving(torch, fa, api, Predictor):
         t0 = time.perf_counter()
         predictor([img_a])
         lat.append(1e3 * (time.perf_counter() - t0))
-    log(f"  Predictor 800x1333 b1 fp32 latency: median {statistics.median(lat):.2f} ms "
+    fp32_ms = statistics.median(lat)
+    log(f"  Predictor 800x1333 b1 fp32 latency: median {fp32_ms:.2f} ms "
         f"of {[round(x, 2) for x in lat]}")
 
     # The whole forward against the same weights with plain attention.
@@ -347,7 +444,215 @@ def phase_serving(torch, fa, api, Predictor):
     log(f"  Predictor 800x1333 b1 bf16: first {bf16_ms:.2f} ms, median "
         f"{statistics.median(lat16):.2f} ms of {[round(x, 2) for x in lat16]}")
     del plain, model_bf16, pred_bf16
-    return predictor, launches
+    return predictor, launches, fp32_ms, statistics.median(lat16)
+
+
+def int8_path_shapes(height, width):
+    """Every kernel F and G launch of one b1 int8 DETR-R50 forward at a
+    (height, width) bucket: F as (M, C, K, Cd, variant), G as (H, W, C, K,
+    stride), each with its count per forward."""
+    f, g = collections.Counter(), collections.Counter()
+    h, w = height, width
+    for _ in range(2):  # the stem's 7x7/s2 conv and 3x3/s2 max pool
+        h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    cin = 64
+    for s, (n_blocks, d1, d2) in enumerate(zip((3, 4, 6, 3), (64, 128, 256, 512),
+                                               (256, 512, 1024, 2048))):
+        for b in range(n_blocks):
+            st = 2 if s and b == 0 else 1
+            f[(h * w, cin, d1, 0, "plain")] += 1
+            g[(h, w, d1, d1, st)] += 1
+            h, w = (h - 1) // st + 1, (w - 1) // st + 1
+            f[(h * w, d1, d2, cin, "residual2") if b == 0 else (h * w, d1, d2, 0, "residual")] += 1
+            cin = d2
+    return f, g
+
+
+def int8_operands(torch, seed):
+    """Seeded int8 operands on the card: post-ReLU activations in [0, 127],
+    weights in [-127, 127], per-channel scales that put the epilogue's input
+    at ~40 (the int8 range), biases ~N(0, 10)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def act(*shape):
+        return torch.randint(0, 128, shape, dtype=torch.int8, device=DEVICE, generator=gen)
+
+    def wts(*shape):
+        return torch.randint(-127, 128, shape, dtype=torch.int8, device=DEVICE, generator=gen)
+
+    def scale(k, c):  # acc std ~ sqrt(C) * 73 * 73
+        return (torch.rand(k, device=DEVICE, generator=gen) + 0.5) * (40.0 / (5373.0 * c**0.5))
+
+    def bias(k):
+        return torch.randn(k, device=DEVICE, generator=gen) * 10.0
+
+    return act, wts, scale, bias
+
+
+def check_int8(torch, name, kernel, plain):
+    """Kernel against its plain version on the same operands: int8 results
+    integer-equal for the precise epilogue and within 1 LSB for the bf16 one
+    (the same arithmetic, so equal in practice); bf16 outputs equal."""
+    worst = 0
+    for precise in (True, False):
+        got, ref = kernel(precise=precise), plain(precise=precise)
+        err = int((got.int() - ref.int()).abs().max())
+        if got.shape != ref.shape or not err <= (0 if precise else 1):
+            raise AssertionError(f"{name} precise={precise}: kernel vs plain off by {err}")
+        worst = max(worst, err)
+    got = kernel(precise=True, out_dtype=torch.bfloat16)
+    if not torch.equal(got, plain(precise=True, out_dtype=torch.bfloat16)):
+        raise AssertionError(f"{name}: bf16 output differs from plain")
+    return worst
+
+
+def phase_int8_kernels(torch, mm, conv):
+    """F and G at every distinct shape of the b1 896x1408 int8 path."""
+    f_shapes, g_shapes = int8_path_shapes(*INT8_BUCKET)
+    act, wts, scale, bias = int8_operands(torch, seed=17)
+    # Per kernel, summed over one forward's launches: kernel, plain, library
+    # and bound ms, the part of the bound from launches bound by bytes, and
+    # the kernel timed from a Python loop of calls (the wrapper's host cost).
+    totals = {name: np.zeros(6) for name in ("int8_matmul", "int8_conv")}
+    worst = {name: 0 for name in totals}
+    for (m, c, k, cd, variant), count in sorted(f_shapes.items()):
+        x, w, s, b = act(m, c), wts(k, c), scale(k, c), bias(k)
+        if variant == "plain":
+            fn, extra = "qmatmul", ()
+        elif variant == "residual":
+            fn, extra = "qmatmul_residual", (act(m, k), torch.tensor(0.3, device=DEVICE))
+        else:
+            fn, extra = "qmatmul_residual2", (act(m, cd), wts(k, cd), scale(k, cd), bias(k))
+        kernel = lambda **kw: getattr(mm, fn)(x, w, s, b, *extra, relu=True, **kw)  # noqa: E731
+        plain = lambda **kw: getattr(mm, "reference_" + fn)(  # noqa: E731
+            x, w, s, b, *extra, relu=True, **kw)
+        worst["int8_matmul"] = max(worst["int8_matmul"], check_int8(torch, fn, kernel, plain))
+        p1, k1, k2, p2 = (graph_ms(torch, f) for f in (plain, kernel, kernel, plain))
+        wt = w.t()
+        if variant == "residual2":
+            wdt = extra[1].t()
+            library = lambda: (torch._int_mm(x, wt), torch._int_mm(extra[0], wdt))  # noqa: E731
+        else:
+            library = lambda: torch._int_mm(x, wt)  # noqa: E731
+        lib_ms = graph_ms(torch, library)
+        nbytes = m * c + k * c + 8 * k + m * k + (m * k + 4 if variant == "residual" else 0) + (
+            m * cd + k * cd + 8 * k if variant == "residual2" else 0)
+        terms = 2 + (2 if variant == "residual" else 0) + (4 if variant == "residual2" else 0)
+        bound = bound_ms(nbytes, {"int8": 2 * m * k * (c + cd), "float32": terms * m * k})
+        loop_ms = time_ms(torch, kernel, iters=20, warmup=2)
+        totals["int8_matmul"] += count * np.array([(k1 + k2) / 2, (p1 + p2) / 2, lib_ms, bound[0],
+                                                   bound[0] * (bound[1] == "bytes"), loop_ms])
+        log(f"  F {variant} M={m} C={c} K={k}{f' Cd={cd}' if cd else ''} (x{count}): kernel "
+            f"{(k1 + k2) / 2:.4f} ms (from a Python loop {loop_ms:.4f}), plain "
+            f"{(p1 + p2) / 2:.4f} ms, torch._int_mm {lib_ms:.4f} ms (the contraction alone, not "
+            f"the same function), bound {bound[0]:.4f} ms ({bound[1]})")
+    for (h, w_, c, k, st), count in sorted(g_shapes.items()):
+        x, wt, s, b = act(1, h, w_, c), wts(k, 3, 3, c), scale(k, 9 * c), bias(k)
+        kernel = lambda **kw: conv.conv3x3_int8(  # noqa: E731
+            x, wt, s, b, stride=st, relu=True, **kw)
+        plain = lambda **kw: conv.reference_conv3x3_int8(  # noqa: E731
+            x, wt, s, b, stride=st, relu=True, **kw)
+        worst["int8_conv"] = max(worst["int8_conv"],
+                                 check_int8(torch, f"conv s{st}", kernel, plain))
+        p1, k1, k2, p2 = (graph_ms(torch, f) for f in (plain, kernel, kernel, plain))
+        xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)  # channels-last NCHW
+        wb = wt.permute(0, 3, 1, 2).to(torch.bfloat16)
+        lib_ms = graph_ms(torch, lambda: torch.nn.functional.conv2d(xb, wb, stride=st, padding=1))
+        ho, wo = (h - 1) // st + 1, (w_ - 1) // st + 1
+        bound = bound_ms(h * w_ * c + 9 * c * k + 8 * k + ho * wo * k,
+                         {"int8": 2 * ho * wo * 9 * c * k, "float32": 2 * ho * wo * k})
+        loop_ms = time_ms(torch, kernel, iters=20, warmup=2)
+        totals["int8_conv"] += count * np.array([(k1 + k2) / 2, (p1 + p2) / 2, lib_ms, bound[0],
+                                                 bound[0] * (bound[1] == "bytes"), loop_ms])
+        log(f"  G stride {st} {h}x{w_} C={c} K={k} (x{count}): kernel {(k1 + k2) / 2:.4f} ms "
+            f"(from a Python loop {loop_ms:.4f}), plain {(p1 + p2) / 2:.4f} ms, bf16 cuDNN conv "
+            f"{lib_ms:.4f} ms (the float path it stands in for, not the same function), bound "
+            f"{bound[0]:.4f} ms ({bound[1]})")
+    for name, (k_ms, p_ms, l_ms, b_ms, _, loop_ms) in totals.items():
+        log(f"  {name} per forward (sum over its launches): kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, library {l_ms:.4f} ms, bound {b_ms:.4f} ms; kernel vs plain "
+            f"max |diff| {worst[name]} LSB; kernel timed from a Python loop of calls "
+            f"{loop_ms:.4f} ms (the wrapper's host cost included)")
+    return worst, totals
+
+
+def reset_int8_counts(mm, conv):
+    mm.qmatmul.launches = mm.qmatmul_residual.launches = mm.qmatmul_residual2.launches = 0
+    conv.conv3x3_int8.launches = {1: 0, 2: 0}
+
+
+def phase_int8_serving(torch, fa, mm, conv, api, quantized, Predictor, fp32_ms, bf16_ms):
+    """Full-width DETR-R50 with the int8 backbone at bf16 compute, quantized
+    from its own fp32 backbone on two seeded 800x1333 images, behind
+    Predictor."""
+    model = api.build_detr(seed=0, device=DEVICE, dtype="bfloat16", backbone_quant=True)
+    predictor = Predictor(model, background_class=BACKGROUND)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        calib = predictor.normalize(
+            torch.from_numpy(np.stack(random_images([(800, 1333)] * 2, seed=11))).to(DEVICE))
+    quantized.quantize_model(model, calib)
+    torch.cuda.synchronize()
+    log(f"  quantize_model on 2x800x1333: {time.perf_counter() - t0:.2f} s")
+    del calib
+    img_a, img_b, img_c, img_d = random_images(
+        [(800, 1333), (480, 640), (800, 1333), (800, 1333)], seed=1)
+    predictor.warmup([(800, 1333), (480, 640)])
+
+    reset_int8_counts(mm, conv)  # main path: three requests, three forwards
+    fa.mha.launches = 0
+    t0 = time.perf_counter()
+    r1 = predictor([img_a])
+    t1 = time.perf_counter()
+    r2 = predictor([img_b])
+    t2 = time.perf_counter()
+    r3 = predictor([img_c, img_d])
+    t3 = time.perf_counter()
+    f_counts = {"plain": mm.qmatmul.launches, "residual": mm.qmatmul_residual.launches,
+                "residual2": mm.qmatmul_residual2.launches}
+    g_counts, a_count = dict(conv.conv3x3_int8.launches), fa.mha.launches
+    log(f"  requests: 800x1333 b1 {1e3 * (t1 - t0):.2f} ms, 480x640 b1 {1e3 * (t2 - t1):.2f} ms, "
+        f"2x800x1333 b2 {1e3 * (t3 - t2):.2f} ms")
+    log(f"  launches in 3 forwards: F {f_counts}, G {g_counts}, A {a_count}")
+    if (f_counts != {k: 3 * v for k, v in F_PER_FORWARD.items()}
+            or g_counts != {k: 3 * v for k, v in G_PER_FORWARD.items()}
+            or a_count != 3 * LAUNCHES_PER_FORWARD):
+        raise AssertionError("int8 launch counts differ from 32 F, 13 + 3 G, 18 A per forward")
+    for dets in (r1, r2, r3):
+        check_detections(dets)
+
+    lat = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        predictor([img_a])
+        lat.append(1e3 * (time.perf_counter() - t0))
+    median = statistics.median(lat)
+    log(f"  Predictor 800x1333 b1 int8 backbone, bf16 compute: median {median:.2f} ms of "
+        f"{[round(x, 2) for x in lat]}; in this run fp32 {fp32_ms:.2f} ms, bf16 {bf16_ms:.2f} ms")
+
+    # c5 on the kernel route against the plain int8 route at fp32 compute
+    # (TF32 off): c5 = int8 * out_scale, so equal tensors mean equal int8.
+    frames = np.zeros((1,) + INT8_BUCKET + (3,), np.uint8)
+    frames[0, :800, :1333] = img_a
+    pm = torch.zeros((1,) + INT8_BUCKET, dtype=torch.bool, device=DEVICE)
+    pm[0, :800, :1333] = True
+    int8_backbone = model.module.backbone_quant
+    with torch.inference_mode():
+        x = predictor.normalize(torch.from_numpy(frames).to(DEVICE)) * pm[..., None]
+        c5 = int8_backbone(x, pm, torch.float32)
+        c5_plain = int8_backbone(x, pm, torch.float32, use_kernels=False)
+        ref = model.module.backbone(x, pm).permute(0, 2, 3, 1)
+    if not torch.equal(c5, c5_plain):
+        raise AssertionError("int8 c5: kernel route differs from the plain int8 route")
+    c5, ref = c5[:, :25, :42].double(), ref[:, :25, :42].double()  # the valid 800x1333 region
+    rel = float((c5 - ref).abs().mean() / ref.abs().mean())
+    corr = float(torch.corrcoef(torch.stack([c5.flatten(), ref.flatten()]))[0, 1])
+    log(f"  c5 at fp32 compute: kernel route integer-equal to the plain int8 route; against "
+        f"the fp32 backbone rel err {rel:.4f}, correlation {corr:.4f}")
+    if not (rel <= C5_MAX_REL and corr >= C5_MIN_CORR):
+        raise AssertionError(f"int8 c5 far from the fp32 backbone: rel {rel}, corr {corr}")
+    del model, predictor
+    return f_counts, g_counts, a_count, median
 
 
 def phase_http(predictor, serve, class_names):
@@ -516,7 +821,8 @@ def main() -> int:
     from detr_tensorflow_tpu_torch.models import api
     from detr_tensorflow_tpu_torch import train
     from detr_tensorflow_tpu_torch.ops import flash_attention as fa
-    from detr_tensorflow_tpu_torch.ops import lap, losses, nvcc_build
+    from detr_tensorflow_tpu_torch.models import quantized
+    from detr_tensorflow_tpu_torch.ops import int8_conv, int8_matmul, lap, losses, nvcc_build
     from detr_tensorflow_tpu_torch.predictor import Predictor
 
     # fp32 parity needs full fp32 matmuls and convolutions (TF32 off).
@@ -549,7 +855,7 @@ def main() -> int:
     log(f"[lap] ok in {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
-    predictor, launches = phase_serving(torch, fa, api, Predictor)
+    predictor, launches, fp32_ms, bf16_ms = phase_serving(torch, fa, api, Predictor)
     log(f"[serving] ok in {time.perf_counter() - t:.1f} s, {launches} kernel launches "
         f"in 3 forwards")
 
@@ -560,29 +866,55 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t = time.perf_counter()
+    int8_worst, int8_times = phase_int8_kernels(torch, int8_matmul, int8_conv)
+    log(f"[int8 kernels] ok in {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    f_counts, g_counts, int8_a, int8_ms = phase_int8_serving(
+        torch, fa, int8_matmul, int8_conv, api, quantized, Predictor, fp32_ms, bf16_ms)
+    log(f"[int8 serving] ok in {time.perf_counter() - t:.1f} s, median {int8_ms:.2f} ms")
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
     counts, step_ms = phase_training(torch, fa, lap, api, train, losses)
     log(f"[training] ok in {time.perf_counter() - t:.1f} s, median step {step_ms:.2f} ms")
 
-    ms, plain_ms = times[(1232, 1232, "float32")]
-    bwd_ms, bwd_plain_ms = bwd_times[(252, 252)]
-    lap_ms, lap_plain_ms, _ = lap_times
+    ms, plain_ms, lib_ms, (a_bound, a_by) = times[(1232, 1232, "float32")]
+    bwd_ms, bwd_plain_ms, bwd_lib_ms, (bwd_bound, bwd_by) = bwd_times[(252, 252)]
+    lap_ms, lap_plain_ms, _, (lap_bound, lap_by) = lap_times
+
+    def entry(name, source, launches_, err, ms_, plain_, bound, by, library):
+        return {"name": name, "route": "cuda", "source": CSRC + source,
+                "replaces": REPLACES[name], "launches": launches_, "max_abs_err": err,
+                "ms": ms_, "plain_ms": plain_, "bound_ms": bound, "bound_by": by,
+                "library_ms": library}
+
+    # A per-forward bound is bound by what bounds the larger part of it.
+    int8_by = {n: "bytes" if v[4] >= v[3] / 2 else "operations" for n, v in int8_times.items()}
     record = {"kernels": [
-        {"name": "flash_attention_fwd", "route": "cuda", "source": CSRC + SOURCES[0],
-         "replaces": REPLACES["flash_attention_fwd"], "launches": launches + counts[0],
-         "max_abs_err": worst["float32"], "ms": ms, "plain_ms": plain_ms},
-        {"name": "flash_attention_bwd", "route": "cuda", "source": CSRC + SOURCES[1],
-         "replaces": REPLACES["flash_attention_bwd"], "launches": counts[1],
-         "max_abs_err": bwd_worst["float32"], "ms": bwd_ms, "plain_ms": bwd_plain_ms},
-        {"name": "lap", "route": "cuda", "source": CSRC + SOURCES[2],
-         "replaces": REPLACES["lap"], "launches": counts[2],
-         "max_abs_err": lap_err, "ms": lap_ms, "plain_ms": lap_plain_ms},
+        entry("flash_attention_fwd", SOURCES[0], launches + int8_a + counts[0],
+              worst["float32"], ms, plain_ms, a_bound, a_by, lib_ms),
+        entry("flash_attention_bwd", SOURCES[1], counts[1], bwd_worst["float32"], bwd_ms,
+              bwd_plain_ms, bwd_bound, bwd_by, bwd_lib_ms),
+        entry("lap", SOURCES[2], counts[2], lap_err, lap_ms, lap_plain_ms, lap_bound, lap_by,
+              None),
+        entry("int8_matmul", SOURCES[3], sum(f_counts.values()), int8_worst["int8_matmul"],
+              *int8_times["int8_matmul"][[0, 1, 3]], int8_by["int8_matmul"],
+              int8_times["int8_matmul"][2]),
+        entry("int8_conv", SOURCES[4], sum(g_counts.values()), int8_worst["int8_conv"],
+              *int8_times["int8_conv"][[0, 1, 3]], int8_by["int8_conv"],
+              int8_times["int8_conv"][2]),
     ]}
     log(f"[summary] flash_attention_fwd: max_abs_err fp32 {worst['float32']:.3e}, bf16 "
-        f"{worst['bfloat16']:.3e}, ms/plain_ms at (1232,1232) fp32 B=2 H=8 Dh=32, launches "
-        f"{launches} serving + {counts[0]} training; flash_attention_bwd: gradient "
-        f"max_abs_err fp32 {bwd_worst['float32']:.3e}, bf16 {bwd_worst['bfloat16']:.3e}, "
-        f"ms/plain_ms backward at (252,252) fp32 B=8 dropout {DROPOUT}; lap: optimal-cost "
-        f"max_abs_err {lap_err:.3e}, ms kernel / plain_ms plain version on 48 problems")
+        f"{worst['bfloat16']:.3e}, ms/plain_ms/library_ms (scaled_dot_product_attention) at "
+        f"(1232,1232) fp32 B=2 H=8 Dh=32, launches {launches} serving + {int8_a} int8 serving "
+        f"+ {counts[0]} training; flash_attention_bwd: gradient max_abs_err fp32 "
+        f"{bwd_worst['float32']:.3e}, bf16 {bwd_worst['bfloat16']:.3e}, ms/plain_ms/library_ms "
+        f"backward at (252,252) fp32 B=8 dropout {DROPOUT}; lap: optimal-cost max_abs_err "
+        f"{lap_err:.3e}, ms kernel / plain_ms plain version on 48 problems, no library call; "
+        f"int8_matmul and int8_conv: max |kernel - plain| in LSB, ms/plain_ms/bound_ms/"
+        f"library_ms summed over one b1 896x1408 forward's launches (library: torch._int_mm "
+        f"and the bf16 cuDNN conv, not the same functions), launches in 3 int8 forwards")
     log(smi)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
 """Model construction API (port of ``detr_tensorflow_tpu/models/api.py``).
 
-``build_detr`` makes a ``DETR`` on an explicit device, with weights drawn
-from a ``torch.Generator`` seeded by ``seed`` or loaded from a JAX-format
-``.npz``; ``get_detr_model`` keeps the reference's signature and its
-three head variants.
+``build_detr`` makes a ``DETR`` on a device (the card unless the caller
+asks for another), with weights drawn from a ``torch.Generator`` seeded by
+``seed`` or loaded from a JAX-format ``.npz``; ``get_detr_model`` keeps the
+reference's signature and its three head variants.
 """
 
 from __future__ import annotations
@@ -58,7 +58,9 @@ def init_weights(module: DETR, generator: torch.Generator) -> None:
 
 
 def _load_npz(module: DETR, path: str, head: str) -> None:
-    state = weights_lib.from_jax_variables(weights_lib.load_variables_npz(path))
+    tree = weights_lib.load_variables_npz(path)
+    quant = tree.pop("quant", None)
+    state = weights_lib.from_jax_variables(tree)
     if head != "detr":
         # Pretrained trunk, fresh heads (the JAX build_detr does the same).
         state = {k: v for k, v in state.items() if not k.startswith(_DETR_HEAD_PREFIXES)}
@@ -66,6 +68,8 @@ def _load_npz(module: DETR, path: str, head: str) -> None:
     fresh = tuple(n + "." for n in ("cls_layer", "pos_layer"))
     if unexpected or any(not k.startswith(fresh) for k in missing):
         raise ValueError(f"{path}: missing {missing}, unexpected {unexpected}")
+    if module.backbone_quant is not None and quant is not None:
+        module.backbone_quant.load(weights_lib.from_jax_quant(quant["backbone"]))
 
 
 def build_detr(num_classes: int = 92, num_queries: int = 100, head: str = "detr",
@@ -74,11 +78,16 @@ def build_detr(num_classes: int = 92, num_queries: int = 100, head: str = "detr"
                backbone_stage_sizes=None, dtype: str = "float32",
                attn_impl: str = "auto", weights: Optional[str] = None,
                seed: int = 42, normalized_method: str = "torch_resnet",
-               device="cpu", **model_kwargs) -> DetrModel:
-    """Construct a DETR bundle on ``device``.
+               device="cuda", **model_kwargs) -> DetrModel:
+    """Construct a DETR bundle on ``device`` (the card by default; the CPU
+    only when asked, ``device="cpu"``).
 
-    ``weights`` is a local ``.npz`` in the JAX package's format. Extra
-    keyword args (model_dim, num_heads, dim_feedforward) go to ``DETR``.
+    ``weights`` is a local ``.npz`` in the JAX package's format; with
+    ``backbone_quant=True`` its "quant" collection, when present, fills the
+    int8 backbone. Extra keyword args (model_dim, num_heads,
+    dim_feedforward, dropout, backbone_quant) go to ``DETR``. With
+    ``backbone_quant=True`` the fp32 backbone stays float32 whatever
+    ``dtype`` is: ``quantized.quantize_model`` calibrates from it.
     """
     module = DETR(
         num_classes=num_classes, num_queries=num_queries, head=head,
@@ -91,8 +100,9 @@ def build_detr(num_classes: int = 92, num_queries: int = 100, head: str = "detr"
     if weights is not None:
         _load_npz(module, weights, head)
     module.to(device)
+    keep_fp32 = set(module.backbone.modules()) if module.backbone_quant is not None else set()
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d, nn.LayerNorm)):
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.LayerNorm)) and m not in keep_fp32:
             m.to(DTYPES[dtype])
     return DetrModel(module, normalized_method=normalized_method)
 

@@ -1,7 +1,8 @@
 """DETR assembly (port of ``detr_tensorflow_tpu/models/detr.py``):
 backbone -> exact feature mask -> sine positions -> 1x1 projection ->
-transformer -> heads. Detection heads only: no segmentation head, no int8
-backbone, no pipeline stages."""
+transformer -> heads. Detection heads only: no segmentation head and no
+pipeline stages. ``backbone_quant=True`` runs the int8 post-training-quantized
+backbone of ``models/quantized.py`` instead of the fp32 one."""
 
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from torch import nn
 
 from .layers import MLP, feature_valid_mask
 from .position import sine_position_embedding
+from .quantized import QuantizedBackbone
 from .resnet import ResNetBackbone
 from .transformer import Transformer
 
@@ -30,6 +32,12 @@ class DETR(nn.Module):
     ``dtype`` is the compute dtype (float32 or bfloat16). The caller casts
     the Linear/Conv/LayerNorm parameters to it (``api.build_detr`` does);
     FrozenBN buffers and ``query_embed`` stay float32, as in JAX.
+
+    ``backbone_quant=True`` (inference) takes the backbone's features from
+    the int8 qtree in ``self.backbone_quant`` (filled by
+    ``quantized.quantize_model`` or from an ``.npz`` with the JAX "quant"
+    collection); the forward raises until it is filled. The fp32
+    ``backbone`` stays: calibration reads it.
     """
 
     def __init__(self, num_classes: int = 92, num_queries: int = 100,
@@ -39,14 +47,16 @@ class DETR(nn.Module):
                  backbone_stage_sizes: Optional[Sequence[int]] = None,
                  head: str = "detr", nb_class: Optional[int] = None,
                  dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, backbone_quant: bool = False):
         super().__init__()
         if head not in HEADS:
             raise ValueError(f"unknown head: {head}")
         if head == "finetune" and nb_class is None:
             raise ValueError("finetune head needs nb_class")
         self.model_dim, self.head, self.dtype = model_dim, head, dtype
-        self.backbone = ResNetBackbone(backbone_stage_sizes or STAGE_SIZES[backbone_depth])
+        stage_sizes = backbone_stage_sizes or STAGE_SIZES[backbone_depth]
+        self.backbone = ResNetBackbone(stage_sizes)
+        self.backbone_quant = QuantizedBackbone(stage_sizes) if backbone_quant else None
         self.input_proj = nn.Conv2d(2048, model_dim, 1)
         self.query_embed = nn.Parameter(torch.zeros(num_queries, model_dim))
         self.transformer = Transformer(model_dim, num_heads, num_encoder_layers,
@@ -65,7 +75,10 @@ class DETR(nn.Module):
         (B, H, W) bool, True = valid; omitted means all valid. ``train``
         turns on the transformer's dropout, drawn from ``generator`` (a
         generator on the model's device)."""
-        feats = self.backbone(images.to(self.dtype), pixel_mask)  # (B, C, h, w)
+        if self.backbone_quant is not None:
+            feats = self.backbone_quant(images, pixel_mask, self.dtype).permute(0, 3, 1, 2)
+        else:
+            feats = self.backbone(images.to(self.dtype), pixel_mask)  # (B, C, h, w)
         b, _, fh, fw = feats.shape
         if pixel_mask is None:
             valid = torch.ones((b, fh, fw), device=feats.device)

@@ -10,9 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from detr_tensorflow_tpu_torch.models import api
+from detr_tensorflow_tpu_torch.models import api, quantized
 from detr_tensorflow_tpu_torch.ops import flash_attention as fa
-from detr_tensorflow_tpu_torch.ops import lap
+from detr_tensorflow_tpu_torch.ops import int8_conv, int8_matmul, lap
 
 pytestmark = pytest.mark.cuda
 
@@ -236,3 +236,107 @@ def test_train_step_kernel_route_matches_plain(cuda_device):
     after = (fa.mha.launches, fa.mha.backward_launches, lap.solve_lap_masked.launches)
     assert tuple(a - b for a, b in zip(after, before)) == (2 * 6, 2 * 6, 2)
     assert all(bool(torch.isfinite(log["total_loss"])) for log in logs)
+
+
+def _int8_operands(device, seed):
+    """Post-ReLU int8 activations, int8 weights, and per-channel scales that
+    put the epilogue's input at ~40, as on the served path."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def act(*shape):
+        return torch.randint(0, 128, shape, dtype=torch.int8, device=device, generator=gen)
+
+    def wts(*shape):
+        return torch.randint(-127, 128, shape, dtype=torch.int8, device=device, generator=gen)
+
+    def scale(k, c):
+        return (torch.rand(k, device=device, generator=gen) + 0.5) * (40.0 / (5373.0 * c**0.5))
+
+    def bias(k):
+        return torch.randn(k, device=device, generator=gen) * 10.0
+
+    return act, wts, scale, bias
+
+
+def _int8_equal(kernel, plain):
+    """Kernel and plain version agree exactly, for each ReLU setting and
+    output dtype: both run the same arithmetic in the same order."""
+    for relu in (True, False):
+        for out_dtype in (torch.int8, torch.bfloat16):
+            kw = dict(relu=relu, out_dtype=out_dtype)
+            got, ref = kernel(**kw), plain(**kw)
+            assert got.dtype == out_dtype and got.shape == ref.shape
+            assert torch.equal(got, ref), (kw, float((got.float() - ref.float()).abs().max()))
+
+
+# (M, C, K, Cd, variant): shapes of the b1 896x1408 int8 forward, and a
+# ragged M and K (105 rows, 48 columns: partial tiles both ways).
+@pytest.mark.parametrize("precise", [True, False])
+@pytest.mark.parametrize("m,c,k,cd,variant", [
+    (78848, 64, 256, 64, "residual2"), (78848, 256, 64, 0, "plain"),
+    (19712, 128, 512, 0, "residual"), (1232, 512, 2048, 1024, "residual2"),
+    (1232, 2048, 512, 0, "plain"), (105, 64, 48, 128, "residual2"), (105, 128, 48, 0, "residual")])
+def test_int8_matmul_kernel_matches_plain(cuda_device, m, c, k, cd, variant, precise):
+    act, wts, scale, bias = _int8_operands(cuda_device, seed=m + c + k)
+    args = (act(m, c), wts(k, c), scale(k, c), bias(k))
+    if variant == "plain":
+        name, extra = "qmatmul", ()
+    elif variant == "residual":
+        name, extra = "qmatmul_residual", (act(m, k), torch.tensor(0.3, device=cuda_device))
+    else:
+        name, extra = "qmatmul_residual2", (act(m, cd), wts(k, cd), scale(k, cd), bias(k))
+    fn = getattr(int8_matmul, name)
+    before = fn.launches
+    _int8_equal(lambda **kw: fn(*args, *extra, precise=precise, **kw),
+                lambda **kw: getattr(int8_matmul, "reference_" + name)(*args, *extra,
+                                                                       precise=precise, **kw))
+    torch.cuda.synchronize()
+    assert fn.launches == before + 4
+
+
+@pytest.mark.parametrize("precise", [True, False])
+@pytest.mark.parametrize("n,h,w,c,k,stride", [
+    (1, 224, 352, 64, 64, 1), (1, 224, 352, 128, 128, 2), (1, 28, 44, 512, 512, 1),
+    (1, 56, 88, 512, 512, 2), (2, 13, 20, 64, 48, 1), (2, 13, 21, 64, 48, 2)])
+def test_int8_conv_kernel_matches_plain(cuda_device, n, h, w, c, k, stride, precise):
+    act, wts, scale, bias = _int8_operands(cuda_device, seed=h + w + c)
+    args = (act(n, h, w, c), wts(k, 3, 3, c), scale(k, 9 * c), bias(k))
+    before = int8_conv.conv3x3_int8.launches[stride]
+    _int8_equal(lambda **kw: int8_conv.conv3x3_int8(*args, stride=stride, precise=precise, **kw),
+                lambda **kw: int8_conv.reference_conv3x3_int8(*args, stride=stride,
+                                                             precise=precise, **kw))
+    torch.cuda.synchronize()
+    assert int8_conv.conv3x3_int8.launches[stride] == before + 4
+
+
+def test_int8_kernels_state_their_shape_limits(cuda_device):
+    """C must be a multiple of 64 and K of 8; the kernels raise outside."""
+    act, wts, scale, bias = _int8_operands(cuda_device, seed=0)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        int8_matmul.qmatmul(act(70, 32), wts(16, 32), scale(16, 32), bias(16))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        int8_conv.conv3x3_int8(act(1, 8, 8, 64), wts(12, 3, 3, 64), scale(12, 576), bias(12))
+
+
+def test_int8_detr_on_the_card(cuda_device):
+    """A reduced-depth int8 DETR on the card, quantized from its own fp32
+    backbone: every 1x1 on F, every 3x3 on G, and c5 on the kernel route
+    equal to the plain int8 route (fp32 compute, TF32 off)."""
+    model = api.build_detr(backbone_stage_sizes=(1, 1, 1, 1), num_encoder_layers=2,
+                           num_decoder_layers=2, backbone_quant=True, device=cuda_device)
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=(2, 128, 192, 3)).astype(np.float32))
+    x = x.to(cuda_device)
+    quantized.quantize_model(model, x)
+    counts = (int8_matmul.qmatmul.launches, int8_matmul.qmatmul_residual2.launches,
+              int8_conv.conv3x3_int8.launches[1], int8_conv.conv3x3_int8.launches[2])
+    out = model(x)
+    after = (int8_matmul.qmatmul.launches, int8_matmul.qmatmul_residual2.launches,
+             int8_conv.conv3x3_int8.launches[1], int8_conv.conv3x3_int8.launches[2])
+    assert tuple(a - b for a, b in zip(after, counts)) == (4, 4, 1, 3)
+    assert torch.isfinite(out["pred_boxes"]).all()
+    qtree = dict(model.module.backbone_quant.named_buffers())
+    with torch.inference_mode():
+        c5 = quantized.quant_backbone_forward(qtree, x, (1, 1, 1, 1), compute_dtype=torch.float32)
+        ref = quantized.quant_backbone_forward(qtree, x, (1, 1, 1, 1), compute_dtype=torch.float32,
+                                               use_kernels=False)
+    assert torch.equal(c5, ref)

@@ -231,7 +231,7 @@ def test_npz_roundtrip_and_build_detr(head, tmp_path):
         torch.testing.assert_close(loaded[k], direct[k], rtol=0, atol=0)
     config = {k: v for k, v in SMALL.items()}
     model = api.build_detr(head=head, nb_class=4 if head == "finetune" else None,
-                           weights=path, **config)
+                           weights=path, device="cpu", **config)
     got = model.module.state_dict()
     for k, v in got.items():
         if k in direct:
@@ -241,13 +241,13 @@ def test_npz_roundtrip_and_build_detr(head, tmp_path):
 
 
 def test_build_detr_seeded_and_bf16():
-    a = api.build_detr(seed=7, **SMALL)
-    b = api.build_detr(seed=7, **SMALL)
-    c = api.build_detr(seed=8, **SMALL)
+    a = api.build_detr(seed=7, device="cpu", **SMALL)
+    b = api.build_detr(seed=7, device="cpu", **SMALL)
+    c = api.build_detr(seed=8, device="cpu", **SMALL)
     sa, sb, sc = (m.module.state_dict() for m in (a, b, c))
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not torch.equal(sa["query_embed"], sc["query_embed"])
-    bf = api.build_detr(seed=7, dtype="bfloat16", **SMALL)
+    bf = api.build_detr(seed=7, dtype="bfloat16", device="cpu", **SMALL)
     assert bf.module.transformer.decoder_norm.weight.dtype == torch.bfloat16
     assert bf.module.backbone.bn1.running_var.dtype == torch.float32
     assert bf.module.query_embed.dtype == torch.float32
@@ -261,6 +261,7 @@ def test_build_detr_seeded_and_bf16():
 
 def test_get_detr_model_heads():
     kw = {k: v for k, v in SMALL.items() if k not in ("num_encoder_layers", "num_decoder_layers")}
+    kw["device"] = "cpu"
     x = torch.zeros((1, 64, 64, 3))
     top = api.get_detr_model(include_top=True, num_encoder_layers=1, num_decoder_layers=1, **kw)
     fine = api.get_detr_model(nb_class=3, num_encoder_layers=1, num_decoder_layers=1, **kw)
@@ -272,6 +273,16 @@ def test_get_detr_model_heads():
     assert headless.normalized_method == "tf_resnet"
     aux = detr.as_aux_list(top(x))
     assert aux["aux"] == []
+
+
+def test_build_detr_defaults_to_the_card():
+    """Entry points run on the card unless the caller asks for the CPU:
+    ``build_detr``'s device defaults to "cuda", and ``get_detr_model`` has
+    no default of its own (its keyword arguments reach ``build_detr``)."""
+    import inspect
+
+    assert inspect.signature(api.build_detr).parameters["device"].default == "cuda"
+    assert "device" not in inspect.signature(api.get_detr_model).parameters
 
 
 def test_port_imports_no_jax():

@@ -32,7 +32,7 @@ BOX_ATOL, SCORE_ATOL = 5e-4, 1e-3
 @pytest.fixture(scope="module")
 def models():
     jax_model = jax_build_detr(image_size=(64, 64), seed=1, **CONFIG)
-    port = api.build_detr(**CONFIG)
+    port = api.build_detr(device="cpu", **CONFIG)
     port.module.load_state_dict(from_jax_variables(jax_model.variables), strict=True)
     return jax_model, port
 
