@@ -32,8 +32,25 @@ Phases, one status line each; any failure raises and exits non-zero:
   9. training: full-width DETR-R50 at b8 376x672 fp32: one step's loss and
      gradients, kernel route against plain route at dropout 0; eight
      dropout-0.1 steps through ``fit`` with the counters reset just before;
-     matching and loss under ``torch.cuda.set_sync_debug_mode("error")``.
-Kernel times: A, A' and B from CUDA events around a loop of calls; F and G,
+     matching and loss under ``torch.cuda.set_sync_debug_mode("error")``;
+ 10. fused kernels: C (stem max pool), D (fused bottleneck tail) and E
+     (whole identity bottleneck) at every distinct shape of one b1 forward
+     of the fused-backbone model, at 896x1408 with a mask (C, D x16) and
+     768x1280 bucket-exact (C, D x4, E x12), fp32 (TF32 off) and bf16,
+     against their plain versions (C bit-equal), with kernel, plain and
+     yardstick times from CUDA graphs and each shape's bound;
+ 11. fused serving: full-width DETR-R50 with ``fuse_residual=True,
+     fuse_bottleneck=True`` and the unfused model from one seed and one set
+     of nonzero FrozenBN buffers: 3 requests through ``Predictor`` with the
+     counters reset just before (per bucket-exact forward C 1, D 4, E 12,
+     A 18; per masked forward C 1, D 16, E 0, A 18), c5, boxes and logits
+     against the unfused model at fp32, and the median latency of both at
+     768x1280 b1, fp32 and bf16, with each one's device-busy time and idle
+     share under ``torch.profiler``.
+Kernel C runs in every ``ResNetBackbone`` forward: serving, training and
+fused serving count it (1 per forward or step); the int8 model's stem is
+not a ``ResNetBackbone`` and launches none.
+Kernel times: A, A' and B from CUDA events around a loop of calls; C to G,
 whose calls are shorter than the wrapper's host cost, from CUDA graphs.
 Every kernel's record carries its bound (bytes over 3.35 TB/s or operations
 over the published peak of their type) and, where one PyTorch call computes
@@ -66,7 +83,7 @@ LAUNCHES_PER_FORWARD = 18  # 6 encoder self + 6 decoder self + 6 decoder cross
 BOX_ATOL, LOGIT_ATOL = 5e-4, 5e-3  # kernel model vs plain-attention model, fp32
 PADDED_BOX_ATOL = 1e-3
 SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "lap.cu", "int8_matmul.cu",
-           "int8_conv.cu")
+           "int8_conv.cu", "maxpool.cu", "fused_residual.cu", "fused_bottleneck.cu")
 CSRC = "detr_tensorflow_tpu_torch/csrc/"
 REPLACES = {
     "flash_attention_fwd": "detr_tensorflow_tpu/ops/pallas/flash_attention.py:77",
@@ -74,6 +91,9 @@ REPLACES = {
     "lap": "detr_tensorflow_tpu/ops/pallas/lap.py:77",
     "int8_matmul": "detr_tensorflow_tpu/ops/pallas/int8_matmul.py:96",
     "int8_conv": "detr_tensorflow_tpu/ops/pallas/int8_conv.py:64",
+    "maxpool": "detr_tensorflow_tpu/ops/pallas/maxpool.py:99",
+    "fused_residual": "detr_tensorflow_tpu/ops/pallas/fused_residual.py:37",
+    "fused_bottleneck": "detr_tensorflow_tpu/ops/pallas/fused_bottleneck.py:54",
 }
 DEVICE = "cuda"
 # Published H100 SXM peaks (dense tensor-core rates; fp32 without them): bound_ms is the larger
@@ -102,6 +122,18 @@ F_PER_FORWARD = {"plain": 16, "residual": 12, "residual2": 4}
 G_PER_FORWARD = {1: 13, 2: 3}
 # c5 against the fp32 backbone: the PTQ bounds of tests/test_quantized.py.
 C5_MAX_REL, C5_MIN_CORR = 0.10, 0.99
+
+# The fused-backbone model: one b1 forward at a masked bucket runs D on all
+# 16 bottlenecks; at a bucket-exact one D on the 4 block_0s, E on the 12
+# identity blocks. Kernel D and E against their plain versions, relative to
+# the largest reference value: fp32 sums in another order; bf16 rounds at
+# the same points, and a sum on the other side of a rounding boundary moves
+# one bf16 ulp (2^-8). c5 of the fused against the unfused model at fp32:
+# the same arithmetic in another order over 16 blocks (rel 1e-4).
+FUSED_MASKED, FUSED_EXACT = (896, 1408), (768, 1280)
+FUSED_RTOL = {"float32": 1e-5, "bfloat16": 2e-2}
+FUSED_C5_RTOL = 1e-4
+FUSED_PER_FORWARD = {"exact": (1, 4, 12), "masked": (1, 16, 0)}  # C, D, E
 
 
 def log(msg: str) -> None:
@@ -150,6 +182,31 @@ def graph_ms(torch, fn, iters: int = 20, replays: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (iters * replays)
+
+
+def device_busy_ms(torch, fn, calls: int = 3):
+    """(wall ms, device-busy ms) per call of ``fn`` over ``calls`` calls under
+    torch.profiler, busy being the union of the card's kernel and copy
+    intervals: 1 - busy / wall is the device's idle share, the profiler's
+    own host cost included. Busy is None where the profiler saw no device
+    activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / calls
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    return wall_ms, (busy_us / 1e3 / calls if spans else None)
 
 
 def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
@@ -363,14 +420,14 @@ def check_detections(dets, num_classes=92):
             raise AssertionError("detections out of range")
 
 
-def phase_serving(torch, fa, api, Predictor):
+def phase_serving(torch, fa, mp, api, Predictor):
     model = api.build_detr(seed=0, device=DEVICE)
     predictor = Predictor(model, background_class=91)
     img_a, img_b, img_c, img_d = random_images(
         [(800, 1333), (480, 640), (800, 1333), (800, 1333)], seed=1)
     predictor.warmup([(800, 1333), (480, 640)])
 
-    fa.mha.launches = 0  # main path: three requests, three forwards
+    fa.mha.launches = mp.max_pool_3x3_s2.launches = 0  # main path: three requests, three forwards
     t0 = time.perf_counter()
     r1 = predictor([img_a])
     t1 = time.perf_counter()
@@ -378,11 +435,12 @@ def phase_serving(torch, fa, api, Predictor):
     t2 = time.perf_counter()
     r3 = predictor([img_c, img_d])
     t3 = time.perf_counter()
-    launches = fa.mha.launches
+    launches, pool_launches = fa.mha.launches, mp.max_pool_3x3_s2.launches
     log(f"  requests: 800x1333 b1 {1e3 * (t1 - t0):.2f} ms, 480x640 b1 "
-        f"{1e3 * (t2 - t1):.2f} ms, 2x800x1333 b2 {1e3 * (t3 - t2):.2f} ms")
-    if launches != 3 * LAUNCHES_PER_FORWARD:
-        raise AssertionError(f"{launches} kernel launches for 3 forwards")
+        f"{1e3 * (t2 - t1):.2f} ms, 2x800x1333 b2 {1e3 * (t3 - t2):.2f} ms; launches: "
+        f"A {launches}, C {pool_launches}")
+    if launches != 3 * LAUNCHES_PER_FORWARD or pool_launches != 3:
+        raise AssertionError(f"{launches} A and {pool_launches} C launches for 3 forwards")
     for dets in (r1, r2, r3):
         check_detections(dets)
     if sorted(predictor.buckets) != [(512, 640), (896, 1408)]:
@@ -429,12 +487,14 @@ def phase_serving(torch, fa, api, Predictor):
     model_bf16 = api.build_detr(seed=0, device=DEVICE, dtype="bfloat16")
     pred_bf16 = Predictor(model_bf16, background_class=91)
     pred_bf16.warmup([(800, 1333)])
-    fa.mha.launches = 0
+    fa.mha.launches = mp.max_pool_3x3_s2.launches = 0
     t0 = time.perf_counter()
     dets = pred_bf16([img_a])
     bf16_ms = 1e3 * (time.perf_counter() - t0)
-    if fa.mha.launches != LAUNCHES_PER_FORWARD:
-        raise AssertionError(f"bf16: {fa.mha.launches} launches for one forward")
+    if fa.mha.launches != LAUNCHES_PER_FORWARD or mp.max_pool_3x3_s2.launches != 1:
+        raise AssertionError(f"bf16: {fa.mha.launches} A and {mp.max_pool_3x3_s2.launches} C "
+                             f"launches for one forward")
+    pool_launches += mp.max_pool_3x3_s2.launches
     check_detections(dets)
     lat16 = []
     for _ in range(5):
@@ -444,7 +504,7 @@ def phase_serving(torch, fa, api, Predictor):
     log(f"  Predictor 800x1333 b1 bf16: first {bf16_ms:.2f} ms, median "
         f"{statistics.median(lat16):.2f} ms of {[round(x, 2) for x in lat16]}")
     del plain, model_bf16, pred_bf16
-    return predictor, launches, fp32_ms, statistics.median(lat16)
+    return predictor, launches, pool_launches, fp32_ms, statistics.median(lat16)
 
 
 def int8_path_shapes(height, width):
@@ -581,7 +641,7 @@ def reset_int8_counts(mm, conv):
     conv.conv3x3_int8.launches = {1: 0, 2: 0}
 
 
-def phase_int8_serving(torch, fa, mm, conv, api, quantized, Predictor, fp32_ms, bf16_ms):
+def phase_int8_serving(torch, fa, mm, conv, mp, api, quantized, Predictor, fp32_ms, bf16_ms):
     """Full-width DETR-R50 with the int8 backbone at bf16 compute, quantized
     from its own fp32 backbone on two seeded 800x1333 images, behind
     Predictor."""
@@ -600,7 +660,7 @@ def phase_int8_serving(torch, fa, mm, conv, api, quantized, Predictor, fp32_ms, 
     predictor.warmup([(800, 1333), (480, 640)])
 
     reset_int8_counts(mm, conv)  # main path: three requests, three forwards
-    fa.mha.launches = 0
+    fa.mha.launches = mp.max_pool_3x3_s2.launches = 0
     t0 = time.perf_counter()
     r1 = predictor([img_a])
     t1 = time.perf_counter()
@@ -611,13 +671,16 @@ def phase_int8_serving(torch, fa, mm, conv, api, quantized, Predictor, fp32_ms, 
     f_counts = {"plain": mm.qmatmul.launches, "residual": mm.qmatmul_residual.launches,
                 "residual2": mm.qmatmul_residual2.launches}
     g_counts, a_count = dict(conv.conv3x3_int8.launches), fa.mha.launches
+    pool_count = mp.max_pool_3x3_s2.launches
     log(f"  requests: 800x1333 b1 {1e3 * (t1 - t0):.2f} ms, 480x640 b1 {1e3 * (t2 - t1):.2f} ms, "
         f"2x800x1333 b2 {1e3 * (t3 - t2):.2f} ms")
-    log(f"  launches in 3 forwards: F {f_counts}, G {g_counts}, A {a_count}")
+    log(f"  launches in 3 forwards: F {f_counts}, G {g_counts}, A {a_count}, C {pool_count} "
+        f"(the int8 stem is not a ResNetBackbone)")
     if (f_counts != {k: 3 * v for k, v in F_PER_FORWARD.items()}
             or g_counts != {k: 3 * v for k, v in G_PER_FORWARD.items()}
-            or a_count != 3 * LAUNCHES_PER_FORWARD):
-        raise AssertionError("int8 launch counts differ from 32 F, 13 + 3 G, 18 A per forward")
+            or a_count != 3 * LAUNCHES_PER_FORWARD or pool_count != 0):
+        raise AssertionError("int8 launch counts differ from 32 F, 13 + 3 G, 18 A, 0 C per "
+                             "forward")
     for dets in (r1, r2, r3):
         check_detections(dets)
 
@@ -736,7 +799,7 @@ def gradient_agreement(grads_k, grads_p):
     return worst, noise
 
 
-def phase_training(torch, fa, lap, api, train, losses):
+def phase_training(torch, fa, lap, mp, api, train, losses):
     from detr_tensorflow_tpu_torch.train.engine import batch_to_device
 
     targets = ("boxes", "classes", "mask")
@@ -766,9 +829,12 @@ def phase_training(torch, fa, lap, api, train, losses):
     del results, grads_k, grads_p
     torch.cuda.empty_cache()
 
+    # DETR's learning rates (the config's defaults: backbone 1e-5, transformer
+    # 1e-4). At 1e-3 on the whole model the random-weight backbone, whose
+    # FrozenBN does not normalise, swings c5's largest value between 1e1 and
+    # 1e6 from one step to the next, and a run can overflow to a non-finite loss.
     config = train.TrainingConfig(background_class=BACKGROUND, train_backbone=True,
-                                  train_transformers=True, batch_size=TRAIN_BATCH,
-                                  backbone_lr=1e-3, transformers_lr=1e-3)
+                                  train_transformers=True, batch_size=TRAIN_BATCH)
     model = api.build_detr(seed=0, device=DEVICE).module  # dropout 0.1
     trainer = train.Trainer(model, config, seed=0)
     batch = batch_to_device(train_batch(6), DEVICE)
@@ -782,8 +848,10 @@ def phase_training(torch, fa, lap, api, train, losses):
         losses_seen.append(host_log["total_loss"])
 
     fa.mha.launches = fa.mha.backward_launches = lap.solve_lap_masked.launches = 0  # main path
+    mp.max_pool_3x3_s2.launches = 0
     train.fit(trainer, [batch] * TRAIN_STEPS, config, epoch_nb=0, log_fn=log_fn, log_every=1)
-    counts = (fa.mha.launches, fa.mha.backward_launches, lap.solve_lap_masked.launches)
+    counts = (fa.mha.launches, fa.mha.backward_launches, lap.solve_lap_masked.launches,
+              mp.max_pool_3x3_s2.launches)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     step_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
     median = statistics.median(step_ms)
@@ -791,8 +859,8 @@ def phase_training(torch, fa, lap, api, train, losses):
     log(f"  step times {[round(x, 2) for x in step_ms]} ms, median {median:.2f} ms, "
         f"{TRAIN_BATCH * 1e3 / median:.2f} images/s, peak device memory {peak_gb:.2f} GiB")
     log(f"  launches in {TRAIN_STEPS} steps: attention forward {counts[0]}, backward {counts[1]}, "
-        f"lap {counts[2]}")
-    per_step = (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, 1)
+        f"lap {counts[2]}, max pool {counts[3]}")
+    per_step = (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, 1, 1)
     if counts != tuple(TRAIN_STEPS * c for c in per_step):
         raise AssertionError(f"launch counts {counts}, expected {per_step} per step")
     if not all(np.isfinite(losses_seen)) or not losses_seen[-1] < losses_seen[0]:
@@ -811,6 +879,240 @@ def phase_training(torch, fa, lap, api, train, losses):
     return counts, median
 
 
+def fused_path_shapes(height, width, masked):
+    """Every kernel C, D and E launch of one b1 fused-backbone DETR-R50
+    forward at a (height, width) bucket: C's input (C, H, W), D as (Cin,
+    Cout, H, W) and E as (C, M, H, W), each with its count per forward."""
+    h, w = (height - 1) // 2 + 1, (width - 1) // 2 + 1  # the stem's 7x7/s2 conv
+    c_shape = (64, h, w)
+    h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1  # its 3x3/s2 max pool
+    d, e = collections.Counter(), collections.Counter()
+    for s, (n_blocks, d1, d2) in enumerate(zip((3, 4, 6, 3), (64, 128, 256, 512),
+                                               (256, 512, 1024, 2048))):
+        if s:
+            h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+        d[(d1, d2, h, w)] += n_blocks if masked else 1
+        if not masked:
+            e[(d2, d1, h, w)] += n_blocks - 1
+    return c_shape, d, e
+
+
+def fused_rel_err(got, ref) -> float:
+    return float((got.float() - ref.float()).abs().max()) / max(1.0, float(ref.float().abs().max()))
+
+
+def phase_fused_kernels(torch, mp, fr, fb):
+    """C, D and E at every distinct shape of a b1 fused-backbone forward at
+    the masked and the bucket-exact bucket, fp32 and bf16."""
+    F = torch.nn.functional
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+
+    def cl(*shape, fill=torch.rand):  # NCHW in channels_last, as the backbone holds it
+        return fill(*shape, device=DEVICE, generator=gen).contiguous(
+            memory_format=torch.channels_last)
+
+    def normal(*shape, std=1.0):
+        return torch.randn(*shape, device=DEVICE, generator=gen) * std
+
+    # [kernel][bucket][dtype] -> per-forward sums of (kernel, plain, yardstick, bound, bound by
+    # bytes) ms, and the worst relative and absolute errors per kernel and dtype.
+    totals = collections.defaultdict(lambda: np.zeros(5))
+    worst = collections.defaultdict(float)
+    worst_abs = collections.defaultdict(float)
+
+    def record(kernel, bucket, name, count, fn_kernel, fn_plain, fn_yard, bound, exact, label):
+        got, ref = fn_kernel(), fn_plain()
+        torch.cuda.synchronize()
+        if exact:
+            if not torch.equal(got, ref):
+                raise AssertionError(f"{kernel} {label} {name}: not bit-equal to plain")
+            err = 0.0
+        else:
+            err = fused_rel_err(got, ref)
+            if not err <= FUSED_RTOL[name]:
+                raise AssertionError(f"{kernel} {label} {name}: rel err {err} > {FUSED_RTOL[name]}")
+        worst[(kernel, name)] = max(worst[(kernel, name)], err)
+        worst_abs[(kernel, name)] = max(worst_abs[(kernel, name)],
+                                        float((got.float() - ref.float()).abs().max()))
+        p1, k1, k2, p2 = (graph_ms(torch, f) for f in (fn_plain, fn_kernel, fn_kernel, fn_plain))
+        yard = graph_ms(torch, fn_yard)
+        kms, pms = (k1 + k2) / 2, (p1 + p2) / 2
+        totals[(kernel, bucket, name)] += count * np.array(
+            [kms, pms, yard, bound[0], bound[0] * (bound[1] == "bytes")])
+        return kms, pms, yard, err
+
+    for bucket, masked in ((FUSED_MASKED, True), (FUSED_EXACT, False)):
+        (c0, h0, w0), d_shapes, e_shapes = fused_path_shapes(*bucket, masked)
+        tag = f"{bucket[0]}x{bucket[1]}{' masked' if masked else ''}"
+        for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            size = 2 if name == "bfloat16" else 4
+            x = torch.relu(cl(1, c0, h0, w0, fill=torch.randn)).to(dtype)
+            ho, wo = (h0 - 1) // 2 + 1, (w0 - 1) // 2 + 1
+            bound = bound_ms((h0 * w0 + ho * wo) * c0 * size, {})
+            kms, pms, yard, _ = record(
+                "maxpool", tag, name, 1, lambda: mp.max_pool_3x3_s2(x, nonneg=True),
+                lambda: mp.reference_max_pool_3x3_s2(x),
+                lambda: F.max_pool2d(x, 3, stride=2, padding=1), bound, True, "")
+            log(f"  C {tag} (1,{c0},{h0},{w0}) {name}: kernel {kms:.4f} ms, plain {pms:.4f} ms, "
+                f"F.max_pool2d {yard:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); bit-equal")
+            for (cin, cout, h, w), count in sorted(d_shapes.items()):
+                x = cl(1, cin, h, w).to(dtype)
+                wt = normal(cout, cin, 1, 1, std=cin**-0.5).to(dtype)
+                scale, shift = torch.rand(cout, device=DEVICE, generator=gen) + 0.5, normal(cout, std=0.3)
+                identity = cl(1, cout, h, w, fill=torch.randn).to(dtype)
+                sd, td = scale.to(dtype)[:, None, None], shift.to(dtype)[:, None, None]
+                p = h * w
+                bound = bound_ms((p * (cin + 2 * cout) + cout * cin) * size + 8 * cout,
+                                 {name: 2 * p * cin * cout, "float32": 4 * p * cout})
+                kms, pms, yard, err = record(
+                    "fused_residual", tag, name, count,
+                    lambda: fr.conv1x1_bn_residual_relu(x, wt, scale, shift, identity),
+                    lambda: fr.reference_conv1x1_bn_residual_relu(x, wt, scale, shift, identity),
+                    lambda: F.relu(F.conv2d(x, wt) * sd + td + identity), bound, False,
+                    f"({cin}->{cout}, {h}x{w})")
+                log(f"  D {tag} {cin}->{cout} {h}x{w} (x{count}) {name}: kernel {kms:.4f} ms, "
+                    f"plain {pms:.4f} ms, unfused cuDNN chain (conv, BN, residual, ReLU; not the "
+                    f"same function) {yard:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); rel err "
+                    f"{err:.2e}")
+            for (c, m, h, w), count in sorted(e_shapes.items()):
+                x = cl(1, c, h, w).to(dtype)
+                w1t, w2t, w3t = (normal(*s, std=k**-0.5).to(dtype)
+                                 for s, k in (((c, m), c), ((9, m, m), 9 * m), ((m, c), m)))
+                b1 = torch.rand(m, device=DEVICE, generator=gen) + 0.5  # > 0: the halo is tested
+                b2, b3 = normal(m, std=0.1), normal(c, std=0.1)
+                ops = (w1t, b1, w2t, b2, w3t, b3)
+                k1_, k2_ = w1t.t()[:, :, None, None], w2t.reshape(3, 3, m, m).permute(3, 2, 0, 1)
+                k3_ = w3t.t()[:, :, None, None]
+                bd = [b.to(dtype)[:, None, None] for b in (b1, b2, b3)]
+
+                def chain():
+                    t = F.relu(F.conv2d(x, k1_) + bd[0])
+                    t = F.relu(F.conv2d(t, k2_, padding=1) + bd[1])
+                    return F.relu(F.conv2d(t, k3_) + bd[2] + x)
+
+                p = h * w
+                bound = bound_ms((2 * p * c + 2 * c * m + 9 * m * m) * size + 4 * (2 * m + c),
+                                 {name: 2 * p * (2 * c * m + 9 * m * m)})
+                kms, pms, yard, err = record(
+                    "fused_bottleneck", tag, name, count, lambda: fb.fused_bottleneck(x, *ops),
+                    lambda: fb.reference_fused_bottleneck(x, *ops), chain, bound, False,
+                    f"(C={c}, M={m}, {h}x{w})")
+                log(f"  E {tag} C={c} M={m} {h}x{w} (x{count}) {name}: kernel {kms:.4f} ms, "
+                    f"plain {pms:.4f} ms, unfused cuDNN chain (three convs with bias, ReLU and "
+                    f"residual; not the same function) {yard:.4f} ms, bound {bound[0]:.4f} ms "
+                    f"({bound[1]}); rel err {err:.2e}")
+    for (kernel, bucket, name), (kms, pms, yard, b, _) in sorted(totals.items()):
+        if kernel != "maxpool":
+            log(f"  {kernel} per {bucket} forward, {name} (sum over its launches): kernel "
+                f"{kms:.4f} ms, plain {pms:.4f} ms, unfused chain {yard:.4f} ms, bound {b:.4f} ms")
+    return worst, worst_abs, totals
+
+
+def seeded_frozen_bn(torch, module, seed):
+    """Moderate nonzero FrozenBN buffers from a seed (scale near 1, shifts
+    ~0.1, variances in [0.5, 1.5]), the same for every model given the seed."""
+    from detr_tensorflow_tpu_torch.models.layers import FrozenBatchNorm
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, FrozenBatchNorm):
+                n = m.weight.numel()
+                for buf, value in ((m.weight, 1 + 0.1 * torch.randn(n, generator=gen)),
+                                   (m.bias, 0.1 * torch.randn(n, generator=gen)),
+                                   (m.running_mean, 0.1 * torch.randn(n, generator=gen)),
+                                   (m.running_var, 0.5 + torch.rand(n, generator=gen))):
+                    buf.copy_(value)
+
+
+def phase_fused_serving(torch, fa, mp, fr, fb, api, Predictor):
+    """The fused-backbone DETR-R50 behind Predictor, against the unfused
+    model from the same seed and FrozenBN buffers."""
+    models = {}
+    for dtype in ("float32", "bfloat16"):
+        for fused in (True, False):
+            flags = dict(fuse_residual=True, fuse_bottleneck=True) if fused else {}
+            model = api.build_detr(seed=0, device=DEVICE, dtype=dtype, **flags)
+            seeded_frozen_bn(torch, model.module, seed=31)
+            models[(dtype, fused)] = model
+    img_e, img_m, img_e2, img_e3 = random_images([(768, 1280), (800, 1333), (768, 1280),
+                                                  (768, 1280)], seed=7)
+    predictor = Predictor(models[("float32", True)], background_class=BACKGROUND)
+    predictor.warmup([(800, 1333), (768, 1280)])  # masked forwards
+    predictor([img_e])  # a bucket-exact forward: E's path
+
+    def counts():
+        return (mp.max_pool_3x3_s2.launches, fr.conv1x1_bn_residual_relu.launches,
+                fb.fused_bottleneck.launches, fa.mha.launches)
+
+    mp.max_pool_3x3_s2.launches = fr.conv1x1_bn_residual_relu.launches = 0  # main path
+    fb.fused_bottleneck.launches = fa.mha.launches = 0
+    seen, times = [], []
+    for images in ([img_e], [img_m], [img_e2, img_e3]):
+        t0 = time.perf_counter()
+        dets = predictor(images)
+        times.append(1e3 * (time.perf_counter() - t0))
+        seen.append(counts())
+        check_detections(dets)
+    per = [tuple(b - a for a, b in zip((0, 0, 0, 0) if i == 0 else seen[i - 1], c))
+           for i, c in enumerate(seen)]
+    log(f"  requests: 768x1280 b1 {times[0]:.2f} ms, 800x1333 b1 {times[1]:.2f} ms, "
+        f"2x768x1280 b2 {times[2]:.2f} ms; launches (C, D, E, A) per request {per}")
+    expected = [FUSED_PER_FORWARD[k] + (LAUNCHES_PER_FORWARD,)
+                for k in ("exact", "masked", "exact")]
+    if per != expected:
+        raise AssertionError(f"fused launches {per}, expected {expected}")
+    totals = seen[-1]
+
+    # fp32 (TF32 off): c5, boxes and logits against the unfused model, at a
+    # bucket-exact forward (E and D) and a masked one (D only).
+    fused, plain = models[("float32", True)], models[("float32", False)]
+    with torch.inference_mode():
+        exact = predictor.normalize(torch.from_numpy(img_e[None]).to(DEVICE))
+        canvas = torch.zeros((1,) + FUSED_MASKED + (3,), device=DEVICE)
+        canvas[:, :800, :1333] = predictor.normalize(torch.from_numpy(img_m[None]).to(DEVICE))
+        pm = torch.zeros((1,) + FUSED_MASKED, dtype=torch.bool, device=DEVICE)
+        pm[:, :800, :1333] = True
+        for label, x, mask in (("768x1280 exact", exact, None), ("800x1333 masked", canvas, pm)):
+            c5, c5_ref = fused.module.backbone(x, mask), plain.module.backbone(x, mask)
+            if not (torch.isfinite(c5).all() and torch.isfinite(c5_ref).all()):
+                raise AssertionError(f"{label}: non-finite c5")
+            rel = fused_rel_err(c5, c5_ref)
+            out, ref = fused(x, mask), plain(x, mask)
+            errs = {k: float((out[k] - ref[k]).abs().max()) for k in ("pred_boxes", "pred_logits")}
+            log(f"  fp32 {label}: c5 rel err {rel:.2e} (tol {FUSED_C5_RTOL}, |c5| max "
+                f"{float(c5_ref.abs().max()):.2f}), boxes {errs['pred_boxes']:.3e} (tol "
+                f"{BOX_ATOL}), logits {errs['pred_logits']:.3e} (tol {LOGIT_ATOL})")
+            if not (rel <= FUSED_C5_RTOL and errs["pred_boxes"] <= BOX_ATOL
+                    and errs["pred_logits"] <= LOGIT_ATOL):
+                raise AssertionError(f"fused model differs from the unfused one at {label}")
+
+    medians = {}
+    for dtype in ("float32", "bfloat16"):
+        preds = {fused_: Predictor(models[(dtype, fused_)], background_class=BACKGROUND)
+                 for fused_ in (True, False)}
+        for pred in preds.values():
+            pred([img_e])
+            pred([img_e])
+        lat = {True: [], False: []}
+        for i in range(5):  # interleaved, each first in turn
+            for fused_ in ((True, False) if i % 2 == 0 else (False, True)):
+                t0 = time.perf_counter()
+                check_detections(preds[fused_]([img_e]))
+                lat[fused_].append(1e3 * (time.perf_counter() - t0))
+        medians[dtype] = {k: statistics.median(v) for k, v in lat.items()}
+        log(f"  Predictor 768x1280 b1 {dtype}: fused median {medians[dtype][True]:.2f} ms of "
+            f"{[round(v, 2) for v in lat[True]]}, unfused {medians[dtype][False]:.2f} ms of "
+            f"{[round(v, 2) for v in lat[False]]}")
+        for fused_ in (True, False):
+            wall, busy = device_busy_ms(torch, lambda: preds[fused_]([img_e]))
+            share = "not measured" if busy is None else f"{busy:.2f} ms, idle {1 - busy / wall:.2f}"
+            log(f"  under torch.profiler, {'fused' if fused_ else 'unfused'} {dtype} 768x1280 "
+                f"b1: wall {wall:.2f} ms per request, device busy {share}")
+    del models, predictor
+    return totals, medians
+
+
 def main() -> int:
     import torch
 
@@ -823,6 +1125,7 @@ def main() -> int:
     from detr_tensorflow_tpu_torch.ops import flash_attention as fa
     from detr_tensorflow_tpu_torch.models import quantized
     from detr_tensorflow_tpu_torch.ops import int8_conv, int8_matmul, lap, losses, nvcc_build
+    from detr_tensorflow_tpu_torch.ops import fused_bottleneck, fused_residual, maxpool
     from detr_tensorflow_tpu_torch.predictor import Predictor
 
     # fp32 parity needs full fp32 matmuls and convolutions (TF32 off).
@@ -855,8 +1158,9 @@ def main() -> int:
     log(f"[lap] ok in {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
-    predictor, launches, fp32_ms, bf16_ms = phase_serving(torch, fa, api, Predictor)
-    log(f"[serving] ok in {time.perf_counter() - t:.1f} s, {launches} kernel launches "
+    predictor, launches, pool_serving, fp32_ms, bf16_ms = phase_serving(
+        torch, fa, maxpool, api, Predictor)
+    log(f"[serving] ok in {time.perf_counter() - t:.1f} s, {launches} kernel A launches "
         f"in 3 forwards")
 
     t = time.perf_counter()
@@ -871,13 +1175,27 @@ def main() -> int:
 
     t = time.perf_counter()
     f_counts, g_counts, int8_a, int8_ms = phase_int8_serving(
-        torch, fa, int8_matmul, int8_conv, api, quantized, Predictor, fp32_ms, bf16_ms)
+        torch, fa, int8_matmul, int8_conv, maxpool, api, quantized, Predictor, fp32_ms, bf16_ms)
     log(f"[int8 serving] ok in {time.perf_counter() - t:.1f} s, median {int8_ms:.2f} ms")
     torch.cuda.empty_cache()
 
     t = time.perf_counter()
-    counts, step_ms = phase_training(torch, fa, lap, api, train, losses)
+    counts, step_ms = phase_training(torch, fa, lap, maxpool, api, train, losses)
     log(f"[training] ok in {time.perf_counter() - t:.1f} s, median step {step_ms:.2f} ms")
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    fused_worst, fused_abs, fused_times = phase_fused_kernels(
+        torch, maxpool, fused_residual, fused_bottleneck)
+    log(f"[fused kernels] ok in {time.perf_counter() - t:.1f} s; worst kernel vs plain rel err "
+        f"{ {f'{k} {n}': f'{v:.2e}' for (k, n), v in sorted(fused_worst.items())} }")
+
+    t = time.perf_counter()
+    fused_counts, fused_ms = phase_fused_serving(
+        torch, fa, maxpool, fused_residual, fused_bottleneck, api, Predictor)
+    log(f"[fused serving] ok in {time.perf_counter() - t:.1f} s, 768x1280 b1 fp32 fused "
+        f"{fused_ms['float32'][True]:.2f} ms / unfused {fused_ms['float32'][False]:.2f} ms, bf16 "
+        f"{fused_ms['bfloat16'][True]:.2f} / {fused_ms['bfloat16'][False]:.2f} ms")
 
     ms, plain_ms, lib_ms, (a_bound, a_by) = times[(1232, 1232, "float32")]
     bwd_ms, bwd_plain_ms, bwd_lib_ms, (bwd_bound, bwd_by) = bwd_times[(252, 252)]
@@ -891,6 +1209,15 @@ def main() -> int:
 
     # A per-forward bound is bound by what bounds the larger part of it.
     int8_by = {n: "bytes" if v[4] >= v[3] / 2 else "operations" for n, v in int8_times.items()}
+    masked_tag = f"{FUSED_MASKED[0]}x{FUSED_MASKED[1]} masked"
+    exact_tag = f"{FUSED_EXACT[0]}x{FUSED_EXACT[1]}"
+
+    def fused_entry(name, source, launches_, bucket):
+        kms, pms, yard, b, b_bytes = fused_times[(name, bucket, "float32")]
+        return entry(name, source, launches_, fused_abs[(name, "float32")], kms, pms, b,
+                     "bytes" if b_bytes >= b / 2 else "operations",
+                     yard if name == "maxpool" else None)
+
     record = {"kernels": [
         entry("flash_attention_fwd", SOURCES[0], launches + int8_a + counts[0],
               worst["float32"], ms, plain_ms, a_bound, a_by, lib_ms),
@@ -904,6 +1231,9 @@ def main() -> int:
         entry("int8_conv", SOURCES[4], sum(g_counts.values()), int8_worst["int8_conv"],
               *int8_times["int8_conv"][[0, 1, 3]], int8_by["int8_conv"],
               int8_times["int8_conv"][2]),
+        fused_entry("maxpool", SOURCES[5], pool_serving + counts[3] + fused_counts[0], masked_tag),
+        fused_entry("fused_residual", SOURCES[6], fused_counts[1], masked_tag),
+        fused_entry("fused_bottleneck", SOURCES[7], fused_counts[2], exact_tag),
     ]}
     log(f"[summary] flash_attention_fwd: max_abs_err fp32 {worst['float32']:.3e}, bf16 "
         f"{worst['bfloat16']:.3e}, ms/plain_ms/library_ms (scaled_dot_product_attention) at "
@@ -914,7 +1244,15 @@ def main() -> int:
         f"{lap_err:.3e}, ms kernel / plain_ms plain version on 48 problems, no library call; "
         f"int8_matmul and int8_conv: max |kernel - plain| in LSB, ms/plain_ms/bound_ms/"
         f"library_ms summed over one b1 896x1408 forward's launches (library: torch._int_mm "
-        f"and the bf16 cuDNN conv, not the same functions), launches in 3 int8 forwards")
+        f"and the bf16 cuDNN conv, not the same functions), launches in 3 int8 forwards; "
+        f"maxpool (C): max_abs_err fp32 0 (bit-equal), ms/plain_ms/library_ms (F.max_pool2d) "
+        f"at the {masked_tag} stem (1,64,448,704) fp32, launches {pool_serving} serving + "
+        f"{counts[3]} training + {fused_counts[0]} fused serving; fused_residual (D) and "
+        f"fused_bottleneck (E): max_abs_err fp32 {fused_abs[('fused_residual', 'float32')]:.3e} "
+        f"and {fused_abs[('fused_bottleneck', 'float32')]:.3e}, ms/plain_ms/bound_ms summed "
+        f"over one b1 fp32 forward's launches ({masked_tag}: D x16; {exact_tag}: E x12), no "
+        f"library call computes either (unfused cuDNN chains printed above), launches in the "
+        f"3 fused forwards")
     log(smi)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -85,9 +85,14 @@ def build_detr(num_classes: int = 92, num_queries: int = 100, head: str = "detr"
     ``weights`` is a local ``.npz`` in the JAX package's format; with
     ``backbone_quant=True`` its "quant" collection, when present, fills the
     int8 backbone. Extra keyword args (model_dim, num_heads,
-    dim_feedforward, dropout, backbone_quant) go to ``DETR``. With
-    ``backbone_quant=True`` the fp32 backbone stays float32 whatever
-    ``dtype`` is: ``quantized.quantize_model`` calibrates from it.
+    dim_feedforward, dropout, backbone_quant, fuse_residual,
+    fuse_bottleneck) go to ``DETR``. With ``backbone_quant=True`` the fp32
+    backbone stays float32 whatever ``dtype`` is:
+    ``quantized.quantize_model`` calibrates from it.
+
+    ``fuse_residual=True, fuse_bottleneck=True`` is the JAX package's
+    fused-backbone serving configuration (kernels D and E, inference
+    only); its weights load as the unfused model's do.
     """
     module = DETR(
         num_classes=num_classes, num_queries=num_queries, head=head,

@@ -2,7 +2,9 @@
 backbone -> exact feature mask -> sine positions -> 1x1 projection ->
 transformer -> heads. Detection heads only: no segmentation head and no
 pipeline stages. ``backbone_quant=True`` runs the int8 post-training-quantized
-backbone of ``models/quantized.py`` instead of the fp32 one."""
+backbone of ``models/quantized.py`` instead of the fp32 one;
+``fuse_residual`` and ``fuse_bottleneck`` run the fused backbone kernels
+(inference only)."""
 
 from __future__ import annotations
 
@@ -38,6 +40,13 @@ class DETR(nn.Module):
     ``quantized.quantize_model`` or from an ``.npz`` with the JAX "quant"
     collection); the forward raises until it is filled. The fp32
     ``backbone`` stays: calibration reads it.
+
+    ``fuse_residual=True`` (inference) runs every bottleneck's tail as
+    kernel D; ``fuse_bottleneck=True`` (inference) runs every identity
+    bottleneck as kernel E when the forward has no pixel mask (the JAX
+    model's ``fuse_bottleneck and pixel_mask is None``: with a mask every
+    block gets a validity map and stays off E). The parameter tree does
+    not change with either flag.
     """
 
     def __init__(self, num_classes: int = 92, num_queries: int = 100,
@@ -47,15 +56,17 @@ class DETR(nn.Module):
                  backbone_stage_sizes: Optional[Sequence[int]] = None,
                  head: str = "detr", nb_class: Optional[int] = None,
                  dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
-                 dropout: float = 0.1, backbone_quant: bool = False):
+                 dropout: float = 0.1, backbone_quant: bool = False,
+                 fuse_residual: bool = False, fuse_bottleneck: bool = False):
         super().__init__()
         if head not in HEADS:
             raise ValueError(f"unknown head: {head}")
         if head == "finetune" and nb_class is None:
             raise ValueError("finetune head needs nb_class")
         self.model_dim, self.head, self.dtype = model_dim, head, dtype
+        self.fuse_residual, self.fuse_bottleneck = fuse_residual, fuse_bottleneck
         stage_sizes = backbone_stage_sizes or STAGE_SIZES[backbone_depth]
-        self.backbone = ResNetBackbone(stage_sizes)
+        self.backbone = ResNetBackbone(stage_sizes, fuse_residual, fuse_bottleneck)
         self.backbone_quant = QuantizedBackbone(stage_sizes) if backbone_quant else None
         self.input_proj = nn.Conv2d(2048, model_dim, 1)
         self.query_embed = nn.Parameter(torch.zeros(num_queries, model_dim))

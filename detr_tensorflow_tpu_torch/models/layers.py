@@ -24,9 +24,14 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def scale_shift(self):
+        """The float32 (scale, shift) of the affine, for kernels that fold
+        it elsewhere (the JAX package's ``scale_shift_only=True``)."""
         scale = self.weight * torch.rsqrt(self.running_var + self.eps)
-        shift = self.bias - self.running_mean * scale
+        return scale, self.bias - self.running_mean * scale
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scale, shift = self.scale_shift()
         shape = (1, -1) + (1,) * (x.dim() - 2)
         return x * scale.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
 

@@ -90,6 +90,10 @@ class Trainer:
         if getattr(model, "dtype", torch.float32) != torch.float32:
             raise NotImplementedError("training is float32 only: bf16 with fp32 master "
                                       "weights is not ported yet")
+        if getattr(model, "fuse_residual", False) or getattr(model, "fuse_bottleneck", False):
+            raise ValueError("the fused backbone kernels (fuse_residual, fuse_bottleneck) "
+                             "are inference only, as in the JAX package: train the unfused "
+                             "model and load its weights into a fused one to serve")
         self.model = model
         self.config = config
         self.device = model.query_embed.device

@@ -12,7 +12,8 @@ import torch
 
 from detr_tensorflow_tpu_torch.models import api, quantized
 from detr_tensorflow_tpu_torch.ops import flash_attention as fa
-from detr_tensorflow_tpu_torch.ops import int8_conv, int8_matmul, lap
+from detr_tensorflow_tpu_torch.ops import fused_bottleneck, fused_residual, int8_conv, int8_matmul
+from detr_tensorflow_tpu_torch.ops import lap, maxpool
 
 pytestmark = pytest.mark.cuda
 
@@ -340,3 +341,140 @@ def test_int8_detr_on_the_card(cuda_device):
         ref = quantized.quant_backbone_forward(qtree, x, (1, 1, 1, 1), compute_dtype=torch.float32,
                                                use_kernels=False)
     assert torch.equal(c5, ref)
+
+
+def _channels_last(t):
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 64, 448, 704), (1, 64, 384, 640), (2, 64, 188, 336),
+                                   (2, 8, 9, 11)])
+def test_maxpool_kernel_is_bit_exact(cuda_device, shape, dtype):
+    """Kernel C equals F.max_pool2d(3, 2, 1) bit for bit at the stem's
+    shapes (and an odd one), on post-ReLU input with many ties, and on any
+    input: it skips the taps outside the image instead of reading zeros."""
+    gen = torch.Generator(device=cuda_device).manual_seed(shape[2])
+    x = torch.randn(shape, device=cuda_device, generator=gen).to(dtype)
+    for inp in (_channels_last(torch.relu(x).round()), _channels_last(x)):
+        before = maxpool.max_pool_3x3_s2.launches
+        got = maxpool.max_pool_3x3_s2(inp, nonneg=True)
+        assert maxpool.max_pool_3x3_s2.launches == before + 1
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(got, maxpool.reference_max_pool_3x3_s2(inp))
+    with pytest.raises(ValueError, match="channels_last"):
+        maxpool.max_pool_3x3_s2(x.contiguous(), nonneg=True)
+
+
+def test_maxpool_kernel_backward_routes_to_the_first_max(cuda_device):
+    x = _channels_last(torch.randint(0, 3, (2, 4, 9, 11), device=cuda_device).float())
+    g = torch.randn(2, 4, 5, 6, device=cuda_device)
+    grads = []
+    for fn in (lambda t: maxpool.max_pool_3x3_s2(t, nonneg=True),
+               maxpool.reference_max_pool_3x3_s2):
+        t = x.clone().requires_grad_()
+        fn(t).backward(g)
+        grads.append(t.grad)
+    assert torch.allclose(grads[0], grads[1], atol=1e-6)
+
+
+# Kernel against plain, relative to the largest reference value: fp32 sums
+# the same products in another order; in bf16 both round T1/T2 and the
+# output at the same points, and a sum that lands on the other side of a
+# rounding boundary moves one bf16 ulp (2^-8 relative).
+FUSED_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,cin,cout,h,w", [(1, 64, 256, 192, 320), (1, 128, 512, 112, 176),
+                                            (1, 256, 1024, 48, 80), (1, 512, 2048, 28, 44),
+                                            (2, 48, 40, 7, 9)])
+def test_fused_residual_kernel_matches_plain(cuda_device, b, cin, cout, h, w, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(cin + h)
+    x = _channels_last(torch.rand(b, cin, h, w, device=cuda_device, generator=gen)).to(dtype)
+    wt = (torch.randn(cout, cin, 1, 1, device=cuda_device, generator=gen) * cin**-0.5).to(dtype)
+    scale = torch.rand(cout, device=cuda_device, generator=gen) + 0.5
+    shift = torch.randn(cout, device=cuda_device, generator=gen) * 0.3
+    identity = _channels_last(torch.randn(b, cout, h, w, device=cuda_device, generator=gen)).to(dtype)
+    before = fused_residual.conv1x1_bn_residual_relu.launches
+    got = fused_residual.conv1x1_bn_residual_relu(x, wt, scale, shift, identity)
+    ref = fused_residual.reference_conv1x1_bn_residual_relu(x, wt, scale, shift, identity)
+    torch.cuda.synchronize()
+    assert fused_residual.conv1x1_bn_residual_relu.launches == before + 1
+    assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last)
+    assert _rel_err(got, ref) <= FUSED_RTOL[dtype]
+
+
+def _bottleneck_operands(device, c, m, seed, b1=None):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w1, w3 = (torch.randn(s, device=device, generator=gen) * s[0] ** -0.5 for s in ((c, m), (m, c)))
+    w2 = torch.randn(9, m, m, device=device, generator=gen) * (9 * m) ** -0.5
+    b1 = torch.randn(m, device=device, generator=gen) * 0.1 if b1 is None else b1
+    b2 = torch.randn(m, device=device, generator=gen) * 0.1
+    b3 = torch.randn(c, device=device, generator=gen) * 0.1
+    return w1, b1, w2, b2, w3, b3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,m,h,w", [(1, 256, 64, 192, 320), (1, 512, 128, 96, 160),
+                                       (1, 1024, 256, 48, 80), (1, 2048, 512, 24, 40),
+                                       (2, 256, 64, 13, 21), (2, 1024, 256, 7, 5),
+                                       (1, 2048, 512, 5, 7)])
+def test_fused_bottleneck_kernel_matches_plain(cuda_device, n, c, m, h, w, dtype):
+    """Kernel E at every ResNet-50 width (M 64 to 512, each tile shape) at
+    the 768x1280 bucket's maps and at ragged ones (partial tiles)."""
+    w1, b1, w2, b2, w3, b3 = _bottleneck_operands(cuda_device, c, m, seed=c + h)
+    ops = (w1.to(dtype), b1, w2.to(dtype), b2, w3.to(dtype), b3)
+    x = _channels_last(torch.rand(n, c, h, w, device=cuda_device)).to(dtype)
+    before = fused_bottleneck.fused_bottleneck.launches
+    got = fused_bottleneck.fused_bottleneck(x, *ops)
+    ref = fused_bottleneck.reference_fused_bottleneck(x, *ops)
+    torch.cuda.synchronize()
+    assert fused_bottleneck.fused_bottleneck.launches == before + 1
+    assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last)
+    assert _rel_err(got, ref) <= FUSED_RTOL[dtype]
+
+
+@pytest.mark.parametrize("m", [64, 256, 512])
+def test_fused_bottleneck_kernel_masks_the_halo(cuda_device, m):
+    """b1 = 2.0: relu(b1) would leak into T1 outside the image; the kernel
+    zeroes it and agrees with the plain chain (fp32)."""
+    c = 4 * m
+    ops = _bottleneck_operands(cuda_device, c, m, seed=m,
+                               b1=torch.full((m,), 2.0, device=cuda_device))
+    x = _channels_last(torch.randn(1, c, 11, 13, device=cuda_device))
+    got = fused_bottleneck.fused_bottleneck(x, *ops)
+    assert _rel_err(got, fused_bottleneck.reference_fused_bottleneck(x, *ops)) <= 1e-5
+
+
+def test_fused_detr_on_the_card(cuda_device):
+    """A reduced-depth fused DETR on the card: C once, D on each block_0,
+    E on each identity block without a mask and none with one; outputs
+    against the unfused model from the same weights (fp32, TF32 off), with
+    nonzero BN shifts."""
+    cfg = dict(backbone_stage_sizes=(2, 2, 2, 2), num_encoder_layers=1, num_decoder_layers=1,
+               device=cuda_device)
+    fused = api.build_detr(fuse_residual=True, fuse_bottleneck=True, **cfg)
+    plain = api.build_detr(**cfg)
+    gen = torch.Generator().manual_seed(3)
+    state = {k: (v + 0.1 * torch.randn(v.shape, generator=gen).to(v.device)
+                 if k.endswith(("bn1.bias", "bn2.bias", "bn3.bias", "running_mean")) else v)
+             for k, v in plain.module.state_dict().items()}
+    for m in (fused, plain):
+        m.module.load_state_dict(state)
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(1, 256, 384, 3)).astype(np.float32))
+    x = x.to(cuda_device)
+    mask = torch.zeros((1, 256, 384), dtype=torch.bool, device=cuda_device)
+    mask[:, :200, :301] = True
+    for pixel_mask, d, e in ((None, 4, 4), (mask, 8, 0)):
+        before = (maxpool.max_pool_3x3_s2.launches,
+                  fused_residual.conv1x1_bn_residual_relu.launches,
+                  fused_bottleneck.fused_bottleneck.launches)
+        out = fused(x, pixel_mask)
+        after = (maxpool.max_pool_3x3_s2.launches,
+                 fused_residual.conv1x1_bn_residual_relu.launches,
+                 fused_bottleneck.fused_bottleneck.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (1, d, e)
+        ref = plain(x, pixel_mask)
+        assert float((out["pred_boxes"] - ref["pred_boxes"]).abs().max()) <= 5e-4
+        assert float((out["pred_logits"] - ref["pred_logits"]).abs().max()) <= 5e-3

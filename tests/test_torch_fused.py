@@ -1,0 +1,363 @@
+"""The port's fused-backbone slice against the JAX package: the stem max
+pool (kernel C), the fused bottleneck tail (D) and the whole fused
+bottleneck (E), each through its plain version here on the CPU, then the
+fused ResNet backbone and DETR, their routing, and that they refuse to
+train.
+
+JAX runs on the CPU, its Pallas kernels in interpret mode. Inputs come from
+``np.random.default_rng``; variables from ``random_variables``, whose
+FrozenBN buffers are random (scale near 1, shifts ~0.1), so a kernel that
+let relu(b1) leak into E's halo would show. The port's tensors are NCHW in
+channels_last memory, as its backbone holds them. Tolerances are stated
+at each comparison.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from detr_tensorflow_tpu.models import detr as jax_detr
+from detr_tensorflow_tpu.models import resnet as jax_resnet
+from detr_tensorflow_tpu.ops import maxpool as jax_maxpool
+from detr_tensorflow_tpu.ops.pallas import fused_bottleneck as jax_fb
+from detr_tensorflow_tpu.ops.pallas import fused_residual as jax_fr
+from detr_tensorflow_tpu.ops.pallas.maxpool import max_pool_3x3_s2_pallas
+from detr_tensorflow_tpu_torch.models import detr, resnet
+from detr_tensorflow_tpu_torch.models.weights import from_jax_variables
+from detr_tensorflow_tpu_torch.ops import fused_bottleneck as fb
+from detr_tensorflow_tpu_torch.ops import fused_residual as fr
+from detr_tensorflow_tpu_torch.ops import maxpool
+from detr_tensorflow_tpu_torch.train import Trainer, TrainingConfig
+from test_torch_models import BOX_ATOL, GOLDEN_RTOL, LOGIT_ATOL, _pixel_mask, close, random_variables
+
+# The JAX test's reduced DETR (tests/test_pallas_attention.py): layer1 has
+# one identity block, the other stages none.
+TINY = dict(num_classes=5, num_queries=6, model_dim=16, num_heads=2, num_encoder_layers=1,
+            num_decoder_layers=1, dim_feedforward=32, backbone_stage_sizes=(2, 1, 1, 1))
+FUSED = dict(fuse_residual=True, fuse_bottleneck=True)
+
+
+def nchw(x: np.ndarray) -> torch.Tensor:
+    """An NHWC numpy array as the port holds it: NCHW in channels_last."""
+    return torch.from_numpy(np.ascontiguousarray(x)).permute(0, 3, 1, 2)
+
+
+def nhwc(x: torch.Tensor) -> np.ndarray:
+    return x.detach().float().permute(0, 2, 3, 1).numpy()
+
+
+# ---- kernel C: the stem max pool -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_maxpool_matches_pallas_kernel_even_shape(dtype):
+    """max_pool_3x3_s2(nonneg=True) against the TPU kernel in interpret
+    mode at an even stem-like shape, on a tie-heavy non-negative input:
+    exactly equal (a max picks one of its inputs)."""
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 5, size=(2, 16, 24, 8)).astype(np.float32) * 0.25
+    ref = max_pool_3x3_s2_pallas(jnp.asarray(x, jnp.bfloat16 if dtype == torch.bfloat16
+                                             else jnp.float32))
+    ours = maxpool.max_pool_3x3_s2(nchw(x).to(dtype), nonneg=True)
+    assert ours.dtype == dtype and ours.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_array_equal(nhwc(ours), np.asarray(ref, np.float32))
+
+
+@pytest.mark.parametrize("h,w", [(9, 11), (7, 8), (1, 1)])
+def test_maxpool_matches_jax_at_odd_shapes(h, w):
+    """At odd H or W (where the TPU kernel does not run) against the JAX
+    max_pool_3x3_s2: exactly equal, fp32."""
+    x = np.random.default_rng(h * w).uniform(0, 2, size=(2, h, w, 3)).astype(np.float32)
+    ref = jax_maxpool.max_pool_3x3_s2(jnp.asarray(x), nonneg=True)
+    ours = maxpool.max_pool_3x3_s2(nchw(x), nonneg=True)
+    assert ours.shape == (2, 3, (h - 1) // 2 + 1, (w - 1) // 2 + 1)
+    np.testing.assert_array_equal(nhwc(ours), np.asarray(ref))
+
+
+# ---- kernel D: the fused bottleneck tail ----------------------------------------------------
+
+
+def test_fused_residual_matches_jax():
+    """The plain version (and the wrapper, which takes it on the CPU)
+    against matmul_bn_residual_relu in interpret mode, N = 2 * 7 * 9 = 126
+    pixels (not a multiple of its row tile). fp32, rtol 1e-5 and atol 1e-5:
+    the same products summed in another order."""
+    rng = np.random.default_rng(1)
+    b, h, w, cin, cout = 2, 7, 9, 24, 40
+    x = rng.uniform(0, 1, size=(b, h, w, cin)).astype(np.float32)
+    kernel = (rng.normal(size=(cin, cout)) / np.sqrt(cin)).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, size=cout).astype(np.float32)
+    shift = rng.normal(0, 0.3, size=cout).astype(np.float32)
+    identity = rng.normal(size=(b, h, w, cout)).astype(np.float32)
+    ref = jax_fr.matmul_bn_residual_relu(
+        jnp.asarray(x.reshape(-1, cin)), jnp.asarray(kernel), jnp.asarray(scale),
+        jnp.asarray(shift), jnp.asarray(identity.reshape(-1, cout)))
+    args = (nchw(x), torch.from_numpy(kernel.T.copy()), torch.from_numpy(scale),
+            torch.from_numpy(shift), nchw(identity))
+    before = fr.conv1x1_bn_residual_relu.launches
+    for fn in (fr.reference_conv1x1_bn_residual_relu, fr.conv1x1_bn_residual_relu):
+        ours = fn(*args)
+        assert ours.shape == (b, cout, h, w)
+        assert ours.is_contiguous(memory_format=torch.channels_last)
+        np.testing.assert_allclose(nhwc(ours).reshape(-1, cout), np.asarray(ref),
+                                   rtol=1e-5, atol=1e-5)
+    assert fr.conv1x1_bn_residual_relu.launches == before  # the CPU takes the plain version
+
+
+def test_fused_ops_check_their_operands():
+    x = torch.zeros(1, 16, 4, 4)
+    w, s = torch.zeros(32, 16), torch.ones(32)
+    with pytest.raises(TypeError):
+        fr.conv1x1_bn_residual_relu(x.double(), w.double(), s, s, torch.zeros(1, 32, 4, 4).double())
+    with pytest.raises(ValueError, match="identity"):
+        fr.conv1x1_bn_residual_relu(x, w, s, s, torch.zeros(1, 16, 4, 4))
+    with pytest.raises(RuntimeError, match="no backward"):
+        fr.conv1x1_bn_residual_relu(x, w.requires_grad_(), s, s, torch.zeros(1, 32, 4, 4))
+    ops = (torch.zeros(16, 8), torch.zeros(8), torch.zeros(9, 8, 8), torch.zeros(8),
+           torch.zeros(8, 16), torch.zeros(16))
+    with pytest.raises(ValueError, match="w3t"):
+        fb.fused_bottleneck(x, *ops[:4], torch.zeros(8, 8), ops[5])
+    with pytest.raises(RuntimeError, match="no backward"):
+        fb.fused_bottleneck(x.requires_grad_(), *ops)
+
+
+# ---- kernel E: the whole identity bottleneck ------------------------------------------------
+
+
+def _bottleneck_operands(rng, c, m, b1=None, scale=0.2):
+    mk = lambda *s: (rng.normal(size=s) * scale).astype(np.float32)  # noqa: E731
+    w1, w2, w3 = mk(1, 1, c, m), mk(3, 3, m, m), mk(1, 1, m, c)
+    b1 = mk(m) if b1 is None else b1
+    return w1, b1, w2, mk(m), w3, mk(c)
+
+
+def _port_operands(w1, b1, w2, b2, w3, b3):
+    """JAX HWIO kernels flattened are the port's kernel layouts."""
+    m, c = w1.shape[-1], w3.shape[-1]
+    to = torch.from_numpy
+    return (to(w1.reshape(-1, m)), to(b1), to(w2.reshape(9, m, m).copy()), to(b2),
+            to(w3.reshape(m, c)), to(b3))
+
+
+def _unmasked_t1_bottleneck(x, w1t, b1, w2t, b2, w3t, b3):
+    """The halo bug E must avoid: conv1 over the zero-padded image, T1 left
+    unmasked (relu(b1) on the border), then an unpadded conv2."""
+    m = w1t.shape[1]
+    xp = F.pad(x, (1, 1, 1, 1))
+    t1 = F.relu(F.conv2d(xp, w1t.t()[:, :, None, None]) + b1[:, None, None])
+    t2 = F.relu(F.conv2d(t1, w2t.reshape(3, 3, m, m).permute(3, 2, 0, 1)) + b2[:, None, None])
+    return F.relu(F.conv2d(t2, w3t.t()[:, :, None, None]) + b3[:, None, None] + x)
+
+
+@pytest.mark.parametrize("n,h,w,c,m", [(1, 9, 12, 32, 8), (2, 16, 10, 16, 16), (1, 8, 8, 8, 8)])
+def test_fused_bottleneck_matches_jax(n, h, w, c, m):
+    """The plain version (and the wrapper) against fused_bottleneck in
+    interpret mode at the JAX test's shapes; atol/rtol 1e-4, the JAX
+    test's own tolerance for its kernel against its XLA chain."""
+    rng = np.random.default_rng(c + m + h)
+    x = (rng.normal(size=(n, h, w, c)) * 0.5).astype(np.float32)
+    ops = _bottleneck_operands(rng, c, m)
+    ref = jax_fb.fused_bottleneck(jnp.asarray(x), *map(jnp.asarray, ops))
+    for fn in (fb.reference_fused_bottleneck, fb.fused_bottleneck):
+        ours = fn(nchw(x), *_port_operands(*ops))
+        np.testing.assert_allclose(nhwc(ours), np.asarray(ref), atol=1e-4, rtol=1e-4)
+
+
+def test_fused_bottleneck_edge_masking():
+    """b1 = 2.0 makes relu(b1) != 0 on the halo outside the image: the
+    plain version agrees with the TPU kernel (atol/rtol 1e-4), and the
+    same chain with T1 left unmasked misses that tolerance, so this check
+    sees the bug the CUDA kernel has to avoid."""
+    rng = np.random.default_rng(3)
+    n, h, w, c, m = 1, 10, 11, 16, 8
+    x = rng.normal(size=(n, h, w, c)).astype(np.float32)
+    ops = _bottleneck_operands(rng, c, m, b1=np.full((m,), 2.0, np.float32), scale=0.3)
+    ref = np.asarray(jax_fb.fused_bottleneck(jnp.asarray(x), *map(jnp.asarray, ops)))
+    port_ops = _port_operands(*ops)
+    ours = fb.reference_fused_bottleneck(nchw(x), *port_ops)
+    np.testing.assert_allclose(nhwc(ours), ref, atol=1e-4, rtol=1e-4)
+    mutant = nhwc(_unmasked_t1_bottleneck(nchw(x), *port_ops))
+    assert not np.allclose(mutant, ref, atol=1e-4, rtol=1e-4)
+    assert np.abs(mutant - ref).max() > 0.1
+
+
+def test_fold_and_pack_match_jax():
+    """fold_bn_params folds like the JAX function (float32, exact), and
+    pack_weights of the port's OIHW weights gives the JAX HWIO kernels
+    flattened."""
+    rng = np.random.default_rng(4)
+    k = rng.normal(size=(3, 3, 8, 16)).astype(np.float32)  # HWIO
+    scale, shift = rng.normal(size=16).astype(np.float32), rng.normal(size=16).astype(np.float32)
+    jw, jb = jax_fb.fold_bn_params(jnp.asarray(k), jnp.asarray(scale), jnp.asarray(shift))
+    w, b = fb.fold_bn_params(torch.from_numpy(k).permute(3, 2, 0, 1), torch.from_numpy(scale),
+                             torch.from_numpy(shift))
+    np.testing.assert_array_equal(w.permute(2, 3, 1, 0).numpy(), np.asarray(jw))
+    np.testing.assert_array_equal(b.numpy(), np.asarray(jb))
+    w1 = torch.from_numpy(rng.normal(size=(16, 8, 1, 1)).astype(np.float32))  # (M, C) OIHW
+    w3 = torch.from_numpy(rng.normal(size=(8, 16, 1, 1)).astype(np.float32))
+    w2 = torch.from_numpy(rng.normal(size=(16, 16, 3, 3)).astype(np.float32))
+    w1t, w2t, w3t = fb.pack_weights(w1, w2, w3, torch.bfloat16)
+    assert w1t.dtype == torch.bfloat16 and w2t.shape == (9, 16, 16)
+    np.testing.assert_array_equal(w1t.float().numpy(), w1[:, :, 0, 0].t().bfloat16().float())
+    np.testing.assert_array_equal(w2t.float().numpy(),
+                                  w2.permute(2, 3, 1, 0).reshape(9, 16, 16).bfloat16().float())
+    np.testing.assert_array_equal(w3t.float().numpy(), w3[:, :, 0, 0].t().bfloat16().float())
+
+
+# ---- the fused backbone and DETR ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("flags", [dict(fuse_residual=True), FUSED])
+@pytest.mark.parametrize("masked", [False, True])
+def test_fused_backbone_matches_jax(flags, masked):
+    """ResNetBackbone (2,1,1,1) with the fusion flags against the JAX fused
+    backbone from the same random variables (nonzero BN shifts), with and
+    without a pixel mask; and against the port's unfused backbone. fp32,
+    atol/rtol 1e-4 (the module tolerance of tests/test_torch_models.py)."""
+    rng = np.random.default_rng(5)
+    mask = _pixel_mask(2, 64, 96, [(64, 96), (45, 61)])
+    x = (rng.normal(size=(2, 64, 96, 3)) * mask[..., None]).astype(np.float32)
+    stages = (2, 1, 1, 1)
+    jmod = jax_resnet.ResNetBackbone(stage_sizes=stages, **flags)
+    variables = random_variables(jmod, jnp.asarray(x), seed=5)
+    pm = jnp.asarray(mask) if masked else None
+    ref = jax.jit(jmod.apply)(variables, jnp.asarray(x), pixel_mask=pm)
+    port = resnet.ResNetBackbone(stages, **flags).eval()
+    port.load_state_dict(from_jax_variables(variables), strict=True)
+    plain = resnet.ResNetBackbone(stages).eval()
+    plain.load_state_dict(from_jax_variables(variables), strict=True)
+    args = (torch.from_numpy(x), torch.from_numpy(mask) if masked else None)
+    with torch.no_grad():
+        ours, unfused = port(*args), plain(*args)
+    close(ours.permute(0, 2, 3, 1), ref)
+    close(ours, unfused.numpy())
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_fused_detr_matches_jax(masked):
+    """DETR(fuse_residual=True, fuse_bottleneck=True), the JAX package's
+    fused-backbone serving configuration, against the JAX model from the
+    same variables, with and without a pixel mask. Golden tolerances
+    (boxes 5e-4, logits 5e-3, rtol 1e-3); and the unfused port model within
+    the same."""
+    rng = np.random.default_rng(6)
+    mask = _pixel_mask(1, 64, 64, [(64, 64)] if not masked else [(50, 37)])
+    x = (rng.normal(size=(1, 64, 64, 3)) * mask[..., None]).astype(np.float32)
+    jmod = jax_detr.DETR(dropout=0.0, attn_impl="xla", **TINY, **FUSED)
+    variables = random_variables(jmod, jnp.asarray(x), seed=6)
+    pm = jnp.asarray(mask) if masked else None
+    ref = jax.jit(jmod.apply)(variables, jnp.asarray(x), pm)
+    port = detr.DETR(**TINY, **FUSED).eval()
+    port.load_state_dict(from_jax_variables(variables), strict=True)
+    plain = detr.DETR(**TINY).eval()
+    plain.load_state_dict(from_jax_variables(variables), strict=True)
+    args = (torch.from_numpy(x), torch.from_numpy(mask) if masked else None)
+    with torch.inference_mode():
+        out, unfused = port(*args), plain(*args)
+    for key, atol in (("pred_boxes", BOX_ATOL), ("pred_logits", LOGIT_ATOL)):
+        close(out[key], ref[key], atol=atol, rtol=GOLDEN_RTOL)
+        close(out[key], unfused[key].numpy(), atol=atol, rtol=GOLDEN_RTOL)
+
+
+def test_fused_model_loads_jax_fused_variables_strict():
+    """The fused configuration has the unfused parameter tree: a JAX
+    DETR(fuse_bottleneck=True)'s variables load into the fused port model
+    with strict=True."""
+    jmod = jax_detr.DETR(dropout=0.0, **TINY, fuse_bottleneck=True)
+    variables = random_variables(jmod, jnp.zeros((1, 64, 64, 3)))
+    port = detr.DETR(**TINY, **FUSED)
+    state = from_jax_variables(variables)
+    assert set(state) == set(port.state_dict()) == set(detr.DETR(**TINY).state_dict())
+    port.load_state_dict(state, strict=True)
+
+
+def test_folded_weights_follow_the_buffers():
+    """Kernel E's folded weights and kernel D's bn3 scale and shift are
+    cached; writing a BN buffer or a conv weight in place, or loading a
+    state_dict, makes the next forward fold again: the fused backbone keeps
+    agreeing with the unfused one (atol/rtol 1e-4)."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(1, 32, 32, 3)).astype(np.float32))
+    fused = resnet.ResNetBackbone((2, 1, 1, 1), **FUSED).eval()
+    plain = resnet.ResNetBackbone((2, 1, 1, 1)).eval()
+    plain.load_state_dict(fused.state_dict())
+    block, tail = fused.layer1.block_1, fused.layer1.block_0
+    with torch.no_grad():
+        fused(x)
+        cached = dict(block._cache), dict(tail._cache)
+        fused(x)
+        assert (block._cache, tail._cache) == cached  # no refold while nothing changed
+        for model in (fused, plain):
+            for b in (model.layer1.block_0, model.layer1.block_1):
+                b.bn3.bias.add_(0.5)
+            model.layer1.block_1.bn2.bias.add_(0.5)
+            model.layer1.block_1.conv3.weight.mul_(1.5)
+        close(fused(x), plain(x).numpy())
+        assert block._cache != cached[0] and tail._cache != cached[1]
+        state = {k: v + 0.01 * torch.randn(v.shape) if k.endswith("running_mean") else v
+                 for k, v in plain.state_dict().items()}
+        plain.load_state_dict(state)
+        fused.load_state_dict(state)
+        close(fused(x), plain(x).numpy())
+
+
+# ---- routing and training -------------------------------------------------------------------
+
+
+@pytest.fixture
+def op_calls(monkeypatch):
+    """Count the calls of each fused op's entry function in models/resnet.py
+    (the plain versions run underneath, on the CPU)."""
+    calls = {"max_pool_3x3_s2(nonneg=True)": 0, "conv1x1_bn_residual_relu": 0,
+             "fused_bottleneck": 0}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            if name != "max_pool_3x3_s2" or kwargs.get("nonneg"):
+                key = name + ("(nonneg=True)" if name == "max_pool_3x3_s2" else "")
+                calls[key] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    for name in ("max_pool_3x3_s2", "conv1x1_bn_residual_relu", "fused_bottleneck"):
+        monkeypatch.setattr(resnet, name, counted(name, getattr(resnet, name)))
+    return calls
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_fused_routing(op_calls, masked):
+    """Stage sizes (2, 3, 2, 2): without a mask, E on every identity block
+    (5) and D on every block_0 (4); with a mask, D on every block (9) and
+    no E; the stem through max_pool_3x3_s2(nonneg=True) once either way."""
+    model = detr.DETR(**{**TINY, "backbone_stage_sizes": (2, 3, 2, 2)}, **FUSED).eval()
+    mask = torch.from_numpy(_pixel_mask(1, 64, 64, [(40, 64)])) if masked else None
+    with torch.inference_mode():
+        model(torch.zeros(1, 64, 64, 3), mask)
+    expected = (0, 9) if masked else (5, 4)
+    assert op_calls == {"max_pool_3x3_s2(nonneg=True)": 1,
+                        "conv1x1_bn_residual_relu": expected[1],
+                        "fused_bottleneck": expected[0]}
+
+
+def test_unfused_stem_routes_through_the_nonneg_pool(op_calls):
+    with torch.no_grad():
+        detr.DETR(**TINY)(torch.zeros(1, 32, 32, 3))
+    assert op_calls == {"max_pool_3x3_s2(nonneg=True)": 1, "conv1x1_bn_residual_relu": 0,
+                        "fused_bottleneck": 0}
+
+
+@pytest.mark.parametrize("flags", [dict(fuse_residual=True), dict(fuse_bottleneck=True)])
+def test_fused_model_refuses_to_train(flags):
+    """The fused kernels have no backward: Trainer refuses a fused model in
+    its constructor, and a fused forward under autograd raises instead of
+    falling back to the unfused chain."""
+    model = detr.DETR(dropout=0.0, **TINY, **flags)
+    with pytest.raises(ValueError, match="inference only"):
+        Trainer(model, TrainingConfig(train_backbone=True))
+    with pytest.raises(RuntimeError, match="no backward"):
+        model(torch.zeros(1, 32, 32, 3))
+    with torch.no_grad():
+        assert torch.isfinite(model(torch.zeros(1, 32, 32, 3))["pred_boxes"]).all()

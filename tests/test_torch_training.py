@@ -16,7 +16,6 @@ import numpy as np
 import pytest
 import torch
 from torch import nn
-import torch.nn.functional as F
 
 from detr_tensorflow_tpu.models import DETR as JaxDETR
 from detr_tensorflow_tpu.ops import maxpool as jax_maxpool
@@ -27,6 +26,7 @@ from detr_tensorflow_tpu.train import optimizers as jax_opt
 from detr_tensorflow_tpu_torch.data import pad_targets
 from detr_tensorflow_tpu_torch.models.detr import DETR
 from detr_tensorflow_tpu_torch.models.weights import from_jax_variables
+from detr_tensorflow_tpu_torch.ops import maxpool as port_maxpool
 from detr_tensorflow_tpu_torch.train import (
     TrainingConfig, Trainer, eval_loop, fit, latest_step, restore_latest, save_checkpoint,
 )
@@ -317,17 +317,24 @@ def test_set_trainable_and_learning_rates(jax_model_and_variables):
 
 
 def test_maxpool_backward_routes_ties_to_the_first_max():
-    """The backbone's F.max_pool2d(3, 2, 1) gradient on a tie-heavy
-    non-negative input against the JAX max_pool_3x3_s2 custom VJP: the
-    first maximum in row-major window order takes the whole gradient (a
-    pixel winning two windows sums them: fp32 order, atol 1e-6)."""
+    """The backbone's max pool, the port's max_pool_3x3_s2 (the stem's
+    nonneg=True call and the general one), on a tie-heavy non-negative
+    input against the JAX max_pool_3x3_s2 custom VJP: the first maximum in
+    row-major window order takes the whole gradient (a pixel winning two
+    windows sums them: fp32 order, atol 1e-6). Both memory formats the
+    port's tensors come in."""
     rng = np.random.default_rng(0)
     x = rng.integers(0, 3, size=(2, 9, 11, 4)).astype(np.float32)  # NHWC, many ties
     g = rng.normal(size=(2, 5, 6, 4)).astype(np.float32)
     jout, vjp = jax.vjp(jax_maxpool.max_pool_3x3_s2, jnp.asarray(x))
     (jgrad,) = vjp(jnp.asarray(g))
-    tx = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().requires_grad_()
-    out = F.max_pool2d(tx, 3, stride=2, padding=1)
-    np.testing.assert_array_equal(out.detach().permute(0, 2, 3, 1).numpy(), np.asarray(jout))
-    out.backward(torch.from_numpy(g).permute(0, 3, 1, 2))
-    np.testing.assert_allclose(tx.grad.permute(0, 2, 3, 1).numpy(), np.asarray(jgrad), atol=1e-6)
+    for nonneg in (True, False):
+        for fmt in (torch.contiguous_format, torch.channels_last):
+            tx = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(memory_format=fmt)
+            tx.requires_grad_()
+            out = port_maxpool.max_pool_3x3_s2(tx, nonneg=nonneg)
+            np.testing.assert_array_equal(out.detach().permute(0, 2, 3, 1).numpy(),
+                                          np.asarray(jout))
+            out.backward(torch.from_numpy(g).permute(0, 3, 1, 2))
+            np.testing.assert_allclose(tx.grad.permute(0, 2, 3, 1).numpy(), np.asarray(jgrad),
+                                       atol=1e-6)
