@@ -7,18 +7,25 @@ Phases, one status line each; any failure raises and exits non-zero:
   1. device: a CUDA card is required (no CPU fallback); prints
      ``nvidia-smi --query-gpu=name,power.limit``;
   2. build: nvcc builds every kernel of the serving and training paths from
-     csrc/, one process per source, all at once;
-  3. kernels: each kernel against its plain PyTorch version on the card,
-     at the shapes the served path gives it, fp32 (TF32 off) and bf16,
-     with kernel, plain and library times; then the attention forward with dropout
-     and its backward at the training shapes, against plain autograd at
-     dropout 0 and given the mask the kernel library materialises;
+     csrc/, one process per source, all at once; prints each kernel's ptxas
+     report and the HMMA (tensor-core) instructions in the SASS of the mma
+     attention kernel, and fails if there are none;
+  3. kernels: attention A at every shape of the served path against its
+     plain PyTorch version: fp32 (TF32 off) through the SIMT kernel, bf16
+     through the tensor-core kernel A-mma and through the SIMT kernel
+     called directly; A-mma, SIMT, plain and library times from CUDA
+     graphs at B=2 and at the b1 896x1408 shapes (A-mma at each CTA shape);
+     then the attention forward with dropout and its backward at the
+     training shapes, against plain autograd at dropout 0 and given the
+     mask the kernel library materialises, A' and its yardsticks timed
+     from CUDA graphs;
   4. lap: the LAP kernel on 48 problems (6 decoder layers x batch 8)
      against its plain version and scipy, with times;
   5. serving: full-width DETR-R50 (seeded random weights) behind
      ``Predictor``: 3 requests with the launch counters reset just before,
      the whole forward against the plain-attention model, padded against
-     exact, and one bf16 request;
+     exact, and one bf16 request (A-mma 18 per bf16 forward, the SIMT
+     kernel 18 per fp32 one);
   6. http: the port's HTTP service on 127.0.0.1, 3 POSTs and /healthz;
   7. int8 kernels: F (fused int8 1x1) and G (int8 3x3, stride 1 and 2) at
      every distinct shape of the b1 896x1408 int8 forward against their
@@ -27,7 +34,7 @@ Phases, one status line each; any failure raises and exits non-zero:
   8. int8 serving: full-width DETR-R50 at bf16 compute with the int8
      backbone quantized from its own fp32 backbone on two seeded 800x1333
      images, 3 requests through ``Predictor`` with the counters reset just
-     before (32 F, 16 G, 18 A per forward), median latency, and c5 on the
+     before (32 F, 16 G, 18 A-mma per forward), median latency, and c5 on the
      kernel route against the plain int8 route and the fp32 backbone;
   9. training: full-width DETR-R50 at b8 376x672 fp32: one step's loss and
      gradients, kernel route against plain route at dropout 0; eight
@@ -44,14 +51,15 @@ Phases, one status line each; any failure raises and exits non-zero:
      of nonzero FrozenBN buffers: 3 requests through ``Predictor`` with the
      counters reset just before (per bucket-exact forward C 1, D 4, E 12,
      A 18; per masked forward C 1, D 16, E 0, A 18), c5, boxes and logits
-     against the unfused model at fp32, and the median latency of both at
+     against the unfused model at fp32, one fused bf16 bucket-exact request
+     (C 1, D 4, E 12, A-mma 18), and the median latency of both at
      768x1280 b1, fp32 and bf16, with each one's device-busy time and idle
      share under ``torch.profiler``.
 Kernel C runs in every ``ResNetBackbone`` forward: serving, training and
 fused serving count it (1 per forward or step); the int8 model's stem is
 not a ``ResNetBackbone`` and launches none.
-Kernel times: A, A' and B from CUDA events around a loop of calls; C to G,
-whose calls are shorter than the wrapper's host cost, from CUDA graphs.
+Kernel times: B from CUDA events around a loop of calls; A, A-mma, A' and C
+to G, whose calls are shorter than the wrapper's host cost, from CUDA graphs.
 Every kernel's record carries its bound (bytes over 3.35 TB/s or operations
 over the published peak of their type) and, where one PyTorch call computes
 the same function, that call's time as a yardstick the port never calls.
@@ -64,12 +72,14 @@ from __future__ import annotations
 import collections
 import io
 import json
+import re
 import statistics
 import subprocess
 import sys
 import threading
 import time
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 
@@ -78,15 +88,19 @@ import numpy as np
 # the 512x640 bucket's encoder self.
 ATTN_SHAPES = [(1232, 1232), (100, 1232), (1050, 1050), (100, 1050), (100, 100), (320, 320)]
 TIMED_SHAPES = [(1232, 1232), (100, 1232)]
+# Batch 1 at the 896x1408 bucket: encoder self, decoder cross, decoder self.
+B1_TIMED_SHAPES = [(1232, 1232), (100, 1232), (100, 100)]
 ATOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LAUNCHES_PER_FORWARD = 18  # 6 encoder self + 6 decoder self + 6 decoder cross
 BOX_ATOL, LOGIT_ATOL = 5e-4, 5e-3  # kernel model vs plain-attention model, fp32
 PADDED_BOX_ATOL = 1e-3
 SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "lap.cu", "int8_matmul.cu",
-           "int8_conv.cu", "maxpool.cu", "fused_residual.cu", "fused_bottleneck.cu")
+           "int8_conv.cu", "maxpool.cu", "fused_residual.cu", "fused_bottleneck.cu",
+           "flash_attention_fwd_mma.cu")
 CSRC = "detr_tensorflow_tpu_torch/csrc/"
 REPLACES = {
     "flash_attention_fwd": "detr_tensorflow_tpu/ops/pallas/flash_attention.py:77",
+    "flash_attention_fwd_mma": "detr_tensorflow_tpu/ops/pallas/flash_attention.py:77",
     "flash_attention_bwd": "detr_tensorflow_tpu/ops/pallas/flash_attention.py:115",
     "lap": "detr_tensorflow_tpu/ops/pallas/lap.py:77",
     "int8_matmul": "detr_tensorflow_tpu/ops/pallas/int8_matmul.py:96",
@@ -224,49 +238,128 @@ def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_inputs(torch, lq, lk, dtype, seed):
+def attention_inputs(torch, b, lq, lk, dtype, seed):
     rng = np.random.default_rng(seed)
-    b, h, dh = 2, 8, 32
+    h, dh = 8, 32
     q = rng.normal(size=(b, lq, h, dh)) * dh**-0.5
     k = rng.normal(size=(b, lk, h, dh))
     v = rng.normal(size=(b, lk, h, dh))
     # Row 0 loses a ragged tail, row 1 about half its keys.
-    valid = np.array([lk - lk // 7, lk // 2 + 1])
+    valid = np.array([lk - lk // 7, lk // 2 + 1][:b])
     mask = np.arange(lk)[None, :] >= valid[:, None]
     to = lambda x: torch.from_numpy(x).to(DEVICE, dtype)  # noqa: E731
     return to(q), to(k), to(v), torch.from_numpy(mask).to(DEVICE)
 
 
+def attention_bound(b, lq, lk, name):
+    """q, k, v in and out written once, the mask's bytes; 4 * Lq * Lk * Dh
+    flops a head (QK^T and PV) at the peak of the dtype."""
+    size = 2 if name == "bfloat16" else 4
+    return bound_ms(b * 8 * 32 * (2 * lq + 2 * lk) * size + b * lk,
+                    {name: 4 * b * 8 * lq * lk * 32})
+
+
+def exp_floor_ms(b, lq, lk):
+    """One exp per (query, key) pair of the 8 heads on the SFUs: 16 a clock
+    on each of 132 SMs at the 1.98 GHz boost clock."""
+    return 1e3 * b * 8 * lq * lk / (16 * 132 * 1.98e9)
+
+
+def check_attention(name, label, out, ref, q):
+    if out.shape != q.shape or out.dtype != q.dtype:
+        raise AssertionError(f"{label} output {out.shape} {out.dtype}")
+    err = float((out.float() - ref.float()).abs().max())
+    if not err <= ATOL[name]:
+        raise AssertionError(f"{label} disagrees with plain: {err} > {ATOL[name]}")
+    return err
+
+
 def phase_kernels(torch, fa):
-    worst = {"float32": 0.0, "bfloat16": 0.0}
-    times = {}
+    """Kernel A on both routes at every attention shape of the served path,
+    against the plain version: fp32 through ``mha`` (the SIMT kernel), bf16
+    through ``mha`` (the tensor-core kernel) and through the SIMT kernel
+    called directly. Then, at batch 2 and at the b1 shapes, both kernels
+    (the mma kernel at each CTA shape, masked and not) are held against
+    plain again and timed from CUDA graphs with plain and SDPA."""
+    worst = {"float32": 0.0, "bfloat16": 0.0, "simt bfloat16": 0.0}
     for lq, lk in ATTN_SHAPES:
         for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-            q, k, v, mask = attention_inputs(torch, lq, lk, dtype, seed=lq * 7 + lk)
+            q, k, v, mask = attention_inputs(torch, 2, lq, lk, dtype, seed=lq * 7 + lk)
+            before = (fa.mha.launches, fa.mha.mma_launches)
             out = fa.mha(q, k, v, mask)
+            routed = (fa.mha.launches - before[0], fa.mha.mma_launches - before[1])
+            if routed != ((0, 1) if name == "bfloat16" else (1, 0)):
+                raise AssertionError(f"({lq},{lk}) {name}: (simt, mma) launches {routed}")
             ref = fa.reference_mha(q, k, v, mask)
             torch.cuda.synchronize()
-            if out.shape != q.shape or out.dtype != dtype:
-                raise AssertionError(f"kernel output {out.shape} {out.dtype}")
-            err = float((out.float() - ref.float()).abs().max())
-            log(f"  attention ({lq},{lk}) {name}: max_abs_err {err:.3e} (tol {ATOL[name]})")
-            if not err <= ATOL[name]:
-                raise AssertionError(f"kernel disagrees with plain at ({lq},{lk}) {name}: {err}")
+            route = "mma" if name == "bfloat16" else "simt"
+            err = check_attention(name, f"{route} ({lq},{lk}) {name}", out, ref, q)
             worst[name] = max(worst[name], err)
-            if (lq, lk) in TIMED_SHAPES:
-                kernel = lambda: fa.mha(q, k, v, mask)  # noqa: E731
+            line = f"  attention ({lq},{lk}) {name}: {route} max_abs_err {err:.3e}"
+            if name == "bfloat16":
+                simt = fa.launch_forward_simt(q, k, v, mask, None, 0.0, False)[0]
+                torch.cuda.synchronize()
+                err = check_attention(name, f"simt ({lq},{lk}) bf16", simt, ref, q)
+                worst["simt bfloat16"] = max(worst["simt bfloat16"], err)
+                line += f", simt {err:.3e}"
+            log(f"{line} (tol {ATOL[name]})")
+
+    times = {}
+    for b, shapes in ((2, TIMED_SHAPES), (1, B1_TIMED_SHAPES)):
+        for lq, lk in shapes:
+            for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+                q, k, v, mask = attention_inputs(torch, b, lq, lk, dtype, seed=lq * 5 + lk + b)
+                simt = lambda: fa.launch_forward_simt(  # noqa: E731
+                    q, k, v, mask, None, 0.0, False)
                 plain = lambda: fa.reference_mha(q, k, v, mask)  # noqa: E731
-                library = lambda: sdpa(torch, q, k, v, mask)  # noqa: E731
-                p1, k1, k2, p2 = (time_ms(torch, f) for f in (plain, kernel, kernel, plain))
-                lib_ms = time_ms(torch, library)
-                size = 2 if name == "bfloat16" else 4
-                bound = bound_ms(2 * 8 * 32 * (2 * lq + 2 * lk) * size + 2 * lk,
-                                 {name: 4 * 2 * 8 * lq * lk * 32})
-                times[(lq, lk, name)] = ((k1 + k2) / 2, (p1 + p2) / 2, lib_ms, bound)
-                log(f"  attention ({lq},{lk}) {name} B=2 H=8 Dh=32: kernel "
-                    f"{(k1 + k2) / 2:.4f} ms, plain {(p1 + p2) / 2:.4f} ms, library "
-                    f"scaled_dot_product_attention {lib_ms:.4f} ms, bound {bound[0]:.4f} ms "
-                    f"({bound[1]})")
+                # Each kernel, and each CTA shape of the mma kernel, against plain at
+                # this batch before it is timed (b1 is the served batch).
+                outs = {("simt", mask is not None): simt()[0]}
+                refs = {True: plain(), False: fa.reference_mha(q, k, v)}
+                if name == "bfloat16":
+                    outs[("mma", True)], outs[("mma", False)] = fa.mha(q, k, v, mask), fa.mha(q, k, v)
+                    for shape in fa.MMA_SHAPES:
+                        outs[(shape, True)] = fa.launch_forward_mma(q, k, v, mask, False,
+                                                                    shape=shape)[0]
+                torch.cuda.synchronize()
+                errs = []
+                for (what, m), out in outs.items():
+                    errs.append(check_attention(
+                        name, f"{what} ({lq},{lk}) {name} B={b} masked {m}", out, refs[m], q))
+                    key = "simt bfloat16" if what == "simt" and name == "bfloat16" else name
+                    worst[key] = max(worst[key], errs[-1])
+                t = {}
+                if name == "bfloat16":
+                    mma = lambda: fa.mha(q, k, v, mask)  # noqa: E731
+                    p1, s1, m1, m2, s2, p2 = (graph_ms(torch, f)
+                                              for f in (plain, simt, mma, mma, simt, plain))
+                    t["mma"] = (m1 + m2) / 2
+                    # Without the key-padding mask (the decoder's self-attention has none).
+                    t["mma unmasked"] = graph_ms(torch, lambda: fa.mha(q, k, v))
+                    t["sdpa unmasked"] = graph_ms(torch, lambda: sdpa(torch, q, k, v, None))
+                    for shape in fa.MMA_SHAPES:
+                        t[shape] = graph_ms(torch, lambda: fa.launch_forward_mma(
+                            q, k, v, mask, False, shape=shape))
+                else:
+                    p1, s1, s2, p2 = (graph_ms(torch, f) for f in (plain, simt, simt, plain))
+                t["simt"], t["plain"] = (s1 + s2) / 2, (p1 + p2) / 2
+                t["sdpa"] = graph_ms(torch, lambda: sdpa(torch, q, k, v, mask))
+                t["bound"] = attention_bound(b, lq, lk, name)
+                times[(b, lq, lk, name)] = t
+                mma_part = ""
+                if name == "bfloat16":
+                    sms = torch.cuda.get_device_properties(0).multi_processor_count
+                    shape = fa.mma_shape(b * 8, lq, sms)
+                    mma_part = (f"mma {t['mma']:.4f} ms (CTA shape {shape}; "
+                                + ", ".join(f"{s_} {t[s_]:.4f}" for s_ in fa.MMA_SHAPES)
+                                + f"; unmasked {t['mma unmasked']:.4f}, scaled_dot_product_attention "
+                                f"unmasked {t['sdpa unmasked']:.4f}), ")
+                log(f"  attention ({lq},{lk}) {name} B={b}: {len(errs)} outputs against plain, "
+                    f"max_abs_err {max(errs):.3e} (tol {ATOL[name]})")
+                log(f"  attention ({lq},{lk}) {name} B={b} H=8 Dh=32, CUDA graphs: {mma_part}"
+                    f"simt {t['simt']:.4f} ms, plain {t['plain']:.4f} ms, library "
+                    f"scaled_dot_product_attention {t['sdpa']:.4f} ms, bound {t['bound'][0]:.4f} "
+                    f"ms ({t['bound'][1]}), exp floor {exp_floor_ms(b, lq, lk):.4f} ms")
     return worst, times
 
 
@@ -333,23 +426,30 @@ def phase_train_kernels(torch, fa):
                 kernel = lambda: fa.launch_backward(  # noqa: E731
                     q, k, v, out, dout, lse, mask, seed, DROPOUT)
                 qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
-                ref_out = fa.reference_mha(qr, kr, vr, mask, keep, DROPOUT)
-                plain = lambda: torch.autograd.grad(  # noqa: E731
-                    ref_out, (qr, kr, vr), dout, retain_graph=True)
-                p1, k1, k2, p2 = (time_ms(torch, f, iters=20) for f in (plain, kernel, kernel, plain))
+                # A' alone from a graph; the plain and library backwards as a
+                # graph of forward and backward less one of the forward (autograd
+                # runs a backward on its forward's stream, so both are captured).
+                plain_fwd = lambda: fa.reference_mha(qr, kr, vr, mask, keep, DROPOUT)  # noqa: E731
+                plain_all = lambda: torch.autograd.grad(  # noqa: E731
+                    plain_fwd(), (qr, kr, vr), dout)
+                p1, k1, k2, p2 = (graph_ms(torch, f, iters=10)
+                                  for f in (plain_all, kernel, kernel, plain_all))
+                plain_bwd = (p1 + p2) / 2 - graph_ms(torch, plain_fwd, iters=10)
                 qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
-                lib_out = sdpa(torch, qs, ks, vs, mask, DROPOUT)
-                library = lambda: torch.autograd.grad(  # noqa: E731
-                    lib_out, (qs, ks, vs), dout.transpose(1, 2), retain_graph=True)
-                lib_ms = time_ms(torch, library, iters=20)
+                lib_fwd = lambda: sdpa(torch, qs, ks, vs, mask, DROPOUT)  # noqa: E731
+                lib_all = lambda: torch.autograd.grad(  # noqa: E731
+                    lib_fwd(), (qs, ks, vs), dout.transpose(1, 2))
+                lib_ms = graph_ms(torch, lib_all, iters=10) - graph_ms(torch, lib_fwd, iters=10)
+                loop_ms = time_ms(torch, kernel, iters=20)
                 # q, k, v, out, dout in; dq, dk, dv out; the row lse; the mask.
                 bound = bound_ms(8 * 8 * 32 * (4 * lq + 4 * lk) * 4 + 8 * 8 * lq * 4
                                  + (8 * lk if masked else 0),
                                  {"float32": 10 * 8 * 8 * lq * lk * 32})
-                times[(lq, lk)] = ((k1 + k2) / 2, (p1 + p2) / 2, lib_ms, bound)
-                log(f"  attention backward ({lq},{lk}) fp32 B=8 H=8 Dh=32 dropout {DROPOUT}: "
-                    f"kernel {(k1 + k2) / 2:.4f} ms, plain {(p1 + p2) / 2:.4f} ms, library "
-                    f"scaled_dot_product_attention backward {lib_ms:.4f} ms, bound "
+                times[(lq, lk)] = ((k1 + k2) / 2, plain_bwd, lib_ms, bound)
+                log(f"  attention backward ({lq},{lk}) fp32 B=8 H=8 Dh=32 dropout {DROPOUT}, CUDA "
+                    f"graphs: kernel {(k1 + k2) / 2:.4f} ms (from a Python loop {loop_ms:.4f}), "
+                    f"plain {plain_bwd:.4f} ms, library scaled_dot_product_attention backward "
+                    f"{lib_ms:.4f} ms (each: forward and backward less forward), bound "
                     f"{bound[0]:.4f} ms ({bound[1]})")
     return worst, times
 
@@ -427,7 +527,8 @@ def phase_serving(torch, fa, mp, api, Predictor):
         [(800, 1333), (480, 640), (800, 1333), (800, 1333)], seed=1)
     predictor.warmup([(800, 1333), (480, 640)])
 
-    fa.mha.launches = mp.max_pool_3x3_s2.launches = 0  # main path: three requests, three forwards
+    # main path: three requests, three forwards
+    fa.mha.launches = fa.mha.mma_launches = mp.max_pool_3x3_s2.launches = 0
     t0 = time.perf_counter()
     r1 = predictor([img_a])
     t1 = time.perf_counter()
@@ -438,9 +539,10 @@ def phase_serving(torch, fa, mp, api, Predictor):
     launches, pool_launches = fa.mha.launches, mp.max_pool_3x3_s2.launches
     log(f"  requests: 800x1333 b1 {1e3 * (t1 - t0):.2f} ms, 480x640 b1 "
         f"{1e3 * (t2 - t1):.2f} ms, 2x800x1333 b2 {1e3 * (t3 - t2):.2f} ms; launches: "
-        f"A {launches}, C {pool_launches}")
-    if launches != 3 * LAUNCHES_PER_FORWARD or pool_launches != 3:
-        raise AssertionError(f"{launches} A and {pool_launches} C launches for 3 forwards")
+        f"A {launches} (SIMT), A-mma {fa.mha.mma_launches}, C {pool_launches}")
+    if launches != 3 * LAUNCHES_PER_FORWARD or fa.mha.mma_launches or pool_launches != 3:
+        raise AssertionError(f"{launches} A, {fa.mha.mma_launches} A-mma and {pool_launches} C "
+                             f"launches for 3 fp32 forwards")
     for dets in (r1, r2, r3):
         check_detections(dets)
     if sorted(predictor.buckets) != [(512, 640), (896, 1408)]:
@@ -487,13 +589,17 @@ def phase_serving(torch, fa, mp, api, Predictor):
     model_bf16 = api.build_detr(seed=0, device=DEVICE, dtype="bfloat16")
     pred_bf16 = Predictor(model_bf16, background_class=91)
     pred_bf16.warmup([(800, 1333)])
-    fa.mha.launches = mp.max_pool_3x3_s2.launches = 0
+    fa.mha.launches = fa.mha.mma_launches = mp.max_pool_3x3_s2.launches = 0  # main path
     t0 = time.perf_counter()
     dets = pred_bf16([img_a])
     bf16_ms = 1e3 * (time.perf_counter() - t0)
-    if fa.mha.launches != LAUNCHES_PER_FORWARD or mp.max_pool_3x3_s2.launches != 1:
-        raise AssertionError(f"bf16: {fa.mha.launches} A and {mp.max_pool_3x3_s2.launches} C "
-                             f"launches for one forward")
+    mma_launches = fa.mha.mma_launches
+    log(f"  bf16 request launches: A-mma {mma_launches}, A (SIMT) {fa.mha.launches}, "
+        f"C {mp.max_pool_3x3_s2.launches}")
+    if (mma_launches != LAUNCHES_PER_FORWARD or fa.mha.launches
+            or mp.max_pool_3x3_s2.launches != 1):
+        raise AssertionError(f"bf16: {mma_launches} A-mma, {fa.mha.launches} A and "
+                             f"{mp.max_pool_3x3_s2.launches} C launches for one forward")
     pool_launches += mp.max_pool_3x3_s2.launches
     check_detections(dets)
     lat16 = []
@@ -504,7 +610,7 @@ def phase_serving(torch, fa, mp, api, Predictor):
     log(f"  Predictor 800x1333 b1 bf16: first {bf16_ms:.2f} ms, median "
         f"{statistics.median(lat16):.2f} ms of {[round(x, 2) for x in lat16]}")
     del plain, model_bf16, pred_bf16
-    return predictor, launches, pool_launches, fp32_ms, statistics.median(lat16)
+    return predictor, launches, mma_launches, pool_launches, fp32_ms, statistics.median(lat16)
 
 
 def int8_path_shapes(height, width):
@@ -660,7 +766,7 @@ def phase_int8_serving(torch, fa, mm, conv, mp, api, quantized, Predictor, fp32_
     predictor.warmup([(800, 1333), (480, 640)])
 
     reset_int8_counts(mm, conv)  # main path: three requests, three forwards
-    fa.mha.launches = mp.max_pool_3x3_s2.launches = 0
+    fa.mha.launches = fa.mha.mma_launches = mp.max_pool_3x3_s2.launches = 0
     t0 = time.perf_counter()
     r1 = predictor([img_a])
     t1 = time.perf_counter()
@@ -670,17 +776,17 @@ def phase_int8_serving(torch, fa, mm, conv, mp, api, quantized, Predictor, fp32_
     t3 = time.perf_counter()
     f_counts = {"plain": mm.qmatmul.launches, "residual": mm.qmatmul_residual.launches,
                 "residual2": mm.qmatmul_residual2.launches}
-    g_counts, a_count = dict(conv.conv3x3_int8.launches), fa.mha.launches
-    pool_count = mp.max_pool_3x3_s2.launches
+    g_counts, a_count = dict(conv.conv3x3_int8.launches), fa.mha.mma_launches
+    simt_count, pool_count = fa.mha.launches, mp.max_pool_3x3_s2.launches
     log(f"  requests: 800x1333 b1 {1e3 * (t1 - t0):.2f} ms, 480x640 b1 {1e3 * (t2 - t1):.2f} ms, "
         f"2x800x1333 b2 {1e3 * (t3 - t2):.2f} ms")
-    log(f"  launches in 3 forwards: F {f_counts}, G {g_counts}, A {a_count}, C {pool_count} "
-        f"(the int8 stem is not a ResNetBackbone)")
+    log(f"  launches in 3 forwards: F {f_counts}, G {g_counts}, A-mma {a_count}, A (SIMT) "
+        f"{simt_count}, C {pool_count} (the int8 stem is not a ResNetBackbone)")
     if (f_counts != {k: 3 * v for k, v in F_PER_FORWARD.items()}
             or g_counts != {k: 3 * v for k, v in G_PER_FORWARD.items()}
-            or a_count != 3 * LAUNCHES_PER_FORWARD or pool_count != 0):
-        raise AssertionError("int8 launch counts differ from 32 F, 13 + 3 G, 18 A, 0 C per "
-                             "forward")
+            or a_count != 3 * LAUNCHES_PER_FORWARD or simt_count or pool_count != 0):
+        raise AssertionError("int8 launch counts differ from 32 F, 13 + 3 G, 18 A-mma, 0 A, 0 C "
+                             "per forward")
     for dets in (r1, r2, r3):
         check_detections(dets)
 
@@ -848,7 +954,7 @@ def phase_training(torch, fa, lap, mp, api, train, losses):
         losses_seen.append(host_log["total_loss"])
 
     fa.mha.launches = fa.mha.backward_launches = lap.solve_lap_masked.launches = 0  # main path
-    mp.max_pool_3x3_s2.launches = 0
+    mp.max_pool_3x3_s2.launches = fa.mha.mma_launches = 0
     train.fit(trainer, [batch] * TRAIN_STEPS, config, epoch_nb=0, log_fn=log_fn, log_every=1)
     counts = (fa.mha.launches, fa.mha.backward_launches, lap.solve_lap_masked.launches,
               mp.max_pool_3x3_s2.launches)
@@ -861,8 +967,9 @@ def phase_training(torch, fa, lap, mp, api, train, losses):
     log(f"  launches in {TRAIN_STEPS} steps: attention forward {counts[0]}, backward {counts[1]}, "
         f"lap {counts[2]}, max pool {counts[3]}")
     per_step = (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, 1, 1)
-    if counts != tuple(TRAIN_STEPS * c for c in per_step):
-        raise AssertionError(f"launch counts {counts}, expected {per_step} per step")
+    if counts != tuple(TRAIN_STEPS * c for c in per_step) or fa.mha.mma_launches:
+        raise AssertionError(f"launch counts {counts} and {fa.mha.mma_launches} A-mma, expected "
+                             f"{per_step} per step and no A-mma (fp32)")
     if not all(np.isfinite(losses_seen)) or not losses_seen[-1] < losses_seen[0]:
         raise AssertionError(f"losses not finite and falling: {losses_seen}")
 
@@ -1038,15 +1145,17 @@ def phase_fused_serving(torch, fa, mp, fr, fb, api, Predictor):
     img_e, img_m, img_e2, img_e3 = random_images([(768, 1280), (800, 1333), (768, 1280),
                                                   (768, 1280)], seed=7)
     predictor = Predictor(models[("float32", True)], background_class=BACKGROUND)
-    predictor.warmup([(800, 1333), (768, 1280)])  # masked forwards
-    predictor([img_e])  # a bucket-exact forward: E's path
+    predictor.warmup([(800, 1333), (768, 1280)])  # both routes of each bucket
 
     def counts():
         return (mp.max_pool_3x3_s2.launches, fr.conv1x1_bn_residual_relu.launches,
-                fb.fused_bottleneck.launches, fa.mha.launches)
+                fb.fused_bottleneck.launches, fa.mha.launches, fa.mha.mma_launches)
 
-    mp.max_pool_3x3_s2.launches = fr.conv1x1_bn_residual_relu.launches = 0  # main path
-    fb.fused_bottleneck.launches = fa.mha.launches = 0
+    def reset():
+        mp.max_pool_3x3_s2.launches = fr.conv1x1_bn_residual_relu.launches = 0
+        fb.fused_bottleneck.launches = fa.mha.launches = fa.mha.mma_launches = 0
+
+    reset()  # main path
     seen, times = [], []
     for images in ([img_e], [img_m], [img_e2, img_e3]):
         t0 = time.perf_counter()
@@ -1054,11 +1163,11 @@ def phase_fused_serving(torch, fa, mp, fr, fb, api, Predictor):
         times.append(1e3 * (time.perf_counter() - t0))
         seen.append(counts())
         check_detections(dets)
-    per = [tuple(b - a for a, b in zip((0, 0, 0, 0) if i == 0 else seen[i - 1], c))
+    per = [tuple(b - a for a, b in zip((0,) * 5 if i == 0 else seen[i - 1], c))
            for i, c in enumerate(seen)]
     log(f"  requests: 768x1280 b1 {times[0]:.2f} ms, 800x1333 b1 {times[1]:.2f} ms, "
-        f"2x768x1280 b2 {times[2]:.2f} ms; launches (C, D, E, A) per request {per}")
-    expected = [FUSED_PER_FORWARD[k] + (LAUNCHES_PER_FORWARD,)
+        f"2x768x1280 b2 {times[2]:.2f} ms; launches (C, D, E, A, A-mma) per request {per}")
+    expected = [FUSED_PER_FORWARD[k] + (LAUNCHES_PER_FORWARD, 0)
                 for k in ("exact", "masked", "exact")]
     if per != expected:
         raise AssertionError(f"fused launches {per}, expected {expected}")
@@ -1087,13 +1196,19 @@ def phase_fused_serving(torch, fa, mp, fr, fb, api, Predictor):
                     and errs["pred_logits"] <= LOGIT_ATOL):
                 raise AssertionError(f"fused model differs from the unfused one at {label}")
 
-    medians = {}
+    medians, bf16_counts = {}, None
     for dtype in ("float32", "bfloat16"):
         preds = {fused_: Predictor(models[(dtype, fused_)], background_class=BACKGROUND)
                  for fused_ in (True, False)}
         for pred in preds.values():
-            pred([img_e])
-            pred([img_e])
+            pred.warmup([(768, 1280)])
+        if dtype == "bfloat16":  # main path of the fused bf16 model: one bucket-exact request
+            reset()
+            check_detections(preds[True]([img_e]))
+            bf16_counts = counts()
+            log(f"  fused bf16 768x1280 b1 request: launches (C, D, E, A, A-mma) {bf16_counts}")
+            if bf16_counts != FUSED_PER_FORWARD["exact"] + (0, LAUNCHES_PER_FORWARD):
+                raise AssertionError(f"fused bf16 launches {bf16_counts}")
         lat = {True: [], False: []}
         for i in range(5):  # interleaved, each first in turn
             for fused_ in ((True, False) if i % 2 == 0 else (False, True)):
@@ -1110,7 +1225,15 @@ def phase_fused_serving(torch, fa, mp, fr, fb, api, Predictor):
             log(f"  under torch.profiler, {'fused' if fused_ else 'unfused'} {dtype} 768x1280 "
                 f"b1: wall {wall:.2f} ms per request, device busy {share}")
     del models, predictor
-    return totals, medians
+    return totals, bf16_counts, medians
+
+
+def hmma_count(nvcc_build, path) -> int:
+    """HMMA (tensor-core) instructions in the SASS of a built library."""
+    cuobjdump = Path(nvcc_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    return sum("HMMA" in line for line in sass.splitlines())
 
 
 def main() -> int:
@@ -1141,11 +1264,20 @@ def main() -> int:
         f"{torch.cuda.device_count()} device(s)")
 
     t = time.perf_counter()
-    for source, build in zip(SOURCES, nvcc_build.build_all(SOURCES)):
+    builds = dict(zip(SOURCES, nvcc_build.build_all(SOURCES)))
+    for source, build in builds.items():
         log(f"[build] {source}: nvcc {build.seconds:.2f} s -> {build.path.name}")
+        entry_name = ""
         for line in build.log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+            if "Compiling entry" in line:  # a mangled name: keep its integer template arguments
+                args = re.search(r"I((?:Li\d+E)+)", line)
+                entry_name = "<" + ",".join(re.findall(r"Li(\d+)E", args[1])) + ">" if args else ""
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas{' ' + entry_name if entry_name else ''}: {line.strip()}")
+    hmma = hmma_count(nvcc_build, builds["flash_attention_fwd_mma.cu"].path)
+    log(f"[build] flash_attention_fwd_mma.cu: {hmma} HMMA instructions in its SASS (cuobjdump)")
+    if hmma == 0:
+        raise AssertionError("the mma attention kernel compiled to no tensor-core instruction")
     log(f"[build] ok in {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
@@ -1158,10 +1290,10 @@ def main() -> int:
     log(f"[lap] ok in {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
-    predictor, launches, pool_serving, fp32_ms, bf16_ms = phase_serving(
+    predictor, launches, mma_serving, pool_serving, fp32_ms, bf16_ms = phase_serving(
         torch, fa, maxpool, api, Predictor)
     log(f"[serving] ok in {time.perf_counter() - t:.1f} s, {launches} kernel A launches "
-        f"in 3 forwards")
+        f"in 3 fp32 forwards, {mma_serving} A-mma in 1 bf16 forward")
 
     t = time.perf_counter()
     phase_http(predictor, serve, COCO_CLASS_NAME)
@@ -1191,13 +1323,13 @@ def main() -> int:
         f"{ {f'{k} {n}': f'{v:.2e}' for (k, n), v in sorted(fused_worst.items())} }")
 
     t = time.perf_counter()
-    fused_counts, fused_ms = phase_fused_serving(
+    fused_counts, fused_bf16_counts, fused_ms = phase_fused_serving(
         torch, fa, maxpool, fused_residual, fused_bottleneck, api, Predictor)
     log(f"[fused serving] ok in {time.perf_counter() - t:.1f} s, 768x1280 b1 fp32 fused "
         f"{fused_ms['float32'][True]:.2f} ms / unfused {fused_ms['float32'][False]:.2f} ms, bf16 "
         f"{fused_ms['bfloat16'][True]:.2f} / {fused_ms['bfloat16'][False]:.2f} ms")
 
-    ms, plain_ms, lib_ms, (a_bound, a_by) = times[(1232, 1232, "float32")]
+    a32, a16 = times[(2, 1232, 1232, "float32")], times[(2, 1232, 1232, "bfloat16")]
     bwd_ms, bwd_plain_ms, bwd_lib_ms, (bwd_bound, bwd_by) = bwd_times[(252, 252)]
     lap_ms, lap_plain_ms, _, (lap_bound, lap_by) = lap_times
 
@@ -1219,8 +1351,8 @@ def main() -> int:
                      yard if name == "maxpool" else None)
 
     record = {"kernels": [
-        entry("flash_attention_fwd", SOURCES[0], launches + int8_a + counts[0],
-              worst["float32"], ms, plain_ms, a_bound, a_by, lib_ms),
+        entry("flash_attention_fwd", SOURCES[0], launches + counts[0] + fused_counts[3],
+              worst["float32"], a32["simt"], a32["plain"], *a32["bound"], a32["sdpa"]),
         entry("flash_attention_bwd", SOURCES[1], counts[1], bwd_worst["float32"], bwd_ms,
               bwd_plain_ms, bwd_bound, bwd_by, bwd_lib_ms),
         entry("lap", SOURCES[2], counts[2], lap_err, lap_ms, lap_plain_ms, lap_bound, lap_by,
@@ -1234,13 +1366,20 @@ def main() -> int:
         fused_entry("maxpool", SOURCES[5], pool_serving + counts[3] + fused_counts[0], masked_tag),
         fused_entry("fused_residual", SOURCES[6], fused_counts[1], masked_tag),
         fused_entry("fused_bottleneck", SOURCES[7], fused_counts[2], exact_tag),
+        entry("flash_attention_fwd_mma", SOURCES[8], mma_serving + int8_a + fused_bf16_counts[4],
+              worst["bfloat16"], a16["mma"], a16["plain"], *a16["bound"], a16["sdpa"]),
     ]}
-    log(f"[summary] flash_attention_fwd: max_abs_err fp32 {worst['float32']:.3e}, bf16 "
-        f"{worst['bfloat16']:.3e}, ms/plain_ms/library_ms (scaled_dot_product_attention) at "
-        f"(1232,1232) fp32 B=2 H=8 Dh=32, launches {launches} serving + {int8_a} int8 serving "
-        f"+ {counts[0]} training; flash_attention_bwd: gradient max_abs_err fp32 "
+    log(f"[summary] flash_attention_fwd (SIMT): max_abs_err fp32 {worst['float32']:.3e} (bf16 "
+        f"called directly {worst['simt bfloat16']:.3e}), ms/plain_ms/library_ms "
+        f"(scaled_dot_product_attention) at (1232,1232) fp32 B=2 H=8 Dh=32 from CUDA graphs, "
+        f"launches {launches} fp32 serving + {counts[0]} training + {fused_counts[3]} fused fp32 "
+        f"serving; flash_attention_fwd_mma: max_abs_err bf16 {worst['bfloat16']:.3e}, "
+        f"ms/plain_ms/library_ms at (1232,1232) bf16 B=2 from CUDA graphs, launches "
+        f"{mma_serving} bf16 serving + {int8_a} int8 serving + {fused_bf16_counts[4]} fused bf16 "
+        f"serving; flash_attention_bwd: gradient max_abs_err fp32 "
         f"{bwd_worst['float32']:.3e}, bf16 {bwd_worst['bfloat16']:.3e}, ms/plain_ms/library_ms "
-        f"backward at (252,252) fp32 B=8 dropout {DROPOUT}; lap: optimal-cost max_abs_err "
+        f"backward at (252,252) fp32 B=8 dropout {DROPOUT} from CUDA graphs (plain and library: "
+        f"forward and backward less forward); lap: optimal-cost max_abs_err "
         f"{lap_err:.3e}, ms kernel / plain_ms plain version on 48 problems, no library call; "
         f"int8_matmul and int8_conv: max |kernel - plain| in LSB, ms/plain_ms/bound_ms/"
         f"library_ms summed over one b1 896x1408 forward's launches (library: torch._int_mm "

@@ -92,7 +92,8 @@ def build_detr(num_classes: int = 92, num_queries: int = 100, head: str = "detr"
 
     ``fuse_residual=True, fuse_bottleneck=True`` is the JAX package's
     fused-backbone serving configuration (kernels D and E, inference
-    only); its weights load as the unfused model's do.
+    only); its weights load as the unfused model's do, and its backbone's
+    conv weights stay float32 whatever ``dtype`` is.
     """
     module = DETR(
         num_classes=num_classes, num_queries=num_queries, head=head,
@@ -105,7 +106,13 @@ def build_detr(num_classes: int = 92, num_queries: int = 100, head: str = "detr"
     if weights is not None:
         _load_npz(module, weights, head)
     module.to(device)
-    keep_fp32 = set(module.backbone.modules()) if module.backbone_quant is not None else set()
+    # The int8 model's fp32 backbone stays fp32 for calibration; a fused
+    # backbone keeps fp32 conv weights, from which E folds its operands and
+    # casts them once, as JAX folds its fp32 parameters (its other convs
+    # read cached copies in the compute dtype, models/resnet.py).
+    keep_fp32 = set()
+    if module.backbone_quant is not None or module.fuse_residual or module.fuse_bottleneck:
+        keep_fp32 = set(module.backbone.modules())
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d, nn.LayerNorm)) and m not in keep_fp32:
             m.to(DTYPES[dtype])

@@ -3,12 +3,19 @@ kernels and their plain PyTorch version.
 
 Replaces the TPU kernels ``_fwd_kernel`` and ``_bwd_kernel`` of
 ``detr_tensorflow_tpu/ops/pallas/flash_attention.py`` (reached through its
-``mha``). The CUDA sources are ``csrc/flash_attention_fwd.cu`` and
-``csrc/flash_attention_bwd.cu``; their header notes say what bounds each
-kernel on the card and how it is laid out. In short: the forward streams
-K/V in 64-key tiles with an online softmax and, when autograd needs it,
-writes the row log-sum-exp; the backward recomputes the softmax from it in
-two kernels, one over key tiles for dK/dV and one over query tiles for dQ.
+``mha``). The CUDA sources are ``csrc/flash_attention_fwd_mma.cu`` and
+``csrc/flash_attention_fwd.cu`` (forward) and ``csrc/flash_attention_bwd.cu``;
+their header notes say what bounds each kernel on the card and how it is
+laid out. In short: the forward streams K/V in 64-key tiles with an online
+softmax and, when autograd needs it, writes the row log-sum-exp; the
+backward recomputes the softmax from it in two kernels, one over key tiles
+for dK/dV and one over query tiles for dQ.
+
+The forward has two kernels, and ``forward_route`` picks one from the
+call's dtype, dropout rate and head dim alone: bf16 without dropout runs on
+the tensor cores (``mma.sync``, the "mma" route), fp32 and bf16 with dropout
+on the SIMT kernel (fp32 FMAs, the "simt" route; fp32 has no tensor-core
+route without TF32). A failed build or launch raises on either route.
 
 Attention-weight dropout runs inside the kernels. Its keep bit is a pure
 function of the call's 64-bit seed and the element's coordinates
@@ -32,9 +39,14 @@ import torch
 
 _NEG_INF = -1e30
 _FWD_SOURCE = "flash_attention_fwd.cu"
+_MMA_SOURCE = "flash_attention_fwd_mma.cu"
 _BWD_SOURCE = "flash_attention_bwd.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
+# CTA shapes of the mma kernel, four warps each: (row groups of 16 queries,
+# warps sharing each row group's keys), as csrc/flash_attention_fwd_mma.cu
+# instantiates them.
+MMA_SHAPES = ((4, 1), (1, 4))
 
 # Philox4x32-10 constants (Salmon et al., SC'11; Random123).
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -149,6 +161,7 @@ def _library(source: str) -> ctypes.CDLL:
     vp, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     signatures = {
         "flash_attention_fwd": [vp] * 5 + [u, f, vp, vp] + [i] * 6 + [vp],
+        "flash_attention_fwd_mma": [vp] * 6 + [i] * 7 + [vp],
         "flash_attention_keep_mask": [vp, vp, i, i, i, u, vp],
         "flash_attention_bwd": [vp] * 8 + [u, f] + [vp] * 4 + [i] * 6 + [vp],
     }
@@ -183,8 +196,60 @@ def _dropout_args(dropout_rate):
     return threshold, (1.0 / (1.0 - dropout_rate)) if threshold else 1.0
 
 
+def forward_route(dtype: torch.dtype, dropout_rate: float, head_dim: int) -> str:
+    """The forward kernel a CUDA call takes: "mma" (tensor cores,
+    ``csrc/flash_attention_fwd_mma.cu``) for bf16 without dropout, "simt"
+    (``csrc/flash_attention_fwd.cu``) for fp32 and for bf16 with dropout."""
+    if dtype == torch.bfloat16 and dropout_rate == 0.0 and head_dim in _HEAD_DIMS:
+        return "mma"
+    return "simt"
+
+
+def mma_shape(batch_heads: int, lq: int, sms: int) -> tuple:
+    """The mma kernel's CTA shape, (row groups, split), on a card of ``sms``
+    SMs: four row groups of 16 queries, one warp each, when those 64-row
+    CTAs fill every SM; otherwise one row group whose keys the four warps
+    split."""
+    return (4, 1) if batch_heads * -(-lq // 64) >= sms else (1, 4)
+
+
 def launch_forward(q, k, v, key_padding_mask, dropout_seed, dropout_rate, with_lse):
-    """One launch of the forward kernel on CUDA tensors: (out, lse or None)."""
+    """One launch of the forward kernel that ``forward_route`` picks, on
+    CUDA tensors: (out, lse or None)."""
+    if forward_route(q.dtype, dropout_rate, q.shape[-1]) == "mma":
+        return launch_forward_mma(q, k, v, key_padding_mask, with_lse)
+    return launch_forward_simt(q, k, v, key_padding_mask, dropout_seed, dropout_rate, with_lse)
+
+
+def launch_forward_mma(q, k, v, key_padding_mask, with_lse, shape=None):
+    """One launch of the tensor-core forward on bf16 CUDA tensors: (out, lse
+    or None). ``shape``, one of ``MMA_SHAPES``, defaults to ``mma_shape``."""
+    _check_kernel_inputs(q, k, v, key_padding_mask)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the mma attention kernel takes bfloat16, got {q.dtype}")
+    b, lq, h, dh = q.shape
+    if shape is None:
+        shape = mma_shape(b * h, lq, torch.cuda.get_device_properties(q.device).multi_processor_count)
+    if shape not in MMA_SHAPES:
+        raise ValueError(f"mma attention CTA shape {shape} not in {MMA_SHAPES}")
+    out = torch.empty_like(q)
+    lse = torch.empty((b * h, lq), device=q.device, dtype=torch.float32) if with_lse else None
+    with torch.cuda.device(q.device):
+        err = _library(_MMA_SOURCE).flash_attention_fwd_mma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask), out.data_ptr(),
+            _ptr(lse), b, lq, k.shape[1], h, dh, *shape, _stream(q.device),
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_fwd_mma launch failed: cudaError {err}")
+    mha.mma_launches += 1
+    return out, lse
+
+
+def launch_forward_simt(q, k, v, key_padding_mask, dropout_seed, dropout_rate, with_lse):
+    """One launch of the SIMT forward kernel on CUDA tensors, fp32 or bf16,
+    with or without dropout: (out, lse or None). ``mha`` sends only fp32
+    and bf16-with-dropout calls here; a direct call also times it at bf16
+    without dropout against the mma kernel."""
     _check_kernel_inputs(q, k, v, key_padding_mask)
     b, lq, h, dh = q.shape
     lk = k.shape[1]
@@ -255,9 +320,11 @@ def mha(q, k, v, key_padding_mask=None, dropout_rate: float = 0.0, dropout_seed=
     ``dropout_seed`` a one-element int64 tensor on Q's device. Returns
     (B, Lq, H, Dh) in Q's dtype, differentiable in q, k and v.
 
-    A CUDA tensor launches the kernels (``mha.launches`` counts forward
-    launches, ``mha.backward_launches`` backward ones); a CPU tensor goes
-    to ``reference_mha``; any other device raises.
+    A CUDA tensor launches the kernels: the forward on the route
+    ``forward_route`` picks (``mha.mma_launches`` counts launches of the
+    tensor-core kernel, ``mha.launches`` those of the SIMT kernel), the
+    backward kernel under autograd (``mha.backward_launches``). A CPU tensor
+    goes to ``reference_mha``; any other device raises.
     """
     _check(q, k, v, key_padding_mask, dropout_rate, dropout_seed)
     if q.device.type == "cpu":
@@ -275,6 +342,7 @@ def mha(q, k, v, key_padding_mask=None, dropout_rate: float = 0.0, dropout_seed=
 
 
 mha.launches = 0
+mha.mma_launches = 0
 mha.backward_launches = 0
 
 

@@ -87,11 +87,16 @@ class Predictor:
 
     def warmup(self, shapes: Sequence[Tuple[int, int]]) -> None:
         """Run each (height, width) bucket once on zeros, so the first
-        request does not pay for the kernel build and library set-up."""
+        request does not pay for a kernel build or library set-up. A model
+        with ``fuse_bottleneck`` also runs it without a pixel mask: a batch
+        that fills its bucket runs unmasked, the only route of kernel E;
+        every other model runs the same kernels either way."""
         for h, w in shapes:
             ph, pw = self._bucket(h, w)
             frames = np.zeros((1, ph, pw, 3), np.uint8)
             self._run(frames, np.ones((1, ph, pw), bool))
+            if self.model.module.fuse_bottleneck:
+                self._run(frames, None)
             self.buckets.add((ph, pw))
 
     def __call__(self, images: List[np.ndarray]) -> List[Detection]:

@@ -64,6 +64,42 @@ def test_mha_bf16_matches_jax_reference():
                                atol=2e-2, rtol=2e-2)
 
 
+@pytest.mark.parametrize("dtype,rate,head_dim,route", [
+    (torch.bfloat16, 0.0, 32, "mma"), (torch.bfloat16, 0.0, 64, "mma"),
+    (torch.bfloat16, 0.1, 32, "simt"), (torch.float32, 0.0, 32, "simt"),
+    (torch.float32, 0.1, 64, "simt"), (torch.bfloat16, 0.0, 16, "simt")])
+def test_forward_route(dtype, rate, head_dim, route):
+    """A CUDA call's forward kernel depends on dtype, dropout and head dim
+    alone: the tensor-core kernel for bf16 without dropout, the SIMT kernel
+    otherwise (a head dim of 16 is refused by ``mha`` before routing)."""
+    assert fa.forward_route(dtype, rate, head_dim) == route
+
+
+@pytest.mark.parametrize("batch_heads,lq,shape", [
+    (16, 1232, (4, 1)), (8, 1232, (4, 1)), (8, 1050, (4, 1)), (8, 100, (1, 4)),
+    (16, 100, (1, 4)), (16, 320, (1, 4)), (64, 252, (4, 1)), (64, 100, (1, 4))])
+def test_mma_cta_shape(batch_heads, lq, shape):
+    """The mma kernel's CTA shape (row groups of 16 queries, warps on each
+    row group's keys) on a 132-SM card at DETR's shapes: 64 rows a CTA when
+    that fills the SMs (320 CTAs for B=2 at 1232 queries, 160 for b1, 136
+    at 1050), else one row group with its keys split 4 ways (the 100
+    decoder queries; 80 CTAs at 320 queries; 128 for 64 heads of 100)."""
+    assert fa.mma_shape(batch_heads, lq, 132) == shape
+    assert shape in fa.MMA_SHAPES
+
+
+def test_cpu_call_takes_the_plain_version_on_either_route():
+    """On CPU tensors both routes' dtypes take ``reference_mha`` and launch
+    nothing."""
+    q, k, v, mask = (torch.from_numpy(x) for x in _inputs(2, 2, 8, 9, 2, 32, True))
+    before = (fa.mha.launches, fa.mha.mma_launches)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = [t.to(dtype) for t in (q, k, v)]
+        torch.testing.assert_close(fa.mha(*args, mask), fa.reference_mha(*args, mask),
+                                   rtol=0, atol=0)
+    assert (fa.mha.launches, fa.mha.mma_launches) == before
+
+
 @pytest.mark.parametrize("case", ["dropout", "head_dim", "dtype", "shape", "mask_dtype",
                                   "mask_shape", "device"])
 def test_mha_rejects_what_the_kernel_does_not_take(case):

@@ -45,15 +45,91 @@ def _inputs(device, dtype, b, lq, lk, h, dh, seed):
                                          (2, 130, 300, 64)])
 def test_attention_kernel_matches_plain(cuda_device, b, lq, lk, dh, dtype, atol):
     q, k, v, mask = _inputs(cuda_device, dtype, b, lq, lk, 8, dh, seed=lq + lk)
-    before = fa.mha.launches
+    before = (fa.mha.launches, fa.mha.mma_launches)
     out = fa.mha(q, k, v, mask)
     unmasked = fa.mha(q, k, v)
     torch.cuda.synchronize()
-    assert fa.mha.launches == before + 2
+    # fp32 runs the SIMT kernel, bf16 without dropout the tensor-core one.
+    mma = dtype == torch.bfloat16
+    assert (fa.mha.launches, fa.mha.mma_launches) == (before[0] + 2 * (not mma),
+                                                      before[1] + 2 * mma)
     assert out.dtype == dtype and out.shape == q.shape
     for got, m in ((out, mask), (unmasked, None)):
         ref = fa.reference_mha(q, k, v, m)
         assert float((got.float() - ref.float()).abs().max()) <= atol
+
+
+# The tensor-core forward (csrc/flash_attention_fwd_mma.cu) at every CTA shape
+# it has: DETR's shapes, Dh 64, and a ragged Lq and Lk (not multiples of 16
+# or 64; at 129 keys a warp of a 4-way split sees no valid key in the last
+# tile). bf16: P rounded to bf16 before PV on both sides, normalised at
+# different points; chip_smoke.ATOL.
+@pytest.mark.parametrize("shape", fa.MMA_SHAPES)
+@pytest.mark.parametrize("b,lq,lk,dh", [(2, 1232, 1232, 32), (2, 100, 1232, 32),
+                                         (1, 100, 100, 32), (2, 320, 320, 64),
+                                         (3, 77, 129, 32)])
+def test_attention_mma_kernel_matches_plain(cuda_device, b, lq, lk, dh, shape):
+    q, k, v, mask = _inputs(cuda_device, torch.bfloat16, b, lq, lk, 8, dh, seed=lq + lk + dh)
+    before = fa.mha.mma_launches
+    for m in (mask, None):
+        out, lse = fa.launch_forward_mma(q, k, v, m, False, shape=shape)
+        torch.cuda.synchronize()
+        assert lse is None and out.dtype == torch.bfloat16 and out.shape == q.shape
+        ref = fa.reference_mha(q, k, v, m)
+        assert float((out.float() - ref.float()).abs().max()) <= 2e-2
+    assert fa.mha.mma_launches == before + 2
+
+
+def test_attention_mma_kernel_fully_padded_row_and_lse(cuda_device):
+    """A batch element whose keys are all padded gets a uniform softmax, as
+    the plain version; the row lse is within 1e-3 of torch.logsumexp of the
+    plain fp32 scores (-1e30 on padded keys), and the backward kernel takes
+    it as it takes the SIMT kernel's."""
+    q, k, v, _ = _inputs(cuda_device, torch.bfloat16, 3, 77, 129, 8, 32, seed=11)
+    mask = torch.zeros((3, 129), dtype=torch.bool, device=cuda_device)
+    mask[1] = True
+    mask[2, 70:] = True
+    out, lse = fa.launch_forward_mma(q, k, v, mask, True)
+    ref = fa.reference_mha(q, k, v, mask)
+    assert float((out.float() - ref.float()).abs().max()) <= 2e-2
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    scores = scores.masked_fill(mask[:, None, None, :], -1e30)
+    want = torch.logsumexp(scores, dim=-1).reshape(3 * 8, 77)
+    valid = mask.logical_not().any(dim=1).repeat_interleave(8)
+    assert float((lse[valid] - want[valid]).abs().max()) <= 1e-3
+    assert bool((lse[~valid] < -1e29).all())
+    dout = torch.randn(q.shape, device=cuda_device).to(torch.bfloat16)
+    got = _grads(lambda *t: fa.mha(*t, mask), q, k, v, dout)
+    want_grads = _grads(lambda *t: fa.reference_mha(*t, mask), q, k, v, dout)
+    for g, r in zip(got[1:], want_grads[1:]):
+        assert _rel_err(g, r) <= GRAD_RTOL[torch.bfloat16]
+
+
+def test_attention_simt_kernel_still_takes_bf16(cuda_device):
+    """The SIMT kernel stays callable at bf16 without dropout, to time it
+    against the tensor-core kernel; it agrees with the plain version."""
+    q, k, v, mask = _inputs(cuda_device, torch.bfloat16, 2, 100, 1232, 8, 32, seed=5)
+    before = fa.mha.launches
+    out, _ = fa.launch_forward_simt(q, k, v, mask, None, 0.0, False)
+    torch.cuda.synchronize()
+    assert fa.mha.launches == before + 1
+    assert float((out.float() - fa.reference_mha(q, k, v, mask).float()).abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_route_in_a_model_forward(cuda_device, dtype):
+    """A DETR with the full 6 + 6 transformer on a reduced backbone: 18
+    tensor-core launches and no SIMT launch per bf16 forward, the reverse
+    at fp32."""
+    model = api.build_detr(backbone_stage_sizes=(1, 1, 1, 1), device=cuda_device,
+                           dtype="bfloat16" if dtype == torch.bfloat16 else "float32")
+    x = torch.from_numpy(np.random.default_rng(6).normal(size=(1, 256, 320, 3)).astype(np.float32))
+    before = (fa.mha.mma_launches, fa.mha.launches)
+    out = model(x.to(cuda_device))
+    after = (fa.mha.mma_launches, fa.mha.launches)
+    expected = (18, 0) if dtype == torch.bfloat16 else (0, 18)
+    assert tuple(a - b for a, b in zip(after, before)) == expected
+    assert torch.isfinite(out["pred_boxes"].float()).all()
 
 
 def test_attention_kernel_rejects_strided_input(cuda_device):

@@ -25,11 +25,12 @@ from detr_tensorflow_tpu.ops import maxpool as jax_maxpool
 from detr_tensorflow_tpu.ops.pallas import fused_bottleneck as jax_fb
 from detr_tensorflow_tpu.ops.pallas import fused_residual as jax_fr
 from detr_tensorflow_tpu.ops.pallas.maxpool import max_pool_3x3_s2_pallas
-from detr_tensorflow_tpu_torch.models import detr, resnet
+from detr_tensorflow_tpu_torch.models import api, detr, resnet
 from detr_tensorflow_tpu_torch.models.weights import from_jax_variables
 from detr_tensorflow_tpu_torch.ops import fused_bottleneck as fb
 from detr_tensorflow_tpu_torch.ops import fused_residual as fr
 from detr_tensorflow_tpu_torch.ops import maxpool
+from detr_tensorflow_tpu_torch.predictor import Predictor
 from detr_tensorflow_tpu_torch.train import Trainer, TrainingConfig
 from test_torch_models import BOX_ATOL, GOLDEN_RTOL, LOGIT_ATOL, _pixel_mask, close, random_variables
 
@@ -361,3 +362,123 @@ def test_fused_model_refuses_to_train(flags):
         model(torch.zeros(1, 32, 32, 3))
     with torch.no_grad():
         assert torch.isfinite(model(torch.zeros(1, 32, 32, 3))["pred_boxes"]).all()
+
+
+# ---- repaired faults: warmup, inference-mode builds, the bf16 fold ---------------------------
+
+
+def test_warmup_warms_the_fused_route(op_calls):
+    """Predictor.warmup runs each bucket with and without a pixel mask: a
+    request that fills its bucket runs unmasked, and on a fused model only
+    that route runs kernel E, so warmup must reach E too."""
+    model = api.build_detr(device="cpu", **TINY, **FUSED)
+    Predictor(model, background_class=TINY["num_classes"] - 1).warmup([(64, 64)])
+    assert op_calls["fused_bottleneck"] > 0
+    assert op_calls["conv1x1_bn_residual_relu"] > 0
+
+
+@pytest.mark.parametrize("flags,forwards", [({}, 1), (dict(fuse_residual=True), 1),
+                                           (FUSED, 2)])
+def test_warmup_runs_the_unmasked_route_only_where_it_differs(flags, forwards):
+    """Only ``fuse_bottleneck`` changes the kernels of an unmasked forward,
+    so only such a model is warmed twice a bucket."""
+    model = api.build_detr(device="cpu", **TINY, **flags)
+    masks = []
+    model.module.register_forward_hook(lambda m, args, out: masks.append(args[1] is not None))
+    Predictor(model, background_class=TINY["num_classes"] - 1).warmup([(64, 64), (100, 64)])
+    assert masks == [True, False][:forwards] * 2
+
+
+@pytest.mark.parametrize("flags", [dict(fuse_residual=True), dict(fuse_bottleneck=True)])
+def test_fused_model_built_under_inference_mode_runs(flags):
+    """A fused model built inside torch.inference_mode (its parameters are
+    inference tensors, which have no version counter) runs, and equals the
+    unfused model built the same way: atol/rtol 1e-4, the fused fp32
+    module tolerance above."""
+    cfg = dict(backbone_stage_sizes=(2, 1, 1, 1), num_encoder_layers=1, num_decoder_layers=1,
+               device="cpu")
+    x = torch.from_numpy(np.random.default_rng(9).normal(size=(1, 64, 64, 3)).astype(np.float32))
+    with torch.inference_mode():
+        fused, plain = api.build_detr(**cfg, **flags), api.build_detr(**cfg)
+        assert fused.module.backbone.conv1.weight.is_inference()
+        out, ref = fused(x), plain(x)
+        again = fused(x)
+    for key in ("pred_boxes", "pred_logits"):
+        close(out[key], ref[key].numpy())
+        assert torch.equal(again[key], out[key])
+
+
+@pytest.mark.parametrize("flags", [dict(fuse_residual=True), dict(fuse_bottleneck=True)])
+def test_fused_model_reloaded_under_inference_mode_folds_again(flags):
+    """``load_state_dict`` inside inference mode writes the inference
+    tensors in place (same data pointer, no version counter); the fused
+    operands cached from the old weights are dropped, so the reloaded model
+    equals the unfused model with the new weights (atol/rtol 1e-4). The new
+    weights are another seed's, with random FrozenBN buffers (kernel D's
+    cached operands are bn3's scale and shift)."""
+    cfg = dict(backbone_stage_sizes=(2, 1, 1, 1), num_encoder_layers=1, num_decoder_layers=1,
+               device="cpu")
+    x = torch.from_numpy(np.random.default_rng(9).normal(size=(1, 64, 64, 3)).astype(np.float32))
+    rng = np.random.default_rng(14)
+    with torch.inference_mode():
+        fused, plain = api.build_detr(**cfg, **flags), api.build_detr(**cfg, seed=5)
+        first = fused(x)
+        state = plain.module.state_dict()
+        for name, t in state.items():
+            if name.startswith("backbone.") and "bn" in name.split(".")[-2]:
+                noise = torch.from_numpy(rng.uniform(0.5, 1.5, size=t.shape).astype(np.float32))
+                state[name] = t * noise + (0 if name.endswith("running_var") else 0.1 * noise)
+        plain.module.load_state_dict(state)
+        fused.module.load_state_dict(state)
+        assert fused.module.backbone.conv1.weight.is_inference()
+        out, ref = fused(x), plain(x)
+    for key in ("pred_boxes", "pred_logits"):
+        close(out[key], ref[key].numpy())
+        assert not torch.allclose(out[key], first[key], atol=1e-3)
+
+
+def test_bf16_fused_block_folds_float32_weights_once():
+    """The bf16 fused model keeps its backbone's conv weights in float32,
+    and kernel E's operands of an identity block equal, bit for bit, the
+    JAX fold_bn_params of the same float32 weights cast to bf16 once (one
+    float32 multiply and one round-to-nearest cast on both sides). The
+    seeded float32 weights come from the fp32 model of the same seed; the
+    FrozenBN buffers are random. A fold of weights already rounded to bf16
+    rounds twice and fails this test. The unfused convs read bf16 copies
+    cached once: a second forward casts nothing."""
+    cfg = dict(backbone_stage_sizes=(3, 1, 1, 1), num_encoder_layers=1, num_decoder_layers=1,
+               device="cpu", seed=3, **FUSED)
+    fp32 = api.build_detr(**cfg).module.backbone.layer1.block_1
+    model = api.build_detr(dtype="bfloat16", **cfg)
+    block = model.module.backbone.layer1.block_1
+    rng = np.random.default_rng(12)
+    with torch.no_grad():
+        for bn in (block.bn1, block.bn2, block.bn3):
+            n = bn.weight.numel()
+            for buf, value in ((bn.weight, 1 + 0.1 * rng.normal(size=n)),
+                               (bn.bias, 0.1 * rng.normal(size=n)),
+                               (bn.running_mean, 0.1 * rng.normal(size=n)),
+                               (bn.running_var, rng.uniform(0.5, 1.5, size=n))):
+                buf.copy_(torch.from_numpy(value))
+    ours = block._whole_block_operands(torch.bfloat16)
+    expected = []
+    for conv, bn in zip((fp32.conv1, fp32.conv2, fp32.conv3), (block.bn1, block.bn2, block.bn3)):
+        assert conv.weight.dtype == torch.float32
+        scale, shift = (t.detach().numpy() for t in bn.scale_shift())
+        hwio = jnp.asarray(conv.weight.detach().permute(2, 3, 1, 0).numpy())
+        w, b = jax_fb.fold_bn_params(hwio, jnp.asarray(scale), jnp.asarray(shift))
+        expected += [np.asarray(w.astype(jnp.bfloat16).astype(jnp.float32)), np.asarray(b)]
+    m, c = expected[0].shape[-1], expected[4].shape[-1]
+    expected[0], expected[2], expected[4] = (expected[0].reshape(c, m),
+                                            expected[2].reshape(9, m, m), expected[4].reshape(m, c))
+    for got, want in zip(ours, expected):
+        assert got.dtype == (torch.bfloat16 if want.ndim > 1 else torch.float32)
+        np.testing.assert_array_equal(got.float().numpy(), want)
+
+    mask = torch.from_numpy(_pixel_mask(1, 64, 64, [(50, 37)]))
+    x = torch.from_numpy(np.random.default_rng(13).normal(size=(1, 64, 64, 3)).astype(np.float32))
+    model(x, mask)
+    casts = {k: v[1] for k, v in block._cache.items() if k[0] == "weight"}
+    assert len(casts) == 3 and all(t.dtype == torch.bfloat16 for t in casts.values())
+    model(x, mask)
+    assert all(block._cache[k][1] is t for k, t in casts.items())
