@@ -8,8 +8,8 @@ Phases, one status line each; any failure raises and exits non-zero:
      ``nvidia-smi --query-gpu=name,power.limit``;
   2. build: nvcc builds every kernel of the serving and training paths from
      csrc/, one process per source, all at once; prints each kernel's ptxas
-     report and the HMMA (tensor-core) instructions in the SASS of the mma
-     attention kernel, and fails if there are none;
+     report and the HMMA (tensor-core) instructions in the SASS of the two
+     mma attention kernels, and fails if either has none;
   3. kernels: attention A at every shape of the served path against its
      plain PyTorch version: fp32 (TF32 off) through the SIMT kernel, bf16
      through the tensor-core kernel A-mma and through the SIMT kernel
@@ -17,8 +17,11 @@ Phases, one status line each; any failure raises and exits non-zero:
      graphs at B=2 and at the b1 896x1408 shapes (A-mma at each CTA shape);
      then the attention forward with dropout and its backward at the
      training shapes, against plain autograd at dropout 0 and given the
-     mask the kernel library materialises, A' and its yardsticks timed
-     from CUDA graphs;
+     mask the kernel library materialises: fp32 through the tensor-core A'
+     (3xTF32) and through the SIMT A' called directly, bf16 through the
+     SIMT A'; at each training shape the tensor-core A', the SIMT A', plain
+     and SDPA's backward timed from CUDA graphs in turns, and their sums
+     per training step;
   4. lap: the LAP kernel on 48 problems (6 decoder layers x batch 8)
      against its plain version and scipy, with times;
   5. serving: full-width DETR-R50 (seeded random weights) behind
@@ -38,7 +41,8 @@ Phases, one status line each; any failure raises and exits non-zero:
      kernel route against the plain int8 route and the fp32 backbone;
   9. training: full-width DETR-R50 at b8 376x672 fp32: one step's loss and
      gradients, kernel route against plain route at dropout 0; eight
-     dropout-0.1 steps through ``fit`` with the counters reset just before;
+     dropout-0.1 steps through ``fit`` with the counters reset just before
+     (per step A 18, tensor-core A' 18, SIMT A' 0, B 1, C 1);
      matching and loss under ``torch.cuda.set_sync_debug_mode("error")``;
  10. fused kernels: C (stem max pool), D (fused bottleneck tail) and E
      (whole identity bottleneck) at every distinct shape of one b1 forward
@@ -96,12 +100,13 @@ BOX_ATOL, LOGIT_ATOL = 5e-4, 5e-3  # kernel model vs plain-attention model, fp32
 PADDED_BOX_ATOL = 1e-3
 SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "lap.cu", "int8_matmul.cu",
            "int8_conv.cu", "maxpool.cu", "fused_residual.cu", "fused_bottleneck.cu",
-           "flash_attention_fwd_mma.cu")
+           "flash_attention_fwd_mma.cu", "flash_attention_bwd_mma.cu")
 CSRC = "detr_tensorflow_tpu_torch/csrc/"
 REPLACES = {
     "flash_attention_fwd": "detr_tensorflow_tpu/ops/pallas/flash_attention.py:77",
     "flash_attention_fwd_mma": "detr_tensorflow_tpu/ops/pallas/flash_attention.py:77",
     "flash_attention_bwd": "detr_tensorflow_tpu/ops/pallas/flash_attention.py:115",
+    "flash_attention_bwd_mma": "detr_tensorflow_tpu/ops/pallas/flash_attention.py:115",
     "lap": "detr_tensorflow_tpu/ops/pallas/lap.py:77",
     "int8_matmul": "detr_tensorflow_tpu/ops/pallas/int8_matmul.py:96",
     "int8_conv": "detr_tensorflow_tpu/ops/pallas/int8_conv.py:64",
@@ -113,12 +118,12 @@ DEVICE = "cuda"
 # Published H100 SXM peaks (dense tensor-core rates; fp32 without them): bound_ms is the larger
 # of bytes over the memory rate and operations over the peak of their type.
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"int8": 1.979e15, "bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_S = {"int8": 1.979e15, "bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 
 # Training: (Lq, Lk) of encoder self, decoder cross and decoder self
-# attention at 376x672 (a 12x21 = 252-key map), batch 8, 8 heads, Dh 32.
+# attention at 376x672 (a 12x21 = 252-key map), batch 8, 8 heads, Dh 32;
+# each runs 6 times a step. A' is timed at each of them.
 TRAIN_ATTN_SHAPES = [(252, 252), (100, 252), (100, 100)]
-TRAIN_TIMED = [(252, 252), (100, 252)]
 DROPOUT = 0.1
 # Gradient tolerance relative to the largest reference value: fp32 differs
 # by summation order; bf16 rounds P and dS at the TPU kernel's points, the
@@ -384,8 +389,12 @@ def attention_grads(torch, fn, q, k, v, dout):
 
 
 def phase_train_kernels(torch, fa):
-    """Kernel A with dropout and kernel A' at the training shapes."""
-    worst = {"float32": 0.0, "bfloat16": 0.0}
+    """Kernel A with dropout and kernel A' at the training shapes: through
+    ``mha`` (fp32: the tensor-core A', bf16: the SIMT A'), and the SIMT A'
+    called directly at fp32; each against plain autograd at dropout 0 and
+    0.1. Then, at every training shape (fp32, dropout 0.1), the tensor-core
+    A', the SIMT A', plain and SDPA's backward from CUDA graphs, in turns."""
+    worst = {"float32": 0.0, "bfloat16": 0.0, "simt float32": 0.0}
     times = {}
     for lq, lk in TRAIN_ATTN_SHAPES:
         for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -405,53 +414,73 @@ def phase_train_kernels(torch, fa):
                 got = attention_grads(torch, lambda *t: fa.mha(*t, mask, rate, seed), q, k, v, dout)
                 ref = attention_grads(torch, lambda *t: fa.reference_mha(*t, mask, keep, rate),
                                       q, k, v, dout)
+                checks = [(name, zip(got, ref, ("out", "dq", "dk", "dv")))]
+                if name == "float32":
+                    out, lse = fa.launch_forward(q, k, v, mask, seed, rate, True)
+                    simt = fa.launch_backward_simt(q, k, v, out, dout, lse, mask, seed, rate)
+                    checks.append(("simt float32", zip(simt, ref[1:], ("dq", "dk", "dv"))))
                 torch.cuda.synchronize()
                 errs = []
-                for g, r, what in zip(got, ref, ("out", "dq", "dk", "dv")):
-                    err = float((g.float() - r.float()).abs().max())
-                    scale = max(1.0, float(r.float().abs().max()))
-                    tol = ATOL[name] if what == "out" else GRAD_RTOL[name] * scale
-                    if not err <= tol:
-                        raise AssertionError(f"{what} disagrees with plain autograd at "
-                                             f"({lq},{lk}) {name} dropout {rate}: {err} > {tol}")
-                    if what != "out":
-                        worst[name] = max(worst[name], err)
-                    errs.append(f"{what} {err:.2e}")
+                for label, pairs in checks:
+                    for g, r, what in pairs:
+                        err = float((g.float() - r.float()).abs().max())
+                        scale = max(1.0, float(r.float().abs().max()))
+                        tol = ATOL[name] if what == "out" else GRAD_RTOL[name] * scale
+                        if not err <= tol:
+                            raise AssertionError(f"{label} {what} disagrees with plain autograd "
+                                                 f"at ({lq},{lk}) dropout {rate}: {err} > {tol}")
+                        if what != "out":
+                            worst[label] = max(worst[label], err)
+                        errs.append(f"{'simt ' if label.startswith('simt') else ''}{what} "
+                                    f"{err:.2e}")
+                route = fa.backward_route(dtype, 32)
                 log(f"  attention fwd+bwd ({lq},{lk}) {name} dropout {rate}"
-                    f"{' masked' if masked else ''}: {', '.join(errs)}")
-            if (lq, lk) in TRAIN_TIMED and name == "float32":
-                seed = torch.tensor([12345], device=DEVICE)
-                keep = fa.keep_mask(seed, 64, lq, lk, DROPOUT).view(8, 8, lq, lk)
-                out, lse = fa.launch_forward(q, k, v, mask, seed, DROPOUT, True)
-                kernel = lambda: fa.launch_backward(  # noqa: E731
-                    q, k, v, out, dout, lse, mask, seed, DROPOUT)
-                qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
-                # A' alone from a graph; the plain and library backwards as a
-                # graph of forward and backward less one of the forward (autograd
-                # runs a backward on its forward's stream, so both are captured).
-                plain_fwd = lambda: fa.reference_mha(qr, kr, vr, mask, keep, DROPOUT)  # noqa: E731
-                plain_all = lambda: torch.autograd.grad(  # noqa: E731
-                    plain_fwd(), (qr, kr, vr), dout)
-                p1, k1, k2, p2 = (graph_ms(torch, f, iters=10)
-                                  for f in (plain_all, kernel, kernel, plain_all))
-                plain_bwd = (p1 + p2) / 2 - graph_ms(torch, plain_fwd, iters=10)
-                qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
-                lib_fwd = lambda: sdpa(torch, qs, ks, vs, mask, DROPOUT)  # noqa: E731
-                lib_all = lambda: torch.autograd.grad(  # noqa: E731
-                    lib_fwd(), (qs, ks, vs), dout.transpose(1, 2))
-                lib_ms = graph_ms(torch, lib_all, iters=10) - graph_ms(torch, lib_fwd, iters=10)
-                loop_ms = time_ms(torch, kernel, iters=20)
-                # q, k, v, out, dout in; dq, dk, dv out; the row lse; the mask.
-                bound = bound_ms(8 * 8 * 32 * (4 * lq + 4 * lk) * 4 + 8 * 8 * lq * 4
-                                 + (8 * lk if masked else 0),
-                                 {"float32": 10 * 8 * 8 * lq * lk * 32})
-                times[(lq, lk)] = ((k1 + k2) / 2, plain_bwd, lib_ms, bound)
-                log(f"  attention backward ({lq},{lk}) fp32 B=8 H=8 Dh=32 dropout {DROPOUT}, CUDA "
-                    f"graphs: kernel {(k1 + k2) / 2:.4f} ms (from a Python loop {loop_ms:.4f}), "
-                    f"plain {plain_bwd:.4f} ms, library scaled_dot_product_attention backward "
-                    f"{lib_ms:.4f} ms (each: forward and backward less forward), bound "
-                    f"{bound[0]:.4f} ms ({bound[1]})")
+                    f"{' masked' if masked else ''}, backward route {route}: {', '.join(errs)}")
+            if name == "float32":
+                times[(lq, lk)] = time_train_attention(torch, fa, q, k, v, dout, mask)
     return worst, times
+
+
+def time_train_attention(torch, fa, q, k, v, dout, mask):
+    """A' at one training shape (fp32, b8, dropout 0.1) from CUDA graphs: the
+    tensor-core kernel, the SIMT kernel, plain and SDPA's backward in turns
+    (plain, mma, simt, simt, mma, plain; the plain and library backwards as
+    a graph of forward and backward less one of the forward: autograd runs a
+    backward on its forward's stream, so both are captured), with the bound
+    on the fp32 pipes and as 3xTF32 on the tensor cores."""
+    lq, lk = q.shape[1], k.shape[1]
+    seed = torch.tensor([12345], device=DEVICE)
+    keep = fa.keep_mask(seed, 64, lq, lk, DROPOUT).view(8, 8, lq, lk)
+    out, lse = fa.launch_forward(q, k, v, mask, seed, DROPOUT, True)
+    args = (q, k, v, out, dout, lse, mask, seed, DROPOUT)
+    mma = lambda: fa.launch_backward_mma(*args)  # noqa: E731
+    simt = lambda: fa.launch_backward_simt(*args)  # noqa: E731
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    plain_fwd = lambda: fa.reference_mha(qr, kr, vr, mask, keep, DROPOUT)  # noqa: E731
+    plain_all = lambda: torch.autograd.grad(plain_fwd(), (qr, kr, vr), dout)  # noqa: E731
+    p1, m1, s1, s2, m2, p2 = (graph_ms(torch, f, iters=10)
+                              for f in (plain_all, mma, simt, simt, mma, plain_all))
+    plain_bwd = (p1 + p2) / 2 - graph_ms(torch, plain_fwd, iters=10)
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_fwd = lambda: sdpa(torch, qs, ks, vs, mask, DROPOUT)  # noqa: E731
+    lib_all = lambda: torch.autograd.grad(  # noqa: E731
+        lib_fwd(), (qs, ks, vs), dout.transpose(1, 2))
+    lib_ms = graph_ms(torch, lib_all, iters=10) - graph_ms(torch, lib_fwd, iters=10)
+    # q, k, v, out, dout in; dq, dk, dv out; the row lse; the mask. Five
+    # products of 2 * Dh flops per (query, key) pair and head.
+    nbytes = 8 * 8 * 32 * (4 * lq + 4 * lk) * 4 + 8 * 8 * lq * 4 + (8 * lk if mask is not None else 0)
+    flops = 10 * 8 * 8 * lq * lk * 32
+    t = {"mma": (m1 + m2) / 2, "simt": (s1 + s2) / 2, "plain": plain_bwd, "sdpa": lib_ms,
+         "runs": (m1, m2, s1, s2), "bound32": bound_ms(nbytes, {"float32": flops}),
+         "bound3x": bound_ms(nbytes, {"tf32": 3 * flops})}
+    log(f"  attention backward ({lq},{lk}) fp32 B=8 H=8 Dh=32 dropout {DROPOUT}"
+        f"{' masked' if mask is not None else ''}, CUDA graphs: tensor-core A' {t['mma']:.4f} ms "
+        f"({m1:.4f}, {m2:.4f}), SIMT A' {t['simt']:.4f} ms ({s1:.4f}, {s2:.4f}), plain "
+        f"{plain_bwd:.4f} ms, library scaled_dot_product_attention backward {lib_ms:.4f} ms "
+        f"(plain and library: forward and backward less forward), bound {t['bound32'][0]:.4f} ms "
+        f"on the fp32 pipes ({t['bound32'][1]}), {t['bound3x'][0]:.4f} ms as 3xTF32 "
+        f"({t['bound3x'][1]})")
+    return t
 
 
 def lap_problems(seed, ties=False):
@@ -954,22 +983,23 @@ def phase_training(torch, fa, lap, mp, api, train, losses):
         losses_seen.append(host_log["total_loss"])
 
     fa.mha.launches = fa.mha.backward_launches = lap.solve_lap_masked.launches = 0  # main path
-    mp.max_pool_3x3_s2.launches = fa.mha.mma_launches = 0
+    mp.max_pool_3x3_s2.launches = fa.mha.mma_launches = fa.mha.backward_mma_launches = 0
     train.fit(trainer, [batch] * TRAIN_STEPS, config, epoch_nb=0, log_fn=log_fn, log_every=1)
     counts = (fa.mha.launches, fa.mha.backward_launches, lap.solve_lap_masked.launches,
-              mp.max_pool_3x3_s2.launches)
+              mp.max_pool_3x3_s2.launches, fa.mha.backward_mma_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     step_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
     median = statistics.median(step_ms)
     log(f"  {TRAIN_STEPS} steps at dropout {DROPOUT}: losses {[round(x, 4) for x in losses_seen]}")
     log(f"  step times {[round(x, 2) for x in step_ms]} ms, median {median:.2f} ms, "
         f"{TRAIN_BATCH * 1e3 / median:.2f} images/s, peak device memory {peak_gb:.2f} GiB")
-    log(f"  launches in {TRAIN_STEPS} steps: attention forward {counts[0]}, backward {counts[1]}, "
-        f"lap {counts[2]}, max pool {counts[3]}")
-    per_step = (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD, 1, 1)
+    log(f"  launches in {TRAIN_STEPS} steps: attention forward {counts[0]}, backward "
+        f"tensor-core {counts[4]} and SIMT {counts[1]}, lap {counts[2]}, max pool {counts[3]}")
+    per_step = (LAUNCHES_PER_FORWARD, 0, 1, 1, LAUNCHES_PER_FORWARD)
     if counts != tuple(TRAIN_STEPS * c for c in per_step) or fa.mha.mma_launches:
         raise AssertionError(f"launch counts {counts} and {fa.mha.mma_launches} A-mma, expected "
-                             f"{per_step} per step and no A-mma (fp32)")
+                             f"{per_step} per step (A, SIMT A', B, C, tensor-core A') and no "
+                             f"A-mma (fp32)")
     if not all(np.isfinite(losses_seen)) or not losses_seen[-1] < losses_seen[0]:
         raise AssertionError(f"losses not finite and falling: {losses_seen}")
 
@@ -1274,10 +1304,11 @@ def main() -> int:
                 entry_name = "<" + ",".join(re.findall(r"Li(\d+)E", args[1])) + ">" if args else ""
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas{' ' + entry_name if entry_name else ''}: {line.strip()}")
-    hmma = hmma_count(nvcc_build, builds["flash_attention_fwd_mma.cu"].path)
-    log(f"[build] flash_attention_fwd_mma.cu: {hmma} HMMA instructions in its SASS (cuobjdump)")
-    if hmma == 0:
-        raise AssertionError("the mma attention kernel compiled to no tensor-core instruction")
+    for source in ("flash_attention_fwd_mma.cu", "flash_attention_bwd_mma.cu"):
+        hmma = hmma_count(nvcc_build, builds[source].path)
+        log(f"[build] {source}: {hmma} HMMA instructions in its SASS (cuobjdump)")
+        if hmma == 0:
+            raise AssertionError(f"{source} compiled to no tensor-core instruction")
     log(f"[build] ok in {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
@@ -1330,7 +1361,12 @@ def main() -> int:
         f"{fused_ms['bfloat16'][True]:.2f} / {fused_ms['bfloat16'][False]:.2f} ms")
 
     a32, a16 = times[(2, 1232, 1232, "float32")], times[(2, 1232, 1232, "bfloat16")]
-    bwd_ms, bwd_plain_ms, bwd_lib_ms, (bwd_bound, bwd_by) = bwd_times[(252, 252)]
+    bwd = bwd_times[(252, 252)]
+    per_step = {key: sum(LAUNCHES_PER_FORWARD // 3 * t[key] for t in bwd_times.values())
+                for key in ("mma", "simt", "plain", "sdpa")}
+    log(f"[kernels] A' per training step (6 calls at each of {list(bwd_times)}), ms from CUDA "
+        f"graphs: tensor-core {per_step['mma']:.4f}, SIMT {per_step['simt']:.4f}, plain "
+        f"{per_step['plain']:.4f}, SDPA backward {per_step['sdpa']:.4f}")
     lap_ms, lap_plain_ms, _, (lap_bound, lap_by) = lap_times
 
     def entry(name, source, launches_, err, ms_, plain_, bound, by, library):
@@ -1353,8 +1389,8 @@ def main() -> int:
     record = {"kernels": [
         entry("flash_attention_fwd", SOURCES[0], launches + counts[0] + fused_counts[3],
               worst["float32"], a32["simt"], a32["plain"], *a32["bound"], a32["sdpa"]),
-        entry("flash_attention_bwd", SOURCES[1], counts[1], bwd_worst["float32"], bwd_ms,
-              bwd_plain_ms, bwd_bound, bwd_by, bwd_lib_ms),
+        entry("flash_attention_bwd", SOURCES[1], counts[1], bwd_worst["simt float32"],
+              bwd["simt"], bwd["plain"], *bwd["bound32"], bwd["sdpa"]),
         entry("lap", SOURCES[2], counts[2], lap_err, lap_ms, lap_plain_ms, lap_bound, lap_by,
               None),
         entry("int8_matmul", SOURCES[3], sum(f_counts.values()), int8_worst["int8_matmul"],
@@ -1368,6 +1404,8 @@ def main() -> int:
         fused_entry("fused_bottleneck", SOURCES[7], fused_counts[2], exact_tag),
         entry("flash_attention_fwd_mma", SOURCES[8], mma_serving + int8_a + fused_bf16_counts[4],
               worst["bfloat16"], a16["mma"], a16["plain"], *a16["bound"], a16["sdpa"]),
+        entry("flash_attention_bwd_mma", SOURCES[9], counts[4], bwd_worst["float32"], bwd["mma"],
+              bwd["plain"], *bwd["bound3x"], bwd["sdpa"]),
     ]}
     log(f"[summary] flash_attention_fwd (SIMT): max_abs_err fp32 {worst['float32']:.3e} (bf16 "
         f"called directly {worst['simt bfloat16']:.3e}), ms/plain_ms/library_ms "
@@ -1376,10 +1414,14 @@ def main() -> int:
         f"serving; flash_attention_fwd_mma: max_abs_err bf16 {worst['bfloat16']:.3e}, "
         f"ms/plain_ms/library_ms at (1232,1232) bf16 B=2 from CUDA graphs, launches "
         f"{mma_serving} bf16 serving + {int8_a} int8 serving + {fused_bf16_counts[4]} fused bf16 "
-        f"serving; flash_attention_bwd: gradient max_abs_err fp32 "
-        f"{bwd_worst['float32']:.3e}, bf16 {bwd_worst['bfloat16']:.3e}, ms/plain_ms/library_ms "
-        f"backward at (252,252) fp32 B=8 dropout {DROPOUT} from CUDA graphs (plain and library: "
-        f"forward and backward less forward); lap: optimal-cost max_abs_err "
+        f"serving; flash_attention_bwd (SIMT): gradient max_abs_err fp32 (called directly) "
+        f"{bwd_worst['simt float32']:.3e}, bf16 {bwd_worst['bfloat16']:.3e}, launches "
+        f"{counts[1]} (training runs the tensor-core A'), bound on the fp32 pipes; "
+        f"flash_attention_bwd_mma (3xTF32): gradient max_abs_err fp32 "
+        f"{bwd_worst['float32']:.3e}, launches {counts[4]} in {TRAIN_STEPS} training steps, "
+        f"bound as 3xTF32 on the tensor cores; both: ms/plain_ms/library_ms backward at (252,252) "
+        f"fp32 B=8 dropout {DROPOUT} from CUDA graphs (plain and library: forward and backward "
+        f"less forward); lap: optimal-cost max_abs_err "
         f"{lap_err:.3e}, ms kernel / plain_ms plain version on 48 problems, no library call; "
         f"int8_matmul and int8_conv: max |kernel - plain| in LSB, ms/plain_ms/bound_ms/"
         f"library_ms summed over one b1 896x1408 forward's launches (library: torch._int_mm "

@@ -20,8 +20,10 @@
 // What bounds it: as in the forward, 2 * Dh fused multiply-adds per
 // (query, key) pair and matrix product (four products here: QK^T, dO V^T,
 // P^T dO, dS^T Q for dK/dV; three for dQ), plus one exp and, with dropout,
-// one Philox4x32-10 per pair. Arithmetic on the fp32 FMA pipes, no tensor
-// cores yet.
+// one Philox4x32-10 per pair. Arithmetic on the fp32 FMA pipes. fp32 calls
+// run flash_attention_bwd_mma.cu on the tensor cores instead
+// (ops/flash_attention.py:backward_route); this kernel takes bf16, and fp32
+// when called directly.
 //
 // Design. The TPU kernel keeps one head's K/V resident and walks the query
 // chunks in order, carrying dK/dV in VMEM scratch: one program per
@@ -35,7 +37,9 @@
 //   * dQ: the forward's layout, one CTA per (batch * head, 16 query rows),
 //     8 lanes per row, K/V streamed in 64-key tiles through shared memory,
 //     the lanes' partial dq merged with warp shuffles at the end;
-//   * delta = rowsum(dO * O), the TPU kernel's `delta`, in a small pre-pass.
+//   * delta = rowsum(dO * O), the TPU kernel's `delta`, in a small pre-pass
+//     (flash_attention_common.cuh; flash_attention_bwd_mma.cu's pre-pass
+//     computes its rows with the same function).
 // The dropout bit is a pure function of (seed, b * H + h, i, j), so each
 // kernel regenerates the forward's mask whatever its own tiling.
 //
@@ -54,36 +58,7 @@
 namespace {
 
 using fa::kMaskBias;
-
-// A row whose lse is this low had every key padded: its softmax is uniform.
-constexpr float kMaskedRowLse = 0.5f * kMaskBias;
-
-// ---- delta pre-pass ------------------------------------------------------
-
-template <typename T, int Dh>
-__global__ void delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
-                             float* __restrict__ delta, long rows, int lq, int heads) {
-  for (long r = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x; r < rows;
-       r += static_cast<long>(gridDim.x) * blockDim.x) {
-    const T* o = out + r * Dh;
-    const T* g = dout + r * Dh;
-    float s = 0.f;
-#pragma unroll
-    for (int d = 0; d < Dh; d += 8) {
-      float a[8], c[8];
-      fa::load8(o + d, a);
-      fa::load8(g + d, c);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) s = fmaf(a[e], c[e], s);
-    }
-    // r indexes (b, i, h) of the (B, Lq, H, Dh) layout; delta is (B * H, Lq).
-    const long h = r % heads;
-    const long bi = r / heads;
-    const long i = bi % lq;
-    const long b = bi / lq;
-    delta[(b * heads + h) * lq + i] = s;
-  }
-}
+using fa::kMaskedRowLse;
 
 // ---- dK / dV -------------------------------------------------------------
 
@@ -363,11 +338,8 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
   const T* tdo = static_cast<const T*>(dout);
   const unsigned char* m = static_cast<const unsigned char*>(mask);
   const unsigned long long* sd = static_cast<const unsigned long long*>(seed);
-  const long rows = static_cast<long>(batch) * lq * heads;
-  const int delta_blocks = static_cast<int>((rows + 255) / 256 < 4096 ? (rows + 255) / 256 : 4096);
-  delta_kernel<T, Dh><<<delta_blocks, 256, 0, stream>>>(static_cast<const T*>(out), tdo, delta,
-                                                        rows, lq, heads);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = fa::launch_delta<T, Dh>(static_cast<const T*>(out), tdo, delta, batch, lq,
+                                            heads, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   constexpr int kKeys = kKvThreads / (Dh / kPart);

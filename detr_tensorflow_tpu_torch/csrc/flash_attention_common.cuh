@@ -1,7 +1,7 @@
 // Helpers shared by the flash-attention forward and backward kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu): vector loads that
-// widen to fp32, the bf16 rounding points of the TPU kernel, and the
-// attention-dropout keep bit.
+// (flash_attention_fwd.cu, flash_attention_bwd.cu, flash_attention_bwd_mma.cu):
+// vector loads that widen to fp32, the bf16 rounding points of the TPU
+// kernel, the attention-dropout keep bit, and the backward's delta pre-pass.
 //
 // Dropout: the TPU kernel draws its mask per grid block from the TPU's
 // PRNG and replays it in the backward by re-seeding with the same program
@@ -26,6 +26,8 @@
 namespace fa {
 
 constexpr float kMaskBias = -1e30f;
+// A row whose lse is this low had every key padded: its softmax is uniform.
+constexpr float kMaskedRowLse = 0.5f * kMaskBias;
 
 __device__ __forceinline__ void load8(const float* src, float* dst) {
   const float4 a = *reinterpret_cast<const float4*>(src);
@@ -85,6 +87,48 @@ __device__ __forceinline__ float dropout_factor(uint2 key, unsigned bh, unsigned
   const unsigned w = j & 3u;
   const unsigned bits = w == 0 ? r.x : w == 1 ? r.y : w == 2 ? r.z : r.w;
   return bits >= threshold ? keep_scale : 0.f;
+}
+
+// ---- the backward's delta pre-pass -----------------------------------------
+
+// delta[b * H + h, i] = dO_i . O_i, the TPU kernel's `delta`, for row r =
+// (b, i, h) of (B, Lq, H, Dh) out and dout; delta is (B * H, Lq) fp32.
+template <typename T, int Dh>
+__device__ __forceinline__ void delta_row(const T* __restrict__ out, const T* __restrict__ dout,
+                                          float* __restrict__ delta, long r, int lq, int heads) {
+  const T* o = out + r * Dh;
+  const T* g = dout + r * Dh;
+  float s = 0.f;
+#pragma unroll
+  for (int d = 0; d < Dh; d += 8) {
+    float a[8], c[8];
+    load8(o + d, a);
+    load8(g + d, c);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s = fmaf(a[e], c[e], s);
+  }
+  const long h = r % heads;
+  const long bi = r / heads;
+  const long i = bi % lq;
+  const long b = bi / lq;
+  delta[(b * heads + h) * lq + i] = s;
+}
+
+template <typename T, int Dh>
+__global__ void delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+                             float* __restrict__ delta, long rows, int lq, int heads) {
+  for (long r = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x; r < rows;
+       r += static_cast<long>(gridDim.x) * blockDim.x)
+    delta_row<T, Dh>(out, dout, delta, r, lq, heads);
+}
+
+template <typename T, int Dh>
+cudaError_t launch_delta(const T* out, const T* dout, float* delta, int batch, int lq, int heads,
+                         cudaStream_t stream) {
+  const long rows = static_cast<long>(batch) * lq * heads;
+  const int blocks = static_cast<int>((rows + 255) / 256 < 4096 ? (rows + 255) / 256 : 4096);
+  delta_kernel<T, Dh><<<blocks, 256, 0, stream>>>(out, dout, delta, rows, lq, heads);
+  return cudaGetLastError();
 }
 
 }  // namespace fa

@@ -4,18 +4,23 @@ kernels and their plain PyTorch version.
 Replaces the TPU kernels ``_fwd_kernel`` and ``_bwd_kernel`` of
 ``detr_tensorflow_tpu/ops/pallas/flash_attention.py`` (reached through its
 ``mha``). The CUDA sources are ``csrc/flash_attention_fwd_mma.cu`` and
-``csrc/flash_attention_fwd.cu`` (forward) and ``csrc/flash_attention_bwd.cu``;
-their header notes say what bounds each kernel on the card and how it is
-laid out. In short: the forward streams K/V in 64-key tiles with an online
-softmax and, when autograd needs it, writes the row log-sum-exp; the
-backward recomputes the softmax from it in two kernels, one over key tiles
-for dK/dV and one over query tiles for dQ.
+``csrc/flash_attention_fwd.cu`` (forward) and
+``csrc/flash_attention_bwd_mma.cu`` and ``csrc/flash_attention_bwd.cu``
+(backward); their header notes say what bounds each kernel on the card and
+how it is laid out. In short: the forward streams K/V in 64-key tiles with
+an online softmax and, when autograd needs it, writes the row
+log-sum-exp; the backward recomputes the softmax from it in two kernels,
+one over key tiles for dK/dV and one over query tiles for dQ, after a
+pre-pass over the rows.
 
-The forward has two kernels, and ``forward_route`` picks one from the
-call's dtype, dropout rate and head dim alone: bf16 without dropout runs on
-the tensor cores (``mma.sync``, the "mma" route), fp32 and bf16 with dropout
-on the SIMT kernel (fp32 FMAs, the "simt" route; fp32 has no tensor-core
-route without TF32). A failed build or launch raises on either route.
+Each direction has two kernels, picked from the call's dtype, head dim and
+(forward) dropout rate alone. ``forward_route``: bf16 without dropout runs
+on the tensor cores (``mma.sync`` bf16, the "mma" route), fp32 and bf16 with
+dropout on the SIMT kernel (fp32 FMAs, the "simt" route; an fp32 forward
+has no tensor-core kernel yet). ``backward_route``: fp32 runs on the tensor
+cores with 3xTF32 products (each fp32 operand split into two TF32 parts,
+three TF32 MMAs per product: fp32 accuracy), bf16 on the SIMT kernel. A
+failed build or launch raises on every route.
 
 Attention-weight dropout runs inside the kernels. Its keep bit is a pure
 function of the call's 64-bit seed and the element's coordinates
@@ -41,6 +46,7 @@ _NEG_INF = -1e30
 _FWD_SOURCE = "flash_attention_fwd.cu"
 _MMA_SOURCE = "flash_attention_fwd_mma.cu"
 _BWD_SOURCE = "flash_attention_bwd.cu"
+_BWD_MMA_SOURCE = "flash_attention_bwd_mma.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
 # CTA shapes of the mma kernel, four warps each: (row groups of 16 queries,
@@ -164,6 +170,7 @@ def _library(source: str) -> ctypes.CDLL:
         "flash_attention_fwd_mma": [vp] * 6 + [i] * 7 + [vp],
         "flash_attention_keep_mask": [vp, vp, i, i, i, u, vp],
         "flash_attention_bwd": [vp] * 8 + [u, f] + [vp] * 4 + [i] * 6 + [vp],
+        "flash_attention_bwd_mma": [vp] * 8 + [u, f] + [vp] * 4 + [i] * 6 + [vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name, None)
@@ -201,6 +208,15 @@ def forward_route(dtype: torch.dtype, dropout_rate: float, head_dim: int) -> str
     ``csrc/flash_attention_fwd_mma.cu``) for bf16 without dropout, "simt"
     (``csrc/flash_attention_fwd.cu``) for fp32 and for bf16 with dropout."""
     if dtype == torch.bfloat16 and dropout_rate == 0.0 and head_dim in _HEAD_DIMS:
+        return "mma"
+    return "simt"
+
+
+def backward_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward kernel a CUDA call takes: "mma" (tensor cores, 3xTF32,
+    ``csrc/flash_attention_bwd_mma.cu``) for fp32, "simt"
+    (``csrc/flash_attention_bwd.cu``) for bf16."""
+    if dtype == torch.float32 and head_dim in _HEAD_DIMS:
         return "mma"
     return "simt"
 
@@ -270,26 +286,61 @@ def launch_forward_simt(q, k, v, key_padding_mask, dropout_seed, dropout_rate, w
 
 
 def launch_backward(q, k, v, out, dout, lse, key_padding_mask, dropout_seed, dropout_rate):
-    """One launch of the backward kernels on CUDA tensors: (dq, dk, dv)."""
+    """One launch of the backward kernels that ``backward_route`` picks, on
+    CUDA tensors: (dq, dk, dv)."""
+    if backward_route(q.dtype, q.shape[-1]) == "mma":
+        return launch_backward_mma(q, k, v, out, dout, lse, key_padding_mask, dropout_seed,
+                                   dropout_rate)
+    return launch_backward_simt(q, k, v, out, dout, lse, key_padding_mask, dropout_seed,
+                                dropout_rate)
+
+
+def _launch_backward(source, q, k, v, out, dout, lse, key_padding_mask, dropout_seed,
+                     dropout_rate, scratch_per_row=1):
+    """One launch of a backward library; its scratch holds
+    ``scratch_per_row`` 32-bit words per (batch * head, query) row, delta's
+    fp32 first."""
     dout = dout.contiguous()
     _check_kernel_inputs(dout)
     b, lq, h, dh = q.shape
-    lk = k.shape[1]
     threshold, keep_scale = _dropout_args(dropout_rate)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b * h, lq), device=q.device, dtype=torch.float32)
+    delta = torch.empty((b * h * lq * scratch_per_row,), device=q.device, dtype=torch.float32)
+    name = source.removesuffix(".cu")
     with torch.cuda.device(q.device):
-        err = _library(_BWD_SOURCE).flash_attention_bwd(
+        err = getattr(_library(source), name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), _ptr(key_padding_mask),
             _ptr(dropout_seed) if threshold else None, threshold, keep_scale,
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-            b, lq, lk, h, dh, _DTYPE_CODES[q.dtype], _stream(q.device),
+            b, lq, k.shape[1], h, dh, _DTYPE_CODES[q.dtype], _stream(q.device),
         )
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd launch failed: cudaError {err}")
-    mha.backward_launches += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
     return dq, dk, dv
+
+
+def launch_backward_mma(q, k, v, out, dout, lse, key_padding_mask, dropout_seed, dropout_rate):
+    """One launch of the tensor-core backward (3xTF32) on fp32 CUDA tensors:
+    (dq, dk, dv). With dropout its scratch also holds the keep bits its
+    pre-pass draws, a 32-bit word per 32 keys."""
+    if q.dtype != torch.float32:
+        raise TypeError(f"the mma attention backward takes float32, got {q.dtype}")
+    keep_words = -(-k.shape[1] // 32) if dropout_threshold(dropout_rate) else 0
+    grads = _launch_backward(_BWD_MMA_SOURCE, q, k, v, out, dout, lse, key_padding_mask,
+                             dropout_seed, dropout_rate, scratch_per_row=1 + keep_words)
+    mha.backward_mma_launches += 1
+    return grads
+
+
+def launch_backward_simt(q, k, v, out, dout, lse, key_padding_mask, dropout_seed, dropout_rate):
+    """One launch of the SIMT backward on CUDA tensors, fp32 or bf16: (dq,
+    dk, dv). ``mha`` sends only bf16 calls here; a direct call also times it
+    at fp32 against the mma kernel."""
+    grads = _launch_backward(_BWD_SOURCE, q, k, v, out, dout, lse, key_padding_mask,
+                             dropout_seed, dropout_rate)
+    mha.backward_launches += 1
+    return grads
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -322,9 +373,11 @@ def mha(q, k, v, key_padding_mask=None, dropout_rate: float = 0.0, dropout_seed=
 
     A CUDA tensor launches the kernels: the forward on the route
     ``forward_route`` picks (``mha.mma_launches`` counts launches of the
-    tensor-core kernel, ``mha.launches`` those of the SIMT kernel), the
-    backward kernel under autograd (``mha.backward_launches``). A CPU tensor
-    goes to ``reference_mha``; any other device raises.
+    tensor-core kernel, ``mha.launches`` those of the SIMT kernel), and under
+    autograd the backward on the route ``backward_route`` picks
+    (``mha.backward_mma_launches`` for the tensor-core kernel,
+    ``mha.backward_launches`` for the SIMT kernel). A CPU tensor goes to
+    ``reference_mha``; any other device raises.
     """
     _check(q, k, v, key_padding_mask, dropout_rate, dropout_seed)
     if q.device.type == "cpu":
@@ -344,6 +397,7 @@ def mha(q, k, v, key_padding_mask=None, dropout_rate: float = 0.0, dropout_seed=
 mha.launches = 0
 mha.mma_launches = 0
 mha.backward_launches = 0
+mha.backward_mma_launches = 0
 
 
 def kernel_keep_mask(seed: torch.Tensor, batch_heads: int, lq: int, lk: int, rate: float):

@@ -231,3 +231,58 @@ def test_model_attention_dropout_routes_agree():
     assert not torch.allclose(a, plain(query, query, query))
     with pytest.raises(ValueError, match="Generator"):
         plain(query, query, query, train=True)
+
+
+@pytest.mark.parametrize("dtype,head_dim,route", [
+    (torch.float32, 32, "mma"), (torch.float32, 64, "mma"), (torch.bfloat16, 32, "simt"),
+    (torch.bfloat16, 64, "simt"), (torch.float32, 16, "simt")])
+def test_backward_route(dtype, head_dim, route):
+    """A CUDA call's backward kernel depends on dtype and head dim alone: the
+    tensor-core kernel (3xTF32) for fp32, the SIMT kernel for bf16 (a head
+    dim of 16 is refused by ``mha`` before routing)."""
+    assert fa.backward_route(dtype, head_dim) == route
+
+
+def _tf32(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` does: 10 mantissa bits,
+    to nearest, ties away from zero (on the magnitude bits of float32)."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _product_errors(a, b):
+    """Largest error of a @ b, as 3xTF32 and as one TF32 product (fp32
+    accumulation, as the tensor cores), relative to the largest float64
+    value."""
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    three = a_small @ b_big + a_big @ b_small + a_big @ b_big
+    one = a_big @ b_big
+    scale = np.abs(exact).max()
+    return (float(np.abs(three - exact).max() / scale),
+            float(np.abs(one - exact).max() / scale))
+
+
+def test_3xtf32_products_are_fp32_accurate():
+    """The accuracy argument of csrc/flash_attention_bwd_mma.cu, emulated in
+    numpy at DETR's encoder shape (252 queries and keys, Dh 32): dQ = dS K
+    and dK = dS^T Q from 3xTF32 products lie within 1e-5 of their largest
+    float64 value, and single-TF32 products at least 100 times further off.
+    dS is the attention backward's, from seeded inputs."""
+    rng = np.random.default_rng(252)
+    lq = lk = 252
+    q = (rng.normal(size=(lq, 32)) * 32**-0.5).astype(np.float32)
+    k, v = rng.normal(size=(2, lk, 32)).astype(np.float32)
+    dout = rng.normal(size=(lq, 32)).astype(np.float32)
+    s = q.astype(np.float64) @ k.T
+    p = np.exp(s - s.max(axis=1, keepdims=True))
+    p /= p.sum(axis=1, keepdims=True)
+    dp = dout.astype(np.float64) @ v.T
+    ds = (p * (dp - (p * dp).sum(axis=1, keepdims=True))).astype(np.float32)
+    # A tie (half of TF32's last place above 1) rounds away from zero.
+    assert _tf32(np.float32([1 + 2**-11, -1 - 2**-11])).tolist() == [1 + 2**-10, -1 - 2**-10]
+    for a, b in ((ds, k), (ds.T.copy(), q)):  # dQ, then dK
+        three, one = _product_errors(a, b)
+        assert three <= 1e-5
+        assert one >= 100 * three

@@ -175,14 +175,15 @@ def _grads(fn, q, k, v, dout):
 
 def test_attention_output_is_differentiable(cuda_device):
     """On a CUDA tensor under autograd the kernel's output carries a
-    grad_fn, and the gradients come from the backward kernel."""
+    grad_fn, and the gradients come from the backward kernel (fp32: the
+    tensor-core one)."""
     q, k, v, mask = _inputs(cuda_device, torch.float32, 2, 100, 252, 8, 32, seed=4)
     q.requires_grad_()
-    before = fa.mha.backward_launches
+    before = (fa.mha.backward_mma_launches, fa.mha.backward_launches)
     out = fa.mha(q, k, v, mask)
     assert out.grad_fn is not None
     out.sum().backward()
-    assert fa.mha.backward_launches == before + 1
+    assert (fa.mha.backward_mma_launches, fa.mha.backward_launches) == (before[0] + 1, before[1])
     ref_q = q.detach().clone().requires_grad_()
     fa.reference_mha(ref_q, k, v, mask).sum().backward()
     assert _rel_err(q.grad, ref_q.grad) <= GRAD_RTOL[torch.float32]
@@ -195,13 +196,18 @@ def test_attention_output_is_differentiable(cuda_device):
 def test_attention_backward_matches_plain(cuda_device, b, lq, lk, dh, dtype, rate):
     """Kernel forward and dQ/dK/dV against plain autograd; with dropout,
     the plain version gets the mask the kernel library materialises for
-    the same seed, so forward and backward must use that one mask."""
+    the same seed, so forward and backward must use that one mask. fp32
+    runs the tensor-core backward (3xTF32), bf16 the SIMT one."""
     q, k, v, mask = _inputs(cuda_device, dtype, b, lq, lk, 8, dh, seed=lq * 3 + lk)
     dout = torch.randn(q.shape, generator=torch.Generator(device=cuda_device).manual_seed(lk),
                        device=cuda_device).to(dtype)
     seed = torch.tensor([lq * 1000 + lk], device=cuda_device)
     keep = fa.kernel_keep_mask(seed, b * 8, lq, lk, rate).view(b, 8, lq, lk) if rate else None
+    before = (fa.mha.backward_mma_launches, fa.mha.backward_launches)
     got = _grads(lambda *t: fa.mha(*t, mask, rate, seed), q, k, v, dout)
+    mma = dtype == torch.float32
+    assert (fa.mha.backward_mma_launches, fa.mha.backward_launches) == (before[0] + mma,
+                                                                        before[1] + (not mma))
     ref = _grads(lambda *t: fa.reference_mha(*t, mask, keep, rate), q, k, v, dout)
     torch.cuda.synchronize()
     assert _rel_err(got[0], ref[0]) <= (1e-4 if dtype == torch.float32 else 2e-2)
@@ -218,10 +224,76 @@ def test_attention_fully_padded_row(cuda_device):
     mask[1] = True
     mask[0, 50:] = True
     dout = torch.randn(q.shape, device=cuda_device)
+    before = fa.mha.backward_mma_launches
     got = _grads(lambda *t: fa.mha(*t, mask), q, k, v, dout)
+    assert fa.mha.backward_mma_launches == before + 1
     ref = _grads(lambda *t: fa.reference_mha(*t, mask), q, k, v, dout)
     for g, r in zip(got, ref):
         assert _rel_err(g, r) <= 1e-4
+
+
+def _backward_case(device, dtype, b, lq, lk, dh, rate, padded_row=False):
+    """Inputs, the kernel forward's output and lse, and the plain version's
+    gradients (given the kernel library's keep mask) of one backward call."""
+    q, k, v, mask = _inputs(device, dtype, b, lq, lk, 8, dh, seed=lq * 5 + lk + dh)
+    if padded_row:
+        mask[0] = True
+    dout = torch.randn(q.shape, generator=torch.Generator(device=device).manual_seed(lq),
+                       device=device).to(dtype)
+    seed = torch.tensor([lq * 7919 + lk], device=device)
+    out, lse = fa.launch_forward(q, k, v, mask, seed, rate, True)
+    keep = fa.kernel_keep_mask(seed, b * 8, lq, lk, rate).view(b, 8, lq, lk) if rate else None
+    ref = _grads(lambda *t: fa.reference_mha(*t, mask, keep, rate), q, k, v, dout)[1:]
+    return (q, k, v, out, dout, lse, mask, seed, rate), ref
+
+
+# The tensor-core backward at DETR's training shapes, Dh 64 with ragged Lq
+# and Lk (not multiples of 8, 16, 32 or 64: the keep words and tiles end
+# mid-way), and a batch element whose keys are all padded.
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,lq,lk,dh,padded_row", [
+    (8, 252, 252, 32, False), (8, 100, 252, 32, False), (8, 100, 100, 32, False),
+    (3, 37, 5, 64, False), (2, 77, 129, 64, False), (3, 37, 70, 32, True),
+    (2, 130, 300, 64, True), (1, 200, 37, 32, False)])
+def test_attention_backward_mma_matches_plain(cuda_device, b, lq, lk, dh, padded_row, rate):
+    args, ref = _backward_case(cuda_device, torch.float32, b, lq, lk, dh, rate, padded_row)
+    before = fa.mha.backward_mma_launches
+    got = fa.launch_backward_mma(*args)
+    torch.cuda.synchronize()
+    assert fa.mha.backward_mma_launches == before + 1
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.float32 and g.shape == r.shape
+        assert _rel_err(g, r) <= GRAD_RTOL[torch.float32]
+
+
+def test_attention_backward_mma_is_deterministic(cuda_device):
+    """No atomics: two calls on the same inputs give the same bits."""
+    args, _ = _backward_case(cuda_device, torch.float32, 8, 100, 252, 32, 0.1)
+    first = fa.launch_backward_mma(*args)
+    second = fa.launch_backward_mma(*args)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_backward_simt_still_matches_plain(cuda_device, dtype, rate):
+    """The SIMT backward, called directly, still takes fp32 (to time it
+    against the tensor-core kernel) and bf16, and agrees with plain."""
+    args, ref = _backward_case(cuda_device, dtype, 8, 100, 252, 32, rate)
+    before = fa.mha.backward_launches
+    got = fa.launch_backward_simt(*args)
+    torch.cuda.synchronize()
+    assert fa.mha.backward_launches == before + 1
+    for g, r in zip(got, ref):
+        assert _rel_err(g, r) <= GRAD_RTOL[dtype]
+
+
+def test_attention_backward_mma_rejects_bf16(cuda_device):
+    args, _ = _backward_case(cuda_device, torch.float32, 2, 16, 16, 32, 0.0)
+    bf16 = [t.bfloat16() if isinstance(t, torch.Tensor) and t.dim() == 4 else t for t in args]
+    with pytest.raises(TypeError, match="float32"):
+        fa.launch_backward_mma(*bf16)
 
 
 def test_kernel_keep_mask_is_the_torch_philox(cuda_device):
@@ -308,11 +380,44 @@ def test_train_step_kernel_route_matches_plain(cuda_device):
     config = TrainingConfig(background_class=91, train_backbone=True, train_transformers=True,
                             batch_size=2, backbone_lr=1e-3, transformers_lr=1e-3)
     trainer = Trainer(api.build_detr(**cfg).module, config, seed=0)
-    before = (fa.mha.launches, fa.mha.backward_launches, lap.solve_lap_masked.launches)
-    logs = [trainer.step(batch) for _ in range(2)]
-    after = (fa.mha.launches, fa.mha.backward_launches, lap.solve_lap_masked.launches)
-    assert tuple(a - b for a, b in zip(after, before)) == (2 * 6, 2 * 6, 2)
+    logs = []
+    counts = _counts(lambda: logs.extend(trainer.step(batch) for _ in range(2)))
+    assert counts == (2 * 6, 0, 2 * 6, 2)  # fp32: the tensor-core backward only
     assert all(bool(torch.isfinite(log["total_loss"])) for log in logs)
+
+
+def _counts(fn):
+    """Launches of A, A' SIMT, A' tensor-core and B during ``fn()``."""
+    def read():
+        return (fa.mha.launches, fa.mha.backward_launches, fa.mha.backward_mma_launches,
+                lap.solve_lap_masked.launches)
+    before = read()
+    fn()
+    return tuple(a - b for a, b in zip(read(), before))
+
+
+def test_train_step_launches_the_mma_backward_18_times(cuda_device):
+    """One fp32 ``Trainer`` step of a DETR with the full 6 + 6 transformer
+    (reduced backbone) at dropout 0.1: 18 attention forwards, 18 tensor-core
+    backwards, no SIMT backward, one LAP launch."""
+    from detr_tensorflow_tpu_torch.data import pad_targets
+    from detr_tensorflow_tpu_torch.train import Trainer, TrainingConfig
+    from detr_tensorflow_tpu_torch.train.engine import batch_to_device
+
+    rng = np.random.default_rng(3)
+    boxes, classes, mask = pad_targets(
+        np.concatenate([rng.uniform(0.2, 0.8, (4, 2)), rng.uniform(0.05, 0.4, (4, 2))], -1),
+        rng.integers(0, 91, size=4))
+    batch = batch_to_device({"images": rng.normal(size=(1, 128, 192, 3)).astype(np.float32),
+                             "boxes": boxes[None], "classes": classes[None],
+                             "mask": mask[None]}, cuda_device)
+    config = TrainingConfig(background_class=91, train_backbone=True, train_transformers=True,
+                            batch_size=1)
+    model = api.build_detr(backbone_stage_sizes=(1, 1, 1, 1), device=cuda_device).module
+    trainer = Trainer(model, config, seed=0)
+    logs = []
+    assert _counts(lambda: logs.append(trainer.step(batch))) == (18, 0, 18, 1)
+    assert bool(torch.isfinite(logs[0]["total_loss"]))
 
 
 def _int8_operands(device, seed):
