@@ -8,27 +8,30 @@ Phases, one status line each; any failure raises and exits non-zero:
      ``nvidia-smi --query-gpu=name,power.limit``;
   2. build: nvcc builds every kernel of the serving and training paths from
      csrc/, one process per source, all at once; prints each kernel's ptxas
-     report and the HMMA (tensor-core) instructions in the SASS of the two
-     mma attention kernels, and fails if either has none;
+     report and the HMMA (tensor-core) instructions in the SASS of the three
+     tensor-core attention kernels, and fails if any has none;
   3. kernels: attention A at every shape of the served path against its
-     plain PyTorch version: fp32 (TF32 off) through the SIMT kernel, bf16
+     plain PyTorch version: fp32 (TF32 off) through the tensor-core kernel
+     A-tf32 (3xTF32) and through the SIMT kernel called directly, bf16
      through the tensor-core kernel A-mma and through the SIMT kernel
-     called directly; A-mma, SIMT, plain and library times from CUDA
-     graphs at B=2 and at the b1 896x1408 shapes (A-mma at each CTA shape);
-     then the attention forward with dropout and its backward at the
-     training shapes, against plain autograd at dropout 0 and given the
-     mask the kernel library materialises: fp32 through the tensor-core A'
-     (3xTF32) and through the SIMT A' called directly, bf16 through the
-     SIMT A'; at each training shape the tensor-core A', the SIMT A', plain
-     and SDPA's backward timed from CUDA graphs in turns, and their sums
-     per training step;
+     called directly; A-tf32 or A-mma, SIMT, plain and library times from
+     CUDA graphs at B=2 and at the b1 896x1408 shapes (the tensor-core
+     kernels at each CTA shape); then the attention forward with dropout
+     and its backward at the training shapes, against plain autograd at
+     dropout 0 and given the mask the kernel library materialises: fp32
+     through A-tf32 and the tensor-core A' (3xTF32) and through the SIMT A'
+     called directly, bf16 through the SIMT A and A'; at each training
+     shape the fp32 forward with dropout 0.1 (A-tf32 at each CTA shape, the
+     SIMT A, plain, SDPA) and the backward (the tensor-core A', the SIMT
+     A', plain, SDPA's backward) timed from CUDA graphs in turns, and their
+     sums per training step;
   4. lap: the LAP kernel on 48 problems (6 decoder layers x batch 8)
      against its plain version and scipy, with times;
   5. serving: full-width DETR-R50 (seeded random weights) behind
      ``Predictor``: 3 requests with the launch counters reset just before,
      the whole forward against the plain-attention model, padded against
-     exact, and one bf16 request (A-mma 18 per bf16 forward, the SIMT
-     kernel 18 per fp32 one);
+     exact, and one bf16 request (A-mma 18 per bf16 forward, A-tf32 18 per
+     fp32 one, the SIMT kernel 0);
   6. http: the port's HTTP service on 127.0.0.1, 3 POSTs and /healthz;
   7. int8 kernels: F (fused int8 1x1) and G (int8 3x3, stride 1 and 2) at
      every distinct shape of the b1 896x1408 int8 forward against their
@@ -42,7 +45,7 @@ Phases, one status line each; any failure raises and exits non-zero:
   9. training: full-width DETR-R50 at b8 376x672 fp32: one step's loss and
      gradients, kernel route against plain route at dropout 0; eight
      dropout-0.1 steps through ``fit`` with the counters reset just before
-     (per step A 18, tensor-core A' 18, SIMT A' 0, B 1, C 1);
+     (per step A-tf32 18, SIMT A 0, tensor-core A' 18, SIMT A' 0, B 1, C 1);
      matching and loss under ``torch.cuda.set_sync_debug_mode("error")``;
  10. fused kernels: C (stem max pool), D (fused bottleneck tail) and E
      (whole identity bottleneck) at every distinct shape of one b1 forward
@@ -54,7 +57,7 @@ Phases, one status line each; any failure raises and exits non-zero:
      fuse_bottleneck=True`` and the unfused model from one seed and one set
      of nonzero FrozenBN buffers: 3 requests through ``Predictor`` with the
      counters reset just before (per bucket-exact forward C 1, D 4, E 12,
-     A 18; per masked forward C 1, D 16, E 0, A 18), c5, boxes and logits
+     A-tf32 18; per masked forward C 1, D 16, E 0, A-tf32 18), c5, boxes and logits
      against the unfused model at fp32, one fused bf16 bucket-exact request
      (C 1, D 4, E 12, A-mma 18), and the median latency of both at
      768x1280 b1, fp32 and bf16, with each one's device-busy time and idle
@@ -62,8 +65,9 @@ Phases, one status line each; any failure raises and exits non-zero:
 Kernel C runs in every ``ResNetBackbone`` forward: serving, training and
 fused serving count it (1 per forward or step); the int8 model's stem is
 not a ``ResNetBackbone`` and launches none.
-Kernel times: B from CUDA events around a loop of calls; A, A-mma, A' and C
-to G, whose calls are shorter than the wrapper's host cost, from CUDA graphs.
+Kernel times: B from CUDA events around a loop of calls; A, A-mma, A-tf32, A'
+and C to G, whose calls are shorter than the wrapper's host cost, from CUDA
+graphs.
 Every kernel's record carries its bound (bytes over 3.35 TB/s or operations
 over the published peak of their type) and, where one PyTorch call computes
 the same function, that call's time as a yardstick the port never calls.
@@ -100,11 +104,15 @@ BOX_ATOL, LOGIT_ATOL = 5e-4, 5e-3  # kernel model vs plain-attention model, fp32
 PADDED_BOX_ATOL = 1e-3
 SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "lap.cu", "int8_matmul.cu",
            "int8_conv.cu", "maxpool.cu", "fused_residual.cu", "fused_bottleneck.cu",
-           "flash_attention_fwd_mma.cu", "flash_attention_bwd_mma.cu")
+           "flash_attention_fwd_mma.cu", "flash_attention_bwd_mma.cu",
+           "flash_attention_fwd_tf32.cu")
+MMA_SOURCES = ("flash_attention_fwd_mma.cu", "flash_attention_bwd_mma.cu",
+               "flash_attention_fwd_tf32.cu")
 CSRC = "detr_tensorflow_tpu_torch/csrc/"
 REPLACES = {
     "flash_attention_fwd": "detr_tensorflow_tpu/ops/pallas/flash_attention.py:77",
     "flash_attention_fwd_mma": "detr_tensorflow_tpu/ops/pallas/flash_attention.py:77",
+    "flash_attention_fwd_tf32": "detr_tensorflow_tpu/ops/pallas/flash_attention.py:77",
     "flash_attention_bwd": "detr_tensorflow_tpu/ops/pallas/flash_attention.py:115",
     "flash_attention_bwd_mma": "detr_tensorflow_tpu/ops/pallas/flash_attention.py:115",
     "lap": "detr_tensorflow_tpu/ops/pallas/lap.py:77",
@@ -256,12 +264,15 @@ def attention_inputs(torch, b, lq, lk, dtype, seed):
     return to(q), to(k), to(v), torch.from_numpy(mask).to(DEVICE)
 
 
-def attention_bound(b, lq, lk, name):
-    """q, k, v in and out written once, the mask's bytes; 4 * Lq * Lk * Dh
-    flops a head (QK^T and PV) at the peak of the dtype."""
+def attention_bound(b, lq, lk, name, masked=True, lse=False):
+    """q, k, v in and out written once, the mask's bytes and the row lse
+    where the call has them; 4 * Lq * Lk * Dh flops a head (QK^T and PV) at
+    the peak of the dtype, three times over for "tf32" (3xTF32 products)."""
     size = 2 if name == "bfloat16" else 4
-    return bound_ms(b * 8 * 32 * (2 * lq + 2 * lk) * size + b * lk,
-                    {name: 4 * b * 8 * lq * lk * 32})
+    nbytes = b * 8 * 32 * (2 * lq + 2 * lk) * size + (b * lk if masked else 0)
+    flops = 4 * b * 8 * lq * lk * 32
+    return bound_ms(nbytes + (b * 8 * lq * 4 if lse else 0),
+                    {name: 3 * flops if name == "tf32" else flops})
 
 
 def exp_floor_ms(b, lq, lk):
@@ -279,92 +290,98 @@ def check_attention(name, label, out, ref, q):
     return err
 
 
+def forward_counts(fa):
+    """Forward launches so far: (SIMT A, A-mma, A-tf32)."""
+    return fa.mha.launches, fa.mha.mma_launches, fa.mha.tf32_launches
+
+
 def phase_kernels(torch, fa):
-    """Kernel A on both routes at every attention shape of the served path,
-    against the plain version: fp32 through ``mha`` (the SIMT kernel), bf16
-    through ``mha`` (the tensor-core kernel) and through the SIMT kernel
-    called directly. Then, at batch 2 and at the b1 shapes, both kernels
-    (the mma kernel at each CTA shape, masked and not) are held against
-    plain again and timed from CUDA graphs with plain and SDPA."""
-    worst = {"float32": 0.0, "bfloat16": 0.0, "simt bfloat16": 0.0}
+    """Kernel A on its three routes at every attention shape of the served
+    path, against the plain version: fp32 through ``mha`` (the 3xTF32
+    tensor-core kernel A-tf32), bf16 through ``mha`` (the bf16 tensor-core
+    kernel A-mma), and both dtypes through the SIMT kernel called directly.
+    Then, at batch 2 and at the b1 shapes, the tensor-core kernel of each
+    dtype (at each CTA shape, masked and not) and the SIMT kernel are held
+    against plain again and timed from CUDA graphs with plain and SDPA."""
+    worst = {"float32": 0.0, "bfloat16": 0.0, "simt float32": 0.0, "simt bfloat16": 0.0}
+    routes = {"float32": ("tf32", (0, 0, 1)), "bfloat16": ("mma", (0, 1, 0))}
     for lq, lk in ATTN_SHAPES:
         for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             q, k, v, mask = attention_inputs(torch, 2, lq, lk, dtype, seed=lq * 7 + lk)
-            before = (fa.mha.launches, fa.mha.mma_launches)
+            before = forward_counts(fa)
             out = fa.mha(q, k, v, mask)
-            routed = (fa.mha.launches - before[0], fa.mha.mma_launches - before[1])
-            if routed != ((0, 1) if name == "bfloat16" else (1, 0)):
-                raise AssertionError(f"({lq},{lk}) {name}: (simt, mma) launches {routed}")
+            routed = tuple(a - b for a, b in zip(forward_counts(fa), before))
+            route, expected = routes[name]
+            if routed != expected:
+                raise AssertionError(f"({lq},{lk}) {name}: (simt, mma, tf32) launches {routed}")
             ref = fa.reference_mha(q, k, v, mask)
             torch.cuda.synchronize()
-            route = "mma" if name == "bfloat16" else "simt"
             err = check_attention(name, f"{route} ({lq},{lk}) {name}", out, ref, q)
             worst[name] = max(worst[name], err)
-            line = f"  attention ({lq},{lk}) {name}: {route} max_abs_err {err:.3e}"
-            if name == "bfloat16":
-                simt = fa.launch_forward_simt(q, k, v, mask, None, 0.0, False)[0]
-                torch.cuda.synchronize()
-                err = check_attention(name, f"simt ({lq},{lk}) bf16", simt, ref, q)
-                worst["simt bfloat16"] = max(worst["simt bfloat16"], err)
-                line += f", simt {err:.3e}"
-            log(f"{line} (tol {ATOL[name]})")
+            simt = fa.launch_forward_simt(q, k, v, mask, None, 0.0, False)[0]
+            torch.cuda.synchronize()
+            simt_err = check_attention(name, f"simt ({lq},{lk}) {name}", simt, ref, q)
+            worst[f"simt {name}"] = max(worst[f"simt {name}"], simt_err)
+            log(f"  attention ({lq},{lk}) {name}: {route} max_abs_err {err:.3e}, simt "
+                f"{simt_err:.3e} (tol {ATOL[name]})")
 
     times = {}
     for b, shapes in ((2, TIMED_SHAPES), (1, B1_TIMED_SHAPES)):
         for lq, lk in shapes:
             for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
                 q, k, v, mask = attention_inputs(torch, b, lq, lk, dtype, seed=lq * 5 + lk + b)
+                route = routes[name][0]
                 simt = lambda: fa.launch_forward_simt(  # noqa: E731
                     q, k, v, mask, None, 0.0, False)
                 plain = lambda: fa.reference_mha(q, k, v, mask)  # noqa: E731
-                # Each kernel, and each CTA shape of the mma kernel, against plain at
-                # this batch before it is timed (b1 is the served batch).
-                outs = {("simt", mask is not None): simt()[0]}
+                fast = lambda m=mask: fa.mha(q, k, v, m)  # noqa: E731
+
+                def at_shape(shape):
+                    if name == "bfloat16":
+                        return fa.launch_forward_mma(q, k, v, mask, False, shape=shape)
+                    return fa.launch_forward_tf32(q, k, v, mask, None, 0.0, False, shape=shape)
+
+                # Each kernel, and each CTA shape of the tensor-core kernel, against
+                # plain at this batch before it is timed (b1 is the served batch).
+                outs = {("simt", True): simt()[0], (route, True): fast(), (route, False): fast(None)}
                 refs = {True: plain(), False: fa.reference_mha(q, k, v)}
-                if name == "bfloat16":
-                    outs[("mma", True)], outs[("mma", False)] = fa.mha(q, k, v, mask), fa.mha(q, k, v)
-                    for shape in fa.MMA_SHAPES:
-                        outs[(shape, True)] = fa.launch_forward_mma(q, k, v, mask, False,
-                                                                    shape=shape)[0]
+                for shape in fa.MMA_SHAPES:
+                    outs[(shape, True)] = at_shape(shape)[0]
                 torch.cuda.synchronize()
                 errs = []
                 for (what, m), out in outs.items():
                     errs.append(check_attention(
                         name, f"{what} ({lq},{lk}) {name} B={b} masked {m}", out, refs[m], q))
-                    key = "simt bfloat16" if what == "simt" and name == "bfloat16" else name
+                    key = f"simt {name}" if what == "simt" else name
                     worst[key] = max(worst[key], errs[-1])
                 t = {}
-                if name == "bfloat16":
-                    mma = lambda: fa.mha(q, k, v, mask)  # noqa: E731
-                    p1, s1, m1, m2, s2, p2 = (graph_ms(torch, f)
-                                              for f in (plain, simt, mma, mma, simt, plain))
-                    t["mma"] = (m1 + m2) / 2
-                    # Without the key-padding mask (the decoder's self-attention has none).
-                    t["mma unmasked"] = graph_ms(torch, lambda: fa.mha(q, k, v))
-                    t["sdpa unmasked"] = graph_ms(torch, lambda: sdpa(torch, q, k, v, None))
-                    for shape in fa.MMA_SHAPES:
-                        t[shape] = graph_ms(torch, lambda: fa.launch_forward_mma(
-                            q, k, v, mask, False, shape=shape))
-                else:
-                    p1, s1, s2, p2 = (graph_ms(torch, f) for f in (plain, simt, simt, plain))
-                t["simt"], t["plain"] = (s1 + s2) / 2, (p1 + p2) / 2
+                p1, s1, m1, m2, s2, p2 = (graph_ms(torch, f)
+                                          for f in (plain, simt, fast, fast, simt, plain))
+                t[route], t["simt"], t["plain"] = (m1 + m2) / 2, (s1 + s2) / 2, (p1 + p2) / 2
+                # Without the key-padding mask (the decoder's self-attention has none).
+                t[f"{route} unmasked"] = graph_ms(torch, lambda: fast(None))
+                t["sdpa unmasked"] = graph_ms(torch, lambda: sdpa(torch, q, k, v, None))
+                for shape in fa.MMA_SHAPES:
+                    t[shape] = graph_ms(torch, lambda: at_shape(shape))
                 t["sdpa"] = graph_ms(torch, lambda: sdpa(torch, q, k, v, mask))
                 t["bound"] = attention_bound(b, lq, lk, name)
+                if name == "float32":
+                    t["bound3x"] = attention_bound(b, lq, lk, "tf32")
                 times[(b, lq, lk, name)] = t
-                mma_part = ""
-                if name == "bfloat16":
-                    sms = torch.cuda.get_device_properties(0).multi_processor_count
-                    shape = fa.mma_shape(b * 8, lq, sms)
-                    mma_part = (f"mma {t['mma']:.4f} ms (CTA shape {shape}; "
-                                + ", ".join(f"{s_} {t[s_]:.4f}" for s_ in fa.MMA_SHAPES)
-                                + f"; unmasked {t['mma unmasked']:.4f}, scaled_dot_product_attention "
-                                f"unmasked {t['sdpa unmasked']:.4f}), ")
+                sms = torch.cuda.get_device_properties(0).multi_processor_count
+                shape = (fa.mma_shape if name == "bfloat16" else fa.tf32_shape)(b * 8, lq, sms)
+                bound3x = (f", {t['bound3x'][0]:.4f} ms as 3xTF32 ({t['bound3x'][1]})"
+                           if name == "float32" else "")
                 log(f"  attention ({lq},{lk}) {name} B={b}: {len(errs)} outputs against plain, "
                     f"max_abs_err {max(errs):.3e} (tol {ATOL[name]})")
-                log(f"  attention ({lq},{lk}) {name} B={b} H=8 Dh=32, CUDA graphs: {mma_part}"
-                    f"simt {t['simt']:.4f} ms, plain {t['plain']:.4f} ms, library "
-                    f"scaled_dot_product_attention {t['sdpa']:.4f} ms, bound {t['bound'][0]:.4f} "
-                    f"ms ({t['bound'][1]}), exp floor {exp_floor_ms(b, lq, lk):.4f} ms")
+                log(f"  attention ({lq},{lk}) {name} B={b} H=8 Dh=32, CUDA graphs: {route} "
+                    f"{t[route]:.4f} ms ({m1:.4f}, {m2:.4f}; CTA shape {shape}; "
+                    + ", ".join(f"{s_} {t[s_]:.4f}" for s_ in fa.MMA_SHAPES)
+                    + f"; unmasked {t[route + ' unmasked']:.4f}, scaled_dot_product_attention "
+                    f"unmasked {t['sdpa unmasked']:.4f}), simt {t['simt']:.4f} ms, plain "
+                    f"{t['plain']:.4f} ms, library scaled_dot_product_attention {t['sdpa']:.4f} "
+                    f"ms, bound {t['bound'][0]:.4f} ms ({t['bound'][1]}){bound3x}, exp floor "
+                    f"{exp_floor_ms(b, lq, lk):.4f} ms")
     return worst, times
 
 
@@ -390,12 +407,14 @@ def attention_grads(torch, fn, q, k, v, dout):
 
 def phase_train_kernels(torch, fa):
     """Kernel A with dropout and kernel A' at the training shapes: through
-    ``mha`` (fp32: the tensor-core A', bf16: the SIMT A'), and the SIMT A'
-    called directly at fp32; each against plain autograd at dropout 0 and
-    0.1. Then, at every training shape (fp32, dropout 0.1), the tensor-core
-    A', the SIMT A', plain and SDPA's backward from CUDA graphs, in turns."""
+    ``mha`` (fp32: A-tf32 and the tensor-core A', bf16: the SIMT A and A'),
+    and the SIMT A' called directly at fp32; each against plain autograd at
+    dropout 0 and 0.1. Then, at every training shape (fp32, dropout 0.1),
+    the forward (A-tf32, the SIMT A, plain, SDPA) and the backward (the
+    tensor-core A', the SIMT A', plain, SDPA's backward) from CUDA graphs,
+    in turns."""
     worst = {"float32": 0.0, "bfloat16": 0.0, "simt float32": 0.0}
-    times = {}
+    times, fwd_times = {}, {}
     for lq, lk in TRAIN_ATTN_SHAPES:
         for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             masked = (lq, lk) == (100, 252)
@@ -437,8 +456,52 @@ def phase_train_kernels(torch, fa):
                 log(f"  attention fwd+bwd ({lq},{lk}) {name} dropout {rate}"
                     f"{' masked' if masked else ''}, backward route {route}: {', '.join(errs)}")
             if name == "float32":
+                fwd_times[(lq, lk)] = time_train_forward(torch, fa, q, k, v, mask)
                 times[(lq, lk)] = time_train_attention(torch, fa, q, k, v, dout, mask)
-    return worst, times
+    return worst, times, fwd_times
+
+
+def time_train_forward(torch, fa, q, k, v, mask):
+    """A at one training shape (fp32, b8, dropout 0.1, with the row lse the
+    backward reads) from CUDA graphs: A-tf32 (the CTA shape ``tf32_shape``
+    picks, and each shape), the SIMT kernel, plain and SDPA's forward with
+    ``dropout_p`` in turns (plain, tf32, simt, simt, tf32, plain), each
+    kernel held against plain given the kernel library's keep mask first,
+    with the bound on the fp32 pipes and as 3xTF32 on the tensor cores."""
+    lq, lk = q.shape[1], k.shape[1]
+    seed = torch.tensor([54321], device=DEVICE)
+    keep = fa.kernel_keep_mask(seed, 64, lq, lk, DROPOUT).view(8, 8, lq, lk)
+    tf32 = lambda shape=None: fa.launch_forward_tf32(  # noqa: E731
+        q, k, v, mask, seed, DROPOUT, True, shape=shape)
+    simt = lambda: fa.launch_forward_simt(q, k, v, mask, seed, DROPOUT, True)  # noqa: E731
+    plain = lambda: fa.reference_mha(q, k, v, mask, keep, DROPOUT)  # noqa: E731
+    ref = plain()
+    outs = {"tf32": tf32()[0], "simt": simt()[0]}
+    for shape in fa.MMA_SHAPES:
+        outs[shape] = tf32(shape)[0]
+    torch.cuda.synchronize()
+    errs = {what: check_attention("float32", f"{what} ({lq},{lk}) fp32 dropout {DROPOUT}", out,
+                                  ref, q) for what, out in outs.items()}
+    p1, a1, s1, s2, a2, p2 = (graph_ms(torch, f, iters=10)
+                              for f in (plain, tf32, simt, simt, tf32, plain))
+    t = {"tf32": (a1 + a2) / 2, "simt": (s1 + s2) / 2, "plain": (p1 + p2) / 2,
+         "sdpa": graph_ms(torch, lambda: sdpa(torch, q, k, v, mask, DROPOUT), iters=10),
+         "err": max(errs.values()),
+         "bound32": attention_bound(8, lq, lk, "float32", mask is not None, lse=True),
+         "bound3x": attention_bound(8, lq, lk, "tf32", mask is not None, lse=True)}
+    for shape in fa.MMA_SHAPES:
+        t[shape] = graph_ms(torch, lambda: tf32(shape), iters=10)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"  attention forward ({lq},{lk}) fp32 B=8 H=8 Dh=32 dropout {DROPOUT}"
+        f"{' masked' if mask is not None else ''}, against plain given the keep mask: "
+        + ", ".join(f"{w} {e:.2e}" for w, e in errs.items())
+        + f"; CUDA graphs: A-tf32 {t['tf32']:.4f} ms ({a1:.4f}, {a2:.4f}; CTA shape "
+        f"{fa.tf32_shape(64, lq, sms)}; " + ", ".join(f"{s_} {t[s_]:.4f}" for s_ in fa.MMA_SHAPES)
+        + f"), SIMT A {t['simt']:.4f} ms ({s1:.4f}, {s2:.4f}), plain {t['plain']:.4f} ms, "
+        f"library scaled_dot_product_attention with dropout_p {t['sdpa']:.4f} ms, bound "
+        f"{t['bound32'][0]:.4f} ms on the fp32 pipes ({t['bound32'][1]}), {t['bound3x'][0]:.4f} "
+        f"ms as 3xTF32 ({t['bound3x'][1]})")
+    return t
 
 
 def time_train_attention(torch, fa, q, k, v, dout, mask):
@@ -557,7 +620,8 @@ def phase_serving(torch, fa, mp, api, Predictor):
     predictor.warmup([(800, 1333), (480, 640)])
 
     # main path: three requests, three forwards
-    fa.mha.launches = fa.mha.mma_launches = mp.max_pool_3x3_s2.launches = 0
+    fa.mha.launches = fa.mha.mma_launches = fa.mha.tf32_launches = 0
+    mp.max_pool_3x3_s2.launches = 0
     t0 = time.perf_counter()
     r1 = predictor([img_a])
     t1 = time.perf_counter()
@@ -565,12 +629,12 @@ def phase_serving(torch, fa, mp, api, Predictor):
     t2 = time.perf_counter()
     r3 = predictor([img_c, img_d])
     t3 = time.perf_counter()
-    launches, pool_launches = fa.mha.launches, mp.max_pool_3x3_s2.launches
+    (simt, mma, launches), pool_launches = forward_counts(fa), mp.max_pool_3x3_s2.launches
     log(f"  requests: 800x1333 b1 {1e3 * (t1 - t0):.2f} ms, 480x640 b1 "
         f"{1e3 * (t2 - t1):.2f} ms, 2x800x1333 b2 {1e3 * (t3 - t2):.2f} ms; launches: "
-        f"A {launches} (SIMT), A-mma {fa.mha.mma_launches}, C {pool_launches}")
-    if launches != 3 * LAUNCHES_PER_FORWARD or fa.mha.mma_launches or pool_launches != 3:
-        raise AssertionError(f"{launches} A, {fa.mha.mma_launches} A-mma and {pool_launches} C "
+        f"A-tf32 {launches}, A (SIMT) {simt}, A-mma {mma}, C {pool_launches}")
+    if launches != 3 * LAUNCHES_PER_FORWARD or simt or mma or pool_launches != 3:
+        raise AssertionError(f"{launches} A-tf32, {simt} A, {mma} A-mma and {pool_launches} C "
                              f"launches for 3 fp32 forwards")
     for dets in (r1, r2, r3):
         check_detections(dets)
@@ -618,16 +682,17 @@ def phase_serving(torch, fa, mp, api, Predictor):
     model_bf16 = api.build_detr(seed=0, device=DEVICE, dtype="bfloat16")
     pred_bf16 = Predictor(model_bf16, background_class=91)
     pred_bf16.warmup([(800, 1333)])
-    fa.mha.launches = fa.mha.mma_launches = mp.max_pool_3x3_s2.launches = 0  # main path
+    fa.mha.launches = fa.mha.mma_launches = fa.mha.tf32_launches = 0  # main path
+    mp.max_pool_3x3_s2.launches = 0
     t0 = time.perf_counter()
     dets = pred_bf16([img_a])
     bf16_ms = 1e3 * (time.perf_counter() - t0)
-    mma_launches = fa.mha.mma_launches
-    log(f"  bf16 request launches: A-mma {mma_launches}, A (SIMT) {fa.mha.launches}, "
+    simt, mma_launches, tf32 = forward_counts(fa)
+    log(f"  bf16 request launches: A-mma {mma_launches}, A (SIMT) {simt}, A-tf32 {tf32}, "
         f"C {mp.max_pool_3x3_s2.launches}")
-    if (mma_launches != LAUNCHES_PER_FORWARD or fa.mha.launches
+    if (mma_launches != LAUNCHES_PER_FORWARD or simt or tf32
             or mp.max_pool_3x3_s2.launches != 1):
-        raise AssertionError(f"bf16: {mma_launches} A-mma, {fa.mha.launches} A and "
+        raise AssertionError(f"bf16: {mma_launches} A-mma, {simt} A, {tf32} A-tf32 and "
                              f"{mp.max_pool_3x3_s2.launches} C launches for one forward")
     pool_launches += mp.max_pool_3x3_s2.launches
     check_detections(dets)
@@ -795,7 +860,8 @@ def phase_int8_serving(torch, fa, mm, conv, mp, api, quantized, Predictor, fp32_
     predictor.warmup([(800, 1333), (480, 640)])
 
     reset_int8_counts(mm, conv)  # main path: three requests, three forwards
-    fa.mha.launches = fa.mha.mma_launches = mp.max_pool_3x3_s2.launches = 0
+    fa.mha.launches = fa.mha.mma_launches = fa.mha.tf32_launches = 0
+    mp.max_pool_3x3_s2.launches = 0
     t0 = time.perf_counter()
     r1 = predictor([img_a])
     t1 = time.perf_counter()
@@ -806,11 +872,11 @@ def phase_int8_serving(torch, fa, mm, conv, mp, api, quantized, Predictor, fp32_
     f_counts = {"plain": mm.qmatmul.launches, "residual": mm.qmatmul_residual.launches,
                 "residual2": mm.qmatmul_residual2.launches}
     g_counts, a_count = dict(conv.conv3x3_int8.launches), fa.mha.mma_launches
-    simt_count, pool_count = fa.mha.launches, mp.max_pool_3x3_s2.launches
+    simt_count, pool_count = fa.mha.launches + fa.mha.tf32_launches, mp.max_pool_3x3_s2.launches
     log(f"  requests: 800x1333 b1 {1e3 * (t1 - t0):.2f} ms, 480x640 b1 {1e3 * (t2 - t1):.2f} ms, "
         f"2x800x1333 b2 {1e3 * (t3 - t2):.2f} ms")
-    log(f"  launches in 3 forwards: F {f_counts}, G {g_counts}, A-mma {a_count}, A (SIMT) "
-        f"{simt_count}, C {pool_count} (the int8 stem is not a ResNetBackbone)")
+    log(f"  launches in 3 forwards: F {f_counts}, G {g_counts}, A-mma {a_count}, A (SIMT and "
+        f"tf32) {simt_count}, C {pool_count} (the int8 stem is not a ResNetBackbone)")
     if (f_counts != {k: 3 * v for k, v in F_PER_FORWARD.items()}
             or g_counts != {k: 3 * v for k, v in G_PER_FORWARD.items()}
             or a_count != 3 * LAUNCHES_PER_FORWARD or simt_count or pool_count != 0):
@@ -982,10 +1048,11 @@ def phase_training(torch, fa, lap, mp, api, train, losses):
         marks.append(time.perf_counter())
         losses_seen.append(host_log["total_loss"])
 
-    fa.mha.launches = fa.mha.backward_launches = lap.solve_lap_masked.launches = 0  # main path
+    fa.mha.tf32_launches = fa.mha.backward_launches = lap.solve_lap_masked.launches = 0  # main path
     mp.max_pool_3x3_s2.launches = fa.mha.mma_launches = fa.mha.backward_mma_launches = 0
+    fa.mha.launches = 0
     train.fit(trainer, [batch] * TRAIN_STEPS, config, epoch_nb=0, log_fn=log_fn, log_every=1)
-    counts = (fa.mha.launches, fa.mha.backward_launches, lap.solve_lap_masked.launches,
+    counts = (fa.mha.tf32_launches, fa.mha.backward_launches, lap.solve_lap_masked.launches,
               mp.max_pool_3x3_s2.launches, fa.mha.backward_mma_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     step_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
@@ -993,13 +1060,15 @@ def phase_training(torch, fa, lap, mp, api, train, losses):
     log(f"  {TRAIN_STEPS} steps at dropout {DROPOUT}: losses {[round(x, 4) for x in losses_seen]}")
     log(f"  step times {[round(x, 2) for x in step_ms]} ms, median {median:.2f} ms, "
         f"{TRAIN_BATCH * 1e3 / median:.2f} images/s, peak device memory {peak_gb:.2f} GiB")
-    log(f"  launches in {TRAIN_STEPS} steps: attention forward {counts[0]}, backward "
-        f"tensor-core {counts[4]} and SIMT {counts[1]}, lap {counts[2]}, max pool {counts[3]}")
+    log(f"  launches in {TRAIN_STEPS} steps: attention forward A-tf32 {counts[0]}, SIMT "
+        f"{fa.mha.launches}, A-mma {fa.mha.mma_launches}; backward tensor-core {counts[4]} and "
+        f"SIMT {counts[1]}, lap {counts[2]}, max pool {counts[3]}")
     per_step = (LAUNCHES_PER_FORWARD, 0, 1, 1, LAUNCHES_PER_FORWARD)
-    if counts != tuple(TRAIN_STEPS * c for c in per_step) or fa.mha.mma_launches:
-        raise AssertionError(f"launch counts {counts} and {fa.mha.mma_launches} A-mma, expected "
-                             f"{per_step} per step (A, SIMT A', B, C, tensor-core A') and no "
-                             f"A-mma (fp32)")
+    if (counts != tuple(TRAIN_STEPS * c for c in per_step) or fa.mha.mma_launches
+            or fa.mha.launches):
+        raise AssertionError(f"launch counts {counts}, {fa.mha.launches} SIMT A and "
+                             f"{fa.mha.mma_launches} A-mma, expected {per_step} per step (A-tf32, "
+                             f"SIMT A', B, C, tensor-core A') and no SIMT A or A-mma (fp32)")
     if not all(np.isfinite(losses_seen)) or not losses_seen[-1] < losses_seen[0]:
         raise AssertionError(f"losses not finite and falling: {losses_seen}")
 
@@ -1179,11 +1248,13 @@ def phase_fused_serving(torch, fa, mp, fr, fb, api, Predictor):
 
     def counts():
         return (mp.max_pool_3x3_s2.launches, fr.conv1x1_bn_residual_relu.launches,
-                fb.fused_bottleneck.launches, fa.mha.launches, fa.mha.mma_launches)
+                fb.fused_bottleneck.launches, fa.mha.tf32_launches, fa.mha.mma_launches,
+                fa.mha.launches)
 
     def reset():
         mp.max_pool_3x3_s2.launches = fr.conv1x1_bn_residual_relu.launches = 0
-        fb.fused_bottleneck.launches = fa.mha.launches = fa.mha.mma_launches = 0
+        fb.fused_bottleneck.launches = fa.mha.tf32_launches = fa.mha.mma_launches = 0
+        fa.mha.launches = 0
 
     reset()  # main path
     seen, times = [], []
@@ -1193,11 +1264,12 @@ def phase_fused_serving(torch, fa, mp, fr, fb, api, Predictor):
         times.append(1e3 * (time.perf_counter() - t0))
         seen.append(counts())
         check_detections(dets)
-    per = [tuple(b - a for a, b in zip((0,) * 5 if i == 0 else seen[i - 1], c))
+    per = [tuple(b - a for a, b in zip((0,) * 6 if i == 0 else seen[i - 1], c))
            for i, c in enumerate(seen)]
     log(f"  requests: 768x1280 b1 {times[0]:.2f} ms, 800x1333 b1 {times[1]:.2f} ms, "
-        f"2x768x1280 b2 {times[2]:.2f} ms; launches (C, D, E, A, A-mma) per request {per}")
-    expected = [FUSED_PER_FORWARD[k] + (LAUNCHES_PER_FORWARD, 0)
+        f"2x768x1280 b2 {times[2]:.2f} ms; launches (C, D, E, A-tf32, A-mma, A SIMT) per "
+        f"request {per}")
+    expected = [FUSED_PER_FORWARD[k] + (LAUNCHES_PER_FORWARD, 0, 0)
                 for k in ("exact", "masked", "exact")]
     if per != expected:
         raise AssertionError(f"fused launches {per}, expected {expected}")
@@ -1236,8 +1308,9 @@ def phase_fused_serving(torch, fa, mp, fr, fb, api, Predictor):
             reset()
             check_detections(preds[True]([img_e]))
             bf16_counts = counts()
-            log(f"  fused bf16 768x1280 b1 request: launches (C, D, E, A, A-mma) {bf16_counts}")
-            if bf16_counts != FUSED_PER_FORWARD["exact"] + (0, LAUNCHES_PER_FORWARD):
+            log(f"  fused bf16 768x1280 b1 request: launches (C, D, E, A-tf32, A-mma, A SIMT) "
+                f"{bf16_counts}")
+            if bf16_counts != FUSED_PER_FORWARD["exact"] + (0, LAUNCHES_PER_FORWARD, 0):
                 raise AssertionError(f"fused bf16 launches {bf16_counts}")
         lat = {True: [], False: []}
         for i in range(5):  # interleaved, each first in turn
@@ -1304,7 +1377,7 @@ def main() -> int:
                 entry_name = "<" + ",".join(re.findall(r"Li(\d+)E", args[1])) + ">" if args else ""
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas{' ' + entry_name if entry_name else ''}: {line.strip()}")
-    for source in ("flash_attention_fwd_mma.cu", "flash_attention_bwd_mma.cu"):
+    for source in MMA_SOURCES:
         hmma = hmma_count(nvcc_build, builds[source].path)
         log(f"[build] {source}: {hmma} HMMA instructions in its SASS (cuobjdump)")
         if hmma == 0:
@@ -1313,7 +1386,7 @@ def main() -> int:
 
     t = time.perf_counter()
     worst, times = phase_kernels(torch, fa)
-    bwd_worst, bwd_times = phase_train_kernels(torch, fa)
+    bwd_worst, bwd_times, fwd_train_times = phase_train_kernels(torch, fa)
     log(f"[kernels] ok in {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
@@ -1323,7 +1396,7 @@ def main() -> int:
     t = time.perf_counter()
     predictor, launches, mma_serving, pool_serving, fp32_ms, bf16_ms = phase_serving(
         torch, fa, maxpool, api, Predictor)
-    log(f"[serving] ok in {time.perf_counter() - t:.1f} s, {launches} kernel A launches "
+    log(f"[serving] ok in {time.perf_counter() - t:.1f} s, {launches} A-tf32 launches "
         f"in 3 fp32 forwards, {mma_serving} A-mma in 1 bf16 forward")
 
     t = time.perf_counter()
@@ -1367,6 +1440,12 @@ def main() -> int:
     log(f"[kernels] A' per training step (6 calls at each of {list(bwd_times)}), ms from CUDA "
         f"graphs: tensor-core {per_step['mma']:.4f}, SIMT {per_step['simt']:.4f}, plain "
         f"{per_step['plain']:.4f}, SDPA backward {per_step['sdpa']:.4f}")
+    fwd_step = {key: sum(LAUNCHES_PER_FORWARD // 3 * t[key] for t in fwd_train_times.values())
+                for key in ("tf32", "simt", "plain", "sdpa")}
+    log(f"[kernels] A per training step at dropout {DROPOUT} (6 calls at each of "
+        f"{list(fwd_train_times)}), ms from CUDA graphs: A-tf32 {fwd_step['tf32']:.4f}, SIMT "
+        f"{fwd_step['simt']:.4f}, plain {fwd_step['plain']:.4f}, SDPA forward with dropout_p "
+        f"{fwd_step['sdpa']:.4f}")
     lap_ms, lap_plain_ms, _, (lap_bound, lap_by) = lap_times
 
     def entry(name, source, launches_, err, ms_, plain_, bound, by, library):
@@ -1387,8 +1466,8 @@ def main() -> int:
                      yard if name == "maxpool" else None)
 
     record = {"kernels": [
-        entry("flash_attention_fwd", SOURCES[0], launches + counts[0] + fused_counts[3],
-              worst["float32"], a32["simt"], a32["plain"], *a32["bound"], a32["sdpa"]),
+        entry("flash_attention_fwd", SOURCES[0], 0, worst["simt float32"], a32["simt"],
+              a32["plain"], *a32["bound"], a32["sdpa"]),
         entry("flash_attention_bwd", SOURCES[1], counts[1], bwd_worst["simt float32"],
               bwd["simt"], bwd["plain"], *bwd["bound32"], bwd["sdpa"]),
         entry("lap", SOURCES[2], counts[2], lap_err, lap_ms, lap_plain_ms, lap_bound, lap_by,
@@ -1406,12 +1485,18 @@ def main() -> int:
               worst["bfloat16"], a16["mma"], a16["plain"], *a16["bound"], a16["sdpa"]),
         entry("flash_attention_bwd_mma", SOURCES[9], counts[4], bwd_worst["float32"], bwd["mma"],
               bwd["plain"], *bwd["bound3x"], bwd["sdpa"]),
+        entry("flash_attention_fwd_tf32", SOURCES[10], launches + counts[0] + fused_counts[3],
+              worst["float32"], a32["tf32"], a32["plain"], *a32["bound3x"], a32["sdpa"]),
     ]}
-    log(f"[summary] flash_attention_fwd (SIMT): max_abs_err fp32 {worst['float32']:.3e} (bf16 "
-        f"called directly {worst['simt bfloat16']:.3e}), ms/plain_ms/library_ms "
+    log(f"[summary] flash_attention_fwd (SIMT): max_abs_err fp32 called directly "
+        f"{worst['simt float32']:.3e} (bf16 {worst['simt bfloat16']:.3e}), ms/plain_ms/library_ms "
         f"(scaled_dot_product_attention) at (1232,1232) fp32 B=2 H=8 Dh=32 from CUDA graphs, "
-        f"launches {launches} fp32 serving + {counts[0]} training + {fused_counts[3]} fused fp32 "
-        f"serving; flash_attention_fwd_mma: max_abs_err bf16 {worst['bfloat16']:.3e}, "
+        f"launches 0 (no path of the port runs bf16 with dropout; fp32 runs A-tf32), bound on "
+        f"the fp32 pipes; flash_attention_fwd_tf32 (3xTF32): max_abs_err fp32 "
+        f"{worst['float32']:.3e}, ms/plain_ms/library_ms at (1232,1232) fp32 B=2 from CUDA "
+        f"graphs, launches {launches} fp32 serving + {counts[0]} training + {fused_counts[3]} "
+        f"fused fp32 serving, bound as 3xTF32 on the tensor cores; flash_attention_fwd_mma: "
+        f"max_abs_err bf16 {worst['bfloat16']:.3e}, "
         f"ms/plain_ms/library_ms at (1232,1232) bf16 B=2 from CUDA graphs, launches "
         f"{mma_serving} bf16 serving + {int8_a} int8 serving + {fused_bf16_counts[4]} fused bf16 "
         f"serving; flash_attention_bwd (SIMT): gradient max_abs_err fp32 (called directly) "

@@ -7,7 +7,7 @@
 // on the SIMT kernel of flash_attention_bwd.cu
 // (ops/flash_attention.py:backward_route). It computes what that kernel
 // computes, from the forward's output O and row log-sum-exp (written by
-// flash_attention_fwd.cu) and dO, with the dropout mask replayed:
+// flash_attention_fwd_tf32.cu) and dO, with the dropout mask replayed:
 //
 //   p_ij  = exp(q_i . k_j + bias_j - lse_i)        (1 / Lk on a row whose keys are all padded)
 //   m_ij  = dropout multiplier (0 or 1 / (1 - rate)), flash_attention_common.cuh
@@ -21,7 +21,7 @@
 // Accuracy: 3xTF32. A TF32 operand keeps 10 of fp32's 23 mantissa bits, so
 // one TF32 product is off by ~2^-11 relative: ~3e-4 of the largest dQ at
 // (252, 252), above the port's fp32 gradient tolerance (1e-4). Each fp32
-// operand x is split into big = tf32(x) (`cvt.rna`) and small = tf32(x -
+// operand x is split into big = tf32(x) (to nearest) and small = tf32(x -
 // big); the subtraction is exact, and big + small carries 22 of x's 24
 // significant bits. A product is taken as big_a big_b + (small_a big_b +
 // big_a small_b), three TF32 MMAs; the dropped small_a small_b term is
@@ -121,8 +121,19 @@
 
 namespace {
 
+using fa::accumulator_as_a;
+using fa::add_products;
+using fa::cp_async16;
+using fa::cp_async4;
+using fa::cp_async_commit;
+using fa::cp_async_wait;
+using fa::HeldA;
 using fa::kMaskBias;
 using fa::kMaskedRowLse;
+using fa::mma_3xtf32;
+using fa::split_chunk;
+using fa::split_tf32;
+using fa::zero;
 
 constexpr int kThreads = 128;  // four warps a CTA in both passes
 constexpr int kKvKeys = 64;    // keys of a dK/dV CTA, 16 a warp
@@ -136,185 +147,6 @@ template <int Dh>
 constexpr int kN = Dh == 32 ? 2 : 1;
 template <int Dh>
 constexpr int kUnroll = Dh == 32 ? 8 : 1;
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-
-// 4 bytes global -> shared, asynchronously; src_bytes 0 writes a zero.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero),
-// as the bits of an fp32 value whose low 13 bits are zero.
-__device__ __forceinline__ unsigned to_tf32(float x) {
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = big + small + O(2^-22 |x|).
-__device__ __forceinline__ void split_tf32(float x, unsigned& big, unsigned& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
-}
-
-// d += a (16x8 TF32, row) * b (8x8 TF32, col), fp32 accumulators.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// hi += a_big b_big, lo += a_small b_big + a_big b_small: 3xTF32 in two
-// accumulators, read as hi + lo (see the accuracy note above). B comes from
-// shared memory, at offsets o0 (k = t) and o1 (k = t + 4) of the big and
-// small parts.
-__device__ __forceinline__ void mma_3xtf32(float (&hi)[4], float (&lo)[4],
-                                           const unsigned (&a_big)[4],
-                                           const unsigned (&a_small)[4], const float* b_big,
-                                           const float* b_small, int o0, int o1) {
-  const unsigned bb0 = __float_as_uint(b_big[o0]), bb1 = __float_as_uint(b_big[o1]);
-  mma_tf32(hi, a_big, bb0, bb1);
-  mma_tf32(lo, a_small, bb0, bb1);
-  mma_tf32(lo, a_big, __float_as_uint(b_small[o0]), __float_as_uint(b_small[o1]));
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) x[i] = 0.f;
-}
-
-template <int M, int N>
-__device__ __forceinline__ void zero(float (&x)[M][N]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i) zero(x[i]);
-}
-
-// A 16-byte chunk of a staged tile, split in place: the big parts
-// overwrite it, the small parts go to the same offset of `small`.
-__device__ __forceinline__ void split_chunk(float* big, float* small) {
-  const float4 x = *reinterpret_cast<const float4*>(big);
-  uint4 hi, lo;
-  split_tf32(x.x, hi.x, lo.x);
-  split_tf32(x.y, hi.y, lo.y);
-  split_tf32(x.z, hi.z, lo.z);
-  split_tf32(x.w, hi.w, lo.w);
-  *reinterpret_cast<uint4*>(big) = hi;
-  *reinterpret_cast<uint4*>(small) = lo;
-}
-
-// An A operand kept for a warp's whole loop, split: 16 rows by N k8 steps
-// of the head dim, fragment (row g, col t), (g + 8, t), (g, t + 4), (g + 8,
-// t + 4) of each step. At Dh = 32 the parts sit in registers. At Dh = 64,
-// where the dK and dV (or dQ) accumulators take 64 registers of their own,
-// they sit in a per-warp slab of shared memory, a 32-word row per register
-// that each lane reads at its own column: no bank conflict, no barrier.
-template <int N, bool kInRegs>
-struct HeldA {
-  static constexpr int kSlabWords = kInRegs ? 0 : N * 4 * 2 * 32;  // per warp
-  unsigned big[kInRegs ? N : 1][4], small[kInRegs ? N : 1][4];
-  unsigned* slab;  // this lane's column of the warp's slab
-
-  // Loads rows r0 and r0 + 8 (of n_rows, zero past them) of a (rows,
-  // heads, Dh) slab at token stride ts, columns from the lane's t.
-  __device__ __forceinline__ void load(const float* head, long ts, int r0, int n_rows, int t,
-                                       unsigned* warp_slab, int lane) {
-    slab = warp_slab + lane;
-    const bool ok0 = r0 < n_rows, ok1 = r0 + 8 < n_rows;
-    const float* p0 = head + (ok0 ? static_cast<long>(r0) * ts : 0L);
-    const float* p1 = head + (ok1 ? static_cast<long>(r0 + 8) * ts : 0L);
-#pragma unroll
-    for (int s = 0; s < N; ++s) {
-      const int col = 8 * s + t;
-      const float x[4] = {ok0 ? p0[col] : 0.f, ok1 ? p1[col] : 0.f, ok0 ? p0[col + 4] : 0.f,
-                          ok1 ? p1[col + 4] : 0.f};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        unsigned b, sm;
-        split_tf32(x[e], b, sm);
-        if constexpr (kInRegs) {
-          big[s][e] = b;
-          small[s][e] = sm;
-        } else {
-          slab[(s * 4 + e) * 64] = b;
-          slab[(s * 4 + e) * 64 + 32] = sm;
-        }
-      }
-    }
-  }
-
-  __device__ __forceinline__ void get(int s, unsigned (&b)[4], unsigned (&sm)[4]) const {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if constexpr (kInRegs) {
-        b[e] = big[s][e];
-        sm[e] = small[s][e];
-      } else {
-        b[e] = slab[(s * 4 + e) * 64];
-        sm[e] = slab[(s * 4 + e) * 64 + 32];
-      }
-    }
-  }
-};
-
-// Accumulator values c0..c3 = (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8,
-// 2t + 1) as a split A fragment over their 8 columns, k position t being
-// column 2t and t + 4 column 2t + 1.
-__device__ __forceinline__ void accumulator_as_a(const float (&c)[4], unsigned (&big)[4],
-                                                 unsigned (&small)[4]) {
-  split_tf32(c[0], big[0], small[0]);
-  split_tf32(c[2], big[1], small[1]);
-  split_tf32(c[1], big[2], small[2]);
-  split_tf32(c[3], big[3], small[3]);
-}
-
-// acc (16 rows x 8 kSteps head dims) += A B over kStep n tiles of 8 from
-// row r0 of a staged tile: A the split fragments of each n tile (k order as
-// accumulator_as_a), B rows r0 + 8u + 2t and + 1 at columns 8d + g. Each
-// step's products are summed in fresh accumulators and then added to acc
-// with fp32 adds (see the accuracy note above).
-template <int kSteps, int kStep, int kStride>
-__device__ __forceinline__ void add_products(float (&acc)[kSteps][4],
-                                             const unsigned (&a_big)[kStep][4],
-                                             const unsigned (&a_small)[kStep][4],
-                                             const float* b_big, const float* b_small, int r0,
-                                             int t, int g) {
-#pragma unroll
-  for (int d = 0; d < kSteps; ++d) {
-    float hi[4], lo[4];
-    zero(hi);
-    zero(lo);
-#pragma unroll
-    for (int u = 0; u < kStep; ++u) {
-      const int o = (r0 + 8 * u + 2 * t) * kStride + 8 * d + g;
-      mma_3xtf32(hi, lo, a_big[u], a_small[u], b_big, b_small, o, o + kStride);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[d][e] += hi[e] + lo[e];
-  }
-}
 
 // ---- pre-pass: delta and the keep bits -----------------------------------
 

@@ -10,8 +10,9 @@
 // and 0 elsewhere, and q already scaled by head_dim ** -0.5 by the caller.
 // Optionally it writes the row log-sum-exp lse[b, h, i] = max_j s_ij +
 // log sum_j exp(s_ij - max) that the backward (flash_attention_bwd.cu)
-// reads. fp32 calls and bf16 calls with dropout stay on the SIMT kernel of
-// flash_attention_fwd.cu (ops/flash_attention.py:forward_route).
+// reads. fp32 calls run on the tensor cores too, with 3xTF32 products
+// (flash_attention_fwd_tf32.cu); bf16 calls with dropout stay on the SIMT
+// kernel of flash_attention_fwd.cu (ops/flash_attention.py:forward_route).
 //
 // What bounds it on this card, and what the design does about each:
 //   * The exps. At Dh = 32 each (query, key) pair costs 64 tensor-core
@@ -62,39 +63,25 @@
 // and called through ctypes. It launches on the given stream, allocates
 // nothing, does not synchronise, and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_attention_common.cuh"
+
 namespace {
+
+using fa::cp_async16;
+using fa::cp_async_commit;
+using fa::cp_async_wait;
+using fa::kMaskBias;
+using fa::smem_addr;
 
 constexpr int kTileK = 64;             // keys per shared-memory tile
 // Tiles of the cp.async ring: the next tile's loads overlap this one's math
 // (four stages at Dh = 32 gave the same times on an H100, within the spread
 // between two chip_smoke.py runs).
 constexpr int kStages = 2;
-constexpr float kMaskBias = -1e30f;    // additive bias of a padded key
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; src_bytes 0 writes 16 zero bytes.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"

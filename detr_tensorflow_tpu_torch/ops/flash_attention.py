@@ -3,24 +3,24 @@ kernels and their plain PyTorch version.
 
 Replaces the TPU kernels ``_fwd_kernel`` and ``_bwd_kernel`` of
 ``detr_tensorflow_tpu/ops/pallas/flash_attention.py`` (reached through its
-``mha``). The CUDA sources are ``csrc/flash_attention_fwd_mma.cu`` and
-``csrc/flash_attention_fwd.cu`` (forward) and
-``csrc/flash_attention_bwd_mma.cu`` and ``csrc/flash_attention_bwd.cu``
-(backward); their header notes say what bounds each kernel on the card and
-how it is laid out. In short: the forward streams K/V in 64-key tiles with
-an online softmax and, when autograd needs it, writes the row
-log-sum-exp; the backward recomputes the softmax from it in two kernels,
-one over key tiles for dK/dV and one over query tiles for dQ, after a
-pre-pass over the rows.
+``mha``). The CUDA sources are ``csrc/flash_attention_fwd_tf32.cu``,
+``csrc/flash_attention_fwd_mma.cu`` and ``csrc/flash_attention_fwd.cu``
+(forward) and ``csrc/flash_attention_bwd_mma.cu`` and
+``csrc/flash_attention_bwd.cu`` (backward); their header notes say what
+bounds each kernel on the card and how it is laid out. In short: the
+forward streams K/V in 64-key tiles with an online softmax and, when
+autograd needs it, writes the row log-sum-exp; the backward recomputes the
+softmax from it in two kernels, one over key tiles for dK/dV and one over
+query tiles for dQ, after a pre-pass over the rows.
 
-Each direction has two kernels, picked from the call's dtype, head dim and
-(forward) dropout rate alone. ``forward_route``: bf16 without dropout runs
-on the tensor cores (``mma.sync`` bf16, the "mma" route), fp32 and bf16 with
-dropout on the SIMT kernel (fp32 FMAs, the "simt" route; an fp32 forward
-has no tensor-core kernel yet). ``backward_route``: fp32 runs on the tensor
-cores with 3xTF32 products (each fp32 operand split into two TF32 parts,
-three TF32 MMAs per product: fp32 accuracy), bf16 on the SIMT kernel. A
-failed build or launch raises on every route.
+The kernel is picked from the call's dtype, head dim and (forward) dropout
+rate alone. ``forward_route``: fp32, with or without dropout, runs on the
+tensor cores with 3xTF32 products (the "tf32" route; each fp32 operand split
+into two TF32 parts, three TF32 MMAs per product: fp32 accuracy), bf16
+without dropout on the tensor cores in bf16 (``mma.sync`` bf16, the "mma"
+route), bf16 with dropout on the SIMT kernel (fp32 FMAs, the "simt" route).
+``backward_route``: fp32 runs on the tensor cores with 3xTF32 products, bf16
+on the SIMT kernel. A failed build or launch raises on every route.
 
 Attention-weight dropout runs inside the kernels. Its keep bit is a pure
 function of the call's 64-bit seed and the element's coordinates
@@ -45,13 +45,15 @@ import torch
 _NEG_INF = -1e30
 _FWD_SOURCE = "flash_attention_fwd.cu"
 _MMA_SOURCE = "flash_attention_fwd_mma.cu"
+_TF32_SOURCE = "flash_attention_fwd_tf32.cu"
 _BWD_SOURCE = "flash_attention_bwd.cu"
 _BWD_MMA_SOURCE = "flash_attention_bwd_mma.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
-# CTA shapes of the mma kernel, four warps each: (row groups of 16 queries,
-# warps sharing each row group's keys), as csrc/flash_attention_fwd_mma.cu
-# instantiates them.
+# CTA shapes of the tensor-core forwards, four warps each: (row groups of 16
+# queries, warps sharing each row group's keys), as
+# csrc/flash_attention_fwd_mma.cu and csrc/flash_attention_fwd_tf32.cu
+# instantiate them.
 MMA_SHAPES = ((4, 1), (1, 4))
 
 # Philox4x32-10 constants (Salmon et al., SC'11; Random123).
@@ -168,6 +170,7 @@ def _library(source: str) -> ctypes.CDLL:
     signatures = {
         "flash_attention_fwd": [vp] * 5 + [u, f, vp, vp] + [i] * 6 + [vp],
         "flash_attention_fwd_mma": [vp] * 6 + [i] * 7 + [vp],
+        "flash_attention_fwd_tf32": [vp] * 5 + [u, f, vp, vp] + [i] * 7 + [vp],
         "flash_attention_keep_mask": [vp, vp, i, i, i, u, vp],
         "flash_attention_bwd": [vp] * 8 + [u, f] + [vp] * 4 + [i] * 6 + [vp],
         "flash_attention_bwd_mma": [vp] * 8 + [u, f] + [vp] * 4 + [i] * 6 + [vp],
@@ -204,11 +207,16 @@ def _dropout_args(dropout_rate):
 
 
 def forward_route(dtype: torch.dtype, dropout_rate: float, head_dim: int) -> str:
-    """The forward kernel a CUDA call takes: "mma" (tensor cores,
-    ``csrc/flash_attention_fwd_mma.cu``) for bf16 without dropout, "simt"
-    (``csrc/flash_attention_fwd.cu``) for fp32 and for bf16 with dropout."""
-    if dtype == torch.bfloat16 and dropout_rate == 0.0 and head_dim in _HEAD_DIMS:
-        return "mma"
+    """The forward kernel a CUDA call takes: "tf32" (tensor cores, 3xTF32,
+    ``csrc/flash_attention_fwd_tf32.cu``) for fp32 at any dropout rate,
+    "mma" (tensor cores, ``csrc/flash_attention_fwd_mma.cu``) for bf16
+    without dropout, "simt" (``csrc/flash_attention_fwd.cu``) for bf16 with
+    dropout."""
+    if head_dim in _HEAD_DIMS:
+        if dtype == torch.float32:
+            return "tf32"
+        if dtype == torch.bfloat16 and dropout_rate == 0.0:
+            return "mma"
     return "simt"
 
 
@@ -229,12 +237,58 @@ def mma_shape(batch_heads: int, lq: int, sms: int) -> tuple:
     return (4, 1) if batch_heads * -(-lq // 64) >= sms else (1, 4)
 
 
+def tf32_shape(batch_heads: int, lq: int, sms: int) -> tuple:
+    """The tf32 kernel's CTA shape on a card of ``sms`` SMs: 64-row CTAs
+    when they number at least half the SMs, otherwise 16 rows a CTA with
+    each tile's keys split 4 ways. On an H100 the 64-row shape won at every
+    DETR shape with 128 or more such CTAs, the split at 16 and 32."""
+    return (4, 1) if 2 * batch_heads * -(-lq // 64) >= sms else (1, 4)
+
+
 def launch_forward(q, k, v, key_padding_mask, dropout_seed, dropout_rate, with_lse):
     """One launch of the forward kernel that ``forward_route`` picks, on
     CUDA tensors: (out, lse or None)."""
-    if forward_route(q.dtype, dropout_rate, q.shape[-1]) == "mma":
+    route = forward_route(q.dtype, dropout_rate, q.shape[-1])
+    if route == "tf32":
+        return launch_forward_tf32(q, k, v, key_padding_mask, dropout_seed, dropout_rate,
+                                   with_lse)
+    if route == "mma":
         return launch_forward_mma(q, k, v, key_padding_mask, with_lse)
     return launch_forward_simt(q, k, v, key_padding_mask, dropout_seed, dropout_rate, with_lse)
+
+
+def _cta_shape(q, shape, rule):
+    b, lq, h, _ = q.shape
+    if shape is None:
+        shape = rule(b * h, lq, torch.cuda.get_device_properties(q.device).multi_processor_count)
+    if shape not in MMA_SHAPES:
+        raise ValueError(f"attention CTA shape {shape} not in {MMA_SHAPES}")
+    return shape
+
+
+def launch_forward_tf32(q, k, v, key_padding_mask, dropout_seed, dropout_rate, with_lse,
+                        shape=None):
+    """One launch of the tensor-core forward (3xTF32) on fp32 CUDA tensors,
+    with or without dropout: (out, lse or None). ``shape``, one of
+    ``MMA_SHAPES``, defaults to ``tf32_shape``."""
+    _check_kernel_inputs(q, k, v, key_padding_mask)
+    if q.dtype != torch.float32:
+        raise TypeError(f"the tf32 attention kernel takes float32, got {q.dtype}")
+    b, lq, h, dh = q.shape
+    shape = _cta_shape(q, shape, tf32_shape)
+    threshold, keep_scale = _dropout_args(dropout_rate)
+    out = torch.empty_like(q)
+    lse = torch.empty((b * h, lq), device=q.device, dtype=torch.float32) if with_lse else None
+    with torch.cuda.device(q.device):
+        err = _library(_TF32_SOURCE).flash_attention_fwd_tf32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
+            _ptr(dropout_seed) if threshold else None, threshold, keep_scale,
+            out.data_ptr(), _ptr(lse), b, lq, k.shape[1], h, dh, *shape, _stream(q.device),
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_fwd_tf32 launch failed: cudaError {err}")
+    mha.tf32_launches += 1
+    return out, lse
 
 
 def launch_forward_mma(q, k, v, key_padding_mask, with_lse, shape=None):
@@ -244,10 +298,7 @@ def launch_forward_mma(q, k, v, key_padding_mask, with_lse, shape=None):
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the mma attention kernel takes bfloat16, got {q.dtype}")
     b, lq, h, dh = q.shape
-    if shape is None:
-        shape = mma_shape(b * h, lq, torch.cuda.get_device_properties(q.device).multi_processor_count)
-    if shape not in MMA_SHAPES:
-        raise ValueError(f"mma attention CTA shape {shape} not in {MMA_SHAPES}")
+    shape = _cta_shape(q, shape, mma_shape)
     out = torch.empty_like(q)
     lse = torch.empty((b * h, lq), device=q.device, dtype=torch.float32) if with_lse else None
     with torch.cuda.device(q.device):
@@ -263,9 +314,10 @@ def launch_forward_mma(q, k, v, key_padding_mask, with_lse, shape=None):
 
 def launch_forward_simt(q, k, v, key_padding_mask, dropout_seed, dropout_rate, with_lse):
     """One launch of the SIMT forward kernel on CUDA tensors, fp32 or bf16,
-    with or without dropout: (out, lse or None). ``mha`` sends only fp32
-    and bf16-with-dropout calls here; a direct call also times it at bf16
-    without dropout against the mma kernel."""
+    with or without dropout: (out, lse or None). ``mha`` sends only
+    bf16-with-dropout calls here; a direct call also times it at fp32
+    against the tf32 kernel and at bf16 without dropout against the mma
+    kernel."""
     _check_kernel_inputs(q, k, v, key_padding_mask)
     b, lq, h, dh = q.shape
     lk = k.shape[1]
@@ -372,7 +424,8 @@ def mha(q, k, v, key_padding_mask=None, dropout_rate: float = 0.0, dropout_seed=
     (B, Lq, H, Dh) in Q's dtype, differentiable in q, k and v.
 
     A CUDA tensor launches the kernels: the forward on the route
-    ``forward_route`` picks (``mha.mma_launches`` counts launches of the
+    ``forward_route`` picks (``mha.tf32_launches`` counts launches of the
+    3xTF32 tensor-core kernel, ``mha.mma_launches`` those of the bf16
     tensor-core kernel, ``mha.launches`` those of the SIMT kernel), and under
     autograd the backward on the route ``backward_route`` picks
     (``mha.backward_mma_launches`` for the tensor-core kernel,
@@ -396,6 +449,7 @@ def mha(q, k, v, key_padding_mask=None, dropout_rate: float = 0.0, dropout_seed=
 
 mha.launches = 0
 mha.mma_launches = 0
+mha.tf32_launches = 0
 mha.backward_launches = 0
 mha.backward_mma_launches = 0
 

@@ -1,0 +1,73 @@
+#!/usr/bin/env python3
+"""Where the device time of one fp32 DETR-R50 forward goes, on one NVIDIA GPU.
+
+  python3 scripts/torch_forward_profile.py [--dtype float32|bfloat16]
+
+Builds the full-width DETR-R50 (seeded random weights), runs it on one
+masked 800x1333 image on the 896x1408 canvas (b1, the served bucket) under
+``torch.profiler`` for 3 forwards after a warm-up, and prints per forward:
+the device time summed over every kernel, the attention forward kernels'
+share of it (with their launches), and the ten kernels that take the most
+time. TF32 is off for fp32 matmuls and convolutions, as on the served path
+of ``chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import sys
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from detr_tensorflow_tpu_torch.models import api  # noqa: E402
+
+CALLS = 3
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from torch.profiler import ProfilerActivity, profile
+
+    model = api.build_detr(seed=0, device="cuda", dtype=args.dtype)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.zeros((1, 896, 1408, 3), device="cuda")
+    x[:, :800, :1333] = torch.randn((1, 800, 1333, 3), device="cuda", generator=gen)
+    mask = torch.zeros((1, 896, 1408), dtype=torch.bool, device="cuda")
+    mask[:, :800, :1333] = True
+    with torch.inference_mode():
+        for _ in range(2):
+            model(x, mask)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(CALLS):
+                model(x, mask)
+            torch.cuda.synchronize()
+    times, counts = collections.Counter(), collections.Counter()
+    for evt in prof.key_averages():
+        t = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+        if t and evt.device_type == torch.autograd.DeviceType.CUDA:
+            times[evt.key] += t / 1e3 / CALLS
+            counts[evt.key] += evt.count // CALLS
+    total = sum(times.values())
+    attn = {k: v for k, v in times.items() if "flash_attention" in k}
+    attn_ms = sum(attn.values())
+    print(f"{torch.cuda.get_device_name(0)}, DETR-R50 {args.dtype} b1 896x1408 masked, per "
+          f"forward: device time {total:.3f} ms over {sum(counts.values())} kernels; attention "
+          f"forward {attn_ms:.3f} ms ({100 * attn_ms / total:.1f}%) in "
+          f"{sum(counts[k] for k in attn)} launches", flush=True)
+    for key, ms in times.most_common(10):
+        print(f"  {ms:8.3f} ms  x{counts[key]:<4d} {key[:110]}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -66,12 +66,16 @@ def test_mha_bf16_matches_jax_reference():
 
 @pytest.mark.parametrize("dtype,rate,head_dim,route", [
     (torch.bfloat16, 0.0, 32, "mma"), (torch.bfloat16, 0.0, 64, "mma"),
-    (torch.bfloat16, 0.1, 32, "simt"), (torch.float32, 0.0, 32, "simt"),
-    (torch.float32, 0.1, 64, "simt"), (torch.bfloat16, 0.0, 16, "simt")])
+    (torch.bfloat16, 0.1, 32, "simt"), (torch.float32, 0.0, 32, "tf32"),
+    (torch.float32, 0.1, 64, "tf32"), (torch.bfloat16, 0.0, 16, "simt"),
+    (torch.float32, 0.1, 32, "tf32"), (torch.float32, 0.0, 64, "tf32"),
+    (torch.bfloat16, 0.1, 64, "simt"), (torch.float32, 0.0, 16, "simt")])
 def test_forward_route(dtype, rate, head_dim, route):
     """A CUDA call's forward kernel depends on dtype, dropout and head dim
-    alone: the tensor-core kernel for bf16 without dropout, the SIMT kernel
-    otherwise (a head dim of 16 is refused by ``mha`` before routing)."""
+    alone: the 3xTF32 tensor-core kernel for fp32 at any dropout rate, the
+    bf16 tensor-core kernel for bf16 without dropout, the SIMT kernel for
+    bf16 with dropout (a head dim of 16 is refused by ``mha`` before
+    routing)."""
     assert fa.forward_route(dtype, rate, head_dim) == route
 
 
@@ -88,16 +92,29 @@ def test_mma_cta_shape(batch_heads, lq, shape):
     assert shape in fa.MMA_SHAPES
 
 
+@pytest.mark.parametrize("batch_heads,lq,shape", [
+    (16, 1232, (4, 1)), (8, 1232, (4, 1)), (8, 1050, (4, 1)), (8, 100, (1, 4)),
+    (16, 100, (1, 4)), (16, 320, (4, 1)), (64, 252, (4, 1)), (64, 100, (4, 1)),
+    (32, 100, (1, 4)), (33, 100, (4, 1))])
+def test_tf32_cta_shape(batch_heads, lq, shape):
+    """The tf32 kernel's CTA shape on a 132-SM card: 64 rows a CTA when those
+    CTAs number at least 66 (every encoder shape; the 100 decoder queries of
+    b8 training, 128 CTAs), else one row group with its keys split 4 ways
+    (the 100 decoder queries served at b1 and B=2, 16 and 32 CTAs)."""
+    assert fa.tf32_shape(batch_heads, lq, 132) == shape
+    assert shape in fa.MMA_SHAPES
+
+
 def test_cpu_call_takes_the_plain_version_on_either_route():
     """On CPU tensors both routes' dtypes take ``reference_mha`` and launch
     nothing."""
     q, k, v, mask = (torch.from_numpy(x) for x in _inputs(2, 2, 8, 9, 2, 32, True))
-    before = (fa.mha.launches, fa.mha.mma_launches)
+    before = (fa.mha.launches, fa.mha.mma_launches, fa.mha.tf32_launches)
     for dtype in (torch.float32, torch.bfloat16):
         args = [t.to(dtype) for t in (q, k, v)]
         torch.testing.assert_close(fa.mha(*args, mask), fa.reference_mha(*args, mask),
                                    rtol=0, atol=0)
-    assert (fa.mha.launches, fa.mha.mma_launches) == before
+    assert (fa.mha.launches, fa.mha.mma_launches, fa.mha.tf32_launches) == before
 
 
 @pytest.mark.parametrize("case", ["dropout", "head_dim", "dtype", "shape", "mask_dtype",
@@ -244,8 +261,9 @@ def test_backward_route(dtype, head_dim, route):
 
 
 def _tf32(x):
-    """x rounded to TF32 as ``cvt.rna.tf32.f32`` does: 10 mantissa bits,
-    to nearest, ties away from zero (on the magnitude bits of float32)."""
+    """x rounded to TF32 as ``fa::to_tf32`` (csrc/flash_attention_common.cuh)
+    and ``cvt.rna.tf32.f32`` do: 10 mantissa bits, to nearest, ties away
+    from zero (on the magnitude bits of float32)."""
     bits = np.asarray(x, np.float32).view(np.uint32)
     return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
 
@@ -286,3 +304,101 @@ def test_3xtf32_products_are_fp32_accurate():
         three, one = _product_errors(a, b)
         assert three <= 1e-5
         assert one >= 100 * three
+
+
+def _tf32_forward(q, k, v, bias, keep=None, rate=0.0, single=False):
+    """numpy emulation of csrc/flash_attention_fwd_tf32.cu on (BH, L, Dh)
+    float32 arrays with a (BH, Lk) additive bias: 64-key tiles, the online
+    row max and sum with rescale, S = Q K^T and O += (P o M) V as 3xTF32
+    (big x big apart from the cross terms; ``single``: one TF32 product),
+    S's big x big summed per 8 head dims and each 16 keys' PV products
+    summed apart, each added in fp32. ``keep`` is a (BH, Lq, Lk) bool mask;
+    the row sum takes every key."""
+    f32 = np.float32
+
+    def product(a, b, step):  # a @ b at fp32, from TF32 parts
+        a_big, b_big = _tf32(a), _tf32(b)
+        if single:
+            return a_big @ b_big
+        big = sum(a_big[..., i:i + step] @ b_big[..., i:i + step, :]
+                  for i in range(0, a.shape[-1], step))
+        return big + (_tf32(a - a_big) @ b_big + a_big @ _tf32(b - b_big))
+
+    bh, lq, dh = q.shape
+    lk = k.shape[1]
+    o = np.zeros((bh, lq, dh), f32)
+    m = np.full((bh, lq, 1), -np.inf, f32)
+    l = np.zeros((bh, lq, 1), f32)
+    scale = f32(1.0 / (1.0 - rate)) if rate else f32(1.0)
+    for k0 in range(0, lk, 64):
+        kt, vt = k[:, k0:k0 + 64], v[:, k0:k0 + 64]
+        s = product(q, kt.transpose(0, 2, 1), 8) + bias[:, None, k0:k0 + 64]
+        m_new = np.maximum(m, s.max(axis=-1, keepdims=True))
+        alpha = np.exp(m - m_new)
+        p = np.exp(s - m_new)
+        l = l * alpha + p.sum(axis=-1, keepdims=True)
+        o, m = o * alpha, m_new
+        if keep is not None:
+            p = p * np.where(keep[:, :, k0:k0 + 64], scale, f32(0))
+        for j in range(0, kt.shape[1], 16):
+            o = o + product(p[:, :, j:j + 16], vt[:, j:j + 16], 16)
+    return o / l
+
+
+def _heads(x):
+    """(B, L, H, Dh) -> (B * H, L, Dh)."""
+    b, l, h, d = x.shape
+    return np.ascontiguousarray(x.transpose(0, 2, 1, 3).reshape(b * h, l, d))
+
+
+def _emulation_case(lq, lk, masked):
+    """Inputs at b2 h2 Dh 32; masked: batch element 1 has every key padded,
+    element 0 a ragged tail."""
+    q, k, v, _ = _inputs(lq * 3 + lk, 2, lq, lk, 2, 32, False)
+    mask = np.zeros((2, lk), bool)
+    if masked:
+        mask[0, lk - lk // 3:] = True
+        mask[1] = True
+    bias = np.repeat(np.where(mask, np.float32(-1e30), np.float32(0)), 2, axis=0)
+    return q, k, v, mask, bias
+
+
+@pytest.mark.parametrize("lq,lk,masked", [(252, 252, False), (100, 37, True)])
+def test_tf32_forward_emulation_is_fp32_accurate(lq, lk, masked):
+    """The algorithm of csrc/flash_attention_fwd_tf32.cu, emulated in numpy:
+    within 1e-5 of the largest output of float64 attention, single-TF32
+    products at least 100 times further off; and within 1e-5 of the JAX
+    package's kernel (Pallas, interpret mode) at dropout 0. A batch element
+    whose keys are all padded gets the uniform softmax of float64; the JAX
+    kernel spreads it over its 128-padded keys instead, so that element is
+    left out of the JAX comparison."""
+    q, k, v, mask, bias = _emulation_case(lq, lk, masked)
+    qh, kh, vh = _heads(q), _heads(k), _heads(v)
+    s = qh.astype(np.float64) @ kh.transpose(0, 2, 1) + bias[:, None, :]
+    p = np.exp(s - s.max(axis=-1, keepdims=True))
+    exact = (p / p.sum(axis=-1, keepdims=True)) @ vh
+    scale = np.abs(exact).max()
+    three = np.abs(_tf32_forward(qh, kh, vh, bias) - exact).max() / scale
+    one = np.abs(_tf32_forward(qh, kh, vh, bias, single=True) - exact).max() / scale
+    assert three <= 1e-5
+    assert one >= 100 * three
+    jmask = jnp.asarray(mask) if masked else None
+    ref = np.asarray(jax_fa.mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                key_padding_mask=jmask, interpret=True))
+    ours = _tf32_forward(qh, kh, vh, bias).reshape(2, 2, lq, 32).transpose(0, 2, 1, 3)
+    rows = slice(0, 1) if masked else slice(None)
+    np.testing.assert_allclose(ours[rows], ref[rows], atol=1e-5, rtol=0)
+
+
+def test_tf32_forward_emulation_dropout_matches_plain():
+    """At dropout 0.1 the emulation, given ``keep_mask``'s bits, agrees with
+    the port's plain version given the same mask within 1e-5, the fully
+    padded element included."""
+    q, k, v, mask, bias = _emulation_case(100, 37, True)
+    seed = torch.tensor([99])
+    keep = fa.keep_mask(seed, 4, 100, 37, 0.1)
+    ours = _tf32_forward(_heads(q), _heads(k), _heads(v), bias, keep.numpy(), 0.1)
+    ref = fa.reference_mha(*(torch.from_numpy(x) for x in (q, k, v)), torch.from_numpy(mask),
+                           keep.view(2, 2, 100, 37), 0.1)
+    ref = ref.numpy().transpose(0, 2, 1, 3).reshape(4, 100, 32)
+    np.testing.assert_allclose(ours, ref, atol=1e-5, rtol=0)

@@ -45,18 +45,25 @@ def _inputs(device, dtype, b, lq, lk, h, dh, seed):
                                          (2, 130, 300, 64)])
 def test_attention_kernel_matches_plain(cuda_device, b, lq, lk, dh, dtype, atol):
     q, k, v, mask = _inputs(cuda_device, dtype, b, lq, lk, 8, dh, seed=lq + lk)
-    before = (fa.mha.launches, fa.mha.mma_launches)
+    before = _forward_counts()
     out = fa.mha(q, k, v, mask)
     unmasked = fa.mha(q, k, v)
     torch.cuda.synchronize()
-    # fp32 runs the SIMT kernel, bf16 without dropout the tensor-core one.
+    # fp32 runs the 3xTF32 tensor-core kernel, bf16 without dropout the bf16
+    # one; neither the SIMT kernel.
     mma = dtype == torch.bfloat16
-    assert (fa.mha.launches, fa.mha.mma_launches) == (before[0] + 2 * (not mma),
-                                                      before[1] + 2 * mma)
+    assert _forward_counts(before) == (0, 2 * mma, 2 * (not mma))
     assert out.dtype == dtype and out.shape == q.shape
     for got, m in ((out, mask), (unmasked, None)):
         ref = fa.reference_mha(q, k, v, m)
         assert float((got.float() - ref.float()).abs().max()) <= atol
+
+
+def _forward_counts(before=(0, 0, 0)):
+    """Forward launches (SIMT, bf16 tensor-core, 3xTF32 tensor-core), less
+    ``before``."""
+    now = (fa.mha.launches, fa.mha.mma_launches, fa.mha.tf32_launches)
+    return tuple(a - b for a, b in zip(now, before))
 
 
 # The tensor-core forward (csrc/flash_attention_fwd_mma.cu) at every CTA shape
@@ -116,19 +123,121 @@ def test_attention_simt_kernel_still_takes_bf16(cuda_device):
     assert float((out.float() - fa.reference_mha(q, k, v, mask).float()).abs().max()) <= 2e-2
 
 
+def test_attention_simt_kernel_still_takes_fp32(cuda_device):
+    """The SIMT kernel stays callable at fp32, with and without dropout, to
+    time it against the tf32 kernel; it agrees with the plain version (given
+    the kernel library's keep mask)."""
+    q, k, v, mask = _inputs(cuda_device, torch.float32, 8, 100, 252, 8, 32, seed=15)
+    seed = torch.tensor([77], device=cuda_device)
+    keep = fa.kernel_keep_mask(seed, 64, 100, 252, 0.1).view(8, 8, 100, 252)
+    before = _forward_counts()
+    for rate, m in ((0.0, None), (0.1, keep)):
+        out, lse = fa.launch_forward_simt(q, k, v, mask, seed, rate, True)
+        torch.cuda.synchronize()
+        assert lse.shape == (64, 100)
+        ref = fa.reference_mha(q, k, v, mask, m, rate)
+        assert float((out - ref).abs().max()) <= 1e-4
+    assert _forward_counts(before) == (2, 0, 0)
+
+
+# The 3xTF32 tensor-core forward (csrc/flash_attention_fwd_tf32.cu) at each CTA
+# shape: every served shape (B=2, b1), the three b8 training shapes, ragged
+# Lq and Lk (not multiples of 16 or 64; at 5 and 129 keys a warp of a 4-way
+# split sees no valid key in the last tile), Dh 64, with and without
+# dropout (plain given the kernel library's keep mask), masked and not.
+# fp32: summation order only, chip_smoke.ATOL.
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("shape", fa.MMA_SHAPES)
+@pytest.mark.parametrize("b,lq,lk,dh", [
+    (2, 1232, 1232, 32), (2, 100, 1232, 32), (1, 1232, 1232, 32), (1, 100, 1232, 32),
+    (1, 100, 100, 32), (8, 252, 252, 32), (8, 100, 252, 32), (8, 100, 100, 32),
+    (3, 37, 5, 32), (2, 77, 129, 64), (1, 200, 37, 32), (2, 130, 300, 64)])
+def test_attention_tf32_kernel_matches_plain(cuda_device, b, lq, lk, dh, shape, rate):
+    q, k, v, mask = _inputs(cuda_device, torch.float32, b, lq, lk, 8, dh, seed=lq + lk + dh)
+    seed = torch.tensor([lq * 131 + lk], device=cuda_device)
+    keep = fa.kernel_keep_mask(seed, b * 8, lq, lk, rate).view(b, 8, lq, lk) if rate else None
+    before = _forward_counts()
+    for m in (mask, None):
+        out, lse = fa.launch_forward_tf32(q, k, v, m, seed, rate, True, shape=shape)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.float32 and out.shape == q.shape and lse.shape == (b * 8, lq)
+        ref = fa.reference_mha(q, k, v, m, keep, rate)
+        assert float((out - ref).abs().max()) <= 1e-4
+    assert _forward_counts(before) == (0, 0, 2)
+
+
+@pytest.mark.parametrize("shape", fa.MMA_SHAPES)
+def test_attention_tf32_fully_padded_row_and_lse(cuda_device, shape):
+    """A batch element whose keys are all padded gets a uniform softmax, as
+    the plain version; the row lse is within 1e-4 of torch.logsumexp of the
+    plain fp32 scores (-1e30 on padded keys), below -1e29 on the padded
+    rows, and the backward kernel takes it as it takes the SIMT kernel's."""
+    q, k, v, _ = _inputs(cuda_device, torch.float32, 3, 77, 129, 8, 32, seed=12)
+    mask = torch.zeros((3, 129), dtype=torch.bool, device=cuda_device)
+    mask[1] = True
+    mask[2, 70:] = True
+    out, lse = fa.launch_forward_tf32(q, k, v, mask, None, 0.0, True, shape=shape)
+    assert float((out - fa.reference_mha(q, k, v, mask)).abs().max()) <= 1e-4
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).masked_fill(mask[:, None, None, :], -1e30)
+    want = torch.logsumexp(scores, dim=-1).reshape(3 * 8, 77)
+    valid = mask.logical_not().any(dim=1).repeat_interleave(8)
+    assert float((lse[valid] - want[valid]).abs().max()) <= 1e-4
+    assert bool((lse[~valid] < -1e29).all())
+    _, simt_lse = fa.launch_forward_simt(q, k, v, mask, None, 0.0, True)
+    dout = torch.randn(q.shape, device=cuda_device)
+    got = fa.launch_backward_mma(q, k, v, out, dout, lse, mask, None, 0.0)
+    ref = _grads(lambda *t: fa.reference_mha(*t, mask), q, k, v, dout)
+    for g, r in zip(got, ref[1:]):
+        assert _rel_err(g, r) <= GRAD_RTOL[torch.float32]
+    assert float((lse[valid] - simt_lse[valid]).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("shape", fa.MMA_SHAPES)
+def test_attention_tf32_dropout_bits_are_keep_mask(cuda_device, shape):
+    """The kernel's dropout multipliers, read out exactly: with q = 0 the
+    softmax is uniform over the 64 keys, and with V's key j the unit vector
+    e_j (Dh 64) out[i, j] = m_ij / 64, so 64 out / keep_scale equals the
+    keep mask of ``keep_mask`` (PyTorch Philox) bit for bit."""
+    b, lq, lk, h, rate = 2, 100, 64, 8, 0.1
+    q = torch.zeros((b, lq, h, 64), device=cuda_device)
+    v = torch.eye(64, device=cuda_device)[None, :, None, :].expand(b, lk, h, 64).contiguous()
+    k = torch.randn((b, lk, h, 64), device=cuda_device)
+    seed = torch.tensor([0xDEAD_BEEF_1234], device=cuda_device)
+    out, _ = fa.launch_forward_tf32(q, k, v, None, seed, rate, False, shape=shape)
+    got = (out * (lk * (1 - rate))).permute(0, 2, 1, 3).reshape(b * h, lq, lk)
+    want = fa.keep_mask(seed, b * h, lq, lk, rate)
+    assert torch.equal(got.round().bool(), want)
+    assert float((got - want.float()).abs().max()) <= 1e-5
+
+
+def test_attention_tf32_is_deterministic(cuda_device):
+    """Two launches on the same inputs give the same bits, with dropout."""
+    q, k, v, mask = _inputs(cuda_device, torch.float32, 8, 100, 252, 8, 32, seed=21)
+    seed = torch.tensor([5], device=cuda_device)
+    first = fa.launch_forward_tf32(q, k, v, mask, seed, 0.1, True)
+    second = fa.launch_forward_tf32(q, k, v, mask, seed, 0.1, True)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+def test_attention_tf32_rejects_bf16(cuda_device):
+    q, k, v, mask = _inputs(cuda_device, torch.bfloat16, 2, 16, 16, 8, 32, seed=0)
+    with pytest.raises(TypeError, match="float32"):
+        fa.launch_forward_tf32(q, k, v, mask, None, 0.0, False)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_attention_route_in_a_model_forward(cuda_device, dtype):
     """A DETR with the full 6 + 6 transformer on a reduced backbone: 18
-    tensor-core launches and no SIMT launch per bf16 forward, the reverse
-    at fp32."""
+    launches of the bf16 tensor-core kernel per bf16 forward, 18 of the
+    3xTF32 one per fp32 forward, and none of the SIMT kernel."""
     model = api.build_detr(backbone_stage_sizes=(1, 1, 1, 1), device=cuda_device,
                            dtype="bfloat16" if dtype == torch.bfloat16 else "float32")
     x = torch.from_numpy(np.random.default_rng(6).normal(size=(1, 256, 320, 3)).astype(np.float32))
-    before = (fa.mha.mma_launches, fa.mha.launches)
+    before = _forward_counts()
     out = model(x.to(cuda_device))
-    after = (fa.mha.mma_launches, fa.mha.launches)
-    expected = (18, 0) if dtype == torch.bfloat16 else (0, 18)
-    assert tuple(a - b for a, b in zip(after, before)) == expected
+    expected = (0, 18, 0) if dtype == torch.bfloat16 else (0, 0, 18)
+    assert _forward_counts(before) == expected
     assert torch.isfinite(out["pred_boxes"].float()).all()
 
 
@@ -147,9 +256,9 @@ def test_model_forward_launches_kernel(cuda_device):
     plain = api.build_detr(attn_impl="plain", **cfg)
     x = torch.from_numpy(np.random.default_rng(1).normal(size=(1, 256, 320, 3)).astype(np.float32))
     x = x.to(cuda_device)
-    before = fa.mha.launches
+    before = _forward_counts()
     out = model(x)
-    assert fa.mha.launches == before + 6
+    assert _forward_counts(before) == (0, 0, 6)
     ref = plain(x)
     assert float((out["pred_boxes"] - ref["pred_boxes"]).abs().max()) <= 5e-4
     assert float((out["pred_logits"] - ref["pred_logits"]).abs().max()) <= 5e-3
@@ -344,7 +453,7 @@ def test_train_step_kernel_route_matches_plain(cuda_device):
     every parameter's gradient (per tensor, rel 1e-3; tensors with an
     exactly-zero gradient, such as every k_proj bias, within 1e-6 of the
     largest tensor gradient) agree; then two dropout-0.1 ``Trainer`` steps
-    launch A, A' and B as designed."""
+    launch A-tf32, A' and B as designed."""
     from detr_tensorflow_tpu_torch.data import pad_targets
     from detr_tensorflow_tpu_torch.ops import losses
     from detr_tensorflow_tpu_torch.train import Trainer, TrainingConfig
@@ -382,15 +491,16 @@ def test_train_step_kernel_route_matches_plain(cuda_device):
     trainer = Trainer(api.build_detr(**cfg).module, config, seed=0)
     logs = []
     counts = _counts(lambda: logs.extend(trainer.step(batch) for _ in range(2)))
-    assert counts == (2 * 6, 0, 2 * 6, 2)  # fp32: the tensor-core backward only
+    assert counts == (2 * 6, 0, 0, 2 * 6, 2)  # fp32: the tensor-core kernels only
     assert all(bool(torch.isfinite(log["total_loss"])) for log in logs)
 
 
 def _counts(fn):
-    """Launches of A, A' SIMT, A' tensor-core and B during ``fn()``."""
+    """Launches of A-tf32, A SIMT, A' SIMT, A' tensor-core and B during
+    ``fn()``."""
     def read():
-        return (fa.mha.launches, fa.mha.backward_launches, fa.mha.backward_mma_launches,
-                lap.solve_lap_masked.launches)
+        return (fa.mha.tf32_launches, fa.mha.launches, fa.mha.backward_launches,
+                fa.mha.backward_mma_launches, lap.solve_lap_masked.launches)
     before = read()
     fn()
     return tuple(a - b for a, b in zip(read(), before))
@@ -398,8 +508,9 @@ def _counts(fn):
 
 def test_train_step_launches_the_mma_backward_18_times(cuda_device):
     """One fp32 ``Trainer`` step of a DETR with the full 6 + 6 transformer
-    (reduced backbone) at dropout 0.1: 18 attention forwards, 18 tensor-core
-    backwards, no SIMT backward, one LAP launch."""
+    (reduced backbone) at dropout 0.1: 18 tensor-core (3xTF32) attention
+    forwards, 18 tensor-core backwards, no SIMT forward or backward, one LAP
+    launch."""
     from detr_tensorflow_tpu_torch.data import pad_targets
     from detr_tensorflow_tpu_torch.train import Trainer, TrainingConfig
     from detr_tensorflow_tpu_torch.train.engine import batch_to_device
@@ -416,7 +527,7 @@ def test_train_step_launches_the_mma_backward_18_times(cuda_device):
     model = api.build_detr(backbone_stage_sizes=(1, 1, 1, 1), device=cuda_device).module
     trainer = Trainer(model, config, seed=0)
     logs = []
-    assert _counts(lambda: logs.append(trainer.step(batch))) == (18, 0, 18, 1)
+    assert _counts(lambda: logs.append(trainer.step(batch))) == (18, 0, 0, 18, 1)
     assert bool(torch.isfinite(logs[0]["total_loss"]))
 
 
