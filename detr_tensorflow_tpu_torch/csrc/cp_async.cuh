@@ -1,0 +1,37 @@
+// Asynchronous global -> shared copies (`cp.async`, sm_80 and later) and the
+// shared-memory address they take, shared by the tensor-core kernels: the
+// attention kernels (through flash_attention_common.cuh), bf16_mma.cuh and
+// the fused bottleneck E-mma (fused_bottleneck_mma.cu).
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace cpa {
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes 0 writes 16 zero bytes.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// 4 bytes global -> shared, asynchronously; src_bytes 0 writes a zero.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+}  // namespace cpa

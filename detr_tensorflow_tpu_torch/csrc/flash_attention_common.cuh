@@ -26,6 +26,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace fa {
 
 constexpr float kMaskBias = -1e30f;
@@ -135,32 +137,13 @@ cudaError_t launch_delta(const T* out, const T* dout, float* delta, int batch, i
 }
 
 
-// ---- cp.async ---------------------------------------------------------------
+// ---- cp.async (cp_async.cuh) ------------------------------------------------
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; src_bytes 0 writes 16 zero bytes.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-
-// 4 bytes global -> shared, asynchronously; src_bytes 0 writes a zero.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
+using cpa::cp_async16;
+using cpa::cp_async4;
+using cpa::cp_async_commit;
+using cpa::cp_async_wait;
+using cpa::smem_addr;
 
 // ---- 3xTF32 products on the tensor cores ------------------------------------
 //

@@ -66,15 +66,19 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "flash_attention_common.cuh"
 
 namespace {
 
+using bf16mma::ldmatrix_x4;
+using bf16mma::ldmatrix_x4_trans;
+using bf16mma::mma_bf16;
+using bf16mma::pack_bf16;
 using fa::cp_async16;
 using fa::cp_async_commit;
 using fa::cp_async_wait;
 using fa::kMaskBias;
-using fa::smem_addr;
 
 constexpr int kTileK = 64;             // keys per shared-memory tile
 // Tiles of the cp.async ring: the next tile's loads overlap this one's math
@@ -83,36 +87,10 @@ constexpr int kTileK = 64;             // keys per shared-memory tile
 constexpr int kStages = 2;
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-// Two fp32 values as one bf16x2 register, the first in the low half.
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
 }
 
 // One CTA: kRowGroups x kSplit warps over 16 * kRowGroups query rows of one

@@ -23,10 +23,17 @@ HWIO kernels flattened: ``w1t`` (C, M), ``w2t`` (9, M, M) as (tap, in,
 out) with tap = 3 * dy + dx, ``w3t`` (M, C); ``pack_weights`` makes them
 from the port's folded OIHW conv weights.
 
+Two kernels, picked by ``route`` from the dtype alone: bf16 runs E-mma
+(``csrc/fused_bottleneck_mma.cu``: tensor cores, thread-block clusters
+splitting the wide blocks' channels, one compiled plan per width,
+``MMA_PLANS``), fp32 the SIMT kernel (``csrc/fused_bottleneck.cu``).
+``fused_bottleneck.mma_launches`` and ``fused_bottleneck.launches`` count
+their launches. ``launch_simt`` takes bf16 too, for timing.
+
 Inference only, as in the JAX package (no VJP): the function raises when
-autograd would record it. A CUDA tensor launches the kernel and a CPU
+autograd would record it. A CUDA tensor launches a kernel and a CPU
 tensor takes the plain version; there is no fallback from one to the
-other. ``fused_bottleneck.launches`` counts kernel launches.
+other, and a failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -38,8 +45,16 @@ import torch.nn.functional as F
 
 from .fused_residual import DTYPES, check_inference
 
-_SOURCE = "fused_bottleneck.cu"
-_CHUNK, MAX_WIDTH = 16, 512  # the kernel takes C, M multiples of 16 and M <= 512
+_SOURCE, _MMA_SOURCE = "fused_bottleneck.cu", "fused_bottleneck_mma.cu"
+_CHUNK, MAX_WIDTH = 16, 512  # the SIMT kernel takes C, M multiples of 16 and M <= 512
+
+# E-mma's compiled plan, (tile_h, tile_w, cluster), per M;
+# csrc/fused_bottleneck_mma.cu:with_plan lists the same.
+MMA_PLANS = {64: (8, 16, 1), 128: (8, 8, 1), 256: (8, 8, 2), 512: (8, 8, 8)}
+# The kernel's constants: contraction rows a chunk of stages 1-3, stages of
+# the cp.async ring, and the most shared memory a CTA can have.
+_KC1, _KC2, _KC3, _RING = 32, 64, 32, 3
+MAX_SMEM = 232448
 
 
 def fold_bn_params(weight: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor):
@@ -71,25 +86,62 @@ def reference_fused_bottleneck(x, w1t, b1, w2t, b2, w3t, b3):
     return F.relu(y).to(dt)
 
 
-def _library() -> ctypes.CDLL:
+def route(dtype: torch.dtype) -> str:
+    """The kernel a CUDA call takes: "mma" (E-mma, tensor cores,
+    ``csrc/fused_bottleneck_mma.cu``) for bf16, "simt"
+    (``csrc/fused_bottleneck.cu``) for fp32."""
+    return "mma" if dtype == torch.bfloat16 else "simt"
+
+
+def _stage3_pass(m: int) -> int:
+    """y channels E-mma's stage 3 takes a pass at width M."""
+    return 128 if m <= 128 else 256
+
+
+def mma_smem_bytes(m: int) -> int:
+    """Shared memory of one E-mma CTA at width M, the kernel's
+    ``Plan::kSmem``: T1 over the halo and T2 over the tile at all M channels
+    (rows padded by 8 bf16), and the cp.async ring's stages, each the
+    largest of stage 1's x and W1 chunks, stage 2's W2 chunk and stage 3's
+    W3 chunk."""
+    tile_h, tile_w, cluster = MMA_PLANS[m]
+    halo, tile = (tile_h + 2) * (tile_w + 2), tile_h * tile_w
+    nk = m // cluster
+    ring = max(halo * (_KC1 + 8) + _KC1 * (nk + 8), _KC2 * (nk + 8),
+               _KC3 * (_stage3_pass(m) + 8))
+    return 2 * ((halo + tile) * (m + 8) + _RING * ring)
+
+
+def mma_plan(c: int, m: int) -> tuple:
+    """E-mma's plan (tile_h, tile_w, cluster) at width M, for C input
+    channels: C must come in whole chunks of stage 1 and in whole stage-3
+    passes of each rank."""
+    plan = MMA_PLANS.get(m)
+    if plan is None or c % _KC1 or c % (plan[2] * _stage3_pass(m)):
+        raise ValueError(f"the bf16 fused bottleneck kernel takes M in {sorted(MMA_PLANS)} and C a "
+                         f"multiple of 32 and of its plan's cluster times "
+                         f"{_stage3_pass(m) if plan else 128}, got C={c}, M={m}")
+    return plan
+
+
+def _library(source: str) -> ctypes.CDLL:
     from .nvcc_build import load_library
 
-    lib = load_library(_SOURCE)
-    fn = lib.fused_bottleneck
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    lib = load_library(source)
+    if source == _SOURCE and lib.fused_bottleneck.argtypes is None:
+        lib.fused_bottleneck.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                                         + [ctypes.c_void_p])
+        lib.fused_bottleneck.restype = ctypes.c_int
+    if source == _MMA_SOURCE and lib.fused_bottleneck_mma.argtypes is None:
+        lib.fused_bottleneck_mma.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                                             + [ctypes.c_void_p])
+        lib.fused_bottleneck_mma.restype = ctypes.c_int
+        lib.fused_bottleneck_mma_occupancy.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2
+        lib.fused_bottleneck_mma_occupancy.restype = ctypes.c_int
     return lib
 
 
-def fused_bottleneck(x, w1t, b1, w2t, b2, w3t, b3):
-    """relu(conv3(relu(conv2(relu(conv1(x))))) + x) with T1 and T2 on chip.
-
-    x: (N, C, H, W) float32 or bfloat16, channels_last for the kernel; w1t
-    (C, M), w2t (9, M, M), w3t (M, C) in x's dtype, BN folded
-    (``pack_weights``); b1, b2 (M,) and b3 (C,) float32. Returns (N, C, H,
-    W) in x's dtype and memory format.
-    """
+def _check(x, w1t, b1, w2t, b2, w3t, b3):
     operands = (x, w1t, b1, w2t, b2, w3t, b3)
     check_inference("fused_bottleneck", *operands)
     if x.dim() != 4 or x.dtype not in DTYPES:
@@ -105,20 +157,50 @@ def fused_bottleneck(x, w1t, b1, w2t, b2, w3t, b3):
             raise ValueError(f"{name} must be float32 ({k},), got {v.dtype} {tuple(v.shape)}")
     if len({t.device for t in operands}) != 1:
         raise ValueError("operands lie on different devices")
-    if x.device.type == "cpu":
-        return reference_fused_bottleneck(*operands)
+
+
+def _check_kernel_inputs(x, *weights):
     if x.device.type != "cuda":
         raise ValueError(f"no fused bottleneck kernel for device {x.device}")
+    if not (x.is_contiguous(memory_format=torch.channels_last)
+            and all(t.is_contiguous() for t in weights)):
+        raise ValueError("the fused bottleneck kernel takes x in channels_last memory and "
+                         "contiguous weights and biases")
+
+
+def fused_bottleneck(x, w1t, b1, w2t, b2, w3t, b3):
+    """relu(conv3(relu(conv2(relu(conv1(x))))) + x) with T1 and T2 on chip.
+
+    x: (N, C, H, W) float32 or bfloat16, channels_last for the kernels; w1t
+    (C, M), w2t (9, M, M), w3t (M, C) in x's dtype, BN folded
+    (``pack_weights``); b1, b2 (M,) and b3 (C,) float32. Returns (N, C, H,
+    W) in x's dtype and memory format. A CPU tensor takes the plain
+    version, a CUDA tensor the kernel ``route`` picks.
+    """
+    operands = (x, w1t, b1, w2t, b2, w3t, b3)
+    if x.device.type == "cpu":
+        _check(*operands)
+        return reference_fused_bottleneck(*operands)
+    if route(x.dtype) == "mma":
+        return launch_mma(*operands)
+    return launch_simt(*operands)
+
+
+def launch_simt(x, w1t, b1, w2t, b2, w3t, b3):
+    """One launch of the SIMT kernel on CUDA tensors, fp32 or bf16.
+    ``fused_bottleneck`` sends fp32 calls here; a direct call also times it
+    at bf16 beside E-mma."""
+    operands = (x, w1t, b1, w2t, b2, w3t, b3)
+    _check(*operands)
+    _check_kernel_inputs(*operands)
+    n, c, h, w = x.shape
+    m = w1t.shape[-1]
     if c % _CHUNK or m % _CHUNK or m > MAX_WIDTH:
         raise ValueError(f"the fused bottleneck kernel takes C and M multiples of {_CHUNK} and "
                          f"M <= {MAX_WIDTH}, got C={c}, M={m}")
-    if not (x.is_contiguous(memory_format=torch.channels_last)
-            and all(t.is_contiguous() for t in operands[1:])):
-        raise ValueError("the fused bottleneck kernel takes x in channels_last memory and "
-                         "contiguous weights and biases")
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        err = _library().fused_bottleneck(
+        err = _library(_SOURCE).fused_bottleneck(
             *(t.data_ptr() for t in operands), out.data_ptr(), n, c, m, h, w,
             int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
@@ -127,4 +209,39 @@ def fused_bottleneck(x, w1t, b1, w2t, b2, w3t, b3):
     return out
 
 
+def launch_mma(x, w1t, b1, w2t, b2, w3t, b3):
+    """One launch of E-mma on bf16 CUDA tensors, at ``mma_plan``'s plan."""
+    operands = (x, w1t, b1, w2t, b2, w3t, b3)
+    _check(*operands)
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the mma fused bottleneck kernel takes bfloat16, got {x.dtype}")
+    _check_kernel_inputs(*operands)
+    n, c, h, w = x.shape
+    m = w1t.shape[-1]
+    mma_plan(c, m)
+    if any(t.data_ptr() % 16 for t in (x, w1t, w2t, w3t)):
+        raise ValueError("the mma fused bottleneck kernel takes 16-byte aligned x and weights")
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _library(_MMA_SOURCE).fused_bottleneck_mma(
+            *(t.data_ptr() for t in operands), out.data_ptr(), n, c, m, h, w,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_bottleneck_mma launch failed: cudaError {err}")
+    fused_bottleneck.mma_launches += 1
+    return out
+
+
+def mma_occupancy(m: int) -> tuple:
+    """(clusters the current card holds at once, shared-memory bytes a CTA)
+    of E-mma's plan at width M (``cudaOccupancyMaxActiveClusters``)."""
+    clusters, smem = ctypes.c_int(0), ctypes.c_int(0)
+    err = _library(_MMA_SOURCE).fused_bottleneck_mma_occupancy(
+        m, ctypes.addressof(clusters), ctypes.addressof(smem))
+    if err != 0:
+        raise RuntimeError(f"fused_bottleneck_mma_occupancy failed: cudaError {err}")
+    return clusters.value, smem.value
+
+
 fused_bottleneck.launches = 0
+fused_bottleneck.mma_launches = 0

@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Where the device time of one fp32 DETR-R50 forward goes, on one NVIDIA GPU.
+"""Where the device time of one DETR-R50 forward goes, on one NVIDIA GPU.
 
-  python3 scripts/torch_forward_profile.py [--dtype float32|bfloat16]
+  python3 scripts/torch_forward_profile.py [--dtype float32|bfloat16] [--fused]
 
 Builds the full-width DETR-R50 (seeded random weights), runs it on one
-masked 800x1333 image on the 896x1408 canvas (b1, the served bucket) under
-``torch.profiler`` for 3 forwards after a warm-up, and prints per forward:
-the device time summed over every kernel, the attention forward kernels'
-share of it (with their launches), and the ten kernels that take the most
-time. TF32 is off for fp32 matmuls and convolutions, as on the served path
-of ``chip_smoke.py``.
+masked 800x1333 image on the 896x1408 canvas (b1, the served bucket) or,
+with ``--fused``, the fused-backbone model (``fuse_residual``,
+``fuse_bottleneck``) on one bucket-exact 768x1280 image without a mask
+(the route of kernel E), under ``torch.profiler`` for 3 forwards after a
+warm-up, and prints per forward: the device time summed over every
+kernel, the attention forward kernels' share of it (with their launches),
+the hand-written backbone kernels' (C, D, E), and the ten kernels that
+take the most time. TF32 is off for fp32 matmuls and convolutions, as on
+the served path of ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ CALLS = 3
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
+    parser.add_argument("--fused", action="store_true",
+                        help="the fused-backbone model at a bucket-exact 768x1280 image")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
@@ -37,12 +42,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from torch.profiler import ProfilerActivity, profile
 
-    model = api.build_detr(seed=0, device="cuda", dtype=args.dtype)
+    flags = dict(fuse_residual=True, fuse_bottleneck=True) if args.fused else {}
+    model = api.build_detr(seed=0, device="cuda", dtype=args.dtype, **flags)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    x = torch.zeros((1, 896, 1408, 3), device="cuda")
-    x[:, :800, :1333] = torch.randn((1, 800, 1333, 3), device="cuda", generator=gen)
-    mask = torch.zeros((1, 896, 1408), dtype=torch.bool, device="cuda")
-    mask[:, :800, :1333] = True
+    if args.fused:
+        x, mask = torch.randn((1, 768, 1280, 3), device="cuda", generator=gen), None
+    else:
+        x = torch.zeros((1, 896, 1408, 3), device="cuda")
+        x[:, :800, :1333] = torch.randn((1, 800, 1333, 3), device="cuda", generator=gen)
+        mask = torch.zeros((1, 896, 1408), dtype=torch.bool, device="cuda")
+        mask[:, :800, :1333] = True
     with torch.inference_mode():
         for _ in range(2):
             model(x, mask)
@@ -60,10 +69,18 @@ def main() -> int:
     total = sum(times.values())
     attn = {k: v for k, v in times.items() if "flash_attention" in k}
     attn_ms = sum(attn.values())
-    print(f"{torch.cuda.get_device_name(0)}, DETR-R50 {args.dtype} b1 896x1408 masked, per "
+    where = "fused 768x1280 bucket-exact" if args.fused else "896x1408 masked"
+    print(f"{torch.cuda.get_device_name(0)}, DETR-R50 {args.dtype} b1 {where}, per "
           f"forward: device time {total:.3f} ms over {sum(counts.values())} kernels; attention "
           f"forward {attn_ms:.3f} ms ({100 * attn_ms / total:.1f}%) in "
           f"{sum(counts[k] for k in attn)} launches", flush=True)
+    for label, name in (("C", "max_pool_3x3_s2_kernel"), ("D", "conv1x1_bn_residual_relu"),
+                        ("E (SIMT)", "fused_bottleneck_kernel"),
+                        ("E-mma", "fused_bottleneck_mma_kernel")):
+        keys = [k for k in times if name in k]
+        if keys:
+            print(f"  kernel {label}: {sum(times[k] for k in keys):.3f} ms in "
+                  f"{sum(counts[k] for k in keys)} launches", flush=True)
     for key, ms in times.most_common(10):
         print(f"  {ms:8.3f} ms  x{counts[key]:<4d} {key[:110]}", flush=True)
     return 0

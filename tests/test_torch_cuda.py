@@ -675,6 +675,10 @@ def test_maxpool_kernel_backward_routes_to_the_first_max(cuda_device):
 # output at the same points, and a sum that lands on the other side of a
 # rounding boundary moves one bf16 ulp (2^-8 relative).
 FUSED_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# The fused bf16 model's c5 may lie at most this many times as far from the
+# unfused fp32 model's as the unfused bf16 model's does (chip_smoke.py's
+# bound; both gaps come from rounding to bf16 at different points).
+FUSED_BF16_C5_RATIO = 2.0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -707,24 +711,82 @@ def _bottleneck_operands(device, c, m, seed, b1=None):
     return w1, b1, w2, b2, w3, b3
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,c,m,h,w", [(1, 256, 64, 192, 320), (1, 512, 128, 96, 160),
-                                       (1, 1024, 256, 48, 80), (1, 2048, 512, 24, 40),
-                                       (2, 256, 64, 13, 21), (2, 1024, 256, 7, 5),
-                                       (1, 2048, 512, 5, 7)])
-def test_fused_bottleneck_kernel_matches_plain(cuda_device, n, c, m, h, w, dtype):
-    """Kernel E at every ResNet-50 width (M 64 to 512, each tile shape) at
-    the 768x1280 bucket's maps and at ragged ones (partial tiles)."""
-    w1, b1, w2, b2, w3, b3 = _bottleneck_operands(cuda_device, c, m, seed=c + h)
+# Kernel E's cases: every ResNet-50 width (M 64 to 512) at the 768x1280
+# bucket's maps and at ragged ones (partial tiles, a map smaller than one
+# tile).
+FUSED_E_CASES = [(1, 256, 64, 192, 320), (1, 512, 128, 96, 160), (1, 1024, 256, 48, 80),
+                 (1, 2048, 512, 24, 40), (2, 256, 64, 13, 21), (2, 1024, 256, 7, 5),
+                 (1, 2048, 512, 5, 7)]
+
+
+def _e_counts(before=(0, 0)):
+    """Kernel E's launches (SIMT, E-mma), less ``before``."""
+    fb = fused_bottleneck.fused_bottleneck
+    return tuple(a - b for a, b in zip((fb.launches, fb.mma_launches), before))
+
+
+def _e_inputs(device, n, c, m, h, w, dtype, seed, b1=None):
+    w1, b1, w2, b2, w3, b3 = _bottleneck_operands(device, c, m, seed=seed, b1=b1)
     ops = (w1.to(dtype), b1, w2.to(dtype), b2, w3.to(dtype), b3)
-    x = _channels_last(torch.rand(n, c, h, w, device=cuda_device)).to(dtype)
-    before = fused_bottleneck.fused_bottleneck.launches
+    return _channels_last(torch.rand(n, c, h, w, device=device)).to(dtype), ops
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,m,h,w", FUSED_E_CASES)
+def test_fused_bottleneck_kernel_matches_plain(cuda_device, n, c, m, h, w, dtype):
+    """Kernel E through ``fused_bottleneck``: fp32 on the SIMT kernel (each
+    tile shape), bf16 on E-mma (its width's plan: clusters of 1, 2 and 8
+    CTAs among them)."""
+    x, ops = _e_inputs(cuda_device, n, c, m, h, w, dtype, seed=c + h)
+    before = _e_counts()
     got = fused_bottleneck.fused_bottleneck(x, *ops)
     ref = fused_bottleneck.reference_fused_bottleneck(x, *ops)
     torch.cuda.synchronize()
-    assert fused_bottleneck.fused_bottleneck.launches == before + 1
+    assert _e_counts(before) == ((0, 1) if dtype == torch.bfloat16 else (1, 0))
     assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last)
     assert _rel_err(got, ref) <= FUSED_RTOL[dtype]
+
+
+@pytest.mark.parametrize("m", [64, 256, 512])
+def test_fused_bottleneck_mma_masks_the_halo(cuda_device, m):
+    """b1 = 2.0 on the bf16 route (E-mma): relu(b1) would leak into T1
+    outside the image; E-mma zeroes it and agrees with the plain chain."""
+    x, ops = _e_inputs(cuda_device, 1, 4 * m, m, 11, 13, torch.bfloat16, seed=m,
+                       b1=torch.full((m,), 2.0, device=cuda_device))
+    before = _e_counts()
+    got = fused_bottleneck.fused_bottleneck(x, *ops)
+    assert _e_counts(before) == (0, 1)
+    ref = fused_bottleneck.reference_fused_bottleneck(x, *ops)
+    assert _rel_err(got, ref) <= FUSED_RTOL[torch.bfloat16]
+
+
+def test_fused_bottleneck_mma_is_deterministic(cuda_device):
+    """Each output is one CTA's fixed sequence of MMAs: two calls agree bit
+    for bit, at a clustered plan (M = 512, clusters of 8)."""
+    x, ops = _e_inputs(cuda_device, 1, 2048, 512, 24, 40, torch.bfloat16, seed=9)
+    first = fused_bottleneck.launch_mma(x, *ops)
+    assert torch.equal(first, fused_bottleneck.launch_mma(x, *ops))
+
+
+def test_fused_bottleneck_mma_refuses_fp32_and_foreign_widths(cuda_device):
+    """E-mma takes bf16 only, and only the widths it has a plan for."""
+    x, ops = _e_inputs(cuda_device, 1, 256, 64, 16, 16, torch.float32, seed=2)
+    with pytest.raises(TypeError, match="takes bfloat16"):
+        fused_bottleneck.launch_mma(x, *ops)
+    x, ops = _e_inputs(cuda_device, 1, 256, 96, 16, 16, torch.bfloat16, seed=2)
+    with pytest.raises(ValueError, match="takes M in"):
+        fused_bottleneck.launch_mma(x, *ops)
+
+
+def test_fused_bottleneck_simt_still_takes_bf16(cuda_device):
+    """``launch_simt`` runs the SIMT kernel at bf16 (for timing beside
+    E-mma), within the bf16 tolerance of plain."""
+    x, ops = _e_inputs(cuda_device, 2, 1024, 256, 7, 5, torch.bfloat16, seed=4)
+    before = _e_counts()
+    got = fused_bottleneck.launch_simt(x, *ops)
+    assert _e_counts(before) == (1, 0)
+    ref = fused_bottleneck.reference_fused_bottleneck(x, *ops)
+    assert _rel_err(got, ref) <= FUSED_RTOL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("m", [64, 256, 512])
@@ -735,21 +797,27 @@ def test_fused_bottleneck_kernel_masks_the_halo(cuda_device, m):
     ops = _bottleneck_operands(cuda_device, c, m, seed=m,
                                b1=torch.full((m,), 2.0, device=cuda_device))
     x = _channels_last(torch.randn(1, c, 11, 13, device=cuda_device))
+    before = _e_counts()
     got = fused_bottleneck.fused_bottleneck(x, *ops)
+    assert _e_counts(before) == (1, 0)
     assert _rel_err(got, fused_bottleneck.reference_fused_bottleneck(x, *ops)) <= 1e-5
 
 
-def test_fused_detr_on_the_card(cuda_device):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_detr_on_the_card(cuda_device, dtype):
     """A reduced-depth fused DETR on the card: C once, D on each block_0,
-    E on each identity block without a mask and none with one; outputs
-    against the unfused model from the same weights (fp32, TF32 off), with
-    nonzero BN shifts."""
+    E on each identity block without a mask and none with one, E on the
+    SIMT kernel at fp32 and on E-mma at bf16. fp32 outputs against the
+    unfused model from the same weights (TF32 off), with nonzero BN
+    shifts; at bf16, c5 of the bucket-exact forward (E-mma in every
+    identity block) against the unfused fp32 model's, within
+    FUSED_BF16_C5_RATIO times the unfused bf16 model's own gap."""
     cfg = dict(backbone_stage_sizes=(2, 2, 2, 2), num_encoder_layers=1, num_decoder_layers=1,
-               device=cuda_device)
+               device=cuda_device, dtype=dtype)
     fused = api.build_detr(fuse_residual=True, fuse_bottleneck=True, **cfg)
     plain = api.build_detr(**cfg)
     gen = torch.Generator().manual_seed(3)
-    state = {k: (v + 0.1 * torch.randn(v.shape, generator=gen).to(v.device)
+    state = {k: (v + 0.1 * torch.randn(v.shape, generator=gen).to(v.device, v.dtype)
                  if k.endswith(("bn1.bias", "bn2.bias", "bn3.bias", "running_mean")) else v)
              for k, v in plain.module.state_dict().items()}
     for m in (fused, plain):
@@ -758,15 +826,28 @@ def test_fused_detr_on_the_card(cuda_device):
     x = x.to(cuda_device)
     mask = torch.zeros((1, 256, 384), dtype=torch.bool, device=cuda_device)
     mask[:, :200, :301] = True
+    mma = dtype == "bfloat16"
     for pixel_mask, d, e in ((None, 4, 4), (mask, 8, 0)):
-        before = (maxpool.max_pool_3x3_s2.launches,
-                  fused_residual.conv1x1_bn_residual_relu.launches,
-                  fused_bottleneck.fused_bottleneck.launches)
+        def counts():
+            return (maxpool.max_pool_3x3_s2.launches,
+                    fused_residual.conv1x1_bn_residual_relu.launches, *_e_counts())
+
+        before = counts()
         out = fused(x, pixel_mask)
-        after = (maxpool.max_pool_3x3_s2.launches,
-                 fused_residual.conv1x1_bn_residual_relu.launches,
-                 fused_bottleneck.fused_bottleneck.launches)
-        assert tuple(a - b for a, b in zip(after, before)) == (1, d, e)
+        after = counts()
+        assert tuple(a - b for a, b in zip(after, before)) == (1, d, 0 if mma else e,
+                                                                 e if mma else 0)
+        if mma:
+            assert all(bool(torch.isfinite(v).all()) for v in out.values())
+            continue
         ref = plain(x, pixel_mask)
         assert float((out["pred_boxes"] - ref["pred_boxes"]).abs().max()) <= 5e-4
         assert float((out["pred_logits"] - ref["pred_logits"]).abs().max()) <= 5e-3
+    if mma:
+        fp32 = api.build_detr(**{**cfg, "dtype": "float32"})
+        fp32.module.load_state_dict(state)
+        with torch.inference_mode():
+            c5 = [m.module.backbone(x.to(m.module.dtype), None) for m in (fp32, fused, plain)]
+        assert all(bool(torch.isfinite(v).all()) for v in c5)
+        gap_fused, gap_plain = (_rel_err(v, c5[0]) for v in c5[1:])
+        assert gap_fused <= FUSED_BF16_C5_RATIO * gap_plain, (gap_fused, gap_plain)

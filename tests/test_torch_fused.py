@@ -208,6 +208,192 @@ def test_fold_and_pack_match_jax():
     np.testing.assert_array_equal(w3t.float().numpy(), w3[:, :, 0, 0].t().bfloat16().float())
 
 
+# ---- kernel E's bf16 path, E-mma: plans and its tiling emulated -----------------------------
+
+# The feature maps of ResNet-50's four stages at the 768x1280 and 896x1408
+# buckets, and ragged ones (partial tiles, a map smaller than one tile).
+E_MAPS = {"768x1280": [(192, 320), (96, 160), (48, 80), (24, 40)],
+          "896x1408": [(224, 352), (112, 176), (56, 88), (28, 44)],
+          "ragged": [(13, 21), (9, 11), (7, 5), (5, 7), (1, 1)]}
+
+
+@pytest.mark.parametrize("bucket", sorted(E_MAPS))
+@pytest.mark.parametrize("m", [64, 128, 256, 512])
+def test_mma_plan_fits_the_card(m, bucket):
+    """At each ResNet-50 width (C = 4M), E-mma's plan fits a CTA in 232,448
+    bytes of shared memory, with a cluster of 1, 2, 4 or 8 CTAs that splits
+    M and C evenly; at each map of the bucket its grid (pixel tiles times
+    the cluster, images along y) lies within CUDA's limits; a width
+    without a plan is refused."""
+    c = 4 * m
+    th, tw, k = plan = fb.mma_plan(c, m)
+    assert plan == fb.MMA_PLANS[m]
+    assert k in (1, 2, 4, 8) and m % k == 0 and c % k == 0
+    assert fb.mma_smem_bytes(m) <= fb.MAX_SMEM == 232448
+    maps = E_MAPS[bucket] if bucket == "ragged" else [E_MAPS[bucket][[64, 128, 256, 512].index(m)]]
+    for h, w in maps:
+        ctas = -(-h // th) * -(-w // tw) * k
+        assert 1 <= ctas < 2**31 and ctas % k == 0
+    with pytest.raises(ValueError, match="takes M in"):
+        fb.mma_plan(96, 48)
+    with pytest.raises(ValueError, match="takes M in"):
+        fb.mma_plan(c + 32, m)
+
+
+def _bf16(a):
+    """``a`` rounded to bf16 (nearest even), as float64."""
+    return torch.from_numpy(np.asarray(a, np.float32)).bfloat16().double().numpy()
+
+
+def _chunked(a, b, kc=16):
+    """a @ b as the kernel sums it: chunks of kc contraction rows in order."""
+    return sum(a[:, k0:k0 + kc] @ b[k0:k0 + kc] for k0 in range(0, a.shape[1], kc))
+
+
+def _push(buf, nk):
+    """The cluster exchange: rank r copies its slice (columns r nk..) into
+    every other rank's buffer, after which each rank holds every slice."""
+    k = len(buf)
+    for r in range(k):
+        for d in range(1, k):
+            buf[(r + d) % k][:, r * nk:(r + 1) * nk] = buf[r][:, r * nk:(r + 1) * nk]
+
+
+def _mma_emulation(x, w1, b1, w2, b2, w3, b3, tile, cluster, np3=16, zero_halo=True,
+                   exchange=True):
+    """csrc/fused_bottleneck_mma.cu's algorithm in numpy float64, on NHWC x
+    (bf16 values) and bf16-valued weights w1 (C, M), w2 (9, M, M), w3 (M,
+    C): per TH x TW tile, x over the halo (zero outside the image), in
+    16-row tiles whose rows past the halo repeat its last pixel; each rank
+    r of a cluster computes T1's columns r M/K.. into its own buffer (the
+    others NaN until the exchange fills them), T1 zeroed outside the image;
+    conv2 gathers each tap's rows by the kernel's row address; T2 likewise;
+    y's columns r C/K.. in passes of np3, the residual added in fp32,
+    pixels outside the image not written (NaN)."""
+    th, tw = tile
+    n, h, w, c = x.shape
+    m = w1.shape[1]
+    nk, cs, hw = m // cluster, c // cluster, tw + 2
+    p1, p2 = (th + 2) * hw, th * tw
+    q, p = np.arange(p1), np.arange(p2)
+    rows1 = np.minimum(np.arange(-(-p1 // 16) * 16), p1 - 1)
+    taps = [(p // tw) * hw + p % tw + (tap // 3) * hw + tap % 3 for tap in range(9)]
+    y = np.full(x.shape, np.nan)
+    for img in range(n):
+        for oy0 in range(0, h, th):
+            for ox0 in range(0, w, tw):
+                gy, gx = oy0 - 1 + q // hw, ox0 - 1 + q % hw
+                inside = (gy >= 0) & (gy < h) & (gx >= 0) & (gx < w)
+                xs = np.zeros((p1, c))
+                xs[inside] = x[img, gy[inside], gx[inside]]
+                t1, t2 = np.full((cluster, p1, m), np.nan), np.full((cluster, p2, m), np.nan)
+                for r in range(cluster):
+                    sl = slice(r * nk, (r + 1) * nk)
+                    v = _bf16(np.maximum(_chunked(xs[rows1], w1[:, sl])[:p1] + b1[sl], 0))
+                    t1[r][:, sl] = np.where(inside[:, None] | (not zero_halo), v, 0)
+                if exchange:
+                    _push(t1, nk)
+                for r in range(cluster):
+                    sl = slice(r * nk, (r + 1) * nk)
+                    acc = sum(_chunked(t1[r][taps[tap]], w2[tap][:, sl]) for tap in range(9))
+                    t2[r][:, sl] = _bf16(np.maximum(acc + b2[sl], 0))
+                if exchange:
+                    _push(t2, nk)
+                oy, ox = oy0 + p // tw, ox0 + p % tw
+                out = (oy < h) & (ox < w)
+                for r in range(cluster):
+                    for n0 in range(r * cs, (r + 1) * cs, np3):
+                        cols = slice(n0, n0 + np3)
+                        acc = _chunked(t2[r], w3[:, cols])[out]
+                        res = x[img, oy[out], ox[out]][:, cols]
+                        y[img, oy[out], ox[out], cols] = _bf16(np.maximum(acc + b3[cols] + res, 0))
+    return y
+
+
+def _float64_chain(x, w1, b1, w2, b2, w3, b3):
+    """The bottleneck in float64 with the kernel's bf16 rounding points."""
+    n, h, w, _ = x.shape
+    t1 = np.pad(_bf16(np.maximum(x @ w1 + b1, 0)), ((0, 0), (1, 1), (1, 1), (0, 0)))
+    acc = sum(t1[:, dy:dy + h, dx:dx + w] @ w2[3 * dy + dx] for dy in range(3) for dx in range(3))
+    t2 = _bf16(np.maximum(acc + b2, 0))
+    return _bf16(np.maximum(t2 @ w3 + b3 + x, 0))
+
+
+def _mma_case(n, h, w, c, m, seed):
+    """bf16-valued x and weights, float32 biases; b1 > 0 so that a T1 left
+    unmasked outside the image would show."""
+    rng = np.random.default_rng(seed)
+    x = _bf16(rng.uniform(0, 1, size=(n, h, w, c)))
+    w1, w3 = (_bf16(rng.normal(size=s) * s[0] ** -0.5) for s in ((c, m), (m, c)))
+    w2 = _bf16(rng.normal(size=(9, m, m)) * (9 * m) ** -0.5)
+    b1 = rng.uniform(0.5, 1.5, size=m).astype(np.float32)
+    b2, b3 = (rng.normal(size=k).astype(np.float32) * 0.1 for k in (m, c))
+    return x, w1, b1, w2, b2, w3, b3
+
+
+# (n, h, w, C, M, tile, cluster): partial tiles at the compiled tile shapes
+# (8 x 8, 8 x 16) and at 4 x 8, a map smaller than one tile, and forced
+# cluster splits of 2 and 4.
+MMA_EMULATION_CASES = [(2, 9, 13, 64, 32, (4, 8), 4), (2, 9, 13, 64, 32, (8, 8), 2),
+                       (2, 5, 7, 32, 16, (8, 8), 2), (2, 11, 10, 32, 16, (8, 16), 1)]
+
+
+@pytest.mark.parametrize("n,h,w,c,m,tile,cluster", MMA_EMULATION_CASES)
+def test_mma_emulation_matches_jax_and_float64(n, h, w, c, m, tile, cluster):
+    """E-mma's tiling, emulated, writes every output and agrees with the
+    float64 chain with the same bf16 rounding points within 1e-6 of the
+    largest output (summation order only), and with the JAX package's
+    fused_bottleneck (Pallas, interpret mode, bf16 operands, float32
+    accumulation) within two bf16 ulps of the largest output (2^-7): a
+    T1 or T2 value whose float32 and float64 sums round to different bf16
+    values moves its output by about one ulp."""
+    ops = _mma_case(n, h, w, c, m, seed=h * w + cluster)
+    ours = _mma_emulation(*ops, tile=tile, cluster=cluster)
+    assert np.isfinite(ours).all()
+    exact = _float64_chain(*ops)
+    scale = np.abs(exact).max()
+    np.testing.assert_allclose(ours, exact, atol=1e-6 * scale, rtol=0)
+    x, w1, b1, w2, b2, w3, b3 = ops
+    bf = lambda a: jnp.asarray(a, jnp.bfloat16)  # noqa: E731
+    ref = jax_fb.fused_bottleneck(bf(x), bf(w1), jnp.asarray(b1), bf(w2).reshape(3, 3, m, m),
+                                  jnp.asarray(b2), bf(w3), jnp.asarray(b3))
+    np.testing.assert_allclose(ours, np.asarray(ref, np.float64), atol=2**-7 * scale, rtol=0)
+
+
+def test_mma_emulation_sees_a_leaky_halo_and_a_missing_exchange():
+    """The checks above would catch E-mma's two hazards: T1 left at
+    relu(b1) outside the image misses the float64 chain by far more than
+    its tolerance, and a cluster that skips the exchange leaves NaN (the
+    other ranks' slices) in every output."""
+    ops = _mma_case(2, 9, 13, 64, 32, seed=5)
+    exact = _float64_chain(*ops)
+    leaky = _mma_emulation(*ops, tile=(8, 8), cluster=2, zero_halo=False)
+    assert np.abs(leaky - exact).max() > 100 * 1e-6 * np.abs(exact).max()
+    assert np.isnan(_mma_emulation(*ops, tile=(8, 8), cluster=2, exchange=False)).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_bottleneck_routes_by_dtype_and_cpu_takes_plain(dtype):
+    """bf16 routes to E-mma and fp32 to the SIMT kernel on the card; a CPU
+    call takes the plain version at either dtype and launches neither
+    kernel, and E-mma refuses fp32 before it looks at the device."""
+    assert fb.route(dtype) == ("mma" if dtype == torch.bfloat16 else "simt")
+    rng = np.random.default_rng(11)
+    x = nchw((rng.normal(size=(2, 9, 13, 64)) * 0.5).astype(np.float32)).to(dtype)
+    ops = [t.to(dtype) if t.dim() > 1 else t
+           for t in _port_operands(*_bottleneck_operands(rng, 64, 32))]
+    before = (fb.fused_bottleneck.launches, fb.fused_bottleneck.mma_launches)
+    got = fb.fused_bottleneck(x, *ops)
+    assert torch.equal(got, fb.reference_fused_bottleneck(x, *ops))
+    assert (fb.fused_bottleneck.launches, fb.fused_bottleneck.mma_launches) == before == (0, 0)
+    if dtype == torch.float32:
+        with pytest.raises(TypeError, match="takes bfloat16"):
+            fb.launch_mma(x, *ops)
+    else:
+        with pytest.raises(ValueError, match="no fused bottleneck kernel for device cpu"):
+            fb.launch_mma(x, *ops)
+
+
 # ---- the fused backbone and DETR ------------------------------------------------------------
 
 
