@@ -9,7 +9,8 @@ Phases, one status line each; any failure raises and exits non-zero:
   2. build: nvcc builds every kernel of the serving and training paths from
      csrc/, one process per source, all at once; prints each kernel's ptxas
      report and the HMMA (tensor-core) instructions in the SASS of the three
-     tensor-core attention kernels and of E-mma, and fails if any has none;
+     tensor-core attention kernels, of E-mma and of E-tf32, and fails if any
+     has none;
   3. kernels: attention A at every shape of the served path against its
      plain PyTorch version: fp32 (TF32 off) through the tensor-core kernel
      A-tf32 (3xTF32) and through the SIMT kernel called directly, bf16
@@ -52,18 +53,20 @@ Phases, one status line each; any failure raises and exits non-zero:
      of the fused-backbone model, at 896x1408 with a mask (C, D x16) and
      768x1280 bucket-exact (C, D x4, E x12), fp32 (TF32 off) and bf16,
      against their plain versions (C bit-equal), with kernel, plain and
-     yardstick times from CUDA graphs and each shape's bound; E runs on the
-     SIMT kernel at fp32 and on E-mma (tensor cores, thread-block clusters)
-     at bf16 (one compiled plan per width), timed beside the SIMT kernel
-     called at bf16; prints how many clusters of each clustered plan the
-     card holds at once;
+     yardstick times from CUDA graphs and each shape's bound; E runs on
+     E-tf32 (TF32 tensor cores, 3xTF32, thread-block clusters) at fp32, with
+     its bound as 3xTF32 and on the fp32 pipes, and on E-mma (bf16 tensor
+     cores, thread-block clusters) at bf16, one compiled plan per width
+     each, each timed beside the SIMT kernel called at its dtype; prints how
+     many clusters of each plan the card holds at once;
  11. fused serving: full-width DETR-R50 with ``fuse_residual=True,
      fuse_bottleneck=True`` and the unfused model from one seed and one set
      of nonzero FrozenBN buffers: 3 requests through ``Predictor`` with the
      counters reset just before (per bucket-exact forward C 1, D 4, SIMT E
-     12, E-mma 0, A-tf32 18; per masked forward C 1, D 16, E 0, A-tf32
-     18), c5, boxes and logits against the unfused model at fp32, one fused
-     bf16 bucket-exact request (C 1, D 4, SIMT E 0, E-mma 12, A-mma 18), the
+     0, E-mma 0, E-tf32 12, A-tf32 18; per masked forward C 1, D 16, E 0,
+     A-tf32 18), c5, boxes and logits against the unfused model at fp32, one
+     fused bf16 bucket-exact request (C 1, D 4, SIMT E 0, E-mma 12, E-tf32 0,
+     A-mma 18), the
      fused bf16 model's c5 against the unfused fp32 model's beside the
      unfused bf16 model's own gap, and the median latency of both at
      768x1280 b1, fp32 and bf16, with each one's device-busy time and idle
@@ -111,9 +114,9 @@ PADDED_BOX_ATOL = 1e-3
 SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "lap.cu", "int8_matmul.cu",
            "int8_conv.cu", "maxpool.cu", "fused_residual.cu", "fused_bottleneck.cu",
            "flash_attention_fwd_mma.cu", "flash_attention_bwd_mma.cu",
-           "flash_attention_fwd_tf32.cu", "fused_bottleneck_mma.cu")
+           "flash_attention_fwd_tf32.cu", "fused_bottleneck_mma.cu", "fused_bottleneck_tf32.cu")
 MMA_SOURCES = ("flash_attention_fwd_mma.cu", "flash_attention_bwd_mma.cu",
-               "flash_attention_fwd_tf32.cu", "fused_bottleneck_mma.cu")
+               "flash_attention_fwd_tf32.cu", "fused_bottleneck_mma.cu", "fused_bottleneck_tf32.cu")
 CSRC = "detr_tensorflow_tpu_torch/csrc/"
 REPLACES = {
     "flash_attention_fwd": "detr_tensorflow_tpu/ops/pallas/flash_attention.py:77",
@@ -128,6 +131,7 @@ REPLACES = {
     "fused_residual": "detr_tensorflow_tpu/ops/pallas/fused_residual.py:37",
     "fused_bottleneck": "detr_tensorflow_tpu/ops/pallas/fused_bottleneck.py:54",
     "fused_bottleneck_mma": "detr_tensorflow_tpu/ops/pallas/fused_bottleneck.py:54",
+    "fused_bottleneck_tf32": "detr_tensorflow_tpu/ops/pallas/fused_bottleneck.py:54",
 }
 DEVICE = "cuda"
 # Published H100 SXM peaks (dense tensor-core rates; fp32 without them): bound_ms is the larger
@@ -171,9 +175,10 @@ FUSED_MASKED, FUSED_EXACT = (896, 1408), (768, 1280)
 FUSED_RTOL = {"float32": 1e-5, "bfloat16": 2e-2}
 FUSED_C5_RTOL = 1e-4
 FUSED_BF16_C5_RATIO = 2.0
-# (C, D, SIMT E, E-mma) per b1 forward of the fused model.
-FUSED_PER_FORWARD = {("exact", "float32"): (1, 4, 12, 0), ("masked", "float32"): (1, 16, 0, 0),
-                     ("exact", "bfloat16"): (1, 4, 0, 12)}
+# (C, D, SIMT E, E-mma, E-tf32) per b1 forward of the fused model.
+FUSED_PER_FORWARD = {("exact", "float32"): (1, 4, 0, 0, 12),
+                     ("masked", "float32"): (1, 16, 0, 0, 0),
+                     ("exact", "bfloat16"): (1, 4, 0, 12, 0)}
 
 
 def log(msg: str) -> None:
@@ -1160,10 +1165,11 @@ def phase_fused_kernels(torch, mp, fr, fb):
             [kms, pms, yard, bound[0], bound[0] * (bound[1] == "bytes")])
         return kms, pms, yard, err
 
-    for m, plan in fb.MMA_PLANS.items():
-        if plan[2] > 1:
-            clusters, smem = fb.mma_occupancy(m)
-            log(f"  E-mma M={m} plan {plan}: {smem} bytes of shared memory a CTA; the card "
+    for name, plans, occupancy in (("E-mma", fb.MMA_PLANS, fb.mma_occupancy),
+                                   ("E-tf32", fb.TF32_PLANS, fb.tf32_occupancy)):
+        for m, plan in plans.items():
+            clusters, smem = occupancy(m)
+            log(f"  {name} M={m} plan {plan}: {smem} bytes of shared memory a CTA; the card "
                 f"holds {clusters} clusters of {plan[2]} at once (cudaOccupancyMaxActiveClusters)")
     for bucket, masked in ((FUSED_MASKED, True), (FUSED_EXACT, False)):
         (c0, h0, w0), d_shapes, e_shapes = fused_path_shapes(*bucket, masked)
@@ -1215,27 +1221,38 @@ def phase_fused_kernels(torch, mp, fr, fb):
                     return F.relu(F.conv2d(t, k3_) + bd[2] + x)
 
                 p = h * w
-                bound = bound_ms((2 * p * c + 2 * c * m + 9 * m * m) * size + 4 * (2 * m + c),
-                                 {name: 2 * p * (2 * c * m + 9 * m * m)})
+                nbytes = (2 * p * c + 2 * c * m + 9 * m * m) * size + 4 * (2 * m + c)
+                flops = 2 * p * (2 * c * m + 9 * m * m)
+                # E-tf32's bound as 3xTF32 (three MMAs a product); the SIMT kernel's on
+                # the fp32 pipes.
+                bound = bound_ms(nbytes, {name: flops})
+                bound3x = bound_ms(nbytes, {"tf32": 3 * flops})
                 label = f"(C={c}, M={m}, {h}x{w})"
                 plain = lambda: fb.reference_fused_bottleneck(x, *ops)  # noqa: E731
-                # fused_bottleneck routes fp32 to the SIMT kernel, bf16 to E-mma.
-                kernel = "fused_bottleneck_mma" if name == "bfloat16" else "fused_bottleneck"
+                # fused_bottleneck routes fp32 to E-tf32, bf16 to E-mma.
+                kernel, short, plan = (("fused_bottleneck_mma", "E-mma", fb.mma_plan(c, m))
+                                       if name == "bfloat16" else
+                                       ("fused_bottleneck_tf32", "E-tf32", fb.tf32_plan(c, m)))
+                before = fb.fused_bottleneck.mma_launches + fb.fused_bottleneck.tf32_launches
+                simt_before = fb.fused_bottleneck.launches
+                fb.fused_bottleneck(x, *ops)
+                if (fb.fused_bottleneck.mma_launches + fb.fused_bottleneck.tf32_launches - before,
+                        fb.fused_bottleneck.launches - simt_before) != (1, 0):
+                    raise AssertionError(f"E {label} {name} did not route to {short}")
                 kms, pms, yard, err = record(kernel, tag, name, count,
                                              lambda: fb.fused_bottleneck(x, *ops), plain, chain,
-                                             bound, False, label)
-                log(f"  E {tag} C={c} M={m} {h}x{w} (x{count}) {name}: "
-                    f"{'E-mma' if name == 'bfloat16' else 'SIMT kernel'} {kms:.4f} ms, "
-                    f"plain {pms:.4f} ms, unfused cuDNN chain (three convs with bias, ReLU and "
-                    f"residual; not the same function) {yard:.4f} ms, bound {bound[0]:.4f} ms "
-                    f"({bound[1]}); rel err {err:.2e}")
-                if name != "bfloat16":
-                    continue
+                                             bound if name == "bfloat16" else bound3x, False, label)
                 simt, _, _, simt_err = record("fused_bottleneck", tag, name, count,
                                               lambda: fb.launch_simt(x, *ops), plain, chain,
                                               bound, False, label)
-                log(f"    E-mma plan (tile_h, tile_w, cluster) {fb.mma_plan(c, m)}; SIMT kernel "
-                    f"at bf16 {simt:.4f} ms, rel err {simt_err:.2e}")
+                bounds = (f"bound {bound[0]:.4f} ms ({bound[1]})" if name == "bfloat16" else
+                          f"bound {bound3x[0]:.4f} ms as 3xTF32 ({bound3x[1]}), "
+                          f"{bound[0]:.4f} ms on the fp32 pipes ({bound[1]})")
+                log(f"  E {tag} C={c} M={m} {h}x{w} (x{count}) {name}: {short} {kms:.4f} ms "
+                    f"(plan (tile_h, tile_w, cluster) {plan}), SIMT kernel {simt:.4f} ms, plain "
+                    f"{pms:.4f} ms, unfused cuDNN chain (three convs with bias, ReLU and residual; "
+                    f"not the same function) {yard:.4f} ms, {bounds}; rel err {short} {err:.2e}, "
+                    f"SIMT {simt_err:.2e}")
     for (kernel, bucket, name), (kms, pms, yard, b, _) in sorted(totals.items()):
         if kernel != "maxpool":
             log(f"  {kernel} per {bucket} forward, {name} (sum over its launches): kernel "
@@ -1293,14 +1310,16 @@ def phase_fused_serving(torch, fa, mp, fr, fb, api, Predictor):
     predictor = Predictor(models[("float32", True)], background_class=BACKGROUND)
     predictor.warmup([(800, 1333), (768, 1280)])  # both routes of each bucket
 
-    def counts():  # C, D, SIMT E, E-mma, A-tf32, A-mma, A SIMT
+    def counts():  # C, D, SIMT E, E-mma, E-tf32, A-tf32, A-mma, A SIMT
         return (mp.max_pool_3x3_s2.launches, fr.conv1x1_bn_residual_relu.launches,
                 fb.fused_bottleneck.launches, fb.fused_bottleneck.mma_launches,
-                fa.mha.tf32_launches, fa.mha.mma_launches, fa.mha.launches)
+                fb.fused_bottleneck.tf32_launches, fa.mha.tf32_launches, fa.mha.mma_launches,
+                fa.mha.launches)
 
     def reset():
         mp.max_pool_3x3_s2.launches = fr.conv1x1_bn_residual_relu.launches = 0
         fb.fused_bottleneck.launches = fb.fused_bottleneck.mma_launches = 0
+        fb.fused_bottleneck.tf32_launches = 0
         fa.mha.tf32_launches = fa.mha.mma_launches = fa.mha.launches = 0
 
     reset()  # main path
@@ -1311,11 +1330,11 @@ def phase_fused_serving(torch, fa, mp, fr, fb, api, Predictor):
         times.append(1e3 * (time.perf_counter() - t0))
         seen.append(counts())
         check_detections(dets)
-    per = [tuple(b - a for a, b in zip((0,) * 7 if i == 0 else seen[i - 1], c))
+    per = [tuple(b - a for a, b in zip((0,) * 8 if i == 0 else seen[i - 1], c))
            for i, c in enumerate(seen)]
     log(f"  requests: 768x1280 b1 {times[0]:.2f} ms, 800x1333 b1 {times[1]:.2f} ms, "
-        f"2x768x1280 b2 {times[2]:.2f} ms; launches (C, D, SIMT E, E-mma, A-tf32, A-mma, "
-        f"A SIMT) per request {per}")
+        f"2x768x1280 b2 {times[2]:.2f} ms; launches (C, D, SIMT E, E-mma, E-tf32, A-tf32, "
+        f"A-mma, A SIMT) per request {per}")
     expected = [FUSED_PER_FORWARD[(k, "float32")] + (LAUNCHES_PER_FORWARD, 0, 0)
                 for k in ("exact", "masked", "exact")]
     if per != expected:
@@ -1355,8 +1374,8 @@ def phase_fused_serving(torch, fa, mp, fr, fb, api, Predictor):
             reset()
             check_detections(preds[True]([img_e]))
             bf16_counts = counts()
-            log(f"  fused bf16 768x1280 b1 request: launches (C, D, SIMT E, E-mma, A-tf32, "
-                f"A-mma, A SIMT) {bf16_counts}")
+            log(f"  fused bf16 768x1280 b1 request: launches (C, D, SIMT E, E-mma, E-tf32, "
+                f"A-tf32, A-mma, A SIMT) {bf16_counts}")
             if bf16_counts != FUSED_PER_FORWARD[("exact", "bfloat16")] + (
                     0, LAUNCHES_PER_FORWARD, 0):
                 raise AssertionError(f"fused bf16 launches {bf16_counts}")
@@ -1530,27 +1549,31 @@ def main() -> int:
               int8_times["int8_conv"][2]),
         fused_entry("maxpool", SOURCES[5], pool_serving + counts[3] + fused_counts[0], masked_tag),
         fused_entry("fused_residual", SOURCES[6], fused_counts[1], masked_tag),
-        fused_entry("fused_bottleneck", SOURCES[7], fused_counts[2], exact_tag),
-        entry("flash_attention_fwd_mma", SOURCES[8], mma_serving + int8_a + fused_bf16_counts[5],
+        fused_entry("fused_bottleneck", SOURCES[7], fused_counts[2] + fused_bf16_counts[2],
+                    exact_tag),
+        entry("flash_attention_fwd_mma", SOURCES[8], mma_serving + int8_a + fused_bf16_counts[6],
               worst["bfloat16"], a16["mma"], a16["plain"], *a16["bound"], a16["sdpa"]),
         entry("flash_attention_bwd_mma", SOURCES[9], counts[4], bwd_worst["float32"], bwd["mma"],
               bwd["plain"], *bwd["bound3x"], bwd["sdpa"]),
-        entry("flash_attention_fwd_tf32", SOURCES[10], launches + counts[0] + fused_counts[4],
+        entry("flash_attention_fwd_tf32", SOURCES[10], launches + counts[0] + fused_counts[5],
               worst["float32"], a32["tf32"], a32["plain"], *a32["bound3x"], a32["sdpa"]),
         fused_entry("fused_bottleneck_mma", SOURCES[11], fused_counts[3] + fused_bf16_counts[3],
                     exact_tag, "bfloat16"),
+        fused_entry("fused_bottleneck_tf32", SOURCES[12], fused_counts[4] + fused_bf16_counts[4],
+                    exact_tag),
     ]}
+    tf32_chain = fused_times[("fused_bottleneck_tf32", exact_tag, "float32")][2]
     log(f"[summary] flash_attention_fwd (SIMT): max_abs_err fp32 called directly "
         f"{worst['simt float32']:.3e} (bf16 {worst['simt bfloat16']:.3e}), ms/plain_ms/library_ms "
         f"(scaled_dot_product_attention) at (1232,1232) fp32 B=2 H=8 Dh=32 from CUDA graphs, "
         f"launches 0 (no path of the port runs bf16 with dropout; fp32 runs A-tf32), bound on "
         f"the fp32 pipes; flash_attention_fwd_tf32 (3xTF32): max_abs_err fp32 "
         f"{worst['float32']:.3e}, ms/plain_ms/library_ms at (1232,1232) fp32 B=2 from CUDA "
-        f"graphs, launches {launches} fp32 serving + {counts[0]} training + {fused_counts[4]} "
+        f"graphs, launches {launches} fp32 serving + {counts[0]} training + {fused_counts[5]} "
         f"fused fp32 serving, bound as 3xTF32 on the tensor cores; flash_attention_fwd_mma: "
         f"max_abs_err bf16 {worst['bfloat16']:.3e}, "
         f"ms/plain_ms/library_ms at (1232,1232) bf16 B=2 from CUDA graphs, launches "
-        f"{mma_serving} bf16 serving + {int8_a} int8 serving + {fused_bf16_counts[5]} fused bf16 "
+        f"{mma_serving} bf16 serving + {int8_a} int8 serving + {fused_bf16_counts[6]} fused bf16 "
         f"serving; flash_attention_bwd (SIMT): gradient max_abs_err fp32 (called directly) "
         f"{bwd_worst['simt float32']:.3e}, bf16 {bwd_worst['bfloat16']:.3e}, launches "
         f"{counts[1]} (training runs the tensor-core A'), bound on the fp32 pipes; "
@@ -1566,15 +1589,22 @@ def main() -> int:
         f"maxpool (C): max_abs_err fp32 0 (bit-equal), ms/plain_ms/library_ms (F.max_pool2d) "
         f"at the {masked_tag} stem (1,64,448,704) fp32, launches {pool_serving} serving + "
         f"{counts[3]} training + {fused_counts[0]} fused serving; fused_residual (D) and "
-        f"fused_bottleneck (E): max_abs_err fp32 {fused_abs[('fused_residual', 'float32')]:.3e} "
-        f"and {fused_abs[('fused_bottleneck', 'float32')]:.3e}, ms/plain_ms/bound_ms summed "
-        f"over one b1 fp32 forward's launches ({masked_tag}: D x16; {exact_tag}: E x12), no "
-        f"library call computes either (unfused cuDNN chains printed above), launches in the "
-        f"3 fused fp32 forwards; fused_bottleneck_mma (E-mma): max_abs_err bf16 "
+        f"fused_bottleneck (E, SIMT, called directly): max_abs_err fp32 "
+        f"{fused_abs[('fused_residual', 'float32')]:.3e} and "
+        f"{fused_abs[('fused_bottleneck', 'float32')]:.3e}, ms/plain_ms/bound_ms summed "
+        f"over one b1 fp32 forward's launches ({masked_tag}: D x16; {exact_tag}: E x12; E's bound "
+        f"on the fp32 pipes), no library call computes either (unfused cuDNN chains printed "
+        f"above), launches in the 3 fused fp32 forwards (E: 0, fp32 runs E-tf32) and the fused "
+        f"bf16 one; fused_bottleneck_mma (E-mma): max_abs_err bf16 "
         f"{fused_abs[('fused_bottleneck_mma', 'bfloat16')]:.3e}, ms/plain_ms/bound_ms summed "
         f"over one b1 bf16 {exact_tag} forward's 12 launches, "
         f"launches {fused_counts[3]} in the 3 fused fp32 forwards + {fused_bf16_counts[3]} in "
-        f"the fused bf16 one")
+        f"the fused bf16 one; fused_bottleneck_tf32 (E-tf32, 3xTF32): max_abs_err fp32 "
+        f"{fused_abs[('fused_bottleneck_tf32', 'float32')]:.3e}, ms/plain_ms/bound_ms summed over "
+        f"one b1 fp32 {exact_tag} forward's 12 launches (bound as 3xTF32 on the tensor cores; "
+        f"the unfused fp32 cuDNN chain, not the same function, {tf32_chain:.4f} ms), launches "
+        f"{fused_counts[4]} in the 3 fused fp32 forwards + {fused_bf16_counts[4]} in the fused "
+        f"bf16 one")
     log(smi)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -118,6 +118,7 @@
 #include <stdint.h>
 
 #include "flash_attention_common.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -130,10 +131,10 @@ using fa::cp_async_wait;
 using fa::HeldA;
 using fa::kMaskBias;
 using fa::kMaskedRowLse;
-using fa::mma_3xtf32;
 using fa::split_chunk;
-using fa::split_tf32;
 using fa::zero;
+using tf32mma::mma_3xtf32;
+using tf32mma::split_tf32;
 
 constexpr int kThreads = 128;  // four warps a CTA in both passes
 constexpr int kKvKeys = 64;    // keys of a dK/dV CTA, 16 a warp

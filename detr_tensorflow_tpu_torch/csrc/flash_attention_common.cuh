@@ -3,8 +3,8 @@
 // flash_attention_fwd_tf32.cu, flash_attention_bwd.cu,
 // flash_attention_bwd_mma.cu): vector loads that widen to fp32, the bf16
 // rounding points of the TPU kernel, the attention-dropout keep bit, the
-// backward's delta pre-pass, `cp.async` copies, and the 3xTF32 products of
-// the two fp32 tensor-core kernels.
+// backward's delta pre-pass, `cp.async` copies, and the helpers around the
+// 3xTF32 products (tf32_mma.cuh) of the two fp32 tensor-core kernels.
 //
 // Dropout: the TPU kernel draws its mask per grid block from the TPU's
 // PRNG and replays it in the backward by re-seeding with the same program
@@ -27,6 +27,7 @@
 #include <cuda_runtime.h>
 
 #include "cp_async.cuh"
+#include "tf32_mma.cuh"
 
 namespace fa {
 
@@ -145,62 +146,7 @@ using cpa::cp_async_commit;
 using cpa::cp_async_wait;
 using cpa::smem_addr;
 
-// ---- 3xTF32 products on the tensor cores ------------------------------------
-//
-// A TF32 operand keeps 10 of fp32's 23 mantissa bits. Each fp32 operand x is
-// split into big = tf32(x) (round to nearest) and small = tf32(x - big); the
-// subtraction is exact, and big + small carries 22 of x's 24 significant
-// bits. A product is taken as big_a big_b + (small_a big_b + big_a small_b),
-// three `mma.sync.m16n8k8` TF32 MMAs; the dropped small_a small_b term is
-// 2^-22 of it, and each TF32 product of two 11-bit significands is exact
-// (CUTLASS's OpMultiplyAddFastF32, written out by hand). An MMA adds its
-// products to its accumulator with truncation at the accumulator's
-// magnitude, so long chains through one accumulator bias a sum: big x big
-// keeps an accumulator of its own, apart from the cross terms (2^-11 of
-// it), and the callers sum a few MMAs in fresh accumulators and add those
-// to their running sums with rounded fp32 adds (`add_products`).
-//
-// Fragments follow the PTX ISA's m16n8k8 layouts: lane 4g + t holds A (row
-// g, k t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B (k t, n g), (t + 4,
-// g); the accumulator (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
-
-// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero),
-// as the bits of an fp32 value whose low 13 bits are zero: what
-// `cvt.rna.tf32.f32` gives for finite x, in two integer instructions (the
-// cvt compiles to a check and select for NaN around the same work; the two
-// alone made A-tf32 faster at the served shapes in a trial on an H100).
-__device__ __forceinline__ unsigned to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = big + small + O(2^-22 |x|).
-__device__ __forceinline__ void split_tf32(float x, unsigned& big, unsigned& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
-}
-
-// d += a (16x8 TF32, row) * b (8x8 TF32, col), fp32 accumulators.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// hi += a_big b_big, lo += a_small b_big + a_big b_small: 3xTF32 in two
-// accumulators, read as hi + lo. B comes from shared memory, at offsets o0
-// (k = t) and o1 (k = t + 4) of the big and small parts.
-__device__ __forceinline__ void mma_3xtf32(float (&hi)[4], float (&lo)[4],
-                                           const unsigned (&a_big)[4],
-                                           const unsigned (&a_small)[4], const float* b_big,
-                                           const float* b_small, int o0, int o1) {
-  const unsigned bb0 = __float_as_uint(b_big[o0]), bb1 = __float_as_uint(b_big[o1]);
-  mma_tf32(hi, a_big, bb0, bb1);
-  mma_tf32(lo, a_small, bb0, bb1);
-  mma_tf32(lo, a_big, __float_as_uint(b_small[o0]), __float_as_uint(b_small[o1]));
-}
+// ---- helpers of the two 3xTF32 kernels (tf32_mma.cuh) -------------------------
 
 template <int N>
 __device__ __forceinline__ void zero(float (&x)[N]) {
@@ -219,10 +165,10 @@ __device__ __forceinline__ void zero(float (&x)[M][N]) {
 __device__ __forceinline__ void split_chunk(float* big, float* small) {
   const float4 x = *reinterpret_cast<const float4*>(big);
   uint4 hi, lo;
-  split_tf32(x.x, hi.x, lo.x);
-  split_tf32(x.y, hi.y, lo.y);
-  split_tf32(x.z, hi.z, lo.z);
-  split_tf32(x.w, hi.w, lo.w);
+  tf32mma::split_tf32(x.x, hi.x, lo.x);
+  tf32mma::split_tf32(x.y, hi.y, lo.y);
+  tf32mma::split_tf32(x.z, hi.z, lo.z);
+  tf32mma::split_tf32(x.w, hi.w, lo.w);
   *reinterpret_cast<uint4*>(big) = hi;
   *reinterpret_cast<uint4*>(small) = lo;
 }
@@ -235,10 +181,10 @@ __device__ __forceinline__ void split_chunk(float* big, float* small) {
 // rows 2t and 2t + 1 (`add_products`).
 __device__ __forceinline__ void accumulator_as_a(const float (&c)[4], unsigned (&big)[4],
                                                  unsigned (&small)[4]) {
-  split_tf32(c[0], big[0], small[0]);
-  split_tf32(c[2], big[1], small[1]);
-  split_tf32(c[1], big[2], small[2]);
-  split_tf32(c[3], big[3], small[3]);
+  tf32mma::split_tf32(c[0], big[0], small[0]);
+  tf32mma::split_tf32(c[2], big[1], small[1]);
+  tf32mma::split_tf32(c[1], big[2], small[2]);
+  tf32mma::split_tf32(c[3], big[3], small[3]);
 }
 
 // acc (16 rows x 8 kSteps columns) += A B over kStep n tiles of 8 from row
@@ -261,7 +207,7 @@ __device__ __forceinline__ void add_products(float (&acc)[kSteps][4],
 #pragma unroll
     for (int u = 0; u < kStep; ++u) {
       const int o = (r0 + 8 * u + 2 * t) * kStride + 8 * d + g;
-      mma_3xtf32(hi, lo, a_big[u], a_small[u], b_big, b_small, o, o + kStride);
+      tf32mma::mma_3xtf32(hi, lo, a_big[u], a_small[u], b_big, b_small, o, o + kStride);
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[d][e] += hi[e] + lo[e];
@@ -296,7 +242,7 @@ struct HeldA {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         unsigned b, sm;
-        split_tf32(x[e], b, sm);
+        tf32mma::split_tf32(x[e], b, sm);
         if constexpr (kInRegs) {
           big[s][e] = b;
           small[s][e] = sm;

@@ -20,7 +20,7 @@
 // keys are all padded gets a uniform softmax and an lse of -1e30. Inputs
 // are (B, L, H, Dh) fp32, read with strides.
 //
-// Accuracy: 3xTF32 (flash_attention_common.cuh). Both products, S = Q K^T
+// Accuracy: 3xTF32 (tf32_mma.cuh). Both products, S = Q K^T
 // and O = (P o M) V, run as three TF32 MMAs, big x big in an accumulator of
 // its own. The tensor cores truncate when an MMA adds to its accumulator,
 // so no big x big sum is chained through one: a score adds each 8-dim
@@ -88,6 +88,7 @@
 #include <stdint.h>
 
 #include "flash_attention_common.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -98,9 +99,9 @@ using fa::cp_async_commit;
 using fa::cp_async_wait;
 using fa::HeldA;
 using fa::kMaskBias;
-using fa::mma_3xtf32;
 using fa::split_chunk;
 using fa::zero;
+using tf32mma::mma_3xtf32;
 
 constexpr int kTileK = 64;  // keys of a staged tile
 

@@ -51,26 +51,23 @@
 // TMA and multicast of the weight slices along a cluster of pixel tiles are
 // the next levers.
 //
-// Cluster protocol (K > 1): every CTA arrives on the cluster barrier when it
-// starts and waits on it before its first remote store, so no CTA writes
-// into a CTA that has not started. After stage 1 each rank pushes its T1
-// slice (columns r M/K.., which no other rank writes) into the same place
-// in every other rank's T1, and the cluster barrier (release / acquire)
-// makes all slices visible; T2 likewise after stage 2. No CTA touches
-// another's shared memory after the second barrier, so every CTA may exit
-// when its stage 3 is done.
+// Cluster protocol (K > 1), fused_bottleneck_common.cuh: after stage 1 each
+// rank pushes its T1 slice into every other rank's T1 between cluster
+// barriers, T2 likewise after stage 2. No CTA touches another's shared
+// memory after the second barrier, so every CTA may exit when its stage 3
+// is done.
 //
 // Entry points: plain C functions, built with nvcc into a shared library
 // and called through ctypes. The kernel launches on the given stream,
 // allocates nothing, does not synchronise, and returns cudaGetLastError().
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bf16_mma.cuh"
 #include "cp_async.cuh"
+#include "fused_bottleneck_common.cuh"
 
 namespace {
 
@@ -81,31 +78,20 @@ using bf16mma::ldmatrix_x4_trans;
 using bf16mma::mma_bf16;
 using bf16mma::pack_bf16;
 using cpa::cp_async16;
-using cpa::cp_async_commit;
-using cpa::cp_async_wait;
+using fbc::cluster_arrive_relaxed;
+using fbc::cluster_sync;
+using fbc::cluster_wait;
+using fbc::kMaxSmem;
+using fbc::kStages;
+using fbc::kThreads;
+using fbc::kWarps;
+using fbc::max3;
+using fbc::pipeline;
+using fbc::push_slice;
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kStages = 3;        // chunks in the cp.async ring
-constexpr int kMaxSmem = 232448;  // 227 KB, the most a CTA can have
 constexpr int kSmemPerSm = 233472;  // 228 KB an SM, of which 1 KB is reserved per CTA
 // Contraction rows a chunk, per stage (x's channels, T1's, T2's).
 constexpr int kKc1 = 32, kKc2 = 64, kKc3 = 32;
-
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-// Every CTA of the cluster has arrived; its earlier stores (to any CTA's
-// shared memory) are visible to the waiting threads.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-constexpr int max3(int a, int b, int c) { return a > b ? (a > c ? a : c) : (b > c ? b : c); }
 
 // The warps of a product split its RT row tiles (16 pixels) x NT column
 // tiles (8 channels) as WR x WC: warp (wr, wc) takes row tiles wr, wr + WR,
@@ -174,45 +160,6 @@ __device__ __forceinline__ void chunk_product(float (&acc)[RTW][NTW][4],
           mma_bf16(acc[i][j], af, bf[j / 2][2 * (j % 2)], bf[j / 2][2 * (j % 2) + 1]);
       }
     }
-  }
-}
-
-// n chunks through the ring: load(i, stage) starts chunk i's copies,
-// compute(i, stage) consumes them. Chunk i + 2 loads while chunk i is
-// multiplied; one barrier a chunk (the stage refilled at iteration i was
-// read at i - 1, which every warp finished before the barrier).
-template <class Load, class Compute>
-__device__ __forceinline__ void pipeline(int n, Load&& load, Compute&& compute) {
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n) load(s, s);
-    cp_async_commit();
-  }
-  for (int i = 0; i < n; ++i) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int next = i + kStages - 1;
-    if (next < n) load(next, next % kStages);
-    cp_async_commit();
-    compute(i, i % kStages);
-  }
-  __syncthreads();  // the ring is free for the next product
-}
-
-// Rank `rank`'s slice (columns rank NK.., rows 0..rows-1) of buf into the
-// same place in every other rank's buf, 16 bytes a copy.
-template <class P>
-__device__ __forceinline__ void push_slice(bf16* buf, int rows, int rank) {
-  constexpr int kVec = P::NK / 8;
-  cg::cluster_group cluster = cg::this_cluster();
-  bf16* remote[P::K - 1];
-#pragma unroll
-  for (int d = 1; d < P::K; ++d) remote[d - 1] = cluster.map_shared_rank(buf, (rank + d) % P::K);
-  for (int i = threadIdx.x; i < rows * kVec; i += kThreads) {
-    const int off = (i / kVec) * P::LD + rank * P::NK + 8 * (i % kVec);
-    const uint4 v = *reinterpret_cast<const uint4*>(buf + off);
-#pragma unroll
-    for (int d = 0; d < P::K - 1; ++d) *reinterpret_cast<uint4*>(remote[d] + off) = v;
   }
 }
 

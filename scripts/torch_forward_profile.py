@@ -10,8 +10,8 @@ with ``--fused``, the fused-backbone model (``fuse_residual``,
 (the route of kernel E), under ``torch.profiler`` for 3 forwards after a
 warm-up, and prints per forward: the device time summed over every
 kernel, the attention forward kernels' share of it (with their launches),
-the hand-written backbone kernels' (C, D, E), and the ten kernels that
-take the most time. TF32 is off for fp32 matmuls and convolutions, as on
+the hand-written backbone kernels' (C, D, E, E-mma, E-tf32), and the ten
+kernels that take the most time. TF32 is off for fp32 matmuls and convolutions, as on
 the served path of ``chip_smoke.py``.
 """
 
@@ -76,7 +76,8 @@ def main() -> int:
           f"{sum(counts[k] for k in attn)} launches", flush=True)
     for label, name in (("C", "max_pool_3x3_s2_kernel"), ("D", "conv1x1_bn_residual_relu"),
                         ("E (SIMT)", "fused_bottleneck_kernel"),
-                        ("E-mma", "fused_bottleneck_mma_kernel")):
+                        ("E-mma", "fused_bottleneck_mma_kernel"),
+                        ("E-tf32", "fused_bottleneck_tf32_kernel")):
         keys = [k for k in times if name in k]
         if keys:
             print(f"  kernel {label}: {sum(times[k] for k in keys):.3f} ms in "

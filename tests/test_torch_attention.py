@@ -261,7 +261,7 @@ def test_backward_route(dtype, head_dim, route):
 
 
 def _tf32(x):
-    """x rounded to TF32 as ``fa::to_tf32`` (csrc/flash_attention_common.cuh)
+    """x rounded to TF32 as ``tf32mma::to_tf32`` (csrc/tf32_mma.cuh)
     and ``cvt.rna.tf32.f32`` do: 10 mantissa bits, to nearest, ties away
     from zero (on the magnitude bits of float32)."""
     bits = np.asarray(x, np.float32).view(np.uint32)

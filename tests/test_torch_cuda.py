@@ -719,10 +719,10 @@ FUSED_E_CASES = [(1, 256, 64, 192, 320), (1, 512, 128, 96, 160), (1, 1024, 256, 
                  (1, 2048, 512, 5, 7)]
 
 
-def _e_counts(before=(0, 0)):
-    """Kernel E's launches (SIMT, E-mma), less ``before``."""
+def _e_counts(before=(0, 0, 0)):
+    """Kernel E's launches (SIMT, E-mma, E-tf32), less ``before``."""
     fb = fused_bottleneck.fused_bottleneck
-    return tuple(a - b for a, b in zip((fb.launches, fb.mma_launches), before))
+    return tuple(a - b for a, b in zip((fb.launches, fb.mma_launches, fb.tf32_launches), before))
 
 
 def _e_inputs(device, n, c, m, h, w, dtype, seed, b1=None):
@@ -734,15 +734,15 @@ def _e_inputs(device, n, c, m, h, w, dtype, seed, b1=None):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,c,m,h,w", FUSED_E_CASES)
 def test_fused_bottleneck_kernel_matches_plain(cuda_device, n, c, m, h, w, dtype):
-    """Kernel E through ``fused_bottleneck``: fp32 on the SIMT kernel (each
-    tile shape), bf16 on E-mma (its width's plan: clusters of 1, 2 and 8
-    CTAs among them)."""
+    """Kernel E through ``fused_bottleneck``: fp32 on E-tf32 (its width's
+    plan: clusters of 1, 2 and 4 CTAs), bf16 on E-mma (clusters of 1, 2 and
+    8); each launch counted on its route's counter only."""
     x, ops = _e_inputs(cuda_device, n, c, m, h, w, dtype, seed=c + h)
     before = _e_counts()
     got = fused_bottleneck.fused_bottleneck(x, *ops)
     ref = fused_bottleneck.reference_fused_bottleneck(x, *ops)
     torch.cuda.synchronize()
-    assert _e_counts(before) == ((0, 1) if dtype == torch.bfloat16 else (1, 0))
+    assert _e_counts(before) == ((0, 1, 0) if dtype == torch.bfloat16 else (0, 0, 1))
     assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last)
     assert _rel_err(got, ref) <= FUSED_RTOL[dtype]
 
@@ -755,7 +755,7 @@ def test_fused_bottleneck_mma_masks_the_halo(cuda_device, m):
                        b1=torch.full((m,), 2.0, device=cuda_device))
     before = _e_counts()
     got = fused_bottleneck.fused_bottleneck(x, *ops)
-    assert _e_counts(before) == (0, 1)
+    assert _e_counts(before) == (0, 1, 0)
     ref = fused_bottleneck.reference_fused_bottleneck(x, *ops)
     assert _rel_err(got, ref) <= FUSED_RTOL[torch.bfloat16]
 
@@ -784,30 +784,75 @@ def test_fused_bottleneck_simt_still_takes_bf16(cuda_device):
     x, ops = _e_inputs(cuda_device, 2, 1024, 256, 7, 5, torch.bfloat16, seed=4)
     before = _e_counts()
     got = fused_bottleneck.launch_simt(x, *ops)
-    assert _e_counts(before) == (1, 0)
+    assert _e_counts(before) == (1, 0, 0)
     ref = fused_bottleneck.reference_fused_bottleneck(x, *ops)
     assert _rel_err(got, ref) <= FUSED_RTOL[torch.bfloat16]
 
 
+def test_fused_bottleneck_simt_still_takes_fp32(cuda_device):
+    """``launch_simt`` runs the SIMT kernel at fp32 (for timing beside
+    E-tf32), within the fp32 tolerance of plain."""
+    x, ops = _e_inputs(cuda_device, 2, 1024, 256, 7, 5, torch.float32, seed=4)
+    before = _e_counts()
+    got = fused_bottleneck.launch_simt(x, *ops)
+    assert _e_counts(before) == (1, 0, 0)
+    ref = fused_bottleneck.reference_fused_bottleneck(x, *ops)
+    assert _rel_err(got, ref) <= FUSED_RTOL[torch.float32]
+
+
 @pytest.mark.parametrize("m", [64, 256, 512])
 def test_fused_bottleneck_kernel_masks_the_halo(cuda_device, m):
-    """b1 = 2.0: relu(b1) would leak into T1 outside the image; the kernel
-    zeroes it and agrees with the plain chain (fp32)."""
+    """b1 = 2.0 on the fp32 route (E-tf32): relu(b1) would leak into T1
+    outside the image; the kernel zeroes it and agrees with the plain chain
+    (fp32)."""
     c = 4 * m
     ops = _bottleneck_operands(cuda_device, c, m, seed=m,
                                b1=torch.full((m,), 2.0, device=cuda_device))
     x = _channels_last(torch.randn(1, c, 11, 13, device=cuda_device))
     before = _e_counts()
     got = fused_bottleneck.fused_bottleneck(x, *ops)
-    assert _e_counts(before) == (1, 0)
+    assert _e_counts(before) == (0, 0, 1)
     assert _rel_err(got, fused_bottleneck.reference_fused_bottleneck(x, *ops)) <= 1e-5
+
+
+@pytest.mark.parametrize("n,c,m,h,w", FUSED_E_CASES)
+def test_fused_bottleneck_tf32_masks_the_halo_at_every_map(cuda_device, n, c, m, h, w):
+    """E-tf32 with b1 in [0.5, 1.5] and x >= 0 (post-ReLU), at every width
+    on the 768x1280 bucket's maps and on ragged ones: a T1 left at relu(b1)
+    outside the image, or a tile edge read past the map, would miss the
+    plain chain's 1e-5."""
+    b1 = torch.rand(m, device=cuda_device, generator=torch.Generator(device=cuda_device)
+                    .manual_seed(m)) + 0.5
+    x, ops = _e_inputs(cuda_device, n, c, m, h, w, torch.float32, seed=c + w, b1=b1)
+    got = fused_bottleneck.launch_tf32(x, *ops)
+    ref = fused_bottleneck.reference_fused_bottleneck(x, *ops)
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, ref) <= FUSED_RTOL[torch.float32]
+
+
+def test_fused_bottleneck_tf32_is_deterministic(cuda_device):
+    """Each output is one CTA's fixed sequence of MMAs: two calls agree bit
+    for bit, at a clustered plan (M = 512, clusters of 4)."""
+    x, ops = _e_inputs(cuda_device, 1, 2048, 512, 24, 40, torch.float32, seed=9)
+    first = fused_bottleneck.launch_tf32(x, *ops)
+    assert torch.equal(first, fused_bottleneck.launch_tf32(x, *ops))
+
+
+def test_fused_bottleneck_tf32_refuses_bf16_and_foreign_widths(cuda_device):
+    """E-tf32 takes fp32 only, and only the widths it has a plan for."""
+    x, ops = _e_inputs(cuda_device, 1, 256, 64, 16, 16, torch.bfloat16, seed=2)
+    with pytest.raises(TypeError, match="takes float32"):
+        fused_bottleneck.launch_tf32(x, *ops)
+    x, ops = _e_inputs(cuda_device, 1, 256, 96, 16, 16, torch.float32, seed=2)
+    with pytest.raises(ValueError, match="takes M in"):
+        fused_bottleneck.launch_tf32(x, *ops)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_fused_detr_on_the_card(cuda_device, dtype):
     """A reduced-depth fused DETR on the card: C once, D on each block_0,
     E on each identity block without a mask and none with one, E on the
-    SIMT kernel at fp32 and on E-mma at bf16. fp32 outputs against the
+    E-tf32 at fp32 and on E-mma at bf16. fp32 outputs against the
     unfused model from the same weights (TF32 off), with nonzero BN
     shifts; at bf16, c5 of the bucket-exact forward (E-mma in every
     identity block) against the unfused fp32 model's, within
@@ -835,8 +880,8 @@ def test_fused_detr_on_the_card(cuda_device, dtype):
         before = counts()
         out = fused(x, pixel_mask)
         after = counts()
-        assert tuple(a - b for a, b in zip(after, before)) == (1, d, 0 if mma else e,
-                                                                 e if mma else 0)
+        assert tuple(a - b for a, b in zip(after, before)) == (1, d, 0, e if mma else 0,
+                                                                 0 if mma else e)
         if mma:
             assert all(bool(torch.isfinite(v).all()) for v in out.values())
             continue

@@ -1,8 +1,9 @@
 """The port's fused-backbone slice against the JAX package: the stem max
 pool (kernel C), the fused bottleneck tail (D) and the whole fused
-bottleneck (E), each through its plain version here on the CPU, then the
-fused ResNet backbone and DETR, their routing, and that they refuse to
-train.
+bottleneck (E), each through its plain version here on the CPU, numpy
+emulations of E's two tensor-core kernels (E-mma's tiling at bf16, E-tf32's
+tiling and 3xTF32 arithmetic at fp32) and their plans, then the fused
+ResNet backbone and DETR, their routing, and that they refuse to train.
 
 JAX runs on the CPU, its Pallas kernels in interpret mode. Inputs come from
 ``np.random.default_rng``; variables from ``random_variables``, whose
@@ -256,7 +257,7 @@ def _push(buf, nk):
     k = len(buf)
     for r in range(k):
         for d in range(1, k):
-            buf[(r + d) % k][:, r * nk:(r + 1) * nk] = buf[r][:, r * nk:(r + 1) * nk]
+            buf[(r + d) % k][..., r * nk:(r + 1) * nk] = buf[r][..., r * nk:(r + 1) * nk]
 
 
 def _mma_emulation(x, w1, b1, w2, b2, w3, b3, tile, cluster, np3=16, zero_halo=True,
@@ -372,26 +373,239 @@ def test_mma_emulation_sees_a_leaky_halo_and_a_missing_exchange():
     assert np.isnan(_mma_emulation(*ops, tile=(8, 8), cluster=2, exchange=False)).all()
 
 
+# ---- kernel E's fp32 path, E-tf32: plans and its arithmetic emulated ------------------------
+
+
+@pytest.mark.parametrize("bucket", sorted(E_MAPS))
+@pytest.mark.parametrize("m", [64, 128, 256, 512])
+def test_tf32_plan_fits_the_card(m, bucket):
+    """At each ResNet-50 width (C = 4M), E-tf32's plan fits a CTA in 232,448
+    bytes of shared memory (T1 over the halo, T2 written over it, and a
+    3-stage ring), with a cluster of 1, 2 or 4 CTAs that splits M and C in
+    whole stage-3 passes; at each map of the bucket its grid lies within
+    CUDA's limits; a width without a plan is refused."""
+    c = 4 * m
+    th, tw, k = plan = fb.tf32_plan(c, m)
+    assert plan == fb.TF32_PLANS[m]
+    assert k in (1, 2, 4) and m % (8 * k) == 0 and c % (k * fb.tf32_stage3_pass(m)) == 0
+    assert th * tw // 16 * fb.tf32_stage3_pass(m) // 8 == 64  # a CTA's accumulator blocks
+    assert fb.tf32_smem_bytes(m) <= fb.MAX_SMEM == 232448
+    maps = E_MAPS[bucket] if bucket == "ragged" else [E_MAPS[bucket][[64, 128, 256, 512].index(m)]]
+    for h, w in maps:
+        ctas = -(-h // th) * -(-w // tw) * k
+        assert 1 <= ctas < 2**31 and ctas % k == 0
+    with pytest.raises(ValueError, match="takes M in"):
+        fb.tf32_plan(96, 48)
+    with pytest.raises(ValueError, match="takes M in"):
+        fb.tf32_plan(c + 32, m)
+
+
+def _tf32(a):
+    """float32 ``a`` rounded to TF32 as ``tf32mma::to_tf32`` does (10 mantissa
+    bits, to nearest, ties away from zero)."""
+    bits = np.asarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split_tf32(a):
+    """``tf32mma::split_tf32``: (big, small), TF32 values as float64."""
+    a = np.asarray(a, np.float32)
+    big = _tf32(a)
+    return big.astype(np.float64), _tf32(a - big).astype(np.float64)
+
+
+def _mma(acc, a, b):
+    """One TF32 MMA into a float32 accumulator, the pessimistic model of the
+    tensor cores' add: the products summed exactly, then the sum truncated
+    (rounded toward zero) to float32."""
+    v = acc + a @ b
+    r = v.astype(np.float32)
+    return np.where(np.abs(r) > np.abs(v), np.nextafter(r, np.float32(0)), r)
+
+
+def _tf32_product(a, b, split=True, flush=True):
+    """a (R, K) @ b (K, N), float32, as E-tf32's chunk_product sums it: per
+    k8 step one MMA of the big parts into hi and, with ``split`` (3xTF32),
+    two MMAs of the cross terms chained into lo; hi added to the running
+    float32 sum at the end of each 32-row chunk with ``flush`` (else chained
+    through the whole contraction); then (sum + lo) in float32."""
+    (ab, a_small), (bb, b_small) = _split_tf32(a), _split_tf32(b)
+    acc, hi, lo = (np.zeros((a.shape[0], b.shape[1]), np.float32) for _ in range(3))
+    for k0 in range(0, a.shape[1], 8):
+        s = slice(k0, k0 + 8)
+        hi = _mma(hi, ab[:, s], bb[s])
+        if split:
+            lo = _mma(_mma(lo, a_small[:, s], bb[s]), ab[:, s], b_small[s])
+        if flush and (k0 + 8) % 32 == 0:
+            acc, hi = acc + hi, np.zeros_like(hi)
+    return (acc + hi) + lo
+
+
+def _tf32_emulation(x, w1, b1, w2, b2, w3, b3, tile, cluster, zero_halo=True, t2_barrier=True,
+                    **arith):
+    """csrc/fused_bottleneck_tf32.cu's algorithm on NHWC float32 x and
+    weights w1 (C, M), w2 (9, M, M), w3 (M, C), every tile of the map at
+    once: x over each TH x TW tile's halo (zero outside the image); rank r of
+    a cluster computes T1's columns r M/K.. (the other ranks' NaN until the
+    exchange), zeroed outside the image; conv2 gathers each tap's rows by
+    the kernel's row address, chunks tap by tap; each rank writes its T2
+    slice over rows 0.. of its own T1 buffer, and after a cluster barrier
+    (skipped with ``t2_barrier=False``: each rank pushes as soon as it is
+    done) pushes it into the others'; y's columns r C/K.. with the residual
+    added in float32, pixels outside the image not written (NaN). Products
+    as ``_tf32_product(**arith)``."""
+    th, tw = tile
+    n, h, w, c = x.shape
+    m = w1.shape[1]
+    nk, cs, hw = m // cluster, c // cluster, tw + 2
+    p1, p2 = (th + 2) * hw, th * tw
+    q, p = np.arange(p1), np.arange(p2)
+    taps = np.concatenate([(p // tw) * hw + p % tw + (tap // 3) * hw + tap % 3 for tap in range(9)])
+    origins = [(img, oy0, ox0) for img in range(n) for oy0 in range(0, h, th)
+               for ox0 in range(0, w, tw)]
+    xs, inside = np.zeros((len(origins), p1, c), np.float32), np.zeros((len(origins), p1), bool)
+    for i, (img, oy0, ox0) in enumerate(origins):
+        gy, gx = oy0 - 1 + q // hw, ox0 - 1 + q % hw
+        inside[i] = (gy >= 0) & (gy < h) & (gx >= 0) & (gx < w)
+        xs[i, inside[i]] = x[img, gy[inside[i]], gx[inside[i]]]
+    tiles = len(origins)
+    buf = np.full((cluster, tiles, p1, m), np.nan, np.float32)  # each rank's T1, then T2
+    for r in range(cluster):
+        sl = slice(r * nk, (r + 1) * nk)
+        v = _tf32_product(xs.reshape(-1, c), w1[:, sl], **arith).reshape(tiles, p1, nk)
+        v = np.maximum(v + b1[sl], 0)
+        buf[r][..., sl] = np.where(inside[..., None] | (not zero_halo), v, 0)
+    _push(buf, nk)
+    w2k = w2.reshape(9 * m, m)
+    for r in range(cluster):
+        sl = slice(r * nk, (r + 1) * nk)
+        a = buf[r][:, taps].reshape(tiles, 9, p2, m).transpose(0, 2, 1, 3).reshape(-1, 9 * m)
+        t2 = np.maximum(_tf32_product(a, w2k[:, sl], **arith) + b2[sl], 0)
+        buf[r][:, :p2, sl] = t2.reshape(tiles, p2, nk)
+        if not t2_barrier:  # pushed while later ranks still read their T1
+            for d in range(1, cluster):
+                buf[(r + d) % cluster][:, :p2, sl] = buf[r][:, :p2, sl]
+    if t2_barrier:
+        _push(buf[:, :, :p2], nk)
+    y = np.full(x.shape, np.nan, np.float32)
+    for r in range(cluster):
+        cols = slice(r * cs, (r + 1) * cs)
+        acc = _tf32_product(buf[r][:, :p2].reshape(-1, m), w3[:, cols], **arith)
+        acc = (acc + b3[cols]).reshape(tiles, p2, cs)
+        for i, (img, oy0, ox0) in enumerate(origins):
+            oy, ox = oy0 + p // tw, ox0 + p % tw
+            out = (oy < h) & (ox < w)
+            res = x[img, oy[out], ox[out], cols]
+            y[img, oy[out], ox[out], cols] = np.maximum(acc[i][out] + res, 0)
+    return y
+
+
+def _tf32_case(n, h, w, c, m, seed):
+    """float32 x (post-ReLU, in [0, 1)) and weights scaled by their fan-in,
+    float32 biases; b1 > 0 so that a T1 left unmasked outside the image
+    would show."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, size=(n, h, w, c)).astype(np.float32)
+    w1, w3 = ((rng.normal(size=s) * s[0] ** -0.5).astype(np.float32) for s in ((c, m), (m, c)))
+    w2 = (rng.normal(size=(9, m, m)) * (9 * m) ** -0.5).astype(np.float32)
+    b1 = rng.uniform(0.5, 1.5, size=m).astype(np.float32)
+    b2, b3 = ((rng.normal(size=k) * 0.1).astype(np.float32) for k in (m, c))
+    return x, w1, b1, w2, b2, w3, b3
+
+
+# (n, h, w, M) with C = 4M at each width's plan: ragged maps (partial tiles
+# on both axes) at M = 64..256, and layer 4's 9 * 512-deep conv2 at a 5 x 7
+# map (two 4 x 8 tiles, the second a single row).
+TF32_EMULATION_CASES = [(2, 9, 13, 64), (1, 11, 10, 128), (1, 9, 11, 256), (1, 5, 7, 512)]
+
+
+@pytest.mark.parametrize("n,h,w,m", TF32_EMULATION_CASES)
+def test_tf32_emulation_matches_jax_and_float64(n, h, w, m):
+    """E-tf32's tiling and 3xTF32 arithmetic, emulated with every MMA's add
+    truncated, write every output and agree with the float64 chain and with
+    the JAX package's fused_bottleneck (Pallas, interpret mode, float32)
+    within 1e-5 of the largest output: the fp32 tolerance chip_smoke.py holds
+    the kernel to against the plain version on the card."""
+    ops = _tf32_case(n, h, w, 4 * m, m, seed=m + h)
+    th, tw, k = fb.TF32_PLANS[m]
+    ours = _tf32_emulation(*ops, tile=(th, tw), cluster=k)
+    assert np.isfinite(ours).all()
+    exact = _float64_chain_tf32(*ops)
+    scale = max(1.0, np.abs(exact).max())
+    np.testing.assert_allclose(ours, exact, atol=1e-5 * scale, rtol=0)
+    x, w1, b1, w2, b2, w3, b3 = map(jnp.asarray, ops)
+    ref = jax_fb.fused_bottleneck(x, w1, b1, w2.reshape(3, 3, m, m), b2, w3, b3)
+    np.testing.assert_allclose(ours, np.asarray(ref, np.float64), atol=1e-5 * scale, rtol=0)
+
+
+def _float64_chain_tf32(x, w1, b1, w2, b2, w3, b3):
+    """The bottleneck in float64, no rounding point."""
+    x, w1, w2, w3 = (np.asarray(a, np.float64) for a in (x, w1, w2, w3))
+    n, h, w, _ = x.shape
+    t1 = np.pad(np.maximum(x @ w1 + b1, 0), ((0, 0), (1, 1), (1, 1), (0, 0)))
+    acc = sum(t1[:, dy:dy + h, dx:dx + w] @ w2[3 * dy + dx] for dy in range(3) for dx in range(3))
+    return np.maximum(np.maximum(acc + b2, 0) @ w3 + b3 + x, 0)
+
+
+def test_tf32_accuracy_needs_3xtf32_and_the_flushes():
+    """At conv2's 9 * 512-deep contraction (layer 4, T1 >= 0 as after the
+    ReLU), 3xTF32 with each 32-row chunk's big x big flushed into the
+    float32 sum stays within 1e-5 of float64 relative to the largest value;
+    single TF32 (one MMA of the rounded operands) misses it by more than
+    10x, and 3xTF32 chaining big x big through one truncating accumulator
+    misses it too."""
+    rng = np.random.default_rng(6)
+    m = 512
+    t1 = rng.uniform(0, 1, size=(32, 9 * m)).astype(np.float32)
+    w2 = (rng.normal(size=(9 * m, m)) * (9 * m) ** -0.5).astype(np.float32)
+    exact = t1.astype(np.float64) @ w2.astype(np.float64)
+    scale = np.abs(exact).max()
+    err = {kw: np.abs(_tf32_product(t1, w2, *kw) - exact).max() / scale
+           for kw in ((True, True), (False, True), (True, False))}
+    assert err[(True, True)] <= 1e-5
+    assert err[(False, True)] > 10 * 1e-5
+    assert err[(True, False)] > 1e-5
+
+
+def test_tf32_emulation_sees_a_leaky_halo_and_a_broken_exchange():
+    """The checks above would catch E-tf32's hazards: T1 left at relu(b1)
+    outside the image misses the float64 chain by far more than 1e-5; a
+    cluster whose ranks push T2 into the others' buffers before every rank
+    has finished reading its T1 (T2 is written over T1) gives wrong
+    outputs."""
+    ops = _tf32_case(1, 9, 11, 128, 32, seed=5)
+    exact = _float64_chain_tf32(*ops)
+    scale = max(1.0, np.abs(exact).max())
+    leaky = _tf32_emulation(*ops, tile=(8, 8), cluster=2, zero_halo=False)
+    assert np.abs(leaky - exact).max() > 100 * 1e-5 * scale
+    early = _tf32_emulation(*ops, tile=(8, 8), cluster=2, t2_barrier=False)
+    assert np.abs(early - exact).max() > 100 * 1e-5 * scale
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_bottleneck_routes_by_dtype_and_cpu_takes_plain(dtype):
-    """bf16 routes to E-mma and fp32 to the SIMT kernel on the card; a CPU
-    call takes the plain version at either dtype and launches neither
-    kernel, and E-mma refuses fp32 before it looks at the device."""
-    assert fb.route(dtype) == ("mma" if dtype == torch.bfloat16 else "simt")
+    """bf16 routes to E-mma and fp32 to E-tf32 on the card; a CPU call takes
+    the plain version at either dtype and launches no kernel, and each
+    tensor-core kernel refuses the other dtype before it looks at the
+    device."""
+    assert fb.route(dtype) == ("mma" if dtype == torch.bfloat16 else "tf32")
     rng = np.random.default_rng(11)
     x = nchw((rng.normal(size=(2, 9, 13, 64)) * 0.5).astype(np.float32)).to(dtype)
     ops = [t.to(dtype) if t.dim() > 1 else t
            for t in _port_operands(*_bottleneck_operands(rng, 64, 32))]
-    before = (fb.fused_bottleneck.launches, fb.fused_bottleneck.mma_launches)
+    counts = lambda: (fb.fused_bottleneck.launches, fb.fused_bottleneck.mma_launches,  # noqa: E731
+                      fb.fused_bottleneck.tf32_launches)
+    before = counts()
     got = fb.fused_bottleneck(x, *ops)
     assert torch.equal(got, fb.reference_fused_bottleneck(x, *ops))
-    assert (fb.fused_bottleneck.launches, fb.fused_bottleneck.mma_launches) == before == (0, 0)
-    if dtype == torch.float32:
-        with pytest.raises(TypeError, match="takes bfloat16"):
-            fb.launch_mma(x, *ops)
-    else:
-        with pytest.raises(ValueError, match="no fused bottleneck kernel for device cpu"):
-            fb.launch_mma(x, *ops)
+    assert counts() == before == (0, 0, 0)
+    own, other, other_dtype = ((fb.launch_mma, fb.launch_tf32, "float32")
+                               if dtype == torch.bfloat16 else
+                               (fb.launch_tf32, fb.launch_mma, "bfloat16"))
+    with pytest.raises(TypeError, match=f"takes {other_dtype}"):
+        other(x, *ops)
+    with pytest.raises(ValueError, match="no fused bottleneck kernel for device cpu"):
+        own(x, *ops)
 
 
 # ---- the fused backbone and DETR ------------------------------------------------------------
