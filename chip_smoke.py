@@ -9,8 +9,8 @@ Phases, one status line each; any failure raises and exits non-zero:
   2. build: nvcc builds every kernel of the serving and training paths from
      csrc/, one process per source, all at once; prints each kernel's ptxas
      report and the HMMA (tensor-core) instructions in the SASS of the three
-     tensor-core attention kernels, of E-mma and of E-tf32, and fails if any
-     has none;
+     tensor-core attention kernels, of E-mma, of E-tf32 and of D-mma, and
+     fails if any has none;
   3. kernels: attention A at every shape of the served path against its
      plain PyTorch version: fp32 (TF32 off) through the tensor-core kernel
      A-tf32 (3xTF32) and through the SIMT kernel called directly, bf16
@@ -53,7 +53,10 @@ Phases, one status line each; any failure raises and exits non-zero:
      of the fused-backbone model, at 896x1408 with a mask (C, D x16) and
      768x1280 bucket-exact (C, D x4, E x12), fp32 (TF32 off) and bf16,
      against their plain versions (C bit-equal), with kernel, plain and
-     yardstick times from CUDA graphs and each shape's bound; E runs on
+     yardstick times from CUDA graphs and each shape's bound; D runs on the
+     SIMT kernel at fp32 and on D-mma (bf16 tensor cores, the output tile
+     staged in shared memory) at bf16, timed beside the SIMT D called at
+     bf16; E runs on
      E-tf32 (TF32 tensor cores, 3xTF32, thread-block clusters) at fp32, with
      its bound as 3xTF32 and on the fp32 pipes, and on E-mma (bf16 tensor
      cores, thread-block clusters) at bf16, one compiled plan per width
@@ -62,15 +65,16 @@ Phases, one status line each; any failure raises and exits non-zero:
  11. fused serving: full-width DETR-R50 with ``fuse_residual=True,
      fuse_bottleneck=True`` and the unfused model from one seed and one set
      of nonzero FrozenBN buffers: 3 requests through ``Predictor`` with the
-     counters reset just before (per bucket-exact forward C 1, D 4, SIMT E
-     0, E-mma 0, E-tf32 12, A-tf32 18; per masked forward C 1, D 16, E 0,
-     A-tf32 18), c5, boxes and logits against the unfused model at fp32, one
-     fused bf16 bucket-exact request (C 1, D 4, SIMT E 0, E-mma 12, E-tf32 0,
-     A-mma 18), the
-     fused bf16 model's c5 against the unfused fp32 model's beside the
-     unfused bf16 model's own gap, and the median latency of both at
-     768x1280 b1, fp32 and bf16, with each one's device-busy time and idle
-     share under ``torch.profiler``.
+     counters reset just before (per bucket-exact forward C 1, SIMT D 4,
+     D-mma 0, SIMT E 0, E-mma 0, E-tf32 12, A-tf32 18; per masked forward C
+     1, SIMT D 16, E 0, A-tf32 18), c5, boxes and logits against the unfused
+     model at fp32; the fused bf16 model's main path, a bucket-exact and a
+     masked request with the counters reset just before (C 1, D-mma 4,
+     E-mma 12, A-mma 18; C 1, D-mma 16, E 0, A-mma 18; SIMT D 0), the fused
+     bf16 model's c5 against the unfused fp32 model's beside the unfused
+     bf16 model's own gap at both, and the median latency of both models at
+     768x1280 b1, fp32 and bf16, and at 800x1333 b1, bf16, with each one's
+     device-busy time and idle share under ``torch.profiler``.
 Kernel C runs in every ``ResNetBackbone`` forward: serving, training and
 fused serving count it (1 per forward or step); the int8 model's stem is
 not a ``ResNetBackbone`` and launches none.
@@ -114,9 +118,11 @@ PADDED_BOX_ATOL = 1e-3
 SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "lap.cu", "int8_matmul.cu",
            "int8_conv.cu", "maxpool.cu", "fused_residual.cu", "fused_bottleneck.cu",
            "flash_attention_fwd_mma.cu", "flash_attention_bwd_mma.cu",
-           "flash_attention_fwd_tf32.cu", "fused_bottleneck_mma.cu", "fused_bottleneck_tf32.cu")
+           "flash_attention_fwd_tf32.cu", "fused_bottleneck_mma.cu", "fused_bottleneck_tf32.cu",
+           "fused_residual_mma.cu")
 MMA_SOURCES = ("flash_attention_fwd_mma.cu", "flash_attention_bwd_mma.cu",
-               "flash_attention_fwd_tf32.cu", "fused_bottleneck_mma.cu", "fused_bottleneck_tf32.cu")
+               "flash_attention_fwd_tf32.cu", "fused_bottleneck_mma.cu", "fused_bottleneck_tf32.cu",
+               "fused_residual_mma.cu")
 CSRC = "detr_tensorflow_tpu_torch/csrc/"
 REPLACES = {
     "flash_attention_fwd": "detr_tensorflow_tpu/ops/pallas/flash_attention.py:77",
@@ -129,6 +135,7 @@ REPLACES = {
     "int8_conv": "detr_tensorflow_tpu/ops/pallas/int8_conv.py:64",
     "maxpool": "detr_tensorflow_tpu/ops/pallas/maxpool.py:99",
     "fused_residual": "detr_tensorflow_tpu/ops/pallas/fused_residual.py:37",
+    "fused_residual_mma": "detr_tensorflow_tpu/ops/pallas/fused_residual.py:37",
     "fused_bottleneck": "detr_tensorflow_tpu/ops/pallas/fused_bottleneck.py:54",
     "fused_bottleneck_mma": "detr_tensorflow_tpu/ops/pallas/fused_bottleneck.py:54",
     "fused_bottleneck_tf32": "detr_tensorflow_tpu/ops/pallas/fused_bottleneck.py:54",
@@ -175,10 +182,11 @@ FUSED_MASKED, FUSED_EXACT = (896, 1408), (768, 1280)
 FUSED_RTOL = {"float32": 1e-5, "bfloat16": 2e-2}
 FUSED_C5_RTOL = 1e-4
 FUSED_BF16_C5_RATIO = 2.0
-# (C, D, SIMT E, E-mma, E-tf32) per b1 forward of the fused model.
-FUSED_PER_FORWARD = {("exact", "float32"): (1, 4, 0, 0, 12),
-                     ("masked", "float32"): (1, 16, 0, 0, 0),
-                     ("exact", "bfloat16"): (1, 4, 0, 12, 0)}
+# (C, SIMT D, D-mma, SIMT E, E-mma, E-tf32) per b1 forward of the fused model.
+FUSED_PER_FORWARD = {("exact", "float32"): (1, 4, 0, 0, 0, 12),
+                     ("masked", "float32"): (1, 16, 0, 0, 0, 0),
+                     ("exact", "bfloat16"): (1, 0, 4, 0, 12, 0),
+                     ("masked", "bfloat16"): (1, 0, 16, 0, 0, 0)}
 
 
 def log(msg: str) -> None:
@@ -1194,16 +1202,34 @@ def phase_fused_kernels(torch, mp, fr, fb):
                 p = h * w
                 bound = bound_ms((p * (cin + 2 * cout) + cout * cin) * size + 8 * cout,
                                  {name: 2 * p * cin * cout, "float32": 4 * p * cout})
+                label = f"({cin}->{cout}, {h}x{w})"
+                ops = (x, wt, scale, shift, identity)
+                plain = lambda: fr.reference_conv1x1_bn_residual_relu(*ops)  # noqa: E731
+                chain = lambda: F.relu(F.conv2d(x, wt) * sd + td + identity)  # noqa: E731
+                # conv1x1_bn_residual_relu routes bf16 to D-mma, fp32 to the SIMT D.
+                mma = name == "bfloat16"
+                before = (fr.conv1x1_bn_residual_relu.mma_launches,
+                          fr.conv1x1_bn_residual_relu.launches)
+                fr.conv1x1_bn_residual_relu(*ops)
+                if (fr.conv1x1_bn_residual_relu.mma_launches - before[0],
+                        fr.conv1x1_bn_residual_relu.launches - before[1]) != (int(mma), int(not mma)):
+                    raise AssertionError(f"D {label} {name} did not route to "
+                                         f"{'D-mma' if mma else 'the SIMT D'}")
                 kms, pms, yard, err = record(
-                    "fused_residual", tag, name, count,
-                    lambda: fr.conv1x1_bn_residual_relu(x, wt, scale, shift, identity),
-                    lambda: fr.reference_conv1x1_bn_residual_relu(x, wt, scale, shift, identity),
-                    lambda: F.relu(F.conv2d(x, wt) * sd + td + identity), bound, False,
-                    f"({cin}->{cout}, {h}x{w})")
-                log(f"  D {tag} {cin}->{cout} {h}x{w} (x{count}) {name}: kernel {kms:.4f} ms, "
-                    f"plain {pms:.4f} ms, unfused cuDNN chain (conv, BN, residual, ReLU; not the "
-                    f"same function) {yard:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); rel err "
-                    f"{err:.2e}")
+                    "fused_residual_mma" if mma else "fused_residual", tag, name, count,
+                    lambda: fr.conv1x1_bn_residual_relu(*ops), plain, chain, bound, False, label)
+                if mma:  # the SIMT D called at bf16, beside D-mma
+                    simt, _, _, simt_err = record("fused_residual", tag, name, count,
+                                                  lambda: fr.launch_simt(*ops), plain, chain,
+                                                  bound, False, label)
+                    kernels = (f"D-mma {kms:.4f} ms ({-(-p // 128) * -(-cout // 128)} CTAs of "
+                               f"128x128), SIMT D {simt:.4f} ms")
+                    errs = f"D-mma {err:.2e}, SIMT {simt_err:.2e}"
+                else:
+                    kernels, errs = f"SIMT D {kms:.4f} ms", f"{err:.2e}"
+                log(f"  D {tag} {cin}->{cout} {h}x{w} (x{count}) {name}: {kernels}, plain "
+                    f"{pms:.4f} ms, unfused cuDNN chain (conv, BN, residual, ReLU; not the same "
+                    f"function) {yard:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); rel err {errs}")
             for (c, m, h, w), count in sorted(e_shapes.items()):
                 x = cl(1, c, h, w).to(dtype)
                 w1t, w2t, w3t = (normal(*s, std=k**-0.5).to(dtype)
@@ -1277,22 +1303,25 @@ def seeded_frozen_bn(torch, module, seed):
                     buf.copy_(value)
 
 
-def bf16_c5_gap(torch, models, x):
-    """c5 of the fused bf16 model (E-mma) and of the unfused bf16 model
-    against the unfused fp32 model's at a bucket-exact image: the fused
-    model's gap may be at most FUSED_BF16_C5_RATIO times the unfused one's."""
+def bf16_c5_gap(torch, models, x, mask, label):
+    """c5 of the fused bf16 model and of the unfused bf16 model against the
+    unfused fp32 model's, at image ``x`` with pixel mask ``mask`` (None at a
+    bucket-exact image: E-mma and D-mma; else D-mma in every block): the
+    fused model's gap may be at most FUSED_BF16_C5_RATIO times the unfused
+    one's."""
     with torch.inference_mode():
-        c5 = {key: models[key].module.backbone(x.to(models[key].module.dtype), None)
+        c5 = {key: models[key].module.backbone(x.to(models[key].module.dtype), mask)
               for key in (("float32", False), ("bfloat16", True), ("bfloat16", False))}
     if not all(bool(torch.isfinite(v).all()) for v in c5.values()):
-        raise AssertionError("bf16 c5: non-finite values")
+        raise AssertionError(f"bf16 c5 {label}: non-finite values")
     ref = c5[("float32", False)]
     fused, unfused = (fused_rel_err(c5[("bfloat16", f)], ref) for f in (True, False))
-    log(f"  bf16 768x1280 exact: c5 rel err against the unfused fp32 model: fused (E-mma) "
-        f"{fused:.3e}, unfused bf16 {unfused:.3e} (tol {FUSED_BF16_C5_RATIO} x the unfused gap, "
-        f"|c5| max {float(ref.abs().max()):.2f})")
+    log(f"  bf16 {label}: c5 rel err against the unfused fp32 model: fused {fused:.3e}, unfused "
+        f"bf16 {unfused:.3e} (tol {FUSED_BF16_C5_RATIO} x the unfused gap, |c5| max "
+        f"{float(ref.abs().max()):.2f})")
     if not fused <= FUSED_BF16_C5_RATIO * unfused:
-        raise AssertionError(f"fused bf16 c5 gap {fused} > {FUSED_BF16_C5_RATIO} x {unfused}")
+        raise AssertionError(f"fused bf16 c5 gap at {label} {fused} > {FUSED_BF16_C5_RATIO} x "
+                             f"{unfused}")
 
 
 def phase_fused_serving(torch, fa, mp, fr, fb, api, Predictor):
@@ -1309,37 +1338,44 @@ def phase_fused_serving(torch, fa, mp, fr, fb, api, Predictor):
                                                   (768, 1280)], seed=7)
     predictor = Predictor(models[("float32", True)], background_class=BACKGROUND)
     predictor.warmup([(800, 1333), (768, 1280)])  # both routes of each bucket
+    d = fr.conv1x1_bn_residual_relu
+    names = "C, SIMT D, D-mma, SIMT E, E-mma, E-tf32, A-tf32, A-mma, A SIMT"
 
-    def counts():  # C, D, SIMT E, E-mma, E-tf32, A-tf32, A-mma, A SIMT
-        return (mp.max_pool_3x3_s2.launches, fr.conv1x1_bn_residual_relu.launches,
+    def counts():
+        return (mp.max_pool_3x3_s2.launches, d.launches, d.mma_launches,
                 fb.fused_bottleneck.launches, fb.fused_bottleneck.mma_launches,
                 fb.fused_bottleneck.tf32_launches, fa.mha.tf32_launches, fa.mha.mma_launches,
                 fa.mha.launches)
 
     def reset():
-        mp.max_pool_3x3_s2.launches = fr.conv1x1_bn_residual_relu.launches = 0
+        mp.max_pool_3x3_s2.launches = d.launches = d.mma_launches = 0
         fb.fused_bottleneck.launches = fb.fused_bottleneck.mma_launches = 0
         fb.fused_bottleneck.tf32_launches = 0
         fa.mha.tf32_launches = fa.mha.mma_launches = fa.mha.launches = 0
 
-    reset()  # main path
-    seen, times = [], []
-    for images in ([img_e], [img_m], [img_e2, img_e3]):
-        t0 = time.perf_counter()
-        dets = predictor(images)
-        times.append(1e3 * (time.perf_counter() - t0))
-        seen.append(counts())
-        check_detections(dets)
-    per = [tuple(b - a for a, b in zip((0,) * 8 if i == 0 else seen[i - 1], c))
-           for i, c in enumerate(seen)]
+    def per_request(pred, requests):
+        """Detections checked, host ms and launches of each request, the
+        counters reset just before the first."""
+        reset()
+        seen, times = [], []
+        for images in requests:
+            t0 = time.perf_counter()
+            dets = pred(images)
+            times.append(1e3 * (time.perf_counter() - t0))
+            seen.append(counts())
+            check_detections(dets)
+        per = [tuple(b - a for a, b in zip((0,) * 9 if i == 0 else seen[i - 1], c))
+               for i, c in enumerate(seen)]
+        return per, times, seen[-1]
+
+    # main path of the fused fp32 model: bucket-exact, masked, bucket-exact b2
+    per, times, totals = per_request(predictor, ([img_e], [img_m], [img_e2, img_e3]))
     log(f"  requests: 768x1280 b1 {times[0]:.2f} ms, 800x1333 b1 {times[1]:.2f} ms, "
-        f"2x768x1280 b2 {times[2]:.2f} ms; launches (C, D, SIMT E, E-mma, E-tf32, A-tf32, "
-        f"A-mma, A SIMT) per request {per}")
+        f"2x768x1280 b2 {times[2]:.2f} ms; launches ({names}) per request {per}")
     expected = [FUSED_PER_FORWARD[(k, "float32")] + (LAUNCHES_PER_FORWARD, 0, 0)
                 for k in ("exact", "masked", "exact")]
     if per != expected:
         raise AssertionError(f"fused launches {per}, expected {expected}")
-    totals = seen[-1]
 
     # fp32 (TF32 off): c5, boxes and logits against the unfused model, at a
     # bucket-exact forward (E and D) and a masked one (D only).
@@ -1368,34 +1404,39 @@ def phase_fused_serving(torch, fa, mp, fr, fb, api, Predictor):
     for dtype in ("float32", "bfloat16"):
         preds = {fused_: Predictor(models[(dtype, fused_)], background_class=BACKGROUND)
                  for fused_ in (True, False)}
+        images = {"768x1280": img_e}
+        if dtype == "bfloat16":
+            images["800x1333"] = img_m
         for pred in preds.values():
-            pred.warmup([(768, 1280)])
-        if dtype == "bfloat16":  # main path of the fused bf16 model: one bucket-exact request
-            reset()
-            check_detections(preds[True]([img_e]))
-            bf16_counts = counts()
-            log(f"  fused bf16 768x1280 b1 request: launches (C, D, SIMT E, E-mma, E-tf32, "
-                f"A-tf32, A-mma, A SIMT) {bf16_counts}")
-            if bf16_counts != FUSED_PER_FORWARD[("exact", "bfloat16")] + (
-                    0, LAUNCHES_PER_FORWARD, 0):
-                raise AssertionError(f"fused bf16 launches {bf16_counts}")
-            bf16_c5_gap(torch, models, predictor.normalize(torch.from_numpy(img_e[None]).to(
-                DEVICE)))
-        lat = {True: [], False: []}
-        for i in range(5):  # interleaved, each first in turn
-            for fused_ in ((True, False) if i % 2 == 0 else (False, True)):
-                t0 = time.perf_counter()
-                check_detections(preds[fused_]([img_e]))
-                lat[fused_].append(1e3 * (time.perf_counter() - t0))
-        medians[dtype] = {k: statistics.median(v) for k, v in lat.items()}
-        log(f"  Predictor 768x1280 b1 {dtype}: fused median {medians[dtype][True]:.2f} ms of "
-            f"{[round(v, 2) for v in lat[True]]}, unfused {medians[dtype][False]:.2f} ms of "
-            f"{[round(v, 2) for v in lat[False]]}")
-        for fused_ in (True, False):
-            wall, busy = device_busy_ms(torch, lambda: preds[fused_]([img_e]))
-            share = "not measured" if busy is None else f"{busy:.2f} ms, idle {1 - busy / wall:.2f}"
-            log(f"  under torch.profiler, {'fused' if fused_ else 'unfused'} {dtype} 768x1280 "
-                f"b1: wall {wall:.2f} ms per request, device busy {share}")
+            pred.warmup([(768, 1280)] + ([(800, 1333)] if dtype == "bfloat16" else []))
+        if dtype == "bfloat16":
+            # main path of the fused bf16 model: a bucket-exact request, then a masked one
+            per, _, bf16_counts = per_request(preds[True], ([img_e], [img_m]))
+            log(f"  fused bf16 768x1280 b1 and 800x1333 b1 requests: launches ({names}) per "
+                f"request {per}")
+            expected = [FUSED_PER_FORWARD[(k, "bfloat16")] + (0, LAUNCHES_PER_FORWARD, 0)
+                        for k in ("exact", "masked")]
+            if per != expected:
+                raise AssertionError(f"fused bf16 launches {per}, expected {expected}")
+            bf16_c5_gap(torch, models, exact, None, "768x1280 exact")
+            bf16_c5_gap(torch, models, canvas, pm, "800x1333 masked")
+        for size, img in images.items():
+            lat = {True: [], False: []}
+            for i in range(5):  # interleaved, each first in turn
+                for fused_ in ((True, False) if i % 2 == 0 else (False, True)):
+                    t0 = time.perf_counter()
+                    check_detections(preds[fused_]([img]))
+                    lat[fused_].append(1e3 * (time.perf_counter() - t0))
+            medians[(dtype, size)] = {k: statistics.median(v) for k, v in lat.items()}
+            log(f"  Predictor {size} b1 {dtype}: fused median {medians[(dtype, size)][True]:.2f} "
+                f"ms of {[round(v, 2) for v in lat[True]]}, unfused "
+                f"{medians[(dtype, size)][False]:.2f} ms of {[round(v, 2) for v in lat[False]]}")
+            for fused_ in (True, False):
+                wall, busy = device_busy_ms(torch, lambda: preds[fused_]([img]))
+                share = ("not measured" if busy is None else
+                         f"{busy:.2f} ms, idle {1 - busy / wall:.2f}")
+                log(f"  under torch.profiler, {'fused' if fused_ else 'unfused'} {dtype} {size} "
+                    f"b1: wall {wall:.2f} ms per request, device busy {share}")
     del models, predictor
     return totals, bf16_counts, medians
 
@@ -1498,9 +1539,9 @@ def main() -> int:
     t = time.perf_counter()
     fused_counts, fused_bf16_counts, fused_ms = phase_fused_serving(
         torch, fa, maxpool, fused_residual, fused_bottleneck, api, Predictor)
-    log(f"[fused serving] ok in {time.perf_counter() - t:.1f} s, 768x1280 b1 fp32 fused "
-        f"{fused_ms['float32'][True]:.2f} ms / unfused {fused_ms['float32'][False]:.2f} ms, bf16 "
-        f"{fused_ms['bfloat16'][True]:.2f} / {fused_ms['bfloat16'][False]:.2f} ms")
+    log(f"[fused serving] ok in {time.perf_counter() - t:.1f} s, b1 median fused / unfused: "
+        + ", ".join(f"{size} {dtype} {v[True]:.2f} / {v[False]:.2f} ms"
+                    for (dtype, size), v in fused_ms.items()))
 
     a32, a16 = times[(2, 1232, 1232, "float32")], times[(2, 1232, 1232, "bfloat16")]
     bwd = bwd_times[(252, 252)]
@@ -1547,33 +1588,38 @@ def main() -> int:
         entry("int8_conv", SOURCES[4], sum(g_counts.values()), int8_worst["int8_conv"],
               *int8_times["int8_conv"][[0, 1, 3]], int8_by["int8_conv"],
               int8_times["int8_conv"][2]),
-        fused_entry("maxpool", SOURCES[5], pool_serving + counts[3] + fused_counts[0], masked_tag),
-        fused_entry("fused_residual", SOURCES[6], fused_counts[1], masked_tag),
-        fused_entry("fused_bottleneck", SOURCES[7], fused_counts[2] + fused_bf16_counts[2],
+        fused_entry("maxpool", SOURCES[5],
+                    pool_serving + counts[3] + fused_counts[0] + fused_bf16_counts[0], masked_tag),
+        fused_entry("fused_residual", SOURCES[6], fused_counts[1] + fused_bf16_counts[1],
+                    masked_tag),
+        fused_entry("fused_bottleneck", SOURCES[7], fused_counts[3] + fused_bf16_counts[3],
                     exact_tag),
-        entry("flash_attention_fwd_mma", SOURCES[8], mma_serving + int8_a + fused_bf16_counts[6],
+        entry("flash_attention_fwd_mma", SOURCES[8], mma_serving + int8_a + fused_bf16_counts[7],
               worst["bfloat16"], a16["mma"], a16["plain"], *a16["bound"], a16["sdpa"]),
         entry("flash_attention_bwd_mma", SOURCES[9], counts[4], bwd_worst["float32"], bwd["mma"],
               bwd["plain"], *bwd["bound3x"], bwd["sdpa"]),
-        entry("flash_attention_fwd_tf32", SOURCES[10], launches + counts[0] + fused_counts[5],
+        entry("flash_attention_fwd_tf32", SOURCES[10], launches + counts[0] + fused_counts[6],
               worst["float32"], a32["tf32"], a32["plain"], *a32["bound3x"], a32["sdpa"]),
-        fused_entry("fused_bottleneck_mma", SOURCES[11], fused_counts[3] + fused_bf16_counts[3],
+        fused_entry("fused_bottleneck_mma", SOURCES[11], fused_counts[4] + fused_bf16_counts[4],
                     exact_tag, "bfloat16"),
-        fused_entry("fused_bottleneck_tf32", SOURCES[12], fused_counts[4] + fused_bf16_counts[4],
+        fused_entry("fused_bottleneck_tf32", SOURCES[12], fused_counts[5] + fused_bf16_counts[5],
                     exact_tag),
+        fused_entry("fused_residual_mma", SOURCES[13], fused_counts[2] + fused_bf16_counts[2],
+                    masked_tag, "bfloat16"),
     ]}
     tf32_chain = fused_times[("fused_bottleneck_tf32", exact_tag, "float32")][2]
+    d_mma_chain = fused_times[("fused_residual_mma", masked_tag, "bfloat16")][2]
     log(f"[summary] flash_attention_fwd (SIMT): max_abs_err fp32 called directly "
         f"{worst['simt float32']:.3e} (bf16 {worst['simt bfloat16']:.3e}), ms/plain_ms/library_ms "
         f"(scaled_dot_product_attention) at (1232,1232) fp32 B=2 H=8 Dh=32 from CUDA graphs, "
         f"launches 0 (no path of the port runs bf16 with dropout; fp32 runs A-tf32), bound on "
         f"the fp32 pipes; flash_attention_fwd_tf32 (3xTF32): max_abs_err fp32 "
         f"{worst['float32']:.3e}, ms/plain_ms/library_ms at (1232,1232) fp32 B=2 from CUDA "
-        f"graphs, launches {launches} fp32 serving + {counts[0]} training + {fused_counts[5]} "
+        f"graphs, launches {launches} fp32 serving + {counts[0]} training + {fused_counts[6]} "
         f"fused fp32 serving, bound as 3xTF32 on the tensor cores; flash_attention_fwd_mma: "
         f"max_abs_err bf16 {worst['bfloat16']:.3e}, "
         f"ms/plain_ms/library_ms at (1232,1232) bf16 B=2 from CUDA graphs, launches "
-        f"{mma_serving} bf16 serving + {int8_a} int8 serving + {fused_bf16_counts[6]} fused bf16 "
+        f"{mma_serving} bf16 serving + {int8_a} int8 serving + {fused_bf16_counts[7]} fused bf16 "
         f"serving; flash_attention_bwd (SIMT): gradient max_abs_err fp32 (called directly) "
         f"{bwd_worst['simt float32']:.3e}, bf16 {bwd_worst['bfloat16']:.3e}, launches "
         f"{counts[1]} (training runs the tensor-core A'), bound on the fp32 pipes; "
@@ -1588,23 +1634,29 @@ def main() -> int:
         f"and the bf16 cuDNN conv, not the same functions), launches in 3 int8 forwards; "
         f"maxpool (C): max_abs_err fp32 0 (bit-equal), ms/plain_ms/library_ms (F.max_pool2d) "
         f"at the {masked_tag} stem (1,64,448,704) fp32, launches {pool_serving} serving + "
-        f"{counts[3]} training + {fused_counts[0]} fused serving; fused_residual (D) and "
+        f"{counts[3]} training + {fused_counts[0] + fused_bf16_counts[0]} fused serving; "
+        f"fused_residual (D, SIMT) and "
         f"fused_bottleneck (E, SIMT, called directly): max_abs_err fp32 "
         f"{fused_abs[('fused_residual', 'float32')]:.3e} and "
         f"{fused_abs[('fused_bottleneck', 'float32')]:.3e}, ms/plain_ms/bound_ms summed "
         f"over one b1 fp32 forward's launches ({masked_tag}: D x16; {exact_tag}: E x12; E's bound "
         f"on the fp32 pipes), no library call computes either (unfused cuDNN chains printed "
-        f"above), launches in the 3 fused fp32 forwards (E: 0, fp32 runs E-tf32) and the fused "
-        f"bf16 one; fused_bottleneck_mma (E-mma): max_abs_err bf16 "
+        f"above), launches in the 3 fused fp32 forwards (E: 0, fp32 runs E-tf32) and the 2 fused "
+        f"bf16 ones (D: 0, bf16 runs D-mma); fused_bottleneck_mma (E-mma): max_abs_err bf16 "
         f"{fused_abs[('fused_bottleneck_mma', 'bfloat16')]:.3e}, ms/plain_ms/bound_ms summed "
         f"over one b1 bf16 {exact_tag} forward's 12 launches, "
-        f"launches {fused_counts[3]} in the 3 fused fp32 forwards + {fused_bf16_counts[3]} in "
-        f"the fused bf16 one; fused_bottleneck_tf32 (E-tf32, 3xTF32): max_abs_err fp32 "
+        f"launches {fused_counts[4]} in the 3 fused fp32 forwards + {fused_bf16_counts[4]} in "
+        f"the 2 fused bf16 ones; fused_residual_mma (D-mma): max_abs_err bf16 "
+        f"{fused_abs[('fused_residual_mma', 'bfloat16')]:.3e}, ms/plain_ms/bound_ms summed over "
+        f"one b1 bf16 {masked_tag} forward's 16 launches (the unfused bf16 cuDNN chain, not the "
+        f"same function, {d_mma_chain:.4f} ms), launches {fused_counts[2]} in the 3 fused fp32 "
+        f"forwards + {fused_bf16_counts[2]} in the 2 fused bf16 ones; "
+        f"fused_bottleneck_tf32 (E-tf32, 3xTF32): max_abs_err fp32 "
         f"{fused_abs[('fused_bottleneck_tf32', 'float32')]:.3e}, ms/plain_ms/bound_ms summed over "
         f"one b1 fp32 {exact_tag} forward's 12 launches (bound as 3xTF32 on the tensor cores; "
         f"the unfused fp32 cuDNN chain, not the same function, {tf32_chain:.4f} ms), launches "
-        f"{fused_counts[4]} in the 3 fused fp32 forwards + {fused_bf16_counts[4]} in the fused "
-        f"bf16 one")
+        f"{fused_counts[5]} in the 3 fused fp32 forwards + {fused_bf16_counts[5]} in the 2 fused "
+        f"bf16 ones")
     log(smi)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """The fused bottleneck tail, relu(conv1x1(x) * scale + shift + identity):
-the hand-written Hopper kernel (D) and its plain PyTorch version.
+the hand-written Hopper kernels (D, D-mma) and their plain PyTorch version.
 
 Replaces the TPU kernel ``_kernel`` / ``matmul_bn_residual_relu`` of
 ``detr_tensorflow_tpu/ops/pallas/fused_residual.py`` (and its NHWC wrapper
@@ -10,12 +10,20 @@ times the weights' (Cin, Cout). Numerics of the TPU kernel: the weight in
 the compute type, scale and shift float32, the product accumulated in
 float32, then
 ``((acc * scale) + shift) + identity`` in float32, ReLU, one rounding to
-the output type. The CUDA source is ``csrc/fused_residual.cu``.
+the output type.
+
+Two kernels. ``route`` picks one from the dtype alone: bf16 runs D-mma
+(``csrc/fused_residual_mma.cu``: tensor cores, the output tile staged in
+shared memory so that the identity is read and y written 16 bytes a
+thread; a 128-pixel by 128-channel tile), fp32 runs the SIMT
+kernel (``csrc/fused_residual.cu``), which ``launch_simt`` also calls at
+bf16, for timing. ``conv1x1_bn_residual_relu.mma_launches`` and
+``conv1x1_bn_residual_relu.launches`` count their launches.
 
 Inference only, as in the JAX package (no VJP): the function raises when
-autograd would record it. A CUDA tensor launches the kernel and a CPU
-tensor takes the plain version; there is no fallback from one to the
-other. ``conv1x1_bn_residual_relu.launches`` counts kernel launches.
+autograd would record it. A CUDA tensor launches a kernel and a CPU tensor
+takes the plain version; there is no fallback from one to the other, and a
+failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-_SOURCE = "fused_residual.cu"
+_SOURCE, _MMA_SOURCE = "fused_residual.cu", "fused_residual_mma.cu"
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -45,28 +53,35 @@ def reference_conv1x1_bn_residual_relu(x, weight, scale, shift, identity):
     return F.relu(y).to(x.dtype).permute(0, 3, 1, 2)  # channels_last, like x
 
 
-def _library() -> ctypes.CDLL:
+def route(dtype: torch.dtype) -> str:
+    """The kernel a CUDA call takes: "mma" (D-mma, bf16 tensor cores,
+    ``csrc/fused_residual_mma.cu``) for bf16, "simt" (``csrc/fused_residual.cu``)
+    for fp32."""
+    return "mma" if dtype == torch.bfloat16 else "simt"
+
+
+def check_mma_shape(cin: int, cout: int) -> None:
+    """Raise ValueError unless D-mma takes ``cin`` input and ``cout`` output
+    channels: multiples of 8 (16-byte rows)."""
+    if cin % 8 or cout % 8:
+        raise ValueError(f"the bf16 fused residual kernel takes Cin and Cout multiples of 8 "
+                         f"(16-byte rows), got Cin={cin}, Cout={cout}")
+
+
+def _entry(source: str, name: str, ints: int):
+    """The ctypes entry point ``name`` of ``csrc/<source>``, built on first
+    use: six pointers, P, then ``ints`` ints (Cin, Cout, ...) and a stream."""
     from .nvcc_build import load_library
 
-    lib = load_library(_SOURCE)
-    fn = lib.conv1x1_bn_residual_relu
+    fn = getattr(load_library(source), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] + [ctypes.c_int] * ints
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
-def conv1x1_bn_residual_relu(x, weight, scale, shift, identity):
-    """relu(conv1x1(x, weight) * scale + shift + identity) without the conv
-    output in device memory.
-
-    x: (B, Cin, H, W); weight: (Cout, Cin) or (Cout, Cin, 1, 1) in x's
-    dtype; scale, shift: float32 (Cout,); identity: (B, Cout, H, W) in x's
-    dtype. float32 or bfloat16; the kernel takes x and identity in
-    channels_last memory. Returns (B, Cout, H, W) in x's dtype,
-    channels_last.
-    """
+def _check(x, weight, scale, shift, identity):
     check_inference("conv1x1_bn_residual_relu", x, weight, scale, shift, identity)
     if x.dim() != 4 or x.dtype not in DTYPES:
         raise TypeError(f"x must be float32 or bfloat16 (B, C, H, W), got {x.dtype} "
@@ -84,8 +99,9 @@ def conv1x1_bn_residual_relu(x, weight, scale, shift, identity):
             raise ValueError(f"{name} must be float32 ({cout},), got {v.dtype} {tuple(v.shape)}")
     if len({t.device for t in (x, weight, scale, shift, identity)}) != 1:
         raise ValueError("operands lie on different devices")
-    if x.device.type == "cpu":
-        return reference_conv1x1_bn_residual_relu(x, weight, scale, shift, identity)
+
+
+def _check_kernel_inputs(x, weight, scale, shift, identity):
     if x.device.type != "cuda":
         raise ValueError(f"no fused residual kernel for device {x.device}")
     if not (x.is_contiguous(memory_format=torch.channels_last)
@@ -93,17 +109,75 @@ def conv1x1_bn_residual_relu(x, weight, scale, shift, identity):
             and all(t.is_contiguous() for t in (weight, scale, shift))):
         raise ValueError("the fused residual kernel takes x and identity in channels_last "
                          "memory and contiguous weight, scale and shift")
+
+
+def _launch(source, operands, *args):
+    """One launch of ``csrc/<source>``'s entry point on CUDA operands, with
+    its trailing arguments ``args`` (none for D-mma); returns y."""
+    x, weight, scale, shift, identity = operands
+    b, cin, h, w = x.shape
+    cout = weight.shape[0]
     out = torch.empty((b, cout, h, w), device=x.device, dtype=x.dtype,
                       memory_format=torch.channels_last)
+    name = "conv1x1_bn_residual_relu" + ("_mma" if source == _MMA_SOURCE else "")
     with torch.cuda.device(x.device):
-        err = _library().conv1x1_bn_residual_relu(
+        err = _entry(source, name, 2 + len(args))(
             x.data_ptr(), weight.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            identity.data_ptr(), out.data_ptr(), b * h * w, cin, cout,
-            int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
+            identity.data_ptr(), out.data_ptr(), b * h * w, cin, cout, *args,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"conv1x1_bn_residual_relu launch failed: cudaError {err}")
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    return out
+
+
+def conv1x1_bn_residual_relu(x, weight, scale, shift, identity):
+    """relu(conv1x1(x, weight) * scale + shift + identity) without the conv
+    output in device memory.
+
+    x: (B, Cin, H, W); weight: (Cout, Cin) or (Cout, Cin, 1, 1) in x's
+    dtype; scale, shift: float32 (Cout,); identity: (B, Cout, H, W) in x's
+    dtype. float32 or bfloat16; the kernels take x and identity in
+    channels_last memory. Returns (B, Cout, H, W) in x's dtype,
+    channels_last. A CPU tensor takes the plain version, a CUDA tensor the
+    kernel ``route`` picks.
+    """
+    operands = (x, weight, scale, shift, identity)
+    _check(*operands)
+    if x.device.type == "cpu":
+        return reference_conv1x1_bn_residual_relu(*operands)
+    if route(x.dtype) == "mma":
+        return launch_mma(*operands)
+    return launch_simt(*operands)
+
+
+def launch_simt(x, weight, scale, shift, identity):
+    """One launch of the SIMT kernel on CUDA tensors, fp32 or bf16: the fp32
+    route, and bf16 when called directly, for timing beside D-mma."""
+    operands = (x, weight, scale, shift, identity)
+    _check(*operands)
+    _check_kernel_inputs(*operands)
+    out = _launch(_SOURCE, operands, int(x.dtype == torch.bfloat16))
     conv1x1_bn_residual_relu.launches += 1
     return out
 
 
+def launch_mma(x, weight, scale, shift, identity):
+    """One launch of D-mma on bf16 CUDA tensors. Cin and Cout must be
+    multiples of 8 (16-byte rows)."""
+    operands = (x, weight, scale, shift, identity)
+    _check(*operands)
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the conv1x1_bn_residual_relu_mma kernel takes bfloat16, got {x.dtype}")
+    _check_kernel_inputs(*operands)
+    check_mma_shape(x.shape[1], weight.shape[0])
+    if any(t.data_ptr() % 16 for t in (x, weight, identity)) or any(
+            t.data_ptr() % 8 for t in (scale, shift)):
+        raise ValueError("the bf16 fused residual kernel takes 16-byte aligned x, weight and "
+                         "identity and 8-byte aligned scale and shift")
+    out = _launch(_MMA_SOURCE, operands)
+    conv1x1_bn_residual_relu.mma_launches += 1
+    return out
+
+
 conv1x1_bn_residual_relu.launches = 0
+conv1x1_bn_residual_relu.mma_launches = 0

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Where the device time of one DETR-R50 forward goes, on one NVIDIA GPU.
 
-  python3 scripts/torch_forward_profile.py [--dtype float32|bfloat16] [--fused]
+  python3 scripts/torch_forward_profile.py [--dtype float32|bfloat16] [--fused [--masked]]
 
 Builds the full-width DETR-R50 (seeded random weights), runs it on one
 masked 800x1333 image on the 896x1408 canvas (b1, the served bucket) or,
 with ``--fused``, the fused-backbone model (``fuse_residual``,
 ``fuse_bottleneck``) on one bucket-exact 768x1280 image without a mask
-(the route of kernel E), under ``torch.profiler`` for 3 forwards after a
-warm-up, and prints per forward: the device time summed over every
-kernel, the attention forward kernels' share of it (with their launches),
-the hand-written backbone kernels' (C, D, E, E-mma, E-tf32), and the ten
+(the route of kernel E; with ``--masked``, on the masked 800x1333 image,
+the route of kernel D on every block), under ``torch.profiler`` for 3
+forwards after a warm-up, and prints per forward: the device time summed
+over every kernel, the attention forward kernels' share of it (with their
+launches), the hand-written backbone kernels' (C, D, D-mma, E, E-mma,
+E-tf32), and the ten
 kernels that take the most time. TF32 is off for fp32 matmuls and convolutions, as on
 the served path of ``chip_smoke.py``.
 """
@@ -35,6 +37,8 @@ def main() -> int:
     parser.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
     parser.add_argument("--fused", action="store_true",
                         help="the fused-backbone model at a bucket-exact 768x1280 image")
+    parser.add_argument("--masked", action="store_true",
+                        help="with --fused: at the masked 800x1333 image instead")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
@@ -45,7 +49,7 @@ def main() -> int:
     flags = dict(fuse_residual=True, fuse_bottleneck=True) if args.fused else {}
     model = api.build_detr(seed=0, device="cuda", dtype=args.dtype, **flags)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    if args.fused:
+    if args.fused and not args.masked:
         x, mask = torch.randn((1, 768, 1280, 3), device="cuda", generator=gen), None
     else:
         x = torch.zeros((1, 896, 1408, 3), device="cuda")
@@ -69,12 +73,15 @@ def main() -> int:
     total = sum(times.values())
     attn = {k: v for k, v in times.items() if "flash_attention" in k}
     attn_ms = sum(attn.values())
-    where = "fused 768x1280 bucket-exact" if args.fused else "896x1408 masked"
+    where = ("fused " if args.fused else "") + (
+        "768x1280 bucket-exact" if args.fused and not args.masked else "896x1408 masked")
     print(f"{torch.cuda.get_device_name(0)}, DETR-R50 {args.dtype} b1 {where}, per "
           f"forward: device time {total:.3f} ms over {sum(counts.values())} kernels; attention "
           f"forward {attn_ms:.3f} ms ({100 * attn_ms / total:.1f}%) in "
           f"{sum(counts[k] for k in attn)} launches", flush=True)
-    for label, name in (("C", "max_pool_3x3_s2_kernel"), ("D", "conv1x1_bn_residual_relu"),
+    for label, name in (("C", "max_pool_3x3_s2_kernel"),
+                        ("D (SIMT)", "conv1x1_bn_residual_relu_kernel"),
+                        ("D-mma", "conv1x1_bn_residual_relu_mma_kernel"),
                         ("E (SIMT)", "fused_bottleneck_kernel"),
                         ("E-mma", "fused_bottleneck_mma_kernel"),
                         ("E-tf32", "fused_bottleneck_tf32_kernel")):

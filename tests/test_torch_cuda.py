@@ -681,24 +681,72 @@ FUSED_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 FUSED_BF16_C5_RATIO = 2.0
 
 
+def _d_operands(device, b, cin, cout, h, w, dtype):
+    gen = torch.Generator(device=device).manual_seed(cin + h)
+    x = _channels_last(torch.rand(b, cin, h, w, device=device, generator=gen)).to(dtype)
+    wt = (torch.randn(cout, cin, 1, 1, device=device, generator=gen) * cin**-0.5).to(dtype)
+    scale = torch.rand(cout, device=device, generator=gen) + 0.5
+    shift = torch.randn(cout, device=device, generator=gen) * 0.3
+    identity = _channels_last(torch.randn(b, cout, h, w, device=device, generator=gen)).to(dtype)
+    return x, wt, scale, shift, identity
+
+
+def _d_counts(before=(0, 0)):
+    """Kernel D's launches (SIMT, D-mma), less ``before``."""
+    d = fused_residual.conv1x1_bn_residual_relu
+    return tuple(a - b for a, b in zip((d.launches, d.mma_launches), before))
+
+
+# Kernel D's shapes: the 4 of a masked 896x1408 forward, the 4 of a
+# bucket-exact 768x1280 one, and ragged ones: P, Cin and Cout not multiples
+# of D-mma's tiles and chunks (Cin not a whole number of 32-channel chunks,
+# Cout not of 128-channel tiles), and a map smaller than one tile.
+FUSED_D_CASES = [(1, 64, 256, 224, 352), (1, 128, 512, 112, 176), (1, 256, 1024, 56, 88),
+                 (1, 512, 2048, 28, 44), (1, 64, 256, 192, 320), (1, 128, 512, 96, 160),
+                 (1, 256, 1024, 48, 80), (1, 512, 2048, 24, 40), (2, 48, 40, 7, 9),
+                 (2, 200, 136, 9, 13), (1, 64, 256, 5, 7)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,cin,cout,h,w", [(1, 64, 256, 192, 320), (1, 128, 512, 112, 176),
-                                            (1, 256, 1024, 48, 80), (1, 512, 2048, 28, 44),
-                                            (2, 48, 40, 7, 9)])
+@pytest.mark.parametrize("b,cin,cout,h,w", FUSED_D_CASES)
 def test_fused_residual_kernel_matches_plain(cuda_device, b, cin, cout, h, w, dtype):
-    gen = torch.Generator(device=cuda_device).manual_seed(cin + h)
-    x = _channels_last(torch.rand(b, cin, h, w, device=cuda_device, generator=gen)).to(dtype)
-    wt = (torch.randn(cout, cin, 1, 1, device=cuda_device, generator=gen) * cin**-0.5).to(dtype)
-    scale = torch.rand(cout, device=cuda_device, generator=gen) + 0.5
-    shift = torch.randn(cout, device=cuda_device, generator=gen) * 0.3
-    identity = _channels_last(torch.randn(b, cout, h, w, device=cuda_device, generator=gen)).to(dtype)
-    before = fused_residual.conv1x1_bn_residual_relu.launches
-    got = fused_residual.conv1x1_bn_residual_relu(x, wt, scale, shift, identity)
-    ref = fused_residual.reference_conv1x1_bn_residual_relu(x, wt, scale, shift, identity)
+    """conv1x1_bn_residual_relu launches D-mma at bf16 and the SIMT D at
+    fp32, once, and agrees with the plain version within FUSED_RTOL."""
+    ops = _d_operands(cuda_device, b, cin, cout, h, w, dtype)
+    before = _d_counts()
+    got = fused_residual.conv1x1_bn_residual_relu(*ops)
+    ref = fused_residual.reference_conv1x1_bn_residual_relu(*ops)
     torch.cuda.synchronize()
-    assert fused_residual.conv1x1_bn_residual_relu.launches == before + 1
+    mma = dtype == torch.bfloat16
+    assert _d_counts(before) == (int(not mma), int(mma))
     assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last)
     assert _rel_err(got, ref) <= FUSED_RTOL[dtype]
+
+
+def test_fused_residual_simt_still_takes_bf16(cuda_device):
+    """launch_simt runs the SIMT kernel at bf16 (for timing beside D-mma)."""
+    ops = _d_operands(cuda_device, 1, 256, 1024, 56, 88, torch.bfloat16)
+    before = _d_counts()
+    got = fused_residual.launch_simt(*ops)
+    torch.cuda.synchronize()
+    assert _d_counts(before) == (1, 0)
+    ref = fused_residual.reference_conv1x1_bn_residual_relu(*ops)
+    assert _rel_err(got, ref) <= FUSED_RTOL[torch.bfloat16]
+
+
+def test_fused_residual_mma_refuses_what_it_does_not_take(cuda_device):
+    """A bf16 call with Cin (or Cout) not a multiple of 8 raises ValueError
+    and names the rule; launch_mma refuses fp32. No kernel launches."""
+    before = _d_counts()
+    ops = _d_operands(cuda_device, 1, 20, 64, 8, 8, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fused_residual.conv1x1_bn_residual_relu(*ops)
+    ops = _d_operands(cuda_device, 1, 64, 36, 8, 8, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fused_residual.conv1x1_bn_residual_relu(*ops)
+    with pytest.raises(TypeError, match="takes bfloat16"):
+        fused_residual.launch_mma(*_d_operands(cuda_device, 1, 64, 64, 8, 8, torch.float32))
+    assert _d_counts(before) == (0, 0)
 
 
 def _bottleneck_operands(device, c, m, seed, b1=None):
@@ -851,12 +899,14 @@ def test_fused_bottleneck_tf32_refuses_bf16_and_foreign_widths(cuda_device):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_fused_detr_on_the_card(cuda_device, dtype):
     """A reduced-depth fused DETR on the card: C once, D on each block_0,
-    E on each identity block without a mask and none with one, E on the
-    E-tf32 at fp32 and on E-mma at bf16. fp32 outputs against the
+    E on each identity block without a mask and none with one; D on the
+    SIMT kernel at fp32 and on D-mma at bf16, E on E-tf32 at fp32 and on
+    E-mma at bf16. fp32 outputs against the
     unfused model from the same weights (TF32 off), with nonzero BN
     shifts; at bf16, c5 of the bucket-exact forward (E-mma in every
-    identity block) against the unfused fp32 model's, within
-    FUSED_BF16_C5_RATIO times the unfused bf16 model's own gap."""
+    identity block) and of the masked one (D-mma in every block) against
+    the unfused fp32 model's, within FUSED_BF16_C5_RATIO times the unfused
+    bf16 model's own gap."""
     cfg = dict(backbone_stage_sizes=(2, 2, 2, 2), num_encoder_layers=1, num_decoder_layers=1,
                device=cuda_device, dtype=dtype)
     fused = api.build_detr(fuse_residual=True, fuse_bottleneck=True, **cfg)
@@ -874,14 +924,13 @@ def test_fused_detr_on_the_card(cuda_device, dtype):
     mma = dtype == "bfloat16"
     for pixel_mask, d, e in ((None, 4, 4), (mask, 8, 0)):
         def counts():
-            return (maxpool.max_pool_3x3_s2.launches,
-                    fused_residual.conv1x1_bn_residual_relu.launches, *_e_counts())
+            return (maxpool.max_pool_3x3_s2.launches, *_d_counts(), *_e_counts())
 
         before = counts()
         out = fused(x, pixel_mask)
         after = counts()
-        assert tuple(a - b for a, b in zip(after, before)) == (1, d, 0, e if mma else 0,
-                                                                 0 if mma else e)
+        assert tuple(a - b for a, b in zip(after, before)) == (
+            1, 0 if mma else d, d if mma else 0, 0, e if mma else 0, 0 if mma else e)
         if mma:
             assert all(bool(torch.isfinite(v).all()) for v in out.values())
             continue
@@ -891,8 +940,11 @@ def test_fused_detr_on_the_card(cuda_device, dtype):
     if mma:
         fp32 = api.build_detr(**{**cfg, "dtype": "float32"})
         fp32.module.load_state_dict(state)
-        with torch.inference_mode():
-            c5 = [m.module.backbone(x.to(m.module.dtype), None) for m in (fp32, fused, plain)]
-        assert all(bool(torch.isfinite(v).all()) for v in c5)
-        gap_fused, gap_plain = (_rel_err(v, c5[0]) for v in c5[1:])
-        assert gap_fused <= FUSED_BF16_C5_RATIO * gap_plain, (gap_fused, gap_plain)
+        for pixel_mask in (None, mask):
+            with torch.inference_mode():
+                c5 = [m.module.backbone(x.to(m.module.dtype), pixel_mask)
+                      for m in (fp32, fused, plain)]
+            assert all(bool(torch.isfinite(v).all()) for v in c5)
+            gap_fused, gap_plain = (_rel_err(v, c5[0]) for v in c5[1:])
+            assert gap_fused <= FUSED_BF16_C5_RATIO * gap_plain, (pixel_mask is None, gap_fused,
+                                                                  gap_plain)

@@ -82,11 +82,15 @@ def test_maxpool_matches_jax_at_odd_shapes(h, w):
 # ---- kernel D: the fused bottleneck tail ----------------------------------------------------
 
 
-def test_fused_residual_matches_jax():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_residual_matches_jax(dtype):
     """The plain version (and the wrapper, which takes it on the CPU)
     against matmul_bn_residual_relu in interpret mode, N = 2 * 7 * 9 = 126
     pixels (not a multiple of its row tile). fp32, rtol 1e-5 and atol 1e-5:
-    the same products summed in another order."""
+    the same products summed in another order. bf16 (operands bf16, scale
+    and shift float32, both sides summing in float32): within two bf16 ulps
+    of the largest output (2^-7), since a sum or an epilogue rounded another
+    way moves its output across a bf16 rounding boundary."""
     rng = np.random.default_rng(1)
     b, h, w, cin, cout = 2, 7, 9, 24, 40
     x = rng.uniform(0, 1, size=(b, h, w, cin)).astype(np.float32)
@@ -94,19 +98,23 @@ def test_fused_residual_matches_jax():
     scale = rng.uniform(0.5, 1.5, size=cout).astype(np.float32)
     shift = rng.normal(0, 0.3, size=cout).astype(np.float32)
     identity = rng.normal(size=(b, h, w, cout)).astype(np.float32)
-    ref = jax_fr.matmul_bn_residual_relu(
-        jnp.asarray(x.reshape(-1, cin)), jnp.asarray(kernel), jnp.asarray(scale),
-        jnp.asarray(shift), jnp.asarray(identity.reshape(-1, cout)))
-    args = (nchw(x), torch.from_numpy(kernel.T.copy()), torch.from_numpy(scale),
-            torch.from_numpy(shift), nchw(identity))
-    before = fr.conv1x1_bn_residual_relu.launches
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    ref = np.asarray(jax_fr.matmul_bn_residual_relu(
+        jnp.asarray(x.reshape(-1, cin), jdt), jnp.asarray(kernel, jdt), jnp.asarray(scale),
+        jnp.asarray(shift), jnp.asarray(identity.reshape(-1, cout), jdt)), np.float32)
+    args = (nchw(x).to(dtype), torch.from_numpy(kernel.T.copy()).to(dtype),
+            torch.from_numpy(scale), torch.from_numpy(shift), nchw(identity).to(dtype))
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else
+           dict(rtol=0, atol=2**-7 * np.abs(ref).max()))
+    before = (fr.conv1x1_bn_residual_relu.launches, fr.conv1x1_bn_residual_relu.mma_launches)
     for fn in (fr.reference_conv1x1_bn_residual_relu, fr.conv1x1_bn_residual_relu):
         ours = fn(*args)
-        assert ours.shape == (b, cout, h, w)
+        assert ours.shape == (b, cout, h, w) and ours.dtype == dtype
         assert ours.is_contiguous(memory_format=torch.channels_last)
-        np.testing.assert_allclose(nhwc(ours).reshape(-1, cout), np.asarray(ref),
-                                   rtol=1e-5, atol=1e-5)
-    assert fr.conv1x1_bn_residual_relu.launches == before  # the CPU takes the plain version
+        np.testing.assert_allclose(nhwc(ours).reshape(-1, cout), ref, **tol)
+    # the CPU takes the plain version
+    assert (fr.conv1x1_bn_residual_relu.launches,
+            fr.conv1x1_bn_residual_relu.mma_launches) == before
 
 
 def test_fused_ops_check_their_operands():
@@ -124,6 +132,124 @@ def test_fused_ops_check_their_operands():
         fb.fused_bottleneck(x, *ops[:4], torch.zeros(8, 8), ops[5])
     with pytest.raises(RuntimeError, match="no backward"):
         fb.fused_bottleneck(x.requires_grad_(), *ops)
+
+
+# ---- kernel D's bf16 path, D-mma: its shape check and its tiling emulated -------------------
+
+# Kernel D's (P, Cin, Cout) on the path: the 896x1408 bucket's 4 maps
+# (masked, D on all 16 blocks), then the 768x1280 bucket's 4 (D on the
+# block_0s).
+D_SHAPES = [(224 * 352, 64, 256), (112 * 176, 128, 512), (56 * 88, 256, 1024), (28 * 44, 512, 2048),
+            (192 * 320, 64, 256), (96 * 160, 128, 512), (48 * 80, 256, 1024), (24 * 40, 512, 2048)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_residual_routes_by_dtype_and_cpu_takes_plain(dtype):
+    """bf16 routes to D-mma and fp32 to the SIMT kernel on the card; a CPU
+    call takes the plain version at either dtype and launches nothing;
+    D-mma refuses fp32 before it looks at the device, and both launchers
+    refuse a CPU tensor."""
+    assert fr.route(dtype) == ("mma" if dtype == torch.bfloat16 else "simt")
+    rng = np.random.default_rng(2)
+    ops = (nchw(rng.uniform(0, 1, size=(1, 5, 7, 16)).astype(np.float32)).to(dtype),
+           torch.from_numpy(rng.normal(size=(24, 16)).astype(np.float32)).to(dtype),
+           torch.ones(24), torch.zeros(24),
+           nchw(rng.normal(size=(1, 5, 7, 24)).astype(np.float32)).to(dtype))
+    counts = lambda: (fr.conv1x1_bn_residual_relu.launches,  # noqa: E731
+                      fr.conv1x1_bn_residual_relu.mma_launches)
+    before = counts()
+    assert torch.equal(fr.conv1x1_bn_residual_relu(*ops),
+                       fr.reference_conv1x1_bn_residual_relu(*ops))
+    if dtype == torch.float32:
+        with pytest.raises(TypeError, match="takes bfloat16"):
+            fr.launch_mma(*ops)
+    for launch in ((fr.launch_simt,) if dtype == torch.float32 else (fr.launch_simt, fr.launch_mma)):
+        with pytest.raises(ValueError, match="no fused residual kernel for device cpu"):
+            launch(*ops)
+    assert counts() == before
+
+
+@pytest.mark.parametrize("p,cin,cout", D_SHAPES)
+def test_mma_shape_check_takes_the_path_shapes(p, cin, cout):
+    """D-mma takes each D shape of the path, and its grid of 128 x 128
+    tiles stays within a launch's 2^31 CTAs; it refuses Cin or Cout not a
+    multiple of 8."""
+    fr.check_mma_shape(cin, cout)
+    assert -(-p // 128) * -(-cout // 128) < 2**31
+    for bad in ((cin + 4, cout), (cin, cout - 4), (20, cout)):
+        with pytest.raises(ValueError, match="multiples of 8"):
+            fr.check_mma_shape(*bad)
+
+
+def _d_mma_emulation(x, w, scale, shift, identity, tile=128, kc=32, bn=128):
+    """csrc/fused_residual_mma.cu's algorithm in numpy float64, on (P, Cin)
+    x, (Cout, Cin) w and (P, Cout) identity with bf16 values and float32
+    scale and shift: per tile of ``tile`` pixels x ``bn`` channels, x's rows
+    past P and w's rows past Cout zero-filled, Cin in chunks of ``kc`` in
+    order (columns past Cin zero on both operands), the identity tile zero
+    past P and Cout, then ((acc * scale) + shift) + identity, ReLU and one
+    rounding to bf16. Returns the (P, Cout) output inside a buffer padded to
+    whole tiles, NaN where the kernel stores nothing."""
+    p, cin = x.shape
+    cout = w.shape[0]
+    pp, cp, kp = -(-p // tile) * tile, -(-cout // bn) * bn, -(-cin // kc) * kc
+    xs, ws, ids = np.zeros((pp, kp)), np.zeros((cp, kp)), np.zeros((pp, cp))
+    xs[:p, :cin], ws[:cout, :cin], ids[:p, :cout] = x, w, identity
+    sc, sh = np.zeros(cp), np.zeros(cp)
+    sc[:cout], sh[:cout] = scale, shift
+    y = np.full((pp, cp), np.nan)
+    for p0 in range(0, pp, tile):
+        for c0 in range(0, cp, bn):
+            rows, cols = slice(p0, p0 + tile), slice(c0, c0 + bn)
+            acc = np.zeros((tile, bn))
+            for k0 in range(0, kp, kc):
+                acc += xs[rows, k0:k0 + kc] @ ws[cols, k0:k0 + kc].T
+            out = _bf16(np.maximum((acc * sc[cols] + sh[cols]) + ids[rows, cols], 0))
+            stored = (np.arange(p0, p0 + tile) < p)[:, None] & (np.arange(c0, c0 + bn) < cout)
+            y[rows, cols] = np.where(stored, out, np.nan)
+    return y
+
+
+def _d_case(p, cin, cout, seed):
+    rng = np.random.default_rng(seed)
+    x = _bf16(rng.uniform(0, 1, size=(p, cin)))
+    w = _bf16(rng.normal(size=(cout, cin)) * cin**-0.5)
+    scale = rng.uniform(0.5, 1.5, size=cout).astype(np.float32)
+    shift = (rng.normal(size=cout) * 0.3).astype(np.float32)
+    identity = _bf16(rng.normal(size=(p, cout)))
+    return x, w, scale, shift, identity
+
+
+# (P, Cin, Cout): the card case (2, 48->40, 7x9), ragged P over several
+# pixel tiles with Cin not a whole number of chunks and Cout not of channel
+# tiles, a 64->256 map smaller than one tile, one pixel past a whole tile
+# at the smallest Cin and Cout, P a whole number of tiles, and P and Cout
+# ragged over several tiles each.
+D_EMULATION_CASES = [(2 * 7 * 9, 48, 40), (13 * 21, 200, 136), (5 * 7, 64, 256), (129, 8, 8),
+                     (256, 32, 128), (3 * 7 * 19, 72, 264)]
+
+
+@pytest.mark.parametrize("p,cin,cout", D_EMULATION_CASES)
+def test_d_mma_emulation_matches_jax_and_float64(p, cin, cout):
+    """D-mma's tiling, emulated, stores every output and nothing past P or
+    Cout, and agrees with a float64 chain with the same bf16 rounding point
+    within 1e-6 of the largest output (summation order only), and with the
+    JAX package's matmul_bn_residual_relu (Pallas, interpret mode, bf16
+    operands, float32 sums) within two bf16 ulps of the largest output
+    (2^-7): an output whose float32 and float64 values round to different
+    bf16 values moves by one ulp."""
+    x, w, scale, shift, identity = ops = _d_case(p, cin, cout, seed=p + cin)
+    padded = _d_mma_emulation(*ops)
+    ours = padded[:p, :cout]
+    assert np.isfinite(ours).all()
+    assert np.isnan(padded[p:]).all() and np.isnan(padded[:, cout:]).all()
+    exact = _bf16(np.maximum((x @ w.T) * scale + shift + identity, 0))
+    top = np.abs(exact).max()
+    np.testing.assert_allclose(ours, exact, atol=1e-6 * top, rtol=0)
+    bf = lambda a: jnp.asarray(a, jnp.bfloat16)  # noqa: E731
+    ref = jax_fr.matmul_bn_residual_relu(bf(x), bf(w.T), jnp.asarray(scale), jnp.asarray(shift),
+                                         bf(identity))
+    np.testing.assert_allclose(ours, np.asarray(ref, np.float64), atol=2**-7 * top, rtol=0)
 
 
 # ---- kernel E: the whole identity bottleneck ------------------------------------------------
@@ -635,6 +761,38 @@ def test_fused_backbone_matches_jax(flags, masked):
         ours, unfused = port(*args), plain(*args)
     close(ours.permute(0, 2, 3, 1), ref)
     close(ours, unfused.numpy())
+
+
+def test_fused_bf16_backbone_with_a_pixel_mask_matches_jax():
+    """ResNetBackbone (2,1,1,1) with fuse_residual=True at bf16 (float32
+    parameters, bf16 activations: kernel D on every block) with a pixel
+    mask, against the JAX fused backbone at bf16 from the same random
+    variables as test_fused_backbone_matches_jax: the port's c5 lies at most
+    FUSED_BF16_C5_RATIO = 2 times as far from the JAX fp32 backbone's as the
+    JAX bf16 backbone's own (both gaps are bf16 rounding at different
+    points; chip_smoke.py's rule)."""
+    rng = np.random.default_rng(5)
+    mask = _pixel_mask(2, 64, 96, [(64, 96), (45, 61)])
+    x = (rng.normal(size=(2, 64, 96, 3)) * mask[..., None]).astype(np.float32)
+    stages = (2, 1, 1, 1)
+    jmods = {dt: jax_resnet.ResNetBackbone(stage_sizes=stages, fuse_residual=True, dtype=dt)
+             for dt in (jnp.float32, jnp.bfloat16)}
+    variables = random_variables(jmods[jnp.float32], jnp.asarray(x), seed=5)
+    ref, jax_bf16 = (np.asarray(jax.jit(jmods[dt].apply)(variables, jnp.asarray(x),
+                                                          pixel_mask=jnp.asarray(mask)), np.float32)
+                     for dt in (jnp.float32, jnp.bfloat16))
+    port = resnet.ResNetBackbone(stages, fuse_residual=True).eval()
+    port.load_state_dict(from_jax_variables(variables), strict=True)
+    before = fr.conv1x1_bn_residual_relu.launches, fr.conv1x1_bn_residual_relu.mma_launches
+    with torch.no_grad():
+        ours = port(torch.from_numpy(x).bfloat16(), torch.from_numpy(mask))
+    assert ours.dtype == torch.bfloat16
+    ours = nhwc(ours)
+    top = np.abs(ref).max()
+    gap_port, gap_jax = (np.abs(v - ref).max() / top for v in (ours, jax_bf16))
+    assert 0 < gap_port <= 2.0 * gap_jax, (gap_port, gap_jax)
+    assert (fr.conv1x1_bn_residual_relu.launches,
+            fr.conv1x1_bn_residual_relu.mma_launches) == before  # plain on the CPU
 
 
 @pytest.mark.parametrize("masked", [False, True])
