@@ -9,8 +9,8 @@ Phases, one status line each; any failure raises and exits non-zero:
   2. build: nvcc builds every kernel of the serving and training paths from
      csrc/, one process per source, all at once; prints each kernel's ptxas
      report and the HMMA (tensor-core) instructions in the SASS of the three
-     tensor-core attention kernels, of E-mma, of E-tf32 and of D-mma, and
-     fails if any has none;
+     tensor-core attention kernels, of E-mma, of E-tf32, of D-mma and of
+     D-tf32, and fails if any has none;
   3. kernels: attention A at every shape of the served path against its
      plain PyTorch version: fp32 (TF32 off) through the tensor-core kernel
      A-tf32 (3xTF32) and through the SIMT kernel called directly, bf16
@@ -31,8 +31,10 @@ Phases, one status line each; any failure raises and exits non-zero:
   5. serving: full-width DETR-R50 (seeded random weights) behind
      ``Predictor``: 3 requests with the launch counters reset just before,
      the whole forward against the plain-attention model, padded against
-     exact, and one bf16 request (A-mma 18 per bf16 forward, A-tf32 18 per
-     fp32 one, the SIMT kernel 0);
+     exact, the same fp32 forward under torch's default TF32 flags (cuDNN
+     convs on TF32) against TF32 off (a reading of boxes and logits beside
+     the golden tolerances, not a gate), and one bf16 request (A-mma 18 per
+     bf16 forward, A-tf32 18 per fp32 one, the SIMT kernel 0);
   6. http: the port's HTTP service on 127.0.0.1, 3 POSTs and /healthz;
   7. int8 kernels: F (fused int8 1x1) and G (int8 3x3, stride 1 and 2) at
      every distinct shape of the b1 896x1408 int8 forward against their
@@ -53,10 +55,11 @@ Phases, one status line each; any failure raises and exits non-zero:
      of the fused-backbone model, at 896x1408 with a mask (C, D x16) and
      768x1280 bucket-exact (C, D x4, E x12), fp32 (TF32 off) and bf16,
      against their plain versions (C bit-equal), with kernel, plain and
-     yardstick times from CUDA graphs and each shape's bound; D runs on the
-     SIMT kernel at fp32 and on D-mma (bf16 tensor cores, the output tile
-     staged in shared memory) at bf16, timed beside the SIMT D called at
-     bf16; E runs on
+     yardstick times from CUDA graphs and each shape's bound; D runs on
+     D-tf32 (TF32 tensor cores, 3xTF32) at fp32, with its bound as 3xTF32,
+     and on D-mma (bf16 tensor cores) at bf16, both with the output tile
+     staged in shared memory, each timed beside the SIMT D called at its
+     dtype (at fp32 with its bound on the fp32 pipes); E runs on
      E-tf32 (TF32 tensor cores, 3xTF32, thread-block clusters) at fp32, with
      its bound as 3xTF32 and on the fp32 pipes, and on E-mma (bf16 tensor
      cores, thread-block clusters) at bf16, one compiled plan per width
@@ -65,15 +68,16 @@ Phases, one status line each; any failure raises and exits non-zero:
  11. fused serving: full-width DETR-R50 with ``fuse_residual=True,
      fuse_bottleneck=True`` and the unfused model from one seed and one set
      of nonzero FrozenBN buffers: 3 requests through ``Predictor`` with the
-     counters reset just before (per bucket-exact forward C 1, SIMT D 4,
+     counters reset just before (per bucket-exact forward C 1, D-tf32 4,
      D-mma 0, SIMT E 0, E-mma 0, E-tf32 12, A-tf32 18; per masked forward C
-     1, SIMT D 16, E 0, A-tf32 18), c5, boxes and logits against the unfused
-     model at fp32; the fused bf16 model's main path, a bucket-exact and a
-     masked request with the counters reset just before (C 1, D-mma 4,
-     E-mma 12, A-mma 18; C 1, D-mma 16, E 0, A-mma 18; SIMT D 0), the fused
+     1, D-tf32 16, E 0, A-tf32 18; SIMT D 0), c5, boxes and logits against
+     the unfused model at fp32; the fused bf16 model's main path, a
+     bucket-exact and a masked request with the counters reset just before
+     (C 1, D-mma 4, E-mma 12, A-mma 18; C 1, D-mma 16, E 0, A-mma 18; SIMT D
+     and D-tf32 0), the fused
      bf16 model's c5 against the unfused fp32 model's beside the unfused
      bf16 model's own gap at both, and the median latency of both models at
-     768x1280 b1, fp32 and bf16, and at 800x1333 b1, bf16, with each one's
+     768x1280 b1 and 800x1333 b1, fp32 and bf16, with each one's
      device-busy time and idle share under ``torch.profiler``.
 Kernel C runs in every ``ResNetBackbone`` forward: serving, training and
 fused serving count it (1 per forward or step); the int8 model's stem is
@@ -119,10 +123,10 @@ SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "lap.cu", "int8_m
            "int8_conv.cu", "maxpool.cu", "fused_residual.cu", "fused_bottleneck.cu",
            "flash_attention_fwd_mma.cu", "flash_attention_bwd_mma.cu",
            "flash_attention_fwd_tf32.cu", "fused_bottleneck_mma.cu", "fused_bottleneck_tf32.cu",
-           "fused_residual_mma.cu")
+           "fused_residual_mma.cu", "fused_residual_tf32.cu")
 MMA_SOURCES = ("flash_attention_fwd_mma.cu", "flash_attention_bwd_mma.cu",
                "flash_attention_fwd_tf32.cu", "fused_bottleneck_mma.cu", "fused_bottleneck_tf32.cu",
-               "fused_residual_mma.cu")
+               "fused_residual_mma.cu", "fused_residual_tf32.cu")
 CSRC = "detr_tensorflow_tpu_torch/csrc/"
 REPLACES = {
     "flash_attention_fwd": "detr_tensorflow_tpu/ops/pallas/flash_attention.py:77",
@@ -136,6 +140,7 @@ REPLACES = {
     "maxpool": "detr_tensorflow_tpu/ops/pallas/maxpool.py:99",
     "fused_residual": "detr_tensorflow_tpu/ops/pallas/fused_residual.py:37",
     "fused_residual_mma": "detr_tensorflow_tpu/ops/pallas/fused_residual.py:37",
+    "fused_residual_tf32": "detr_tensorflow_tpu/ops/pallas/fused_residual.py:37",
     "fused_bottleneck": "detr_tensorflow_tpu/ops/pallas/fused_bottleneck.py:54",
     "fused_bottleneck_mma": "detr_tensorflow_tpu/ops/pallas/fused_bottleneck.py:54",
     "fused_bottleneck_tf32": "detr_tensorflow_tpu/ops/pallas/fused_bottleneck.py:54",
@@ -182,11 +187,11 @@ FUSED_MASKED, FUSED_EXACT = (896, 1408), (768, 1280)
 FUSED_RTOL = {"float32": 1e-5, "bfloat16": 2e-2}
 FUSED_C5_RTOL = 1e-4
 FUSED_BF16_C5_RATIO = 2.0
-# (C, SIMT D, D-mma, SIMT E, E-mma, E-tf32) per b1 forward of the fused model.
-FUSED_PER_FORWARD = {("exact", "float32"): (1, 4, 0, 0, 0, 12),
-                     ("masked", "float32"): (1, 16, 0, 0, 0, 0),
-                     ("exact", "bfloat16"): (1, 0, 4, 0, 12, 0),
-                     ("masked", "bfloat16"): (1, 0, 16, 0, 0, 0)}
+# (C, SIMT D, D-mma, D-tf32, SIMT E, E-mma, E-tf32) per b1 forward of the fused model.
+FUSED_PER_FORWARD = {("exact", "float32"): (1, 0, 0, 4, 0, 0, 12),
+                     ("masked", "float32"): (1, 0, 0, 16, 0, 0, 0),
+                     ("exact", "bfloat16"): (1, 0, 4, 0, 0, 12, 0),
+                     ("masked", "bfloat16"): (1, 0, 16, 0, 0, 0, 0)}
 
 
 def log(msg: str) -> None:
@@ -638,7 +643,32 @@ def check_detections(dets, num_classes=92):
             raise AssertionError("detections out of range")
 
 
-def phase_serving(torch, fa, mp, api, Predictor):
+def tf32_default_reading(torch, model, x, mask, tf32_defaults):
+    """The fp32 forward under torch's default TF32 flags ``tf32_defaults``
+    ((matmul, cuDNN), read before main turns both off) against the same
+    forward with TF32 off: max |delta| of boxes and logits beside the golden
+    tolerances. A reading, not a gate; both flags are restored."""
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    saved = tuple(f.allow_tf32 for f in flags)
+    try:
+        with torch.inference_mode():
+            ref = model(x, mask)
+            for f, value in zip(flags, tf32_defaults):
+                f.allow_tf32 = value
+            out = model(x, mask)
+        torch.cuda.synchronize()
+    finally:
+        for f, value in zip(flags, saved):
+            f.allow_tf32 = value
+    errs = {k: float((out[k] - ref[k]).abs().max()) for k in ("pred_boxes", "pred_logits")}
+    log(f"  fp32 forward under torch's default TF32 flags (matmul {tf32_defaults[0]}, cuDNN "
+        f"{tf32_defaults[1]}) against TF32 off, unfused 800x1333 b1: boxes max |delta| "
+        f"{errs['pred_boxes']:.3e} (golden tol {BOX_ATOL}), logits {errs['pred_logits']:.3e} "
+        f"(golden tol {LOGIT_ATOL}); a reading, not a gate")
+    return errs
+
+
+def phase_serving(torch, fa, mp, api, Predictor, tf32_defaults):
     model = api.build_detr(seed=0, device=DEVICE)
     predictor = Predictor(model, background_class=91)
     img_a, img_b, img_c, img_d = random_images(
@@ -691,6 +721,7 @@ def phase_serving(torch, fa, mp, api, Predictor):
         log(f"  forward {key}: kernel vs plain attention max_abs_err {err:.3e} (tol {atol})")
         if not err <= atol:
             raise AssertionError(f"{key} disagrees with the plain-attention model: {err}")
+    tf32_errs = tf32_default_reading(torch, model, x, pm, tf32_defaults)
 
     # Padded = exact: 768x1280 alone vs on an 896x1408 canvas with its mask.
     exact_img = random_images([(768, 1280)], seed=2)[0]
@@ -730,7 +761,8 @@ def phase_serving(torch, fa, mp, api, Predictor):
     log(f"  Predictor 800x1333 b1 bf16: first {bf16_ms:.2f} ms, median "
         f"{statistics.median(lat16):.2f} ms of {[round(x, 2) for x in lat16]}")
     del plain, model_bf16, pred_bf16
-    return predictor, launches, mma_launches, pool_launches, fp32_ms, statistics.median(lat16)
+    return (predictor, launches, mma_launches, pool_launches, fp32_ms, statistics.median(lat16),
+            tf32_errs)
 
 
 def int8_path_shapes(height, width):
@@ -1129,6 +1161,12 @@ def fused_path_shapes(height, width, masked):
     return c_shape, d, e
 
 
+def d_counts(fr):
+    """Kernel D's launch counters: (SIMT D, D-mma, D-tf32)."""
+    d = fr.conv1x1_bn_residual_relu
+    return d.launches, d.mma_launches, d.tf32_launches
+
+
 def fused_rel_err(got, ref) -> float:
     return float((got.float() - ref.float()).abs().max()) / max(1.0, float(ref.float().abs().max()))
 
@@ -1200,36 +1238,42 @@ def phase_fused_kernels(torch, mp, fr, fb):
                 identity = cl(1, cout, h, w, fill=torch.randn).to(dtype)
                 sd, td = scale.to(dtype)[:, None, None], shift.to(dtype)[:, None, None]
                 p = h * w
-                bound = bound_ms((p * (cin + 2 * cout) + cout * cin) * size + 8 * cout,
-                                 {name: 2 * p * cin * cout, "float32": 4 * p * cout})
+                nbytes = (p * (cin + 2 * cout) + cout * cin) * size + 8 * cout
+                gemm, epilogue = 2 * p * cin * cout, 4 * p * cout
+                # At fp32 D-tf32's bound as 3xTF32 (three MMAs a product) and the SIMT D's
+                # on the fp32 pipes, the GEMM counted in both; at bf16 both at the bf16 peak.
+                mma = name == "bfloat16"
+                if mma:
+                    bound = simt_bound = bound_ms(nbytes, {"bfloat16": gemm, "float32": epilogue})
+                else:
+                    bound = bound_ms(nbytes, {"tf32": 3 * gemm, "float32": epilogue})
+                    simt_bound = bound_ms(nbytes, {"float32": gemm + epilogue})
                 label = f"({cin}->{cout}, {h}x{w})"
                 ops = (x, wt, scale, shift, identity)
                 plain = lambda: fr.reference_conv1x1_bn_residual_relu(*ops)  # noqa: E731
                 chain = lambda: F.relu(F.conv2d(x, wt) * sd + td + identity)  # noqa: E731
-                # conv1x1_bn_residual_relu routes bf16 to D-mma, fp32 to the SIMT D.
-                mma = name == "bfloat16"
-                before = (fr.conv1x1_bn_residual_relu.mma_launches,
-                          fr.conv1x1_bn_residual_relu.launches)
+                # conv1x1_bn_residual_relu routes bf16 to D-mma, fp32 to D-tf32.
+                kernel, short, bn = (("fused_residual_mma", "D-mma", 128) if mma else
+                                     ("fused_residual_tf32", "D-tf32", 64))
+                before = d_counts(fr)
                 fr.conv1x1_bn_residual_relu(*ops)
-                if (fr.conv1x1_bn_residual_relu.mma_launches - before[0],
-                        fr.conv1x1_bn_residual_relu.launches - before[1]) != (int(mma), int(not mma)):
-                    raise AssertionError(f"D {label} {name} did not route to "
-                                         f"{'D-mma' if mma else 'the SIMT D'}")
+                if tuple(a - b for a, b in zip(d_counts(fr), before)) != (0, int(mma), int(not mma)):
+                    raise AssertionError(f"D {label} {name} did not route to {short}")
                 kms, pms, yard, err = record(
-                    "fused_residual_mma" if mma else "fused_residual", tag, name, count,
-                    lambda: fr.conv1x1_bn_residual_relu(*ops), plain, chain, bound, False, label)
-                if mma:  # the SIMT D called at bf16, beside D-mma
-                    simt, _, _, simt_err = record("fused_residual", tag, name, count,
-                                                  lambda: fr.launch_simt(*ops), plain, chain,
-                                                  bound, False, label)
-                    kernels = (f"D-mma {kms:.4f} ms ({-(-p // 128) * -(-cout // 128)} CTAs of "
-                               f"128x128), SIMT D {simt:.4f} ms")
-                    errs = f"D-mma {err:.2e}, SIMT {simt_err:.2e}"
-                else:
-                    kernels, errs = f"SIMT D {kms:.4f} ms", f"{err:.2e}"
-                log(f"  D {tag} {cin}->{cout} {h}x{w} (x{count}) {name}: {kernels}, plain "
-                    f"{pms:.4f} ms, unfused cuDNN chain (conv, BN, residual, ReLU; not the same "
-                    f"function) {yard:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); rel err {errs}")
+                    kernel, tag, name, count, lambda: fr.conv1x1_bn_residual_relu(*ops), plain,
+                    chain, bound, False, label)
+                # the SIMT D called at the same dtype, beside it
+                simt, _, _, simt_err = record("fused_residual", tag, name, count,
+                                              lambda: fr.launch_simt(*ops), plain, chain,
+                                              simt_bound, False, label)
+                bounds = (f"bound {bound[0]:.4f} ms ({bound[1]})" if mma else
+                          f"bound {bound[0]:.4f} ms as 3xTF32 ({bound[1]}), "
+                          f"{simt_bound[0]:.4f} ms on the fp32 pipes ({simt_bound[1]})")
+                log(f"  D {tag} {cin}->{cout} {h}x{w} (x{count}) {name}: {short} {kms:.4f} ms "
+                    f"({-(-p // 128) * -(-cout // bn)} CTAs of 128x{bn}), SIMT D {simt:.4f} ms, "
+                    f"plain {pms:.4f} ms, unfused cuDNN chain (conv, BN, residual, ReLU; not the "
+                    f"same function) {yard:.4f} ms, {bounds}; rel err {short} {err:.2e}, SIMT "
+                    f"{simt_err:.2e}")
             for (c, m, h, w), count in sorted(e_shapes.items()):
                 x = cl(1, c, h, w).to(dtype)
                 w1t, w2t, w3t = (normal(*s, std=k**-0.5).to(dtype)
@@ -1339,16 +1383,16 @@ def phase_fused_serving(torch, fa, mp, fr, fb, api, Predictor):
     predictor = Predictor(models[("float32", True)], background_class=BACKGROUND)
     predictor.warmup([(800, 1333), (768, 1280)])  # both routes of each bucket
     d = fr.conv1x1_bn_residual_relu
-    names = "C, SIMT D, D-mma, SIMT E, E-mma, E-tf32, A-tf32, A-mma, A SIMT"
+    names = "C, SIMT D, D-mma, D-tf32, SIMT E, E-mma, E-tf32, A-tf32, A-mma, A SIMT"
 
     def counts():
-        return (mp.max_pool_3x3_s2.launches, d.launches, d.mma_launches,
+        return (mp.max_pool_3x3_s2.launches, *d_counts(fr),
                 fb.fused_bottleneck.launches, fb.fused_bottleneck.mma_launches,
                 fb.fused_bottleneck.tf32_launches, fa.mha.tf32_launches, fa.mha.mma_launches,
                 fa.mha.launches)
 
     def reset():
-        mp.max_pool_3x3_s2.launches = d.launches = d.mma_launches = 0
+        mp.max_pool_3x3_s2.launches = d.launches = d.mma_launches = d.tf32_launches = 0
         fb.fused_bottleneck.launches = fb.fused_bottleneck.mma_launches = 0
         fb.fused_bottleneck.tf32_launches = 0
         fa.mha.tf32_launches = fa.mha.mma_launches = fa.mha.launches = 0
@@ -1364,7 +1408,7 @@ def phase_fused_serving(torch, fa, mp, fr, fb, api, Predictor):
             times.append(1e3 * (time.perf_counter() - t0))
             seen.append(counts())
             check_detections(dets)
-        per = [tuple(b - a for a, b in zip((0,) * 9 if i == 0 else seen[i - 1], c))
+        per = [tuple(b - a for a, b in zip((0,) * len(c) if i == 0 else seen[i - 1], c))
                for i, c in enumerate(seen)]
         return per, times, seen[-1]
 
@@ -1378,7 +1422,7 @@ def phase_fused_serving(torch, fa, mp, fr, fb, api, Predictor):
         raise AssertionError(f"fused launches {per}, expected {expected}")
 
     # fp32 (TF32 off): c5, boxes and logits against the unfused model, at a
-    # bucket-exact forward (E and D) and a masked one (D only).
+    # bucket-exact forward (E-tf32 and D-tf32) and a masked one (D-tf32 only).
     fused, plain = models[("float32", True)], models[("float32", False)]
     with torch.inference_mode():
         exact = predictor.normalize(torch.from_numpy(img_e[None]).to(DEVICE))
@@ -1404,11 +1448,9 @@ def phase_fused_serving(torch, fa, mp, fr, fb, api, Predictor):
     for dtype in ("float32", "bfloat16"):
         preds = {fused_: Predictor(models[(dtype, fused_)], background_class=BACKGROUND)
                  for fused_ in (True, False)}
-        images = {"768x1280": img_e}
-        if dtype == "bfloat16":
-            images["800x1333"] = img_m
+        images = {"768x1280": img_e, "800x1333": img_m}
         for pred in preds.values():
-            pred.warmup([(768, 1280)] + ([(800, 1333)] if dtype == "bfloat16" else []))
+            pred.warmup([(768, 1280), (800, 1333)])
         if dtype == "bfloat16":
             # main path of the fused bf16 model: a bucket-exact request, then a masked one
             per, _, bf16_counts = per_request(preds[True], ([img_e], [img_m]))
@@ -1464,7 +1506,9 @@ def main() -> int:
     from detr_tensorflow_tpu_torch.ops import fused_bottleneck, fused_residual, maxpool
     from detr_tensorflow_tpu_torch.predictor import Predictor
 
-    # fp32 parity needs full fp32 matmuls and convolutions (TF32 off).
+    # fp32 parity needs full fp32 matmuls and convolutions (TF32 off); torch's
+    # defaults are kept for the serving phase's reading of them.
+    tf32_defaults = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1504,8 +1548,8 @@ def main() -> int:
     log(f"[lap] ok in {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
-    predictor, launches, mma_serving, pool_serving, fp32_ms, bf16_ms = phase_serving(
-        torch, fa, maxpool, api, Predictor)
+    predictor, launches, mma_serving, pool_serving, fp32_ms, bf16_ms, tf32_errs = phase_serving(
+        torch, fa, maxpool, api, Predictor, tf32_defaults)
     log(f"[serving] ok in {time.perf_counter() - t:.1f} s, {launches} A-tf32 launches "
         f"in 3 fp32 forwards, {mma_serving} A-mma in 1 bf16 forward")
 
@@ -1592,34 +1636,37 @@ def main() -> int:
                     pool_serving + counts[3] + fused_counts[0] + fused_bf16_counts[0], masked_tag),
         fused_entry("fused_residual", SOURCES[6], fused_counts[1] + fused_bf16_counts[1],
                     masked_tag),
-        fused_entry("fused_bottleneck", SOURCES[7], fused_counts[3] + fused_bf16_counts[3],
+        fused_entry("fused_bottleneck", SOURCES[7], fused_counts[4] + fused_bf16_counts[4],
                     exact_tag),
-        entry("flash_attention_fwd_mma", SOURCES[8], mma_serving + int8_a + fused_bf16_counts[7],
+        entry("flash_attention_fwd_mma", SOURCES[8], mma_serving + int8_a + fused_bf16_counts[8],
               worst["bfloat16"], a16["mma"], a16["plain"], *a16["bound"], a16["sdpa"]),
         entry("flash_attention_bwd_mma", SOURCES[9], counts[4], bwd_worst["float32"], bwd["mma"],
               bwd["plain"], *bwd["bound3x"], bwd["sdpa"]),
-        entry("flash_attention_fwd_tf32", SOURCES[10], launches + counts[0] + fused_counts[6],
+        entry("flash_attention_fwd_tf32", SOURCES[10], launches + counts[0] + fused_counts[7],
               worst["float32"], a32["tf32"], a32["plain"], *a32["bound3x"], a32["sdpa"]),
-        fused_entry("fused_bottleneck_mma", SOURCES[11], fused_counts[4] + fused_bf16_counts[4],
+        fused_entry("fused_bottleneck_mma", SOURCES[11], fused_counts[5] + fused_bf16_counts[5],
                     exact_tag, "bfloat16"),
-        fused_entry("fused_bottleneck_tf32", SOURCES[12], fused_counts[5] + fused_bf16_counts[5],
+        fused_entry("fused_bottleneck_tf32", SOURCES[12], fused_counts[6] + fused_bf16_counts[6],
                     exact_tag),
         fused_entry("fused_residual_mma", SOURCES[13], fused_counts[2] + fused_bf16_counts[2],
                     masked_tag, "bfloat16"),
+        fused_entry("fused_residual_tf32", SOURCES[14], fused_counts[3] + fused_bf16_counts[3],
+                    masked_tag),
     ]}
     tf32_chain = fused_times[("fused_bottleneck_tf32", exact_tag, "float32")][2]
     d_mma_chain = fused_times[("fused_residual_mma", masked_tag, "bfloat16")][2]
+    d_tf32_chain = fused_times[("fused_residual_tf32", masked_tag, "float32")][2]
     log(f"[summary] flash_attention_fwd (SIMT): max_abs_err fp32 called directly "
         f"{worst['simt float32']:.3e} (bf16 {worst['simt bfloat16']:.3e}), ms/plain_ms/library_ms "
         f"(scaled_dot_product_attention) at (1232,1232) fp32 B=2 H=8 Dh=32 from CUDA graphs, "
         f"launches 0 (no path of the port runs bf16 with dropout; fp32 runs A-tf32), bound on "
         f"the fp32 pipes; flash_attention_fwd_tf32 (3xTF32): max_abs_err fp32 "
         f"{worst['float32']:.3e}, ms/plain_ms/library_ms at (1232,1232) fp32 B=2 from CUDA "
-        f"graphs, launches {launches} fp32 serving + {counts[0]} training + {fused_counts[6]} "
+        f"graphs, launches {launches} fp32 serving + {counts[0]} training + {fused_counts[7]} "
         f"fused fp32 serving, bound as 3xTF32 on the tensor cores; flash_attention_fwd_mma: "
         f"max_abs_err bf16 {worst['bfloat16']:.3e}, "
         f"ms/plain_ms/library_ms at (1232,1232) bf16 B=2 from CUDA graphs, launches "
-        f"{mma_serving} bf16 serving + {int8_a} int8 serving + {fused_bf16_counts[7]} fused bf16 "
+        f"{mma_serving} bf16 serving + {int8_a} int8 serving + {fused_bf16_counts[8]} fused bf16 "
         f"serving; flash_attention_bwd (SIMT): gradient max_abs_err fp32 (called directly) "
         f"{bwd_worst['simt float32']:.3e}, bf16 {bwd_worst['bfloat16']:.3e}, launches "
         f"{counts[1]} (training runs the tensor-core A'), bound on the fp32 pipes; "
@@ -1636,16 +1683,17 @@ def main() -> int:
         f"at the {masked_tag} stem (1,64,448,704) fp32, launches {pool_serving} serving + "
         f"{counts[3]} training + {fused_counts[0] + fused_bf16_counts[0]} fused serving; "
         f"fused_residual (D, SIMT) and "
-        f"fused_bottleneck (E, SIMT, called directly): max_abs_err fp32 "
+        f"fused_bottleneck (E, SIMT), both called directly: max_abs_err fp32 "
         f"{fused_abs[('fused_residual', 'float32')]:.3e} and "
         f"{fused_abs[('fused_bottleneck', 'float32')]:.3e}, ms/plain_ms/bound_ms summed "
-        f"over one b1 fp32 forward's launches ({masked_tag}: D x16; {exact_tag}: E x12; E's bound "
-        f"on the fp32 pipes), no library call computes either (unfused cuDNN chains printed "
-        f"above), launches in the 3 fused fp32 forwards (E: 0, fp32 runs E-tf32) and the 2 fused "
-        f"bf16 ones (D: 0, bf16 runs D-mma); fused_bottleneck_mma (E-mma): max_abs_err bf16 "
+        f"over one b1 fp32 forward's launches ({masked_tag}: D x16; {exact_tag}: E x12; both "
+        f"bounds on the fp32 pipes, the GEMM counted), no library call computes either (unfused "
+        f"cuDNN chains printed above), launches in the 3 fused fp32 forwards (0: fp32 runs D-tf32 "
+        f"and E-tf32) and the 2 fused bf16 ones (0: bf16 runs D-mma and E-mma); "
+        f"fused_bottleneck_mma (E-mma): max_abs_err bf16 "
         f"{fused_abs[('fused_bottleneck_mma', 'bfloat16')]:.3e}, ms/plain_ms/bound_ms summed "
         f"over one b1 bf16 {exact_tag} forward's 12 launches, "
-        f"launches {fused_counts[4]} in the 3 fused fp32 forwards + {fused_bf16_counts[4]} in "
+        f"launches {fused_counts[5]} in the 3 fused fp32 forwards + {fused_bf16_counts[5]} in "
         f"the 2 fused bf16 ones; fused_residual_mma (D-mma): max_abs_err bf16 "
         f"{fused_abs[('fused_residual_mma', 'bfloat16')]:.3e}, ms/plain_ms/bound_ms summed over "
         f"one b1 bf16 {masked_tag} forward's 16 launches (the unfused bf16 cuDNN chain, not the "
@@ -1655,8 +1703,14 @@ def main() -> int:
         f"{fused_abs[('fused_bottleneck_tf32', 'float32')]:.3e}, ms/plain_ms/bound_ms summed over "
         f"one b1 fp32 {exact_tag} forward's 12 launches (bound as 3xTF32 on the tensor cores; "
         f"the unfused fp32 cuDNN chain, not the same function, {tf32_chain:.4f} ms), launches "
-        f"{fused_counts[5]} in the 3 fused fp32 forwards + {fused_bf16_counts[5]} in the 2 fused "
-        f"bf16 ones")
+        f"{fused_counts[6]} in the 3 fused fp32 forwards + {fused_bf16_counts[6]} in the 2 fused "
+        f"bf16 ones; fused_residual_tf32 (D-tf32, 3xTF32): max_abs_err fp32 "
+        f"{fused_abs[('fused_residual_tf32', 'float32')]:.3e}, ms/plain_ms/bound_ms summed over "
+        f"one b1 fp32 {masked_tag} forward's 16 launches (bound as 3xTF32 on the tensor cores; the "
+        f"unfused fp32 cuDNN chain, not the same function, {d_tf32_chain:.4f} ms), launches "
+        f"{fused_counts[3]} in the 3 fused fp32 forwards + {fused_bf16_counts[3]} in the 2 fused "
+        f"bf16 ones; torch's default TF32 flags against TF32 off, unfused fp32 800x1333 b1 "
+        f"(a reading): boxes {tf32_errs['pred_boxes']:.3e}, logits {tf32_errs['pred_logits']:.3e}")
     log(smi)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

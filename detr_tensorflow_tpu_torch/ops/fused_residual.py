@@ -1,5 +1,6 @@
 """The fused bottleneck tail, relu(conv1x1(x) * scale + shift + identity):
-the hand-written Hopper kernels (D, D-mma) and their plain PyTorch version.
+the hand-written Hopper kernels (D-tf32, D-mma and the SIMT D) and their
+plain PyTorch version.
 
 Replaces the TPU kernel ``_kernel`` / ``matmul_bn_residual_relu`` of
 ``detr_tensorflow_tpu/ops/pallas/fused_residual.py`` (and its NHWC wrapper
@@ -12,13 +13,15 @@ float32, then
 ``((acc * scale) + shift) + identity`` in float32, ReLU, one rounding to
 the output type.
 
-Two kernels. ``route`` picks one from the dtype alone: bf16 runs D-mma
-(``csrc/fused_residual_mma.cu``: tensor cores, the output tile staged in
-shared memory so that the identity is read and y written 16 bytes a
-thread; a 128-pixel by 128-channel tile), fp32 runs the SIMT
-kernel (``csrc/fused_residual.cu``), which ``launch_simt`` also calls at
-bf16, for timing. ``conv1x1_bn_residual_relu.mma_launches`` and
-``conv1x1_bn_residual_relu.launches`` count their launches.
+Three kernels. ``route`` picks one from the dtype alone: fp32 runs D-tf32
+(``csrc/fused_residual_tf32.cu``: TF32 tensor cores with fp32-accurate
+3xTF32 products; a 128-pixel by 64-channel tile), bf16 runs D-mma
+(``csrc/fused_residual_mma.cu``: bf16 tensor cores; a 128-pixel by
+128-channel tile). Both stage the output tile in shared memory, so that the
+identity is read and y written 16 bytes a thread. The SIMT kernel
+(``csrc/fused_residual.cu``) runs on no path; ``launch_simt`` calls it at
+either dtype, for timing. ``conv1x1_bn_residual_relu.tf32_launches``,
+``.mma_launches`` and ``.launches`` count their launches.
 
 Inference only, as in the JAX package (no VJP): the function raises when
 autograd would record it. A CUDA tensor launches a kernel and a CPU tensor
@@ -33,7 +36,10 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-_SOURCE, _MMA_SOURCE = "fused_residual.cu", "fused_residual_mma.cu"
+_SOURCE, _MMA_SOURCE, _TF32_SOURCE = ("fused_residual.cu", "fused_residual_mma.cu",
+                                      "fused_residual_tf32.cu")
+_ENTRIES = {_SOURCE: "conv1x1_bn_residual_relu", _MMA_SOURCE: "conv1x1_bn_residual_relu_mma",
+            _TF32_SOURCE: "conv1x1_bn_residual_relu_tf32"}
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -55,9 +61,9 @@ def reference_conv1x1_bn_residual_relu(x, weight, scale, shift, identity):
 
 def route(dtype: torch.dtype) -> str:
     """The kernel a CUDA call takes: "mma" (D-mma, bf16 tensor cores,
-    ``csrc/fused_residual_mma.cu``) for bf16, "simt" (``csrc/fused_residual.cu``)
-    for fp32."""
-    return "mma" if dtype == torch.bfloat16 else "simt"
+    ``csrc/fused_residual_mma.cu``) for bf16, "tf32" (D-tf32, TF32 tensor
+    cores with 3xTF32 products, ``csrc/fused_residual_tf32.cu``) for fp32."""
+    return "mma" if dtype == torch.bfloat16 else "tf32"
 
 
 def check_mma_shape(cin: int, cout: int) -> None:
@@ -65,6 +71,14 @@ def check_mma_shape(cin: int, cout: int) -> None:
     channels: multiples of 8 (16-byte rows)."""
     if cin % 8 or cout % 8:
         raise ValueError(f"the bf16 fused residual kernel takes Cin and Cout multiples of 8 "
+                         f"(16-byte rows), got Cin={cin}, Cout={cout}")
+
+
+def check_tf32_shape(cin: int, cout: int) -> None:
+    """Raise ValueError unless D-tf32 takes ``cin`` input and ``cout``
+    output channels: multiples of 4 (16-byte rows)."""
+    if cin % 4 or cout % 4:
+        raise ValueError(f"the fp32 fused residual kernel takes Cin and Cout multiples of 4 "
                          f"(16-byte rows), got Cin={cin}, Cout={cout}")
 
 
@@ -113,13 +127,13 @@ def _check_kernel_inputs(x, weight, scale, shift, identity):
 
 def _launch(source, operands, *args):
     """One launch of ``csrc/<source>``'s entry point on CUDA operands, with
-    its trailing arguments ``args`` (none for D-mma); returns y."""
+    its trailing arguments ``args`` (none for D-mma and D-tf32); returns y."""
     x, weight, scale, shift, identity = operands
     b, cin, h, w = x.shape
     cout = weight.shape[0]
     out = torch.empty((b, cout, h, w), device=x.device, dtype=x.dtype,
                       memory_format=torch.channels_last)
-    name = "conv1x1_bn_residual_relu" + ("_mma" if source == _MMA_SOURCE else "")
+    name = _ENTRIES[source]
     with torch.cuda.device(x.device):
         err = _entry(source, name, 2 + len(args))(
             x.data_ptr(), weight.data_ptr(), scale.data_ptr(), shift.data_ptr(),
@@ -147,12 +161,12 @@ def conv1x1_bn_residual_relu(x, weight, scale, shift, identity):
         return reference_conv1x1_bn_residual_relu(*operands)
     if route(x.dtype) == "mma":
         return launch_mma(*operands)
-    return launch_simt(*operands)
+    return launch_tf32(*operands)
 
 
 def launch_simt(x, weight, scale, shift, identity):
-    """One launch of the SIMT kernel on CUDA tensors, fp32 or bf16: the fp32
-    route, and bf16 when called directly, for timing beside D-mma."""
+    """One launch of the SIMT kernel on CUDA tensors, fp32 or bf16. No route
+    takes it: it is called directly, for timing beside D-tf32 and D-mma."""
     operands = (x, weight, scale, shift, identity)
     _check(*operands)
     _check_kernel_inputs(*operands)
@@ -161,23 +175,43 @@ def launch_simt(x, weight, scale, shift, identity):
     return out
 
 
+def _launch_tensor_cores(source, dtype, check_shape, operands):
+    """One launch of the tensor-core kernel of ``csrc/<source>``, which
+    takes ``dtype`` and the channel counts ``check_shape`` accepts; returns
+    y."""
+    x, weight, scale, shift, identity = operands
+    name = _ENTRIES[source]
+    _check(*operands)
+    if x.dtype != dtype:
+        raise TypeError(f"the {name} kernel takes {str(dtype).removeprefix('torch.')}, "
+                        f"got {x.dtype}")
+    _check_kernel_inputs(*operands)
+    check_shape(x.shape[1], weight.shape[0])
+    if any(t.data_ptr() % 16 for t in (x, weight, identity)) or any(
+            t.data_ptr() % 8 for t in (scale, shift)):
+        raise ValueError(f"the {name} kernel takes 16-byte aligned x, weight and identity and "
+                         "8-byte aligned scale and shift")
+    return _launch(source, operands)
+
+
 def launch_mma(x, weight, scale, shift, identity):
     """One launch of D-mma on bf16 CUDA tensors. Cin and Cout must be
     multiples of 8 (16-byte rows)."""
-    operands = (x, weight, scale, shift, identity)
-    _check(*operands)
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the conv1x1_bn_residual_relu_mma kernel takes bfloat16, got {x.dtype}")
-    _check_kernel_inputs(*operands)
-    check_mma_shape(x.shape[1], weight.shape[0])
-    if any(t.data_ptr() % 16 for t in (x, weight, identity)) or any(
-            t.data_ptr() % 8 for t in (scale, shift)):
-        raise ValueError("the bf16 fused residual kernel takes 16-byte aligned x, weight and "
-                         "identity and 8-byte aligned scale and shift")
-    out = _launch(_MMA_SOURCE, operands)
+    out = _launch_tensor_cores(_MMA_SOURCE, torch.bfloat16, check_mma_shape,
+                               (x, weight, scale, shift, identity))
     conv1x1_bn_residual_relu.mma_launches += 1
+    return out
+
+
+def launch_tf32(x, weight, scale, shift, identity):
+    """One launch of D-tf32 on fp32 CUDA tensors. Cin and Cout must be
+    multiples of 4 (16-byte rows)."""
+    out = _launch_tensor_cores(_TF32_SOURCE, torch.float32, check_tf32_shape,
+                               (x, weight, scale, shift, identity))
+    conv1x1_bn_residual_relu.tf32_launches += 1
     return out
 
 
 conv1x1_bn_residual_relu.launches = 0
 conv1x1_bn_residual_relu.mma_launches = 0
+conv1x1_bn_residual_relu.tf32_launches = 0

@@ -11,8 +11,8 @@ with ``--fused``, the fused-backbone model (``fuse_residual``,
 the route of kernel D on every block), under ``torch.profiler`` for 3
 forwards after a warm-up, and prints per forward: the device time summed
 over every kernel, the attention forward kernels' share of it (with their
-launches), the hand-written backbone kernels' (C, D, D-mma, E, E-mma,
-E-tf32), and the ten
+launches), the hand-written backbone kernels' (C, D, D-mma, D-tf32, E,
+E-mma, E-tf32), and the ten
 kernels that take the most time. TF32 is off for fp32 matmuls and convolutions, as on
 the served path of ``chip_smoke.py``.
 """
@@ -82,6 +82,7 @@ def main() -> int:
     for label, name in (("C", "max_pool_3x3_s2_kernel"),
                         ("D (SIMT)", "conv1x1_bn_residual_relu_kernel"),
                         ("D-mma", "conv1x1_bn_residual_relu_mma_kernel"),
+                        ("D-tf32", "conv1x1_bn_residual_relu_tf32_kernel"),
                         ("E (SIMT)", "fused_bottleneck_kernel"),
                         ("E-mma", "fused_bottleneck_mma_kernel"),
                         ("E-tf32", "fused_bottleneck_tf32_kernel")):

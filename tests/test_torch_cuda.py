@@ -691,16 +691,17 @@ def _d_operands(device, b, cin, cout, h, w, dtype):
     return x, wt, scale, shift, identity
 
 
-def _d_counts(before=(0, 0)):
-    """Kernel D's launches (SIMT, D-mma), less ``before``."""
+def _d_counts(before=(0, 0, 0)):
+    """Kernel D's launches (SIMT, D-mma, D-tf32), less ``before``."""
     d = fused_residual.conv1x1_bn_residual_relu
-    return tuple(a - b for a, b in zip((d.launches, d.mma_launches), before))
+    return tuple(a - b for a, b in zip((d.launches, d.mma_launches, d.tf32_launches), before))
 
 
 # Kernel D's shapes: the 4 of a masked 896x1408 forward, the 4 of a
 # bucket-exact 768x1280 one, and ragged ones: P, Cin and Cout not multiples
-# of D-mma's tiles and chunks (Cin not a whole number of 32-channel chunks,
-# Cout not of 128-channel tiles), and a map smaller than one tile.
+# of D-mma's and D-tf32's tiles and chunks (Cin not a whole number of 32- or
+# 16-channel chunks, Cout not of 128- or 64-channel tiles), and a map
+# smaller than one tile.
 FUSED_D_CASES = [(1, 64, 256, 224, 352), (1, 128, 512, 112, 176), (1, 256, 1024, 56, 88),
                  (1, 512, 2048, 28, 44), (1, 64, 256, 192, 320), (1, 128, 512, 96, 160),
                  (1, 256, 1024, 48, 80), (1, 512, 2048, 24, 40), (2, 48, 40, 7, 9),
@@ -710,15 +711,15 @@ FUSED_D_CASES = [(1, 64, 256, 224, 352), (1, 128, 512, 112, 176), (1, 256, 1024,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,cin,cout,h,w", FUSED_D_CASES)
 def test_fused_residual_kernel_matches_plain(cuda_device, b, cin, cout, h, w, dtype):
-    """conv1x1_bn_residual_relu launches D-mma at bf16 and the SIMT D at
-    fp32, once, and agrees with the plain version within FUSED_RTOL."""
+    """conv1x1_bn_residual_relu launches D-mma at bf16 and D-tf32 at fp32,
+    once, and agrees with the plain version within FUSED_RTOL."""
     ops = _d_operands(cuda_device, b, cin, cout, h, w, dtype)
     before = _d_counts()
     got = fused_residual.conv1x1_bn_residual_relu(*ops)
     ref = fused_residual.reference_conv1x1_bn_residual_relu(*ops)
     torch.cuda.synchronize()
     mma = dtype == torch.bfloat16
-    assert _d_counts(before) == (int(not mma), int(mma))
+    assert _d_counts(before) == (0, int(mma), int(not mma))
     assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last)
     assert _rel_err(got, ref) <= FUSED_RTOL[dtype]
 
@@ -729,9 +730,20 @@ def test_fused_residual_simt_still_takes_bf16(cuda_device):
     before = _d_counts()
     got = fused_residual.launch_simt(*ops)
     torch.cuda.synchronize()
-    assert _d_counts(before) == (1, 0)
+    assert _d_counts(before) == (1, 0, 0)
     ref = fused_residual.reference_conv1x1_bn_residual_relu(*ops)
     assert _rel_err(got, ref) <= FUSED_RTOL[torch.bfloat16]
+
+
+def test_fused_residual_simt_still_runs_at_fp32(cuda_device):
+    """launch_simt runs the SIMT kernel at fp32 (for timing beside D-tf32)."""
+    ops = _d_operands(cuda_device, 1, 256, 1024, 56, 88, torch.float32)
+    before = _d_counts()
+    got = fused_residual.launch_simt(*ops)
+    torch.cuda.synchronize()
+    assert _d_counts(before) == (1, 0, 0)
+    ref = fused_residual.reference_conv1x1_bn_residual_relu(*ops)
+    assert _rel_err(got, ref) <= FUSED_RTOL[torch.float32]
 
 
 def test_fused_residual_mma_refuses_what_it_does_not_take(cuda_device):
@@ -746,7 +758,21 @@ def test_fused_residual_mma_refuses_what_it_does_not_take(cuda_device):
         fused_residual.conv1x1_bn_residual_relu(*ops)
     with pytest.raises(TypeError, match="takes bfloat16"):
         fused_residual.launch_mma(*_d_operands(cuda_device, 1, 64, 64, 8, 8, torch.float32))
-    assert _d_counts(before) == (0, 0)
+    assert _d_counts(before) == (0, 0, 0)
+
+
+def test_fused_residual_tf32_refuses_what_it_does_not_take(cuda_device):
+    """An fp32 call with Cin (or Cout) not a multiple of 4 raises ValueError
+    and names the rule, with no fallback to the SIMT D; launch_tf32 refuses
+    bf16. No kernel launches."""
+    before = _d_counts()
+    for cin, cout in ((18, 64), (64, 34)):
+        ops = _d_operands(cuda_device, 1, cin, cout, 8, 8, torch.float32)
+        with pytest.raises(ValueError, match="multiples of 4"):
+            fused_residual.conv1x1_bn_residual_relu(*ops)
+    with pytest.raises(TypeError, match="takes float32"):
+        fused_residual.launch_tf32(*_d_operands(cuda_device, 1, 64, 64, 8, 8, torch.bfloat16))
+    assert _d_counts(before) == (0, 0, 0)
 
 
 def _bottleneck_operands(device, c, m, seed, b1=None):
@@ -899,9 +925,8 @@ def test_fused_bottleneck_tf32_refuses_bf16_and_foreign_widths(cuda_device):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_fused_detr_on_the_card(cuda_device, dtype):
     """A reduced-depth fused DETR on the card: C once, D on each block_0,
-    E on each identity block without a mask and none with one; D on the
-    SIMT kernel at fp32 and on D-mma at bf16, E on E-tf32 at fp32 and on
-    E-mma at bf16. fp32 outputs against the
+    E on each identity block without a mask and none with one; D on D-tf32
+    at fp32 and on D-mma at bf16, E on E-tf32 at fp32 and on E-mma at bf16. fp32 outputs against the
     unfused model from the same weights (TF32 off), with nonzero BN
     shifts; at bf16, c5 of the bucket-exact forward (E-mma in every
     identity block) and of the masked one (D-mma in every block) against
@@ -930,7 +955,7 @@ def test_fused_detr_on_the_card(cuda_device, dtype):
         out = fused(x, pixel_mask)
         after = counts()
         assert tuple(a - b for a, b in zip(after, before)) == (
-            1, 0 if mma else d, d if mma else 0, 0, e if mma else 0, 0 if mma else e)
+            1, 0, d if mma else 0, 0 if mma else d, 0, e if mma else 0, 0 if mma else e)
         if mma:
             assert all(bool(torch.isfinite(v).all()) for v in out.values())
             continue

@@ -1,9 +1,10 @@
 """The port's fused-backbone slice against the JAX package: the stem max
 pool (kernel C), the fused bottleneck tail (D) and the whole fused
 bottleneck (E), each through its plain version here on the CPU, numpy
-emulations of E's two tensor-core kernels (E-mma's tiling at bf16, E-tf32's
-tiling and 3xTF32 arithmetic at fp32) and their plans, then the fused
-ResNet backbone and DETR, their routing, and that they refuse to train.
+emulations of D's and E's tensor-core kernels (D-mma's and E-mma's tilings
+at bf16, D-tf32's and E-tf32's tilings and 3xTF32 arithmetic at fp32) and
+their plans, then the fused ResNet backbone and DETR, their routing, and
+that they refuse to train.
 
 JAX runs on the CPU, its Pallas kernels in interpret mode. Inputs come from
 ``np.random.default_rng``; variables from ``random_variables``, whose
@@ -49,6 +50,12 @@ def nchw(x: np.ndarray) -> torch.Tensor:
 
 def nhwc(x: torch.Tensor) -> np.ndarray:
     return x.detach().float().permute(0, 2, 3, 1).numpy()
+
+
+def _d_counts():
+    """Kernel D's launch counters: the SIMT D, D-mma, D-tf32."""
+    d = fr.conv1x1_bn_residual_relu
+    return d.launches, d.mma_launches, d.tf32_launches
 
 
 # ---- kernel C: the stem max pool -------------------------------------------------------------
@@ -106,15 +113,14 @@ def test_fused_residual_matches_jax(dtype):
             torch.from_numpy(scale), torch.from_numpy(shift), nchw(identity).to(dtype))
     tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else
            dict(rtol=0, atol=2**-7 * np.abs(ref).max()))
-    before = (fr.conv1x1_bn_residual_relu.launches, fr.conv1x1_bn_residual_relu.mma_launches)
+    before = _d_counts()
     for fn in (fr.reference_conv1x1_bn_residual_relu, fr.conv1x1_bn_residual_relu):
         ours = fn(*args)
         assert ours.shape == (b, cout, h, w) and ours.dtype == dtype
         assert ours.is_contiguous(memory_format=torch.channels_last)
         np.testing.assert_allclose(nhwc(ours).reshape(-1, cout), ref, **tol)
     # the CPU takes the plain version
-    assert (fr.conv1x1_bn_residual_relu.launches,
-            fr.conv1x1_bn_residual_relu.mma_launches) == before
+    assert _d_counts() == before
 
 
 def test_fused_ops_check_their_operands():
@@ -145,28 +151,29 @@ D_SHAPES = [(224 * 352, 64, 256), (112 * 176, 128, 512), (56 * 88, 256, 1024), (
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_residual_routes_by_dtype_and_cpu_takes_plain(dtype):
-    """bf16 routes to D-mma and fp32 to the SIMT kernel on the card; a CPU
-    call takes the plain version at either dtype and launches nothing;
-    D-mma refuses fp32 before it looks at the device, and both launchers
-    refuse a CPU tensor."""
-    assert fr.route(dtype) == ("mma" if dtype == torch.bfloat16 else "simt")
+    """bf16 routes to D-mma and fp32 to D-tf32 on the card; a CPU call
+    takes the plain version at either dtype and launches nothing; D-mma
+    refuses fp32 and D-tf32 bf16 before either looks at the device, and
+    every launcher refuses a CPU tensor of its dtype."""
+    assert fr.route(dtype) == ("mma" if dtype == torch.bfloat16 else "tf32")
     rng = np.random.default_rng(2)
     ops = (nchw(rng.uniform(0, 1, size=(1, 5, 7, 16)).astype(np.float32)).to(dtype),
            torch.from_numpy(rng.normal(size=(24, 16)).astype(np.float32)).to(dtype),
            torch.ones(24), torch.zeros(24),
            nchw(rng.normal(size=(1, 5, 7, 24)).astype(np.float32)).to(dtype))
-    counts = lambda: (fr.conv1x1_bn_residual_relu.launches,  # noqa: E731
-                      fr.conv1x1_bn_residual_relu.mma_launches)
-    before = counts()
+    before = _d_counts()
     assert torch.equal(fr.conv1x1_bn_residual_relu(*ops),
                        fr.reference_conv1x1_bn_residual_relu(*ops))
     if dtype == torch.float32:
         with pytest.raises(TypeError, match="takes bfloat16"):
             fr.launch_mma(*ops)
-    for launch in ((fr.launch_simt,) if dtype == torch.float32 else (fr.launch_simt, fr.launch_mma)):
+    else:
+        with pytest.raises(TypeError, match="takes float32"):
+            fr.launch_tf32(*ops)
+    for launch in (fr.launch_simt, fr.launch_tf32 if dtype == torch.float32 else fr.launch_mma):
         with pytest.raises(ValueError, match="no fused residual kernel for device cpu"):
             launch(*ops)
-    assert counts() == before
+    assert _d_counts() == before
 
 
 @pytest.mark.parametrize("p,cin,cout", D_SHAPES)
@@ -533,11 +540,18 @@ def _tf32(a):
     return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
 
 
-def _split_tf32(a):
-    """``tf32mma::split_tf32``: (big, small), TF32 values as float64."""
+def _split_tf32(a, trunc_small=False):
+    """``tf32mma::split_tf32``: (big, small), TF32 values as float64. With
+    ``trunc_small``, D-tf32's ``split_operand``: small = a - big passed to
+    the MMA unrounded, modelled as the MMA truncating it to TF32."""
     a = np.asarray(a, np.float32)
     big = _tf32(a)
-    return big.astype(np.float64), _tf32(a - big).astype(np.float64)
+    small = a - big
+    if trunc_small:
+        small = (small.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+    else:
+        small = _tf32(small)
+    return big.astype(np.float64), small.astype(np.float64)
 
 
 def _mma(acc, a, b):
@@ -549,13 +563,14 @@ def _mma(acc, a, b):
     return np.where(np.abs(r) > np.abs(v), np.nextafter(r, np.float32(0)), r)
 
 
-def _tf32_product(a, b, split=True, flush=True):
+def _tf32_product(a, b, split=True, flush=True, trunc_small=False):
     """a (R, K) @ b (K, N), float32, as E-tf32's chunk_product sums it: per
     k8 step one MMA of the big parts into hi and, with ``split`` (3xTF32),
     two MMAs of the cross terms chained into lo; hi added to the running
     float32 sum at the end of each 32-row chunk with ``flush`` (else chained
-    through the whole contraction); then (sum + lo) in float32."""
-    (ab, a_small), (bb, b_small) = _split_tf32(a), _split_tf32(b)
+    through the whole contraction); then (sum + lo) in float32. Operands
+    split as ``_split_tf32(trunc_small)``."""
+    (ab, a_small), (bb, b_small) = (_split_tf32(v, trunc_small) for v in (a, b))
     acc, hi, lo = (np.zeros((a.shape[0], b.shape[1]), np.float32) for _ in range(3))
     for k0 in range(0, a.shape[1], 8):
         s = slice(k0, k0 + 8)
@@ -708,6 +723,107 @@ def test_tf32_emulation_sees_a_leaky_halo_and_a_broken_exchange():
     assert np.abs(early - exact).max() > 100 * 1e-5 * scale
 
 
+# ---- kernel D's fp32 path, D-tf32: its shape check, its tiling and arithmetic emulated --------
+
+
+@pytest.mark.parametrize("p,cin,cout", D_SHAPES)
+def test_tf32_shape_check_takes_the_path_shapes(p, cin, cout):
+    """D-tf32 takes each D shape of the path, and its grid of 128-pixel x
+    64-channel tiles stays within a launch's 2^31 CTAs and gives at least
+    one CTA per SM of the H100 (132); it refuses Cin or Cout not a multiple
+    of 4."""
+    fr.check_tf32_shape(cin, cout)
+    assert 132 <= -(-p // 128) * -(-cout // 64) < 2**31
+    for bad in ((cin + 2, cout), (cin, cout - 2), (18, cout)):
+        with pytest.raises(ValueError, match="multiples of 4"):
+            fr.check_tf32_shape(*bad)
+
+
+def _d_tf32_emulation(x, w, scale, shift, identity, tile=128, kc=32, bn=64):
+    """csrc/fused_residual_tf32.cu's algorithm in numpy, on float32 (P, Cin)
+    x, (Cout, Cin) w, (P, Cout) identity, scale and shift: per tile of
+    ``tile`` pixels x ``bn`` channels, x's rows past P and w's rows past Cout
+    zero-filled, Cin in chunks of ``kc`` (columns past Cin zero on both
+    operands) walked in k8 steps in order, each step's 3xTF32 MMAs with
+    every MMA's add truncated and small truncated to TF32, big x big chained
+    through one accumulator and the cross terms through another over the
+    whole sum (``_tf32_product(flush=False, trunc_small=True)``), then (hi +
+    lo), ((acc * scale) + shift)
+    + identity in float32 (the identity tile zero past P and Cout) and ReLU.
+    Returns the (P, Cout) output inside a buffer padded to whole tiles, NaN
+    where the kernel stores nothing."""
+    p, cin = x.shape
+    cout = w.shape[0]
+    pp, cp, kp = -(-p // tile) * tile, -(-cout // bn) * bn, -(-cin // kc) * kc
+    xs, ws = np.zeros((pp, kp), np.float32), np.zeros((cp, kp), np.float32)
+    ids, sc, sh = (np.zeros(s, np.float32) for s in ((pp, cp), cp, cp))
+    xs[:p, :cin], ws[:cout, :cin], ids[:p, :cout] = x, w, identity
+    sc[:cout], sh[:cout] = scale, shift
+    y = np.full((pp, cp), np.nan, np.float32)
+    for p0 in range(0, pp, tile):
+        for c0 in range(0, cp, bn):
+            rows, cols = slice(p0, p0 + tile), slice(c0, c0 + bn)
+            acc = _tf32_product(xs[rows], ws[cols].T, flush=False, trunc_small=True)
+            out = np.maximum(((acc * sc[cols]) + sh[cols]) + ids[rows, cols], np.float32(0))
+            stored = (np.arange(p0, p0 + tile) < p)[:, None] & (np.arange(c0, c0 + bn) < cout)
+            y[rows, cols] = np.where(stored, out, np.nan)
+    return y
+
+
+def _d_tf32_case(p, cin, cout, seed):
+    """float32 x (post-ReLU, in [0, 1)), weights scaled by their fan-in, the
+    moderate FrozenBN scale and shift of ``_d_case`` and a unit-normal
+    identity."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, size=(p, cin)).astype(np.float32)
+    w = (rng.normal(size=(cout, cin)) * cin**-0.5).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, size=cout).astype(np.float32)
+    shift = (rng.normal(size=cout) * 0.3).astype(np.float32)
+    identity = rng.normal(size=(p, cout)).astype(np.float32)
+    return x, w, scale, shift, identity
+
+
+@pytest.mark.parametrize("p,cin,cout", D_EMULATION_CASES)
+def test_d_tf32_emulation_matches_jax_and_float64(p, cin, cout):
+    """D-tf32's tiling and 3xTF32 arithmetic, emulated with every MMA's add
+    truncated, store every output and nothing past P or Cout, and agree with
+    a float64 chain and with the JAX package's matmul_bn_residual_relu
+    (Pallas, interpret mode, float32) within 1e-5 of the largest output: the
+    fp32 tolerance chip_smoke.py holds the kernel to against the plain
+    version on the card."""
+    x, w, scale, shift, identity = ops = _d_tf32_case(p, cin, cout, seed=p + cin)
+    padded = _d_tf32_emulation(*ops)
+    ours = padded[:p, :cout]
+    assert np.isfinite(ours).all()
+    assert np.isnan(padded[p:]).all() and np.isnan(padded[:, cout:]).all()
+    exact = np.maximum((x.astype(np.float64) @ w.T.astype(np.float64)) * scale + shift
+                       + identity, 0)
+    top = np.abs(exact).max()
+    np.testing.assert_allclose(ours, exact, atol=1e-5 * top, rtol=0)
+    ref = jax_fr.matmul_bn_residual_relu(jnp.asarray(x), jnp.asarray(w.T), jnp.asarray(scale),
+                                         jnp.asarray(shift), jnp.asarray(identity))
+    np.testing.assert_allclose(ours, np.asarray(ref, np.float64), atol=1e-5 * top, rtol=0)
+
+
+def test_d_tf32_accuracy_needs_3xtf32_but_no_flush():
+    """At layer 4's Cin = 512 (x >= 0 as after the ReLU), 3xTF32 with big x
+    big chained through one truncating accumulator over the whole sum and
+    small truncated to TF32 (D-tf32's scheme, two accumulator sets) stays
+    within 1e-5 of float64 relative to the largest value, a quarter of it
+    besides; single TF32 misses 1e-5 by more than 10x. E-tf32's per-chunk
+    flush, which needs a third accumulator set, is for its 9 * 512-deep
+    conv2 (test_tf32_accuracy_needs_3xtf32_and_the_flushes)."""
+    rng = np.random.default_rng(8)
+    x = rng.uniform(0, 1, size=(64, 512)).astype(np.float32)
+    w = (rng.normal(size=(512, 256)) * 512 ** -0.5).astype(np.float32)
+    exact = x.astype(np.float64) @ w.astype(np.float64)
+    scale = np.abs(exact).max()
+    err = {split: np.abs(_tf32_product(x, w, split, flush=False, trunc_small=True)
+                         - exact).max() / scale for split in (True, False)}
+    assert err[True] <= 1e-5 / 4
+    assert err[False] > 10 * 1e-5
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_bottleneck_routes_by_dtype_and_cpu_takes_plain(dtype):
     """bf16 routes to E-mma and fp32 to E-tf32 on the card; a CPU call takes
@@ -783,7 +899,7 @@ def test_fused_bf16_backbone_with_a_pixel_mask_matches_jax():
                      for dt in (jnp.float32, jnp.bfloat16))
     port = resnet.ResNetBackbone(stages, fuse_residual=True).eval()
     port.load_state_dict(from_jax_variables(variables), strict=True)
-    before = fr.conv1x1_bn_residual_relu.launches, fr.conv1x1_bn_residual_relu.mma_launches
+    before = _d_counts()
     with torch.no_grad():
         ours = port(torch.from_numpy(x).bfloat16(), torch.from_numpy(mask))
     assert ours.dtype == torch.bfloat16
@@ -791,8 +907,7 @@ def test_fused_bf16_backbone_with_a_pixel_mask_matches_jax():
     top = np.abs(ref).max()
     gap_port, gap_jax = (np.abs(v - ref).max() / top for v in (ours, jax_bf16))
     assert 0 < gap_port <= 2.0 * gap_jax, (gap_port, gap_jax)
-    assert (fr.conv1x1_bn_residual_relu.launches,
-            fr.conv1x1_bn_residual_relu.mma_launches) == before  # plain on the CPU
+    assert _d_counts() == before  # plain on the CPU
 
 
 @pytest.mark.parametrize("masked", [False, True])
