@@ -10,7 +10,8 @@ Phases, one status line each; any failure raises and exits non-zero:
      csrc/, one process per source, all at once; prints each kernel's ptxas
      report and the HMMA (tensor-core) instructions in the SASS of the three
      tensor-core attention kernels, of E-mma, of E-tf32, of D-mma and of
-     D-tf32, and fails if any has none;
+     D-tf32, and the IMMA (int8 tensor-core) instructions of each compiled
+     configuration of F, and fails if any has none;
   3. kernels: attention A at every shape of the served path against its
      plain PyTorch version: fp32 (TF32 off) through the tensor-core kernel
      A-tf32 (3xTF32) and through the SIMT kernel called directly, bf16
@@ -39,7 +40,8 @@ Phases, one status line each; any failure raises and exits non-zero:
   7. int8 kernels: F (fused int8 1x1) and G (int8 3x3, stride 1 and 2) at
      every distinct shape of the b1 896x1408 int8 forward against their
      plain versions (integer-equal), with kernel, plain and library times
-     from CUDA graphs and each shape's bound;
+     from CUDA graphs and each shape's bound, and F's plan (tile, cluster,
+     CTAs) at each;
   8. int8 serving: full-width DETR-R50 at bf16 compute with the int8
      backbone quantized from its own fp32 backbone on two seeded 800x1333
      images, 3 requests through ``Predictor`` with the counters reset just
@@ -786,6 +788,16 @@ def int8_path_shapes(height, width):
     return f, g
 
 
+def f_bound_ms(m, c, k, cd, variant):
+    """Kernel F's bound at one shape: x, W, the coefficients and the output
+    (with the residual, or xd and Wd) each moved once; the contraction on the
+    int8 tensor cores, the epilogue's fp32 terms on the fp32 pipes."""
+    nbytes = m * c + k * c + 8 * k + m * k + (m * k + 4 if variant == "residual" else 0) + (
+        m * cd + k * cd + 8 * k if variant == "residual2" else 0)
+    terms = 2 + (2 if variant == "residual" else 0) + (4 if variant == "residual2" else 0)
+    return bound_ms(nbytes, {"int8": 2 * m * k * (c + cd), "float32": terms * m * k})
+
+
 def int8_operands(torch, seed):
     """Seeded int8 operands on the card: post-ReLU activations in [0, 127],
     weights in [-127, 127], per-channel scales that put the epilogue's input
@@ -853,14 +865,13 @@ def phase_int8_kernels(torch, mm, conv):
         else:
             library = lambda: torch._int_mm(x, wt)  # noqa: E731
         lib_ms = graph_ms(torch, library)
-        nbytes = m * c + k * c + 8 * k + m * k + (m * k + 4 if variant == "residual" else 0) + (
-            m * cd + k * cd + 8 * k if variant == "residual2" else 0)
-        terms = 2 + (2 if variant == "residual" else 0) + (4 if variant == "residual2" else 0)
-        bound = bound_ms(nbytes, {"int8": 2 * m * k * (c + cd), "float32": terms * m * k})
+        bound = f_bound_ms(m, c, k, cd, variant)
         loop_ms = time_ms(torch, kernel, iters=20, warmup=2)
         totals["int8_matmul"] += count * np.array([(k1 + k2) / 2, (p1 + p2) / 2, lib_ms, bound[0],
                                                    bound[0] * (bound[1] == "bytes"), loop_ms])
-        log(f"  F {variant} M={m} C={c} K={k}{f' Cd={cd}' if cd else ''} (x{count}): kernel "
+        plan = mm.plan(m, c, k, cd)
+        log(f"  F {variant} M={m} C={c} K={k}{f' Cd={cd}' if cd else ''} (x{count}): plan "
+            f"{plan.rows}x{plan.channels} tile, cluster {plan.cluster}, {plan.ctas} CTAs; kernel "
             f"{(k1 + k2) / 2:.4f} ms (from a Python loop {loop_ms:.4f}), plain "
             f"{(p1 + p2) / 2:.4f} ms, torch._int_mm {lib_ms:.4f} ms (the contraction alone, not "
             f"the same function), bound {bound[0]:.4f} ms ({bound[1]})")
@@ -1483,12 +1494,26 @@ def phase_fused_serving(torch, fa, mp, fr, fb, api, Predictor):
     return totals, bf16_counts, medians
 
 
-def hmma_count(nvcc_build, path) -> int:
-    """HMMA (tensor-core) instructions in the SASS of a built library."""
+def sass_counts(nvcc_build, path, op="HMMA") -> dict:
+    """``op`` instructions (HMMA: bf16 and TF32 tensor cores, IMMA: int8) in
+    the SASS of each kernel of a built library, by mangled name."""
     cuobjdump = Path(nvcc_build.nvcc_path()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    return sum("HMMA" in line for line in sass.splitlines())
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name is not None and op in line:
+            counts[name] += 1
+    return counts
+
+
+def template_args(mangled: str) -> str:
+    """The int and bool template arguments of a mangled kernel name, as <..>."""
+    args = re.search(r"I((?:L[ib]\d+E)+)", mangled)
+    return "<" + ",".join(re.findall(r"L[ib](\d+)E", args[1])) + ">" if args else ""
 
 
 def main() -> int:
@@ -1526,16 +1551,21 @@ def main() -> int:
         log(f"[build] {source}: nvcc {build.seconds:.2f} s -> {build.path.name}")
         entry_name = ""
         for line in build.log.splitlines():
-            if "Compiling entry" in line:  # a mangled name: keep its integer template arguments
-                args = re.search(r"I((?:Li\d+E)+)", line)
-                entry_name = "<" + ",".join(re.findall(r"Li(\d+)E", args[1])) + ">" if args else ""
+            if "Compiling entry" in line:  # a mangled name: keep its template arguments
+                entry_name = template_args(line)
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas{' ' + entry_name if entry_name else ''}: {line.strip()}")
     for source in MMA_SOURCES:
-        hmma = hmma_count(nvcc_build, builds[source].path)
+        hmma = sum(sass_counts(nvcc_build, builds[source].path).values())
         log(f"[build] {source}: {hmma} HMMA instructions in its SASS (cuobjdump)")
         if hmma == 0:
             raise AssertionError(f"{source} compiled to no tensor-core instruction")
+    imma = {template_args(name): n for name, n in
+            sass_counts(nvcc_build, builds["int8_matmul.cu"].path, "IMMA").items()}
+    log(f"[build] int8_matmul.cu: IMMA instructions in the SASS of each configuration "
+        f"<variant,relu,bf16 out,precise>: {imma}")
+    if not imma or min(imma.values()) == 0:
+        raise AssertionError("a configuration of F compiled to no int8 tensor-core instruction")
     log(f"[build] ok in {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()

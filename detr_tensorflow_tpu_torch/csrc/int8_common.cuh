@@ -1,7 +1,9 @@
 // Shared pieces of the int8 backbone kernels (int8_matmul.cu, int8_conv.cu):
-// the int8 tensor-core product of one warp tile, its 16-byte operand loads,
-// and the requantization epilogue of `_epilogue` in
-// detr_tensorflow_tpu/ops/pallas/int8_matmul.py.
+// `mma.sync.m16n8k32` s8 and the requantization epilogue of `_epilogue` in
+// detr_tensorflow_tpu/ops/pallas/int8_matmul.py (both kernels), the
+// template dispatch over the epilogue's flags (both), and the warp-tile
+// product with its 16-byte operand loads (int8_conv.cu; int8_matmul.cu
+// stages its operands in shared memory instead).
 //
 // Tiling. A CTA of 4 warps computes a 64 x 64 output tile, each warp a
 // 32 x 32 sub-tile as 2 x 4 fragments of mma.sync m16n8k32 (s8 x s8 -> s32).

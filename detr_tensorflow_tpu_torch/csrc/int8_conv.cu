@@ -15,7 +15,7 @@
 // for tap (dy, dx) row (n, oy, ox) reads the C-vector of input pixel
 // (oy * stride + dy - 1, ox * stride + dx - 1), and a pixel outside the
 // image reads as zeros, the SAME halo (zero-point 0 keeps it exact). The
-// warp tiles, the operand loads and the epilogue are int8_matmul.cu's.
+// warp tiles, the operand loads and the epilogue are int8_common.cuh's.
 //
 // What bounds it on the H100: at layer1's 224x352x64 and the first strided
 // conv, 460-580 operations per byte of input and output, about where the

@@ -16,14 +16,16 @@ row k holds output channel k (``models/weights.py:from_jax_quant`` converts
 the JAX package's HWIO kernels once). The CUDA source is
 ``csrc/int8_matmul.cu``, the epilogue ``csrc/int8_common.cuh``.
 
-A CUDA tensor launches the kernel (C a multiple of 64, K of 8) and a CPU
-tensor takes the plain version; there is no fallback from one to the
-other. ``<fn>.launches`` counts each entry point's kernel launches.
+A CUDA tensor launches the kernel (C and Cd multiples of 64, K of 8) and a
+CPU tensor takes the plain version; there is no fallback from one to the
+other. ``plan`` picks the kernel's configuration from the shape alone.
+``<fn>.launches`` counts each entry point's kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -31,6 +33,65 @@ _SOURCE = "int8_matmul.cu"
 _CHUNK = 64  # the kernel's contraction granule (C % 64 == 0)
 _PLAIN, _RESIDUAL, _RESIDUAL2 = 0, 1, 2
 OUT_DTYPES = (torch.int8, torch.bfloat16)
+
+# The kernel's one compiled tile (``csrc/int8_matmul.cu``, ``struct T``):
+# rows x output channels of a CTA, 8 warps of 32 x 32, a 2-stage ring of
+# KC-byte contraction chunks, and the thread-block cluster sizes it takes.
+TILE = (128, 64)
+KC = 64
+CLUSTERS = (1, 2, 4, 8)
+_STAGES = 2
+# The plan splits a tile's contraction across a cluster only where the
+# tiles alone are fewer than FILL, two CTAs on each of the H100's 132 SMs,
+# and then until each rank sums at most DEPTH 64-byte chunks. Where the
+# tiles fill the card a split only adds the exchange.
+FILL = 264
+DEPTH = 8
+SMEM_LIMIT = 232448  # bytes of shared memory a CTA can have on the H100
+
+
+class Plan(NamedTuple):
+    """The kernel's configuration at one shape: its CTA tile (rows x output
+    channels), the thread-block cluster that splits each tile's
+    contraction, and the CTAs it launches."""
+
+    rows: int
+    channels: int
+    cluster: int
+    ctas: int
+
+
+def plan(m: int, c: int, k: int, cd: int = 0) -> Plan:
+    """The kernel's configuration at an (M, C) x (K, C) product (plus an
+    (M, Cd) x (K, Cd) one for ``qmatmul_residual2``), from the shape alone.
+    Where the output tiles are fewer than ``FILL``, the cluster's ranks
+    split the contraction of one tile, C and Cd each into whole 64-byte
+    chunks: the smallest split that leaves each rank at most ``DEPTH``
+    chunks (the largest that cuts both into whole chunks where none does).
+    Raises unless C and Cd are multiples of 64 and K of 8."""
+    if c <= 0 or cd < 0 or c % _CHUNK or cd % _CHUNK or k <= 0 or k % 8:
+        raise ValueError(f"the int8 matmul kernel takes C and Cd multiples of {_CHUNK} and K "
+                         f"a multiple of 8, got C={c}, Cd={cd}, K={k}")
+    rows, channels = TILE
+    tiles = -(-m // rows) * -(-k // channels)
+    chunks = (c + cd) // _CHUNK
+    splits = [n for n in CLUSTERS if c % (_CHUNK * n) == 0 and cd % (_CHUNK * n) == 0]
+    cluster = 1 if tiles >= FILL else next((n for n in splits if chunks // n <= DEPTH),
+                                           splits[-1])
+    return Plan(rows, channels, cluster, tiles * cluster)
+
+
+def smem_bytes(variant: str, out_dtype=torch.int8) -> int:
+    """Dynamic shared memory of one CTA, the kernel's ``smem_bytes``: the
+    ring (or the cluster's exchange of one set of int32 partial sums over
+    the tile, two for residual2, if larger), the staged int8 tile with rows
+    padded by 16 bytes, four coefficient vectors over the tile's channels,
+    and the staged bf16 tile for a bf16 output."""
+    bm, bn = TILE
+    sets = 2 if variant == "residual2" else 1
+    ring = max(_STAGES * (bm + bn) * KC, 4 * bm * bn * sets)
+    out16 = bm * (2 * bn + 16) if out_dtype == torch.bfloat16 else 0
+    return ring + bm * (bn + 16) + 4 * bn * 4 + out16
 
 
 def _int_products(x2d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -102,7 +163,7 @@ def _library() -> ctypes.CDLL:
     lib = load_library(_SOURCE)
     fn = lib.int8_matmul
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -117,9 +178,7 @@ def _launch(variant, x, w, scale, bias, res, res_scale, xd, wd, scale_d, bias_d,
     m, c = x.shape
     k = w.shape[0]
     cd = 0 if xd is None else xd.shape[1]
-    if c % _CHUNK or (xd is not None and cd % _CHUNK) or k % 8:
-        raise ValueError(f"the int8 matmul kernel takes C and Cd multiples of {_CHUNK} and K "
-                         f"a multiple of 8, got C={c}, Cd={cd}, K={k}")
+    cluster = plan(m, c, k, cd).cluster
     check_kernel_operands(x, w, scale, bias, res, res_scale, xd, wd, scale_d, bias_d)
     out = torch.empty((m, k), device=x.device, dtype=out_dtype)
     with torch.cuda.device(x.device):
@@ -127,7 +186,7 @@ def _launch(variant, x, w, scale, bias, res, res_scale, xd, wd, scale_d, bias_d,
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), _ptr(res),
             _ptr(res_scale), _ptr(xd), _ptr(wd), _ptr(scale_d), _ptr(bias_d), out.data_ptr(),
             m, c, k, cd, variant, int(relu), int(out_dtype == torch.bfloat16), int(precise),
-            torch.cuda.current_stream(x.device).cuda_stream,
+            cluster, torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"int8_matmul launch failed: cudaError {err}")

@@ -14,6 +14,7 @@ from detr_tensorflow_tpu_torch.models import api, quantized
 from detr_tensorflow_tpu_torch.ops import flash_attention as fa
 from detr_tensorflow_tpu_torch.ops import fused_bottleneck, fused_residual, int8_conv, int8_matmul
 from detr_tensorflow_tpu_torch.ops import lap, maxpool
+from test_torch_int8_plan import F_PATH_SHAPES
 
 pytestmark = pytest.mark.cuda
 
@@ -562,13 +563,19 @@ def _int8_equal(kernel, plain):
             assert torch.equal(got, ref), (kw, float((got.float() - ref.float()).abs().max()))
 
 
-# (M, C, K, Cd, variant): shapes of the b1 896x1408 int8 forward, and a
-# ragged M and K (105 rows, 48 columns: partial tiles both ways).
+# (M, C, K, Cd, variant): the 16 shapes of the b1 896x1408 int8 forward,
+# then ragged ones that reach every plan: M = 1 and 105 (partial row
+# tiles), K = 8 and 48 (partial channel tiles; 8-byte int8 copies where K %
+# 16 != 0), residual2s whose Cd differs from C, deep, narrow contractions
+# split across clusters of 2, 4 and 8 CTAs, and many row tiles ending in a
+# partial channel tile (M = 40,000).
 @pytest.mark.parametrize("precise", [True, False])
-@pytest.mark.parametrize("m,c,k,cd,variant", [
-    (78848, 64, 256, 64, "residual2"), (78848, 256, 64, 0, "plain"),
-    (19712, 128, 512, 0, "residual"), (1232, 512, 2048, 1024, "residual2"),
-    (1232, 2048, 512, 0, "plain"), (105, 64, 48, 128, "residual2"), (105, 128, 48, 0, "residual")])
+@pytest.mark.parametrize("m,c,k,cd,variant", [s[:5] for s in F_PATH_SHAPES] + [
+    (1, 64, 8, 0, "plain"), (105, 128, 48, 0, "residual"), (105, 64, 48, 128, "residual2"),
+    (1, 256, 48, 64, "residual2"), (105, 2048, 64, 0, "plain"), (105, 1024, 8, 0, "residual"),
+    (33, 512, 72, 1024, "residual2"), (105, 4096, 48, 0, "plain"),
+    (40, 512, 64, 2048, "residual2"), (40000, 128, 200, 0, "residual"),
+    (40000, 64, 136, 128, "residual2")])
 def test_int8_matmul_kernel_matches_plain(cuda_device, m, c, k, cd, variant, precise):
     act, wts, scale, bias = _int8_operands(cuda_device, seed=m + c + k)
     args = (act(m, c), wts(k, c), scale(k, c), bias(k))
@@ -579,12 +586,13 @@ def test_int8_matmul_kernel_matches_plain(cuda_device, m, c, k, cd, variant, pre
     else:
         name, extra = "qmatmul_residual2", (act(m, cd), wts(k, cd), scale(k, cd), bias(k))
     fn = getattr(int8_matmul, name)
-    before = fn.launches
+    counters = (int8_matmul.qmatmul, int8_matmul.qmatmul_residual, int8_matmul.qmatmul_residual2)
+    before = [f.launches for f in counters]
     _int8_equal(lambda **kw: fn(*args, *extra, precise=precise, **kw),
                 lambda **kw: getattr(int8_matmul, "reference_" + name)(*args, *extra,
                                                                        precise=precise, **kw))
     torch.cuda.synchronize()
-    assert fn.launches == before + 4
+    assert [f.launches - b for f, b in zip(counters, before)] == [4 * (f is fn) for f in counters]
 
 
 @pytest.mark.parametrize("precise", [True, False])
