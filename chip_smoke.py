@@ -11,7 +11,7 @@ Phases, one status line each; any failure raises and exits non-zero:
      report and the HMMA (tensor-core) instructions in the SASS of the three
      tensor-core attention kernels, of E-mma, of E-tf32, of D-mma and of
      D-tf32, and the IMMA (int8 tensor-core) instructions of each compiled
-     configuration of F, and fails if any has none;
+     configuration of F and G, and fails if any has none;
   3. kernels: attention A at every shape of the served path against its
      plain PyTorch version: fp32 (TF32 off) through the tensor-core kernel
      A-tf32 (3xTF32) and through the SIMT kernel called directly, bf16
@@ -40,8 +40,8 @@ Phases, one status line each; any failure raises and exits non-zero:
   7. int8 kernels: F (fused int8 1x1) and G (int8 3x3, stride 1 and 2) at
      every distinct shape of the b1 896x1408 int8 forward against their
      plain versions (integer-equal), with kernel, plain and library times
-     from CUDA graphs and each shape's bound, and F's plan (tile, cluster,
-     CTAs) at each;
+     from CUDA graphs and each shape's bound, F's plan (tile, cluster,
+     CTAs) and G's (output patch, channels, cluster, CTAs) at each;
   8. int8 serving: full-width DETR-R50 at bf16 compute with the int8
      backbone quantized from its own fp32 backbone on two seeded 800x1333
      images, 3 requests through ``Predictor`` with the counters reset just
@@ -893,7 +893,10 @@ def phase_int8_kernels(torch, mm, conv):
         loop_ms = time_ms(torch, kernel, iters=20, warmup=2)
         totals["int8_conv"] += count * np.array([(k1 + k2) / 2, (p1 + p2) / 2, lib_ms, bound[0],
                                                  bound[0] * (bound[1] == "bytes"), loop_ms])
-        log(f"  G stride {st} {h}x{w_} C={c} K={k} (x{count}): kernel {(k1 + k2) / 2:.4f} ms "
+        plan = conv.plan(1, h, w_, c, k, st)
+        log(f"  G stride {st} {h}x{w_} C={c} K={k} (x{count}): plan {plan.patch_h}x"
+            f"{plan.patch_w} patch x {plan.channels} channels, cluster {plan.cluster}, "
+            f"{plan.ctas} CTAs; kernel {(k1 + k2) / 2:.4f} ms "
             f"(from a Python loop {loop_ms:.4f}), plain {(p1 + p2) / 2:.4f} ms, bf16 cuDNN conv "
             f"{lib_ms:.4f} ms (the float path it stands in for, not the same function), bound "
             f"{bound[0]:.4f} ms ({bound[1]})")
@@ -1511,9 +1514,10 @@ def sass_counts(nvcc_build, path, op="HMMA") -> dict:
 
 
 def template_args(mangled: str) -> str:
-    """The int and bool template arguments of a mangled kernel name, as <..>."""
-    args = re.search(r"I((?:L[ib]\d+E)+)", mangled)
-    return "<" + ",".join(re.findall(r"L[ib](\d+)E", args[1])) + ">" if args else ""
+    """The int and bool template arguments of a mangled kernel name, those
+    of a class argument (kernel G's tile) included, as <..>."""
+    args = re.findall(r"L[ib](\d+)E", mangled)
+    return "<" + ",".join(args) + ">" if args else ""
 
 
 def main() -> int:
@@ -1560,12 +1564,16 @@ def main() -> int:
         log(f"[build] {source}: {hmma} HMMA instructions in its SASS (cuobjdump)")
         if hmma == 0:
             raise AssertionError(f"{source} compiled to no tensor-core instruction")
-    imma = {template_args(name): n for name, n in
-            sass_counts(nvcc_build, builds["int8_matmul.cu"].path, "IMMA").items()}
-    log(f"[build] int8_matmul.cu: IMMA instructions in the SASS of each configuration "
-        f"<variant,relu,bf16 out,precise>: {imma}")
-    if not imma or min(imma.values()) == 0:
-        raise AssertionError("a configuration of F compiled to no int8 tensor-core instruction")
+    for source, params in (("int8_matmul.cu", "variant,relu,bf16 out,precise"),
+                           ("int8_conv.cu", "stride,patch rows,patch columns,CTAs an SM,relu,"
+                                            "bf16 out,precise")):
+        imma = {template_args(name): n for name, n in
+                sass_counts(nvcc_build, builds[source].path, "IMMA").items()}
+        log(f"[build] {source}: IMMA instructions in the SASS of each configuration <{params}>: "
+            f"{imma}")
+        if not imma or min(imma.values()) == 0:
+            raise AssertionError(f"a configuration of {source} compiled to no int8 tensor-core "
+                                 "instruction")
     log(f"[build] ok in {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()

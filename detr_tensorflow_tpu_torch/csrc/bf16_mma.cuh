@@ -1,7 +1,8 @@
 // The bf16 tensor-core helpers shared by the attention forward A-mma
 // (flash_attention_fwd_mma.cu) and the fused bottleneck E-mma
 // (fused_bottleneck_mma.cu): `ldmatrix` loads of 8x8 bf16 matrices from
-// shared memory, `mma.sync.m16n8k16` with fp32 accumulators, and the
+// shared memory (also the int8 kernels F, int8_matmul.cu, and G,
+// int8_conv.cu), `mma.sync.m16n8k16` with fp32 accumulators, and the
 // packing of two fp32 values into one bf16x2 register.
 //
 // Fragments follow the PTX ISA's m16n8k16 layouts: lane = 4 * g + t holds A

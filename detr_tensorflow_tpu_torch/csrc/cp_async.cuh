@@ -2,7 +2,8 @@
 // shared-memory address they take, shared by the tensor-core kernels: the
 // attention kernels (through flash_attention_common.cuh), bf16_mma.cuh, the
 // fused bottleneck E-mma (fused_bottleneck_mma.cu) and the int8 matmul F
-// (int8_matmul.cu).
+// (int8_matmul.cu); the int8 3x3 convolution G (int8_conv.cu), whose copies
+// are TMA's, takes the address alone.
 
 #pragma once
 

@@ -13,12 +13,15 @@ epilogue of ``ops/int8_matmul.py``. The CUDA source is
 
 A CUDA tensor launches the kernel (C a multiple of 64, K of 8) and a CPU
 tensor takes the plain version; there is no fallback from one to the
-other. ``conv3x3_int8.launches`` counts kernel launches per stride.
+other. ``plan`` picks the kernel's configuration (output patch, cluster)
+from the shape alone. ``conv3x3_int8.launches`` counts kernel launches per
+stride.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +31,78 @@ from .int8_matmul import OUT_DTYPES, check_kernel_operands, epilogue
 _SOURCE = "int8_conv.cu"
 _CHUNK = 64
 STRIDES = (1, 2)
+
+# The kernel's compiled tiles (``csrc/int8_conv.cu``, ``Cfg``): per stride,
+# the output patch (rows x columns of pixels) of a CTA, which covers
+# CHANNELS output channels with 8 warps, the contraction in KC-byte chunks,
+# a W_STAGES-stage ring of W slices (the three taps of one kernel row)
+# beside a 2-stage ring of input windows.
+TILES = {1: (8, 16), 2: (8, 16)}
+CHANNELS = 64
+KC = 64
+W_STAGES = 3
+CLUSTERS = (1, 2, 4, 8)
+# Where a launch's tiles are fewer than FILL (two waves on the H100's 132
+# SMs at stride 1, one at stride 2), a cluster's ranks split each tile's
+# contraction into whole chunks: two ranks, or the fewest that reach WAVE
+# CTAs, or as many as the chunks allow. A split adds an exchange of partial
+# sums; it pays only where few tiles leave SMs idle.
+FILL = {1: 264, 2: 132}
+WAVE = 132
+
+
+class Plan(NamedTuple):
+    """The kernel's configuration at one shape: the output patch of a CTA
+    (rows x columns of pixels), its output channels, the thread-block
+    cluster that splits each tile's contraction, and the CTAs it launches."""
+
+    patch_h: int
+    patch_w: int
+    channels: int
+    cluster: int
+    ctas: int
+
+
+def _tiles(n, ho, wo, k, patch):
+    return n * -(-ho // patch[0]) * -(-wo // patch[1]) * -(-k // CHANNELS)
+
+
+def plan(n: int, h: int, w: int, c: int, k: int, stride: int) -> Plan:
+    """The kernel's configuration for an (N, H, W, C) input, K output
+    channels and a stride, from the shape alone: the stride's patch of
+    ``TILES`` and, where the tiles are fewer than ``FILL``, a cluster
+    splitting C into whole 64-byte chunks. Raises unless C is a multiple of
+    64 and K of 8."""
+    if stride not in STRIDES:
+        raise ValueError(f"stride must be one of {STRIDES}, got {stride}")
+    if c <= 0 or c % _CHUNK or k <= 0 or k % 8:
+        raise ValueError(f"the int8 conv kernel takes C a multiple of {_CHUNK} and K a multiple "
+                         f"of 8, got C={c}, K={k}")
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    patch = TILES[stride]
+    tiles = _tiles(n, ho, wo, k, patch)
+    splits = [m for m in CLUSTERS if c % (_CHUNK * m) == 0]
+    cluster = 1
+    if tiles < FILL[stride] and len(splits) > 1:
+        cluster = next((m for m in splits[1:] if tiles * m >= WAVE), splits[-1])
+    return Plan(*patch, CHANNELS, cluster, tiles * cluster)
+
+
+def smem_bytes(stride: int, patch, out_dtype=torch.int8) -> int:
+    """Dynamic shared memory of one CTA, the kernel's ``Cfg::smem_bytes``:
+    the ring (two halo'd input windows of 64-byte pixels, each one block of
+    rows at stride 1 and two at stride 2, a block rounded up to whole
+    kilobytes; W_STAGES W slices of 3 taps x CHANNELS rows), or, if larger,
+    the cluster's exchange of int32 partial sums over the tile followed by
+    the staged output tile (rows padded by 16 bytes); then scale and bias
+    over the tile's channels and a full and an empty mbarrier for each W
+    stage."""
+    ph, pw = patch
+    rows = ((ph - 1) * stride + 3) * (pw + 2 if stride == 1 else pw + 1)
+    ring = 2 * stride * -(-rows * KC // 1024) * 1024 + W_STAGES * 3 * CHANNELS * KC
+    row = 2 * CHANNELS + 16 if out_dtype == torch.bfloat16 else CHANNELS + 16
+    return (max(ring, ph * pw * CHANNELS * 4 + ph * pw * row) + 2 * CHANNELS * 4
+            + 2 * W_STAGES * 8)
 
 
 def _int_conv3x3(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
@@ -53,7 +128,7 @@ def _library() -> ctypes.CDLL:
     lib = load_library(_SOURCE)
     fn = lib.int8_conv3x3
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -89,9 +164,7 @@ def conv3x3_int8(x, w, scale, bias=None, *, stride=1, relu=False, out_dtype=torc
         return reference_conv3x3_int8(x, w, scale, bias, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"no int8 conv kernel for device {x.device}")
-    if c % _CHUNK or k % 8:
-        raise ValueError(f"the int8 conv kernel takes C a multiple of {_CHUNK} and K a multiple "
-                         f"of 8, got C={c}, K={k}")
+    p = plan(n, h, width, c, k, stride)
     check_kernel_operands(x, w, scale, bias)
     out = torch.empty((n, (h - 1) // stride + 1, (width - 1) // stride + 1, k), device=x.device,
                       dtype=out_dtype)
@@ -99,7 +172,8 @@ def conv3x3_int8(x, w, scale, bias=None, *, stride=1, relu=False, out_dtype=torc
         err = _library().int8_conv3x3(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
             n, h, width, c, k, stride, int(relu), int(out_dtype == torch.bfloat16),
-            int(precise), torch.cuda.current_stream(x.device).cuda_stream,
+            int(precise), p.patch_h, p.patch_w, p.cluster,
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"int8_conv3x3 launch failed: cudaError {err}")

@@ -14,6 +14,7 @@ from detr_tensorflow_tpu_torch.models import api, quantized
 from detr_tensorflow_tpu_torch.ops import flash_attention as fa
 from detr_tensorflow_tpu_torch.ops import fused_bottleneck, fused_residual, int8_conv, int8_matmul
 from detr_tensorflow_tpu_torch.ops import lap, maxpool
+from test_torch_int8_conv_plan import G_PATH_SHAPES
 from test_torch_int8_plan import F_PATH_SHAPES
 
 pytestmark = pytest.mark.cuda
@@ -595,10 +596,17 @@ def test_int8_matmul_kernel_matches_plain(cuda_device, m, c, k, cd, variant, pre
     assert [f.launches - b for f, b in zip(counters, before)] == [4 * (f is fn) for f in counters]
 
 
+# (N, H, W, C, K, stride): the 7 shapes of the b1 896x1408 int8 forward
+# (every tile and cluster the plan picks there), then ragged ones: batch 2,
+# odd H and W at both strides (patches past the map's edges), K = 48 and 8
+# (partial channel tiles; 8-byte int8 copies where K % 16 != 0), and small
+# maps whose few tiles split C = 128 to 512 across clusters of 2, 4 and 8
+# (C = 64 is one chunk, which no cluster splits).
 @pytest.mark.parametrize("precise", [True, False])
-@pytest.mark.parametrize("n,h,w,c,k,stride", [
-    (1, 224, 352, 64, 64, 1), (1, 224, 352, 128, 128, 2), (1, 28, 44, 512, 512, 1),
-    (1, 56, 88, 512, 512, 2), (2, 13, 20, 64, 48, 1), (2, 13, 21, 64, 48, 2)])
+@pytest.mark.parametrize("n,h,w,c,k,stride", [(1, h, w, c, c, s) for h, w, c, s, _ in G_PATH_SHAPES] + [
+    (2, 13, 20, 64, 48, 1), (2, 13, 21, 64, 48, 2), (2, 15, 33, 128, 48, 2),
+    (1, 9, 17, 64, 8, 2), (2, 11, 19, 128, 8, 1), (1, 17, 35, 256, 72, 2),
+    (1, 7, 12, 512, 64, 1), (3, 29, 45, 256, 136, 1)])
 def test_int8_conv_kernel_matches_plain(cuda_device, n, h, w, c, k, stride, precise):
     act, wts, scale, bias = _int8_operands(cuda_device, seed=h + w + c)
     args = (act(n, h, w, c), wts(k, 3, 3, c), scale(k, 9 * c), bias(k))
