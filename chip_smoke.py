@@ -28,7 +28,10 @@ Phases, one status line each; any failure raises and exits non-zero:
      A', plain, SDPA's backward) timed from CUDA graphs in turns, and their
      sums per training step;
   4. lap: the LAP kernel on 48 problems (6 decoder layers x batch 8)
-     against its plain version and scipy, with times;
+     against its plain version and scipy, on prefix and scattered row
+     masks, with its device time from CUDA graphs, the time of a loop of
+     calls (host included) and the serial chain (Dijkstra steps) of the
+     longest problem;
   5. serving: full-width DETR-R50 (seeded random weights) behind
      ``Predictor``: 3 requests with the launch counters reset just before,
      the whole forward against the plain-attention model, padded against
@@ -51,11 +54,14 @@ Phases, one status line each; any failure raises and exits non-zero:
      gradients, kernel route against plain route at dropout 0; eight
      dropout-0.1 steps through ``fit`` with the counters reset just before
      (per step A-tf32 18, SIMT A 0, tensor-core A' 18, SIMT A' 0, B 1, C 1);
-     matching and loss under ``torch.cuda.set_sync_debug_mode("error")``;
+     one more step under ``torch.profiler``: B's and C's device time and
+     their share of the step's kernel time; matching and loss under
+     ``torch.cuda.set_sync_debug_mode("error")``;
  10. fused kernels: C (stem max pool), D (fused bottleneck tail) and E
      (whole identity bottleneck) at every distinct shape of one b1 forward
      of the fused-backbone model, at 896x1408 with a mask (C, D x16) and
-     768x1280 bucket-exact (C, D x4, E x12), fp32 (TF32 off) and bf16,
+     768x1280 bucket-exact (C, D x4, E x12), fp32 (TF32 off) and bf16, and
+     C at the training stem (8, 64, 188, 336) fp32,
      against their plain versions (C bit-equal), with kernel, plain and
      yardstick times from CUDA graphs and each shape's bound; D runs on
      D-tf32 (TF32 tensor cores, 3xTF32) at fp32, with its bound as 3xTF32,
@@ -84,9 +90,9 @@ Phases, one status line each; any failure raises and exits non-zero:
 Kernel C runs in every ``ResNetBackbone`` forward: serving, training and
 fused serving count it (1 per forward or step); the int8 model's stem is
 not a ``ResNetBackbone`` and launches none.
-Kernel times: B from CUDA events around a loop of calls; A, A-mma, A-tf32, A'
-and C to G, whose calls are shorter than the wrapper's host cost, from CUDA
-graphs.
+Kernel times: every kernel, B included, from CUDA graphs: their calls are
+shorter than the wrapper's host cost (B's loop of calls is printed beside,
+as a time that includes the host).
 Every kernel's record carries its bound (bytes over 3.35 TB/s or operations
 over the published peak of their type) and, where one PyTorch call computes
 the same function, that call's time as a yardstick the port never calls.
@@ -164,6 +170,7 @@ DROPOUT = 0.1
 GRAD_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
 LAP_PROBLEMS, LAP_SLOTS, LAP_MAX_REAL = 48, 100, 30
 TRAIN_BATCH, TRAIN_HW, TRAIN_STEPS = 8, (376, 672), 8
+TRAIN_STEM = (8, 64, 188, 336)  # kernel C's input in a training step: conv1's output
 BACKGROUND = 91  # DETR-R50's "no object" logit of 92
 LOSS_RTOL, TENSOR_GRAD_RTOL, NOISE_FLOOR = 1e-4, 1e-3, 1e-6
 
@@ -269,8 +276,25 @@ def device_busy_ms(torch, fn, calls: int = 3):
     return wall_ms, (busy_us / 1e3 / calls if spans else None)
 
 
+def kernel_ms(torch, fn, names) -> tuple:
+    """One ``fn`` call under torch.profiler: (the device time of all its
+    kernels, {name: the device time of the kernels whose name contains it})
+    in ms, summed over launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return total, {n: sum(e.time_range.elapsed_us() for e in kernels if n in e.name) / 1e3
+                   for n in names}
+
+
 def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of ``fn`` in ms, from CUDA events around ``iters`` calls."""
+    """Mean time of ``fn`` in ms, from CUDA events around ``iters`` calls: the
+    host's cost of each call included where it exceeds the device's."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -579,51 +603,64 @@ def time_train_attention(torch, fa, q, k, v, dout, mask):
     return t
 
 
-def lap_problems(seed, ties=False):
+def lap_problems(seed, ties=False, scattered=False):
+    """48 problems of 100 x 100 costs with 0-30 real rows each: a prefix of
+    the rows (``pad_targets``' masks) or, ``scattered``, anywhere."""
     rng = np.random.default_rng(seed)
     shape = (LAP_PROBLEMS, LAP_SLOTS, LAP_SLOTS)
     cost = (rng.integers(0, 4, size=shape) if ties else rng.normal(size=shape)).astype(np.float32)
     n_real = rng.integers(0, LAP_MAX_REAL + 1, size=LAP_PROBLEMS)
     n_real[:2] = 0, LAP_MAX_REAL
-    return cost, np.arange(LAP_SLOTS)[None, :] < n_real[:, None], n_real
+    mask = np.arange(LAP_SLOTS)[None, :] < n_real[:, None]
+    if scattered:
+        mask = np.stack([rng.permutation(m) for m in mask])
+    return cost, mask, n_real
 
 
 def phase_lap(torch, lap):
     from scipy.optimize import linear_sum_assignment
 
     worst = 0.0
-    for ties in (False, True):
-        cost, mask, n_real = lap_problems(3 + ties, ties)
+    for ties, scattered in ((False, False), (False, True), (True, False)):
+        cost, mask, n_real = lap_problems(3 + ties, ties, scattered)
         ct, mt = torch.from_numpy(cost).to(DEVICE), torch.from_numpy(mask).to(DEVICE)
         got = lap.solve_lap_masked(ct, mt).cpu().numpy()
         t0 = time.perf_counter()
         plain = lap.reference_solve_lap_masked(ct, mt).cpu().numpy()
         plain_ms = 1e3 * (time.perf_counter() - t0)
         t0 = time.perf_counter()
-        scipy_cols = [linear_sum_assignment(cost[i, :n])[1] for i, n in enumerate(n_real)]
+        scipy_cols = [linear_sum_assignment(c[m])[1] for c, m in zip(cost, mask)]
         scipy_ms = 1e3 * (time.perf_counter() - t0)
-        for i, n in enumerate(n_real):
-            if (got[i, n:] != -1).any() or len(set(got[i, :n].tolist())) != n:
+        for i, (m, n) in enumerate(zip(mask, n_real)):
+            if (got[i, ~m] != -1).any() or len(set(got[i, m].tolist())) != n:
                 raise AssertionError(f"problem {i}: not an assignment of its {n} real rows")
-            best = float(cost[i, np.arange(n), scipy_cols[i]].sum())
-            err = abs(float(cost[i, np.arange(n), got[i, :n]].sum()) - best)
+            best = float(cost[i, m][np.arange(n), scipy_cols[i]].sum())
+            err = abs(float(cost[i, m][np.arange(n), got[i, m]].sum()) - best)
             worst = max(worst, err)
             if not err <= 1e-4 * max(1.0, abs(best)):
                 raise AssertionError(f"problem {i}: cost {err} above the optimum")
-            if not ties and ((got[i, :n] != scipy_cols[i]).any() or (got[i] != plain[i]).any()):
+            if not ties and ((got[i, m] != scipy_cols[i]).any() or (got[i] != plain[i]).any()):
                 raise AssertionError(f"problem {i}: assignment differs from plain/scipy")
-        if not ties:
-            ms = time_ms(torch, lambda: lap.solve_lap_masked(ct, mt), iters=20, warmup=3)
+        if ties:
+            log("  lap tied costs: optimal cost equal to scipy's on every problem")
+        elif scattered:
+            log("  lap scattered row masks: assignments equal to plain and scipy")
+        else:
+            call = lambda: lap.solve_lap_masked(ct, mt)  # noqa: E731
+            ms = graph_ms(torch, call)
+            loop_ms = time_ms(torch, call, iters=20, warmup=3)
+            chain = max(lap.augmenting_steps(ct.cpu(), mt.cpu()))
             # The kernel reads the cost rows of real targets only; the
             # operations of the augmenting paths are a few per cost read.
             bound = bound_ms(4 * LAP_SLOTS * int(n_real.sum()) + 5 * mask.size, {})
-            times = (ms, plain_ms, scipy_ms, bound)
+            times = (ms, plain_ms, scipy_ms, bound, loop_ms, chain)
             log(f"  lap {LAP_PROBLEMS}x{LAP_SLOTS}x{LAP_SLOTS}, n_real 0..{LAP_MAX_REAL}: "
-                f"kernel {ms:.4f} ms, plain (on the card's tensors) {plain_ms:.2f} ms, "
-                f"scipy host loop {scipy_ms:.2f} ms (no single PyTorch call solves it), "
-                f"bound {bound[0]:.5f} ms ({bound[1]}); assignments equal to plain and scipy")
-        else:
-            log("  lap tied costs: optimal cost equal to scipy's on every problem")
+                f"kernel {ms:.4f} ms from CUDA graphs, {loop_ms:.4f} ms a call from CUDA events "
+                f"around a loop of calls (host included), plain (on the card's tensors) "
+                f"{plain_ms:.2f} ms, scipy host loop {scipy_ms:.2f} ms (no single PyTorch call "
+                f"solves it), bound {bound[0]:.5f} ms ({bound[1]}); serial chain of the longest "
+                f"problem {chain} Dijkstra steps (plain version's count); assignments equal to "
+                f"plain and scipy")
     return worst, times
 
 
@@ -1143,6 +1180,12 @@ def phase_training(torch, fa, lap, mp, api, train, losses):
                              f"SIMT A', B, C, tensor-core A') and no SIMT A or A-mma (fp32)")
     if not all(np.isfinite(losses_seen)) or not losses_seen[-1] < losses_seen[0]:
         raise AssertionError(f"losses not finite and falling: {losses_seen}")
+    step_kernels, by_name = kernel_ms(torch, lambda: trainer.step(batch),
+                                      ("lap_kernel", "max_pool_3x3_s2"))
+    log(f"  one step under torch.profiler: {step_kernels:.2f} ms of kernel time; B (lap_kernel) "
+        f"{by_name['lap_kernel']:.4f} ms ({by_name['lap_kernel'] / step_kernels:.3%}), C "
+        f"(max_pool_3x3_s2) {by_name['max_pool_3x3_s2']:.4f} ms "
+        f"({by_name['max_pool_3x3_s2'] / step_kernels:.3%})")
 
     out = model(batch["images"], train=True, generator=trainer.generator)
     torch.cuda.synchronize()
@@ -1337,6 +1380,15 @@ def phase_fused_kernels(torch, mp, fr, fb):
                     f"{pms:.4f} ms, unfused cuDNN chain (three convs with bias, ReLU and residual; "
                     f"not the same function) {yard:.4f} ms, {bounds}; rel err {short} {err:.2e}, "
                     f"SIMT {simt_err:.2e}")
+    x = torch.relu(cl(*TRAIN_STEM, fill=torch.randn))
+    b0, c0, h0, w0 = TRAIN_STEM
+    bound = bound_ms(b0 * c0 * (h0 * w0 + ((h0 - 1) // 2 + 1) * ((w0 - 1) // 2 + 1)) * 4, {})
+    kms, pms, yard, _ = record(
+        "maxpool", "training", "float32", 1, lambda: mp.max_pool_3x3_s2(x, nonneg=True),
+        lambda: mp.reference_max_pool_3x3_s2(x),
+        lambda: F.max_pool2d(x, 3, stride=2, padding=1), bound, True, "training")
+    log(f"  C training stem {TRAIN_STEM} float32: kernel {kms:.4f} ms, plain {pms:.4f} ms, "
+        f"F.max_pool2d {yard:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); bit-equal")
     for (kernel, bucket, name), (kms, pms, yard, b, _) in sorted(totals.items()):
         if kernel != "maxpool":
             log(f"  {kernel} per {bucket} forward, {name} (sum over its launches): kernel "
@@ -1638,7 +1690,7 @@ def main() -> int:
         f"{list(fwd_train_times)}), ms from CUDA graphs: A-tf32 {fwd_step['tf32']:.4f}, SIMT "
         f"{fwd_step['simt']:.4f}, plain {fwd_step['plain']:.4f}, SDPA forward with dropout_p "
         f"{fwd_step['sdpa']:.4f}")
-    lap_ms, lap_plain_ms, _, (lap_bound, lap_by) = lap_times
+    lap_ms, lap_plain_ms, _, (lap_bound, lap_by), lap_loop_ms, lap_chain = lap_times
 
     def entry(name, source, launches_, err, ms_, plain_, bound, by, library):
         return {"name": name, "route": "cuda", "source": CSRC + source,
@@ -1713,7 +1765,9 @@ def main() -> int:
         f"bound as 3xTF32 on the tensor cores; both: ms/plain_ms/library_ms backward at (252,252) "
         f"fp32 B=8 dropout {DROPOUT} from CUDA graphs (plain and library: forward and backward "
         f"less forward); lap: optimal-cost max_abs_err "
-        f"{lap_err:.3e}, ms kernel / plain_ms plain version on 48 problems, no library call; "
+        f"{lap_err:.3e}, ms kernel from CUDA graphs ({lap_loop_ms:.4f} ms a call in a loop, host "
+        f"included) / plain_ms plain version on 48 problems, no library call, bound on bytes "
+        f"with a serial chain of {lap_chain} Dijkstra steps; "
         f"int8_matmul and int8_conv: max |kernel - plain| in LSB, ms/plain_ms/bound_ms/"
         f"library_ms summed over one b1 896x1408 forward's launches (library: torch._int_mm "
         f"and the bf16 cuDNN conv, not the same functions), launches in 3 int8 forwards; "

@@ -1,9 +1,9 @@
 // Asynchronous global -> shared copies (`cp.async`, sm_80 and later) and the
 // shared-memory address they take, shared by the tensor-core kernels: the
 // attention kernels (through flash_attention_common.cuh), bf16_mma.cuh, the
-// fused bottleneck E-mma (fused_bottleneck_mma.cu) and the int8 matmul F
-// (int8_matmul.cu); the int8 3x3 convolution G (int8_conv.cu), whose copies
-// are TMA's, takes the address alone.
+// fused bottleneck E-mma (fused_bottleneck_mma.cu), the int8 matmul F
+// (int8_matmul.cu) and the LAP B (lap.cu); the int8 3x3 convolution G
+// (int8_conv.cu), whose copies are TMA's, takes the address alone.
 
 #pragma once
 

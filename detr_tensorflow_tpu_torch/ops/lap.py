@@ -6,9 +6,10 @@ Replaces the TPU kernel ``_lap_kernel`` / ``solve_lap_masked_pallas`` of
 ``detr_tensorflow_tpu/ops/matcher.py:solve_lap_masked`` solves: per
 problem, a (R, C) cost matrix with R <= C and a row mask; each real row
 gets a distinct column at minimal total cost, masked rows get -1. The CUDA
-source is ``csrc/lap.cu``: one warp per problem, the auction pre-pass and
-the shortest augmenting paths of ``matcher.py`` with the column state in
-registers; its header note says what bounds it.
+source is ``csrc/lap.cu``: one CTA of sixteen warps per problem, the real rows
+staged compacted, the auction pre-pass of ``matcher.py`` with the bids
+spread over the warps, and its shortest augmenting paths on one warp with
+the column state in registers; its header note says what bounds it.
 
 ``solve_lap_masked`` takes CUDA tensors to the kernel and CPU tensors to
 ``reference_solve_lap_masked``; there is no fallback from one to the
@@ -28,10 +29,12 @@ _INF = 1e9  # matcher.py's _INF
 _AUCTION_ROUNDS = 5
 
 
-def _solve_one(cost: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
+def _solve_one(cost: torch.Tensor, row_mask: torch.Tensor) -> tuple[torch.Tensor, int]:
     """``matcher.solve_lap_masked`` for one (R, C) problem, in PyTorch:
     the five-round auction, then the serial shortest augmenting paths.
-    fp32 throughout, ties to the lowest column (argmin) and lowest row."""
+    fp32 throughout, ties to the lowest column (argmin) and lowest row.
+    Returns the column of each row and the number of Dijkstra steps the
+    augmenting paths took."""
     r, c = cost.shape
     dev = cost.device
     rows_idx = torch.arange(r, device=dev)
@@ -67,6 +70,7 @@ def _solve_one(cost: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
     p = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
                    torch.where(owner < r, owner + 1, 0)])
     real_col = torch.arange(c + 1, device=dev) > 0
+    steps = 0
     for i in (row_mask & ~assigned).nonzero().flatten().tolist():
         p[0] = i + 1
         minv = torch.full((c + 1,), _INF, device=dev)
@@ -74,6 +78,7 @@ def _solve_one(cost: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
         used = torch.zeros(c + 1, dtype=torch.bool, device=dev)
         j0 = 0
         while True:
+            steps += 1
             used[j0] = True
             i0 = int(p[j0])
             cur = costp[i0] - u[i0] - v
@@ -98,7 +103,7 @@ def _solve_one(cost: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
     col_of_row = torch.full((r,), -1, dtype=torch.int32, device=dev)
     matched = p[1:] > 0
     col_of_row[p[1:][matched] - 1] = cols_idx[matched].to(torch.int32)
-    return col_of_row
+    return col_of_row, steps
 
 
 def reference_solve_lap_masked(cost: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
@@ -106,7 +111,15 @@ def reference_solve_lap_masked(cost: torch.Tensor, row_mask: torch.Tensor) -> to
     int32 column per row, -1 for masked rows, one problem after another."""
     _check(cost, row_mask)
     cost = cost.float()
-    return torch.stack([_solve_one(cost[i], row_mask[i]) for i in range(cost.shape[0])])
+    return torch.stack([_solve_one(cost[i], row_mask[i])[0] for i in range(cost.shape[0])])
+
+
+def augmenting_steps(cost: torch.Tensor, row_mask: torch.Tensor) -> list[int]:
+    """The Dijkstra steps of each problem's augmenting paths, counted by the
+    plain version: the serial chain that the kernel runs on one warp."""
+    _check(cost, row_mask)
+    cost = cost.float()
+    return [_solve_one(cost[i], row_mask[i])[1] for i in range(cost.shape[0])]
 
 
 def _check(cost, row_mask):

@@ -417,7 +417,7 @@ def test_kernel_keep_mask_is_the_torch_philox(cuda_device):
     assert abs(float(got.float().mean()) - 0.9) <= 5 * (0.09 / n) ** 0.5
 
 
-def _lap_problems(seed, p=48, r=100, c=100, max_real=30, ties=False):
+def _lap_problems(seed, p=48, r=100, c=100, max_real=30, ties=False, scattered=False):
     rng = np.random.default_rng(seed)
     if ties:
         cost = rng.integers(0, 4, size=(p, r, c)).astype(np.float32)
@@ -426,27 +426,48 @@ def _lap_problems(seed, p=48, r=100, c=100, max_real=30, ties=False):
     n_real = rng.integers(0, max_real + 1, size=p)
     n_real[:2] = 0, max_real
     mask = np.arange(r)[None, :] < n_real[:, None]
-    return cost, mask, n_real
+    if scattered:
+        mask = np.stack([rng.permutation(m) for m in mask])
+    return cost, mask
 
 
+# (problems, rows, columns, most real rows, scattered masks, costs at an
+# address 4 bytes past a 16-byte boundary): the path's 48 x 100 x 100, masks
+# that are no prefix, the widest problems (R = C = 127, 4-byte staging), a
+# single column, and misaligned costs.
+LAP_LAYOUTS = {"path": (48, 100, 100, 30, False, False),
+               "scattered": (48, 100, 100, 30, True, False),
+               "square127": (6, 127, 127, 127, True, False),
+               "one column": (5, 1, 1, 1, False, False),
+               "misaligned": (6, 20, 40, 20, True, True)}
+
+
+@pytest.mark.parametrize("layout", list(LAP_LAYOUTS))
 @pytest.mark.parametrize("ties", [False, True])
-def test_lap_kernel_matches_plain_and_scipy(cuda_device, ties):
+def test_lap_kernel_matches_plain_and_scipy(cuda_device, ties, layout):
+    """B's assignments equal the plain version's and scipy's where the
+    optimum is unique; with tied costs its optimal cost equals scipy's."""
     from scipy.optimize import linear_sum_assignment
 
-    cost, mask, n_real = _lap_problems(1 + ties, ties=ties)
+    p, r, c, max_real, scattered, misaligned = LAP_LAYOUTS[layout]
+    cost, mask = _lap_problems(1 + ties, p, r, c, max_real, ties, scattered)
+    cost_d = torch.from_numpy(cost).to(cuda_device)
+    if misaligned:
+        cost_d = torch.empty(cost.size + 1, device=cuda_device)[1:].view(cost.shape).copy_(cost_d)
+        assert cost_d.data_ptr() % 16 == 4
     before = lap.solve_lap_masked.launches
-    got = lap.solve_lap_masked(torch.from_numpy(cost).to(cuda_device),
-                               torch.from_numpy(mask).to(cuda_device)).cpu().numpy()
+    got = lap.solve_lap_masked(cost_d, torch.from_numpy(mask).to(cuda_device)).cpu().numpy()
     assert lap.solve_lap_masked.launches == before + 1
     plain = lap.reference_solve_lap_masked(torch.from_numpy(cost), torch.from_numpy(mask)).numpy()
-    for i, n in enumerate(n_real):
-        assert (got[i, n:] == -1).all()
-        rows, cols = linear_sum_assignment(cost[i, :n])
-        assert len(set(got[i, :n].tolist())) == n
-        ours = cost[i, np.arange(n), got[i, :n]].sum()
-        assert abs(ours - cost[i, rows, cols].sum()) <= 1e-4 * max(1.0, abs(ours))
+    for i, m in enumerate(mask):
+        n = int(m.sum())
+        assert (got[i, ~m] == -1).all()
+        rows, cols = linear_sum_assignment(cost[i, m])
+        assert len(set(got[i, m].tolist())) == n
+        ours = cost[i, m][np.arange(n), got[i, m]].sum()
+        assert abs(ours - cost[i, m][rows, cols].sum()) <= 1e-4 * max(1.0, abs(ours))
         if not ties:
-            assert (got[i, :n] == cols).all() and (plain[i] == got[i]).all()
+            assert (got[i, m] == cols).all() and (plain[i] == got[i]).all()
 
 
 def test_train_step_kernel_route_matches_plain(cuda_device):
@@ -655,21 +676,45 @@ def _channels_last(t):
     return t.contiguous(memory_format=torch.channels_last)
 
 
+def _same_bits(a, b):
+    """Equal bits where ``a`` is not NaN, and NaN at the same places."""
+    nan = torch.isnan(a)
+    ints = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return bool(torch.equal(nan, torch.isnan(b))
+                and torch.equal(a.view(ints)[~nan], b.view(ints)[~nan]))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 64, 448, 704), (1, 64, 384, 640), (2, 64, 188, 336),
-                                   (2, 8, 9, 11)])
+                                   (8, 64, 188, 336), (2, 8, 9, 11), (3, 4, 9, 11),
+                                   (3, 12, 10, 12), (2, 72, 17, 34)])
 def test_maxpool_kernel_is_bit_exact(cuda_device, shape, dtype):
     """Kernel C equals F.max_pool2d(3, 2, 1) bit for bit at the stem's
-    shapes (and an odd one), on post-ReLU input with many ties, and on any
-    input: it skips the taps outside the image instead of reading zeros."""
+    shapes (the training stem at batch 8), at odd and even H and W and at
+    channel counts whose rows are not a multiple of 16 bytes (the scalar
+    channel path), on post-ReLU input with many ties, on any input (it
+    skips the taps outside the image instead of reading zeros), on input
+    with -0, -inf and NaN (NaN where F.max_pool2d has NaN), and on a view
+    that does not start at a 16-byte boundary."""
     gen = torch.Generator(device=cuda_device).manual_seed(shape[2])
     x = torch.randn(shape, device=cuda_device, generator=gen).to(dtype)
-    for inp in (_channels_last(torch.relu(x).round()), _channels_last(x)):
+    odd = torch.randint(-1, 3, shape, device=cuda_device, generator=gen).to(dtype)
+    odd[odd == -1] = -0.0
+    odd[torch.rand(shape, device=cuda_device, generator=gen) < 0.05] = float("-inf")
+    odd[torch.rand(shape, device=cuda_device, generator=gen) < 0.02] = float("nan")
+    b, c, h, w = shape
+    shifted = torch.empty(x.numel() + 1, device=cuda_device, dtype=dtype)[1:]
+    shifted = shifted.view(b, h, w, c).permute(0, 3, 1, 2)
+    shifted.copy_(x)
+    assert shifted.is_contiguous(memory_format=torch.channels_last)
+    assert shifted.data_ptr() % 16 != 0
+    for inp in (_channels_last(torch.relu(x).round()), _channels_last(x), _channels_last(odd),
+                shifted):
         before = maxpool.max_pool_3x3_s2.launches
         got = maxpool.max_pool_3x3_s2(inp, nonneg=True)
         assert maxpool.max_pool_3x3_s2.launches == before + 1
         assert got.is_contiguous(memory_format=torch.channels_last)
-        assert torch.equal(got, maxpool.reference_max_pool_3x3_s2(inp))
+        assert _same_bits(got, maxpool.reference_max_pool_3x3_s2(inp))
     with pytest.raises(ValueError, match="channels_last"):
         maxpool.max_pool_3x3_s2(x.contiguous(), nonneg=True)
 
