@@ -26,7 +26,9 @@ Phases, one status line each; any failure raises and exits non-zero:
      shape the fp32 forward with dropout 0.1 (A-tf32 at each CTA shape, the
      SIMT A, plain, SDPA) and the backward (the tensor-core A', the SIMT
      A', plain, SDPA's backward) timed from CUDA graphs in turns, and their
-     sums per training step;
+     sums per training step; at each training shape the bf16 step's SIMT A
+     (dropout 0.1) and SIMT A' against plain, SDPA and their bound, timed
+     the same way, and their sums per bf16 step;
   4. lap: the LAP kernel on 48 problems (6 decoder layers x batch 8)
      against its plain version and scipy, on prefix and scattered row
      masks, with its device time from CUDA graphs, the time of a loop of
@@ -38,7 +40,9 @@ Phases, one status line each; any failure raises and exits non-zero:
      exact, the same fp32 forward under torch's default TF32 flags (cuDNN
      convs on TF32) against TF32 off (a reading of boxes and logits beside
      the golden tolerances, not a gate), and one bf16 request (A-mma 18 per
-     bf16 forward, A-tf32 18 per fp32 one, the SIMT kernel 0);
+     bf16 forward, A-tf32 18 per fp32 one, the SIMT kernel 0) from float32
+     parameters, whose forward is no further from the fp32 forward than
+     twice the bf16 plain-attention model's;
   6. http: the port's HTTP service on 127.0.0.1, 3 POSTs and /healthz;
   7. int8 kernels: F (fused int8 1x1) and G (int8 3x3, stride 1 and 2) at
      every distinct shape of the b1 896x1408 int8 forward against their
@@ -56,7 +60,20 @@ Phases, one status line each; any failure raises and exits non-zero:
      (per step A-tf32 18, SIMT A 0, tensor-core A' 18, SIMT A' 0, B 1, C 1);
      one more step under ``torch.profiler``: B's and C's device time and
      their share of the step's kernel time; matching and loss under
-     ``torch.cuda.set_sync_debug_mode("error")``;
+     ``torch.cuda.set_sync_debug_mode("error")``; the step's wall and
+     device-busy time under ``torch.profiler`` and its peak memory;
+ 9b. bf16 training: the same model built with ``dtype="bfloat16"`` (float32
+     parameters, bf16 compute). The kernel route against the plain-attention
+     route with the matching shared, at dropout 0 (A-mma and the SIMT A')
+     and at dropout 0.1 with every route's masks alike (the SIMT A and A',
+     the main path's kernels): loss within 1e-2 relative, every gradient
+     float32 and no further from the fp32 step's on the same weights and
+     masks than the plain route's (median over tensors within 2x, each
+     tensor within 3x); then four dropout-0.1 steps through ``Trainer``
+     with the counters reset just before (per step SIMT A 18, SIMT A' 18,
+     B 1, C 1, A-tf32, A-mma and the tensor-core A' 0), every parameter and
+     Adam moment float32 after each; median step time, device-busy time and
+     peak memory beside the fp32 step's;
  10. fused kernels: C (stem max pool), D (fused bottleneck tail) and E
      (whole identity bottleneck) at every distinct shape of one b1 forward
      of the fused-backbone model, at 896x1408 with a mask (C, D x16) and
@@ -103,6 +120,7 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import collections
+import functools
 import io
 import json
 import re
@@ -173,6 +191,22 @@ TRAIN_BATCH, TRAIN_HW, TRAIN_STEPS = 8, (376, 672), 8
 TRAIN_STEM = (8, 64, 188, 336)  # kernel C's input in a training step: conv1's output
 BACKGROUND = 91  # DETR-R50's "no object" logit of 92
 LOSS_RTOL, TENSOR_GRAD_RTOL, NOISE_FLOOR = 1e-4, 1e-3, 1e-6
+# The bf16 step (float32 parameters, bf16 compute), b8 376x672, dropout 0.1.
+# Parity at dropout 0 (A-mma forward, SIMT A' backward) and at dropout 0.1
+# (the SIMT A and A', every route given the same masks): the kernel
+# route's loss within BF16_LOSS_RTOL of the plain route's (the two round
+# attention at different points, and the rounding noise of a bf16 forward
+# reaches the loss at ~1e-3), and its gradients, against the fp32 step's on
+# the same weights, no further than the plain route's: the median relative
+# distance over the tensors within BF16_GAP_FACTOR, each tensor within
+# BF16_TENSOR_GAP_FACTOR (two draws of bf16 rounding noise;
+# tests/test_torch_bf16.py measured 2.4x on a tensor against the JAX
+# package's bf16 step). A guard that the routes drew the same masks: the
+# plain route's median distance from the fp32 step within
+# BF16_SAME_MASKS_GAP (0.046 at dropout 0).
+BF16_TRAIN_STEPS = 4
+BF16_LOSS_RTOL, BF16_GAP_FACTOR, BF16_TENSOR_GAP_FACTOR = 1e-2, 2.0, 3.0
+BF16_SAME_MASKS_GAP = 0.25
 
 # int8 serving: one DETR-R50 forward at the 896x1408 bucket launches F 32
 # times (conv1 x16, conv3 tail x16) and G 16 times (13 stride 1, 3 stride 2).
@@ -252,11 +286,11 @@ def graph_ms(torch, fn, iters: int = 20, replays: int = 3) -> float:
 
 
 def device_busy_ms(torch, fn, calls: int = 3):
-    """(wall ms, device-busy ms) per call of ``fn`` over ``calls`` calls under
-    torch.profiler, busy being the union of the card's kernel and copy
-    intervals: 1 - busy / wall is the device's idle share, the profiler's
-    own host cost included. Busy is None where the profiler saw no device
-    activity."""
+    """(wall ms, device-busy ms, device events) per call of ``fn`` over
+    ``calls`` calls under torch.profiler, busy being the union of the card's
+    kernel and copy intervals and events their count: 1 - busy / wall is the
+    device's idle share, the profiler's own host cost included. Busy is None
+    where the profiler saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -273,7 +307,7 @@ def device_busy_ms(torch, fn, calls: int = 3):
         if stop > end:
             busy_us += stop - max(start, end)
             end = stop
-    return wall_ms, (busy_us / 1e3 / calls if spans else None)
+    return wall_ms, (busy_us / 1e3 / calls if spans else None), len(spans) / calls
 
 
 def kernel_ms(torch, fn, names) -> tuple:
@@ -466,10 +500,11 @@ def phase_train_kernels(torch, fa):
     """Kernel A with dropout and kernel A' at the training shapes: through
     ``mha`` (fp32: A-tf32 and the tensor-core A', bf16: the SIMT A and A'),
     and the SIMT A' called directly at fp32; each against plain autograd at
-    dropout 0 and 0.1. Then, at every training shape (fp32, dropout 0.1),
-    the forward (A-tf32, the SIMT A, plain, SDPA) and the backward (the
-    tensor-core A', the SIMT A', plain, SDPA's backward) from CUDA graphs,
-    in turns."""
+    dropout 0 and 0.1. Then, at every training shape and dropout 0.1, the
+    forward and the backward from CUDA graphs, in turns: at fp32 A-tf32, the
+    SIMT A, the tensor-core A' and the SIMT A'; at bf16 the SIMT A and A';
+    each beside plain and SDPA (``time_train_forward``,
+    ``time_train_attention``)."""
     worst = {"float32": 0.0, "bfloat16": 0.0, "simt float32": 0.0}
     times, fwd_times = {}, {}
     for lq, lk in TRAIN_ATTN_SHAPES:
@@ -512,94 +547,120 @@ def phase_train_kernels(torch, fa):
                 route = fa.backward_route(dtype, 32)
                 log(f"  attention fwd+bwd ({lq},{lk}) {name} dropout {rate}"
                     f"{' masked' if masked else ''}, backward route {route}: {', '.join(errs)}")
-            if name == "float32":
-                fwd_times[(lq, lk)] = time_train_forward(torch, fa, q, k, v, mask)
-                times[(lq, lk)] = time_train_attention(torch, fa, q, k, v, dout, mask)
+            key = (lq, lk) if name == "float32" else (lq, lk, name)
+            fwd_times[key] = time_train_forward(torch, fa, q, k, v, mask)
+            times[key] = time_train_attention(torch, fa, q, k, v, dout, mask)
     return worst, times, fwd_times
 
 
+def graph_turns(torch, fns, routes):
+    """Each of ``routes`` (keys of ``fns``) and plain from CUDA graphs in
+    turns (plain, the routes, the routes backwards, plain): {route: (mean,
+    (first, second))}."""
+    turns = ["plain"] + routes + routes[::-1] + ["plain"]
+    runs = collections.defaultdict(list)
+    for what in turns:
+        runs[what].append(graph_ms(torch, fns[what], iters=10))
+    return {what: (sum(r) / 2, tuple(r)) for what, r in runs.items()}
+
+
 def time_train_forward(torch, fa, q, k, v, mask):
-    """A at one training shape (fp32, b8, dropout 0.1, with the row lse the
-    backward reads) from CUDA graphs: A-tf32 (the CTA shape ``tf32_shape``
-    picks, and each shape), the SIMT kernel, plain and SDPA's forward with
-    ``dropout_p`` in turns (plain, tf32, simt, simt, tf32, plain), each
-    kernel held against plain given the kernel library's keep mask first,
-    with the bound on the fp32 pipes and as 3xTF32 on the tensor cores."""
+    """A at one training shape (b8, dropout 0.1, with the row lse the
+    backward reads) from CUDA graphs, each kernel held against plain given
+    the kernel library's keep mask first. fp32: A-tf32 (the CTA shape
+    ``tf32_shape`` picks, and each shape) and the SIMT kernel; bf16: the
+    SIMT kernel, the route bf16 with dropout takes. Kernels and plain in
+    turns, SDPA's forward with ``dropout_p`` beside; the bound at the
+    dtype's peak (the fp32 pipes or bf16) and, at fp32, as 3xTF32 on the
+    tensor cores."""
+    name = "float32" if q.dtype == torch.float32 else "bfloat16"
     lq, lk = q.shape[1], k.shape[1]
     seed = torch.tensor([54321], device=DEVICE)
     keep = fa.kernel_keep_mask(seed, 64, lq, lk, DROPOUT).view(8, 8, lq, lk)
-    tf32 = lambda shape=None: fa.launch_forward_tf32(  # noqa: E731
-        q, k, v, mask, seed, DROPOUT, True, shape=shape)
-    simt = lambda: fa.launch_forward_simt(q, k, v, mask, seed, DROPOUT, True)  # noqa: E731
-    plain = lambda: fa.reference_mha(q, k, v, mask, keep, DROPOUT)  # noqa: E731
-    ref = plain()
-    outs = {"tf32": tf32()[0], "simt": simt()[0]}
-    for shape in fa.MMA_SHAPES:
-        outs[shape] = tf32(shape)[0]
+    fns = {"plain": lambda: fa.reference_mha(q, k, v, mask, keep, DROPOUT),
+           "simt": lambda: fa.launch_forward_simt(q, k, v, mask, seed, DROPOUT, True)}
+    routes, shapes = ["simt"], []
+    if name == "float32":
+        tf32 = lambda shape=None: fa.launch_forward_tf32(  # noqa: E731
+            q, k, v, mask, seed, DROPOUT, True, shape=shape)
+        fns["tf32"] = tf32
+        fns.update({shape: functools.partial(tf32, shape) for shape in fa.MMA_SHAPES})
+        routes, shapes = ["tf32", "simt"], list(fa.MMA_SHAPES)
+    ref = fns["plain"]()
+    outs = {what: fns[what]()[0] for what in routes + shapes}
     torch.cuda.synchronize()
-    errs = {what: check_attention("float32", f"{what} ({lq},{lk}) fp32 dropout {DROPOUT}", out,
-                                  ref, q) for what, out in outs.items()}
-    p1, a1, s1, s2, a2, p2 = (graph_ms(torch, f, iters=10)
-                              for f in (plain, tf32, simt, simt, tf32, plain))
-    t = {"tf32": (a1 + a2) / 2, "simt": (s1 + s2) / 2, "plain": (p1 + p2) / 2,
-         "sdpa": graph_ms(torch, lambda: sdpa(torch, q, k, v, mask, DROPOUT), iters=10),
-         "err": max(errs.values()),
-         "bound32": attention_bound(8, lq, lk, "float32", mask is not None, lse=True),
-         "bound3x": attention_bound(8, lq, lk, "tf32", mask is not None, lse=True)}
-    for shape in fa.MMA_SHAPES:
-        t[shape] = graph_ms(torch, lambda: tf32(shape), iters=10)
+    errs = {what: check_attention(name, f"{what} ({lq},{lk}) {name} dropout {DROPOUT}", out, ref,
+                                  q) for what, out in outs.items()}
+    turns = graph_turns(torch, fns, routes)
+    t = {what: mean for what, (mean, _) in turns.items()}
+    t.update({shape: graph_ms(torch, fns[shape], iters=10) for shape in shapes})
+    t.update(err=max(errs.values()),
+             sdpa=graph_ms(torch, lambda: sdpa(torch, q, k, v, mask, DROPOUT), iters=10),
+             bound=attention_bound(8, lq, lk, name, mask is not None, lse=True))
+    label = {"tf32": "A-tf32", "simt": "SIMT A"}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    log(f"  attention forward ({lq},{lk}) fp32 B=8 H=8 Dh=32 dropout {DROPOUT}"
+    log(f"  attention forward ({lq},{lk}) {name} B=8 H=8 Dh=32 dropout {DROPOUT}"
         f"{' masked' if mask is not None else ''}, against plain given the keep mask: "
-        + ", ".join(f"{w} {e:.2e}" for w, e in errs.items())
-        + f"; CUDA graphs: A-tf32 {t['tf32']:.4f} ms ({a1:.4f}, {a2:.4f}; CTA shape "
-        f"{fa.tf32_shape(64, lq, sms)}; " + ", ".join(f"{s_} {t[s_]:.4f}" for s_ in fa.MMA_SHAPES)
-        + f"), SIMT A {t['simt']:.4f} ms ({s1:.4f}, {s2:.4f}), plain {t['plain']:.4f} ms, "
-        f"library scaled_dot_product_attention with dropout_p {t['sdpa']:.4f} ms, bound "
-        f"{t['bound32'][0]:.4f} ms on the fp32 pipes ({t['bound32'][1]}), {t['bound3x'][0]:.4f} "
-        f"ms as 3xTF32 ({t['bound3x'][1]})")
+        + ", ".join(f"{w} {e:.2e}" for w, e in errs.items()) + "; CUDA graphs: "
+        + ", ".join(f"{label[w]} {t[w]:.4f} ms ({turns[w][1][0]:.4f}, {turns[w][1][1]:.4f})"
+                    for w in routes)
+        + (f" (A-tf32 CTA shape {fa.tf32_shape(64, lq, sms)}; "
+           + ", ".join(f"{s_} {t[s_]:.4f}" for s_ in shapes) + ")" if shapes else "")
+        + f", plain {t['plain']:.4f} ms, library scaled_dot_product_attention with dropout_p "
+        f"{t['sdpa']:.4f} ms, bound {t['bound'][0]:.4f} ms at the {name} peak "
+        f"({t['bound'][1]})")
+    if name == "float32":
+        t["bound3x"] = attention_bound(8, lq, lk, "tf32", mask is not None, lse=True)
+        log(f"    bound as 3xTF32 {t['bound3x'][0]:.4f} ms ({t['bound3x'][1]})")
     return t
 
 
 def time_train_attention(torch, fa, q, k, v, dout, mask):
-    """A' at one training shape (fp32, b8, dropout 0.1) from CUDA graphs: the
-    tensor-core kernel, the SIMT kernel, plain and SDPA's backward in turns
-    (plain, mma, simt, simt, mma, plain; the plain and library backwards as
-    a graph of forward and backward less one of the forward: autograd runs a
-    backward on its forward's stream, so both are captured), with the bound
-    on the fp32 pipes and as 3xTF32 on the tensor cores."""
+    """A' at one training shape (b8, dropout 0.1) from CUDA graphs: at fp32
+    the tensor-core kernel and the SIMT kernel, at bf16 the SIMT kernel
+    (the route bf16 takes), in turns with plain, SDPA's backward beside;
+    the plain and library backwards as a graph of forward and backward
+    less one of the forward (autograd runs a backward on its forward's
+    stream, so both are captured). The bound at the dtype's peak (the fp32
+    pipes or bf16) and, at fp32, as 3xTF32 on the tensor cores."""
+    name = "float32" if q.dtype == torch.float32 else "bfloat16"
     lq, lk = q.shape[1], k.shape[1]
     seed = torch.tensor([12345], device=DEVICE)
     keep = fa.keep_mask(seed, 64, lq, lk, DROPOUT).view(8, 8, lq, lk)
     out, lse = fa.launch_forward(q, k, v, mask, seed, DROPOUT, True)
     args = (q, k, v, out, dout, lse, mask, seed, DROPOUT)
-    mma = lambda: fa.launch_backward_mma(*args)  # noqa: E731
-    simt = lambda: fa.launch_backward_simt(*args)  # noqa: E731
     qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
     plain_fwd = lambda: fa.reference_mha(qr, kr, vr, mask, keep, DROPOUT)  # noqa: E731
-    plain_all = lambda: torch.autograd.grad(plain_fwd(), (qr, kr, vr), dout)  # noqa: E731
-    p1, m1, s1, s2, m2, p2 = (graph_ms(torch, f, iters=10)
-                              for f in (plain_all, mma, simt, simt, mma, plain_all))
-    plain_bwd = (p1 + p2) / 2 - graph_ms(torch, plain_fwd, iters=10)
-    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    fns = {"plain": lambda: torch.autograd.grad(plain_fwd(), (qr, kr, vr), dout),
+           "simt": lambda: fa.launch_backward_simt(*args),
+           "mma": lambda: fa.launch_backward_mma(*args)}
+    routes = ["mma", "simt"] if name == "float32" else ["simt"]
+    turns = graph_turns(torch, fns, routes)
+    t = {what: mean for what, (mean, _) in turns.items()}
+    t["plain"] -= graph_ms(torch, plain_fwd, iters=10)
+    qs, ks, vs = (t_.detach().clone().requires_grad_() for t_ in (q, k, v))
     lib_fwd = lambda: sdpa(torch, qs, ks, vs, mask, DROPOUT)  # noqa: E731
     lib_all = lambda: torch.autograd.grad(  # noqa: E731
         lib_fwd(), (qs, ks, vs), dout.transpose(1, 2))
-    lib_ms = graph_ms(torch, lib_all, iters=10) - graph_ms(torch, lib_fwd, iters=10)
+    t["sdpa"] = graph_ms(torch, lib_all, iters=10) - graph_ms(torch, lib_fwd, iters=10)
     # q, k, v, out, dout in; dq, dk, dv out; the row lse; the mask. Five
     # products of 2 * Dh flops per (query, key) pair and head.
-    nbytes = 8 * 8 * 32 * (4 * lq + 4 * lk) * 4 + 8 * 8 * lq * 4 + (8 * lk if mask is not None else 0)
+    size = q.element_size()
+    nbytes = (8 * 8 * 32 * (4 * lq + 4 * lk) * size + 8 * 8 * lq * 4
+              + (8 * lk if mask is not None else 0))
     flops = 10 * 8 * 8 * lq * lk * 32
-    t = {"mma": (m1 + m2) / 2, "simt": (s1 + s2) / 2, "plain": plain_bwd, "sdpa": lib_ms,
-         "runs": (m1, m2, s1, s2), "bound32": bound_ms(nbytes, {"float32": flops}),
-         "bound3x": bound_ms(nbytes, {"tf32": 3 * flops})}
-    log(f"  attention backward ({lq},{lk}) fp32 B=8 H=8 Dh=32 dropout {DROPOUT}"
-        f"{' masked' if mask is not None else ''}, CUDA graphs: tensor-core A' {t['mma']:.4f} ms "
-        f"({m1:.4f}, {m2:.4f}), SIMT A' {t['simt']:.4f} ms ({s1:.4f}, {s2:.4f}), plain "
-        f"{plain_bwd:.4f} ms, library scaled_dot_product_attention backward {lib_ms:.4f} ms "
-        f"(plain and library: forward and backward less forward), bound {t['bound32'][0]:.4f} ms "
-        f"on the fp32 pipes ({t['bound32'][1]}), {t['bound3x'][0]:.4f} ms as 3xTF32 "
-        f"({t['bound3x'][1]})")
+    t["bound"] = bound_ms(nbytes, {name: flops})
+    label = {"mma": "tensor-core A'", "simt": "SIMT A'"}
+    log(f"  attention backward ({lq},{lk}) {name} B=8 H=8 Dh=32 dropout {DROPOUT}"
+        f"{' masked' if mask is not None else ''}, CUDA graphs: "
+        + ", ".join(f"{label[w]} {t[w]:.4f} ms ({turns[w][1][0]:.4f}, {turns[w][1][1]:.4f})"
+                    for w in routes)
+        + f", plain {t['plain']:.4f} ms, library scaled_dot_product_attention backward "
+        f"{t['sdpa']:.4f} ms (plain and library: forward and backward less forward), bound "
+        f"{t['bound'][0]:.4f} ms at the {name} peak ({t['bound'][1]})")
+    if name == "float32":
+        t["bound3x"] = bound_ms(nbytes, {"tf32": 3 * flops})
+        log(f"    bound as 3xTF32 {t['bound3x'][0]:.4f} ms ({t['bound3x'][1]})")
     return t
 
 
@@ -792,6 +853,19 @@ def phase_serving(torch, fa, mp, api, Predictor, tf32_defaults):
                              f"{mp.max_pool_3x3_s2.launches} C launches for one forward")
     pool_launches += mp.max_pool_3x3_s2.launches
     check_detections(dets)
+    # The bf16 forward (A-mma) against the bf16 plain-attention model, both
+    # from the fp32 weights: no further from the fp32 forward than
+    # BF16_GAP_FACTOR times the plain model's own distance (max |diff|).
+    plain_bf16 = api.build_detr(seed=0, device=DEVICE, dtype="bfloat16", attn_impl="plain")
+    ours16, ref16 = model_bf16(x, pm), plain_bf16(x, pm)
+    for key in ("pred_boxes", "pred_logits"):
+        direct = float((ours16[key] - ref16[key]).abs().max())
+        gap, plain_gap = (float((o[key] - ours[key]).abs().max()) for o in (ours16, ref16))
+        log(f"  bf16 forward {key}: kernel vs plain attention max_abs_err {direct:.3e}; from the "
+            f"fp32 forward: kernel {gap:.3e}, plain {plain_gap:.3e} (tol {BF16_GAP_FACTOR} x)")
+        if not gap <= BF16_GAP_FACTOR * plain_gap:
+            raise AssertionError(f"bf16 {key} further from fp32 than the plain-attention model's")
+    del plain_bf16
     lat16 = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -1180,6 +1254,9 @@ def phase_training(torch, fa, lap, mp, api, train, losses):
                              f"SIMT A', B, C, tensor-core A') and no SIMT A or A-mma (fp32)")
     if not all(np.isfinite(losses_seen)) or not losses_seen[-1] < losses_seen[0]:
         raise AssertionError(f"losses not finite and falling: {losses_seen}")
+    wall_ms, busy_ms, events = device_busy_ms(torch, lambda: trainer.step(batch))
+    log(f"  under torch.profiler: {wall_ms:.2f} ms wall, {busy_ms:.2f} ms device busy, "
+        f"{events:.0f} kernels and copies a step")
     step_kernels, by_name = kernel_ms(torch, lambda: trainer.step(batch),
                                       ("lap_kernel", "max_pool_3x3_s2"))
     log(f"  one step under torch.profiler: {step_kernels:.2f} ms of kernel time; B (lap_kernel) "
@@ -1197,7 +1274,150 @@ def phase_training(torch, fa, lap, mp, api, train, losses):
     if not bool(torch.isfinite(total)):
         raise AssertionError("non-finite loss")
     log("  matching and loss ran under set_sync_debug_mode('error'): no host sync")
-    return counts, median
+    return counts, {"median": median, "peak_gb": peak_gb, "wall": wall_ms, "busy": busy_ms,
+                    "events": events}
+
+
+def tensor_gaps(ours, plain, exact):
+    """The bf16 kernel route's gradients (or outputs) ``ours`` and the bf16
+    plain route's ``plain`` against the fp32 step's ``exact``, in relative
+    distance e = ||x - exact|| / ||exact|| per tensor: (median e of ours,
+    median e of plain, worst (ours e / max(plain e, plain median), name)).
+    Raises unless ours' median is within BF16_GAP_FACTOR of plain's and every
+    tensor within BF16_TENSOR_GAP_FACTOR of max(plain e, plain median); a
+    tensor whose exact value is below NOISE_FLOOR of the largest (an
+    exactly-zero gradient) is held in absolute distance to
+    BF16_TENSOR_GAP_FACTOR times max(plain's, NOISE_FLOOR of the largest)."""
+    scale = max(float(g.norm()) for g in exact.values())
+    rel, noise = {}, {}
+    for name, ref in exact.items():
+        norm = float(ref.norm())
+        gaps = [float((t[name].float() - ref).norm()) for t in (ours, plain)]
+        if norm > NOISE_FLOOR * scale:
+            rel[name] = [g / norm for g in gaps]
+        else:
+            noise[name] = gaps
+    ours_med = statistics.median(e[0] for e in rel.values())
+    plain_med = statistics.median(e[1] for e in rel.values())
+    worst = max((e[0] / max(e[1], plain_med), n) for n, e in rel.items())
+    if not ours_med <= BF16_GAP_FACTOR * plain_med:
+        raise AssertionError(f"bf16 kernel route median gap {ours_med} > {BF16_GAP_FACTOR} x "
+                             f"plain route's {plain_med}")
+    if not worst[0] <= BF16_TENSOR_GAP_FACTOR:
+        raise AssertionError(f"{worst[1]}: bf16 kernel route {worst[0]} x the plain route's gap")
+    for name, (g_ours, g_plain) in noise.items():
+        if not g_ours <= BF16_TENSOR_GAP_FACTOR * max(g_plain, NOISE_FLOOR * scale):
+            raise AssertionError(f"{name}: {g_ours} above the noise floor")
+    return ours_med, plain_med, worst, len(noise)
+
+
+def bf16_parity(torch, api, losses, batch, rate):
+    """One step's loss and gradients of the bf16 kernel route, the bf16
+    plain-attention route and the fp32 step on the same weights, batch,
+    matching and dropout masks (each model's generator seeded alike: the
+    FFN masks come from it, the attention masks from the Philox seed each
+    layer draws from it, which the plain route expands with ``keep_mask``).
+    Raises unless the kernel route's loss is within BF16_LOSS_RTOL of the
+    plain route's and its gradients, all float32, are no further from the
+    fp32 step's than the plain route's (``tensor_gaps``)."""
+    targets = ("boxes", "classes", "mask")
+    results, match = {}, None
+    for key, dtype, impl in (("kernel", "bfloat16", "auto"), ("plain", "bfloat16", "plain"),
+                             ("fp32", "float32", "auto")):
+        model = api.build_detr(seed=0, device=DEVICE, dropout=rate, attn_impl=impl,
+                               dtype=dtype).module
+        gen = torch.Generator(device=DEVICE).manual_seed(17)
+        out = model(batch["images"], train=True, generator=gen)
+        if match is None:
+            match = losses.match_all_layers(out, *(batch[k] for k in targets))
+        total, _ = losses.detr_loss(out, *(batch[k] for k in targets), BACKGROUND, match=match)
+        total.backward()
+        if any(p.dtype != torch.float32 or p.grad.dtype != torch.float32
+               for p in model.parameters()):
+            raise AssertionError(f"{key}: a parameter or gradient is not float32")
+        results[key] = (float(total.detach()), {n: p.grad for n, p in model.named_parameters()})
+        del model, out
+    (loss_k, grads_k), (loss_p, grads_p), (loss_32, grads_32) = (
+        results[k] for k in ("kernel", "plain", "fp32"))
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    ours_med, plain_med, worst, n_noise = tensor_gaps(grads_k, grads_p, grads_32)
+    routes = "A-mma and SIMT A'" if rate == 0 else "SIMT A and A'"
+    log(f"  bf16 parity at dropout {rate} (kernel route: {routes}): loss kernel {loss_k:.6f} plain "
+        f"{loss_p:.6f} (rel {loss_err:.2e}, tol {BF16_LOSS_RTOL}), fp32 step {loss_32:.6f}; "
+        f"gradients against the fp32 step's, median relative distance kernel route "
+        f"{ours_med:.4f}, plain route {plain_med:.4f} (tol {BF16_GAP_FACTOR} x), worst tensor "
+        f"{worst[1]} at {worst[0]:.3f} x (tol {BF16_TENSOR_GAP_FACTOR} x), {n_noise} "
+        f"exactly-zero tensors within the floor")
+    if not loss_err <= BF16_LOSS_RTOL:
+        raise AssertionError(f"bf16 kernel route and plain route losses disagree at dropout {rate}")
+    if not plain_med <= BF16_SAME_MASKS_GAP:
+        raise AssertionError(f"the bf16 plain route's gradients lie {plain_med} from the fp32 "
+                             f"step's at dropout {rate}: the routes did not share their masks")
+    torch.cuda.empty_cache()
+
+
+def phase_bf16_training(torch, fa, lap, mp, api, train, losses):
+    """The bf16 training step (float32 parameters, bf16 compute): parity of
+    the kernel route with the plain-attention route against the fp32 step
+    on the same weights, batch and matching (``bf16_parity``), at dropout 0
+    (the forward on A-mma, the backward on the SIMT A') and at dropout 0.1
+    with the same masks (the SIMT A and A', the main path's kernels); then
+    steps at dropout 0.1 through ``Trainer`` with the counts reset just
+    before; then its time under the profiler."""
+    from detr_tensorflow_tpu_torch.train.engine import batch_to_device
+
+    batch = batch_to_device(train_batch(5), DEVICE)
+    for rate in (0.0, DROPOUT):
+        bf16_parity(torch, api, losses, batch, rate)
+
+    config = train.TrainingConfig(background_class=BACKGROUND, train_backbone=True,
+                                  train_transformers=True, batch_size=TRAIN_BATCH)
+    model = api.build_detr(seed=0, device=DEVICE, dtype="bfloat16").module  # dropout 0.1
+    trainer = train.Trainer(model, config, seed=0)
+    batch = batch_to_device(train_batch(6), DEVICE)
+    trainer.step(batch)  # first call: cuDNN plans and kernel loads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks, losses_seen = [time.perf_counter()], []
+
+    def log_fn(host_log, step):
+        marks.append(time.perf_counter())
+        losses_seen.append(host_log["total_loss"])
+        if any(p.dtype != torch.float32 for p in model.parameters()):
+            raise AssertionError(f"a parameter is not float32 after step {step}")
+
+    fa.mha.tf32_launches = fa.mha.backward_launches = lap.solve_lap_masked.launches = 0  # main path
+    mp.max_pool_3x3_s2.launches = fa.mha.mma_launches = fa.mha.backward_mma_launches = 0
+    fa.mha.launches = 0
+    train.fit(trainer, [batch] * BF16_TRAIN_STEPS, config, epoch_nb=0, log_fn=log_fn, log_every=1)
+    counts = {"A SIMT": fa.mha.launches, "A' SIMT": fa.mha.backward_launches,
+              "B": lap.solve_lap_masked.launches, "C": mp.max_pool_3x3_s2.launches,
+              "A-tf32": fa.mha.tf32_launches, "A-mma": fa.mha.mma_launches,
+              "A'-mma": fa.mha.backward_mma_launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+    median = statistics.median(step_ms)
+    log(f"  bf16: {BF16_TRAIN_STEPS} steps at dropout {DROPOUT}: losses "
+        f"{[round(x, 4) for x in losses_seen]}; every parameter float32 after each step")
+    log(f"  bf16 step times {[round(x, 2) for x in step_ms]} ms, median {median:.2f} ms, "
+        f"{TRAIN_BATCH * 1e3 / median:.2f} images/s, peak device memory {peak_gb:.2f} GiB")
+    per_step = {k: v / BF16_TRAIN_STEPS for k, v in counts.items()}
+    log(f"  bf16 launches per step: {per_step}")
+    expected = {"A SIMT": LAUNCHES_PER_FORWARD, "A' SIMT": LAUNCHES_PER_FORWARD, "B": 1, "C": 1,
+                "A-tf32": 0, "A-mma": 0, "A'-mma": 0}
+    if per_step != expected:
+        raise AssertionError(f"bf16 launches per step {per_step}, expected {expected}")
+    if not all(np.isfinite(losses_seen)):
+        raise AssertionError(f"bf16 losses not finite: {losses_seen}")
+    moments = [t for s_ in trainer.optimizer.adam.state.values() for t in s_.values()
+               if isinstance(t, torch.Tensor) and t.dim()]
+    if not moments or any(t.dtype != torch.float32 for t in moments):
+        raise AssertionError("an Adam moment is not float32")
+    wall_ms, busy_ms, events = device_busy_ms(torch, lambda: trainer.step(batch))
+    log(f"  bf16 under torch.profiler: {wall_ms:.2f} ms wall, {busy_ms:.2f} ms device busy, "
+        f"{events:.0f} kernels and copies a step")
+    return counts, {"median": median, "peak_gb": peak_gb, "wall": wall_ms, "busy": busy_ms,
+                    "events": events}
 
 
 def fused_path_shapes(height, width, masked):
@@ -1540,7 +1760,7 @@ def phase_fused_serving(torch, fa, mp, fr, fb, api, Predictor):
                 f"ms of {[round(v, 2) for v in lat[True]]}, unfused "
                 f"{medians[(dtype, size)][False]:.2f} ms of {[round(v, 2) for v in lat[False]]}")
             for fused_ in (True, False):
-                wall, busy = device_busy_ms(torch, lambda: preds[fused_]([img]))
+                wall, busy, _ = device_busy_ms(torch, lambda: preds[fused_]([img]))
                 share = ("not measured" if busy is None else
                          f"{busy:.2f} ms, idle {1 - busy / wall:.2f}")
                 log(f"  under torch.profiler, {'fused' if fused_ else 'unfused'} {dtype} {size} "
@@ -1660,8 +1880,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t = time.perf_counter()
-    counts, step_ms = phase_training(torch, fa, lap, maxpool, api, train, losses)
-    log(f"[training] ok in {time.perf_counter() - t:.1f} s, median step {step_ms:.2f} ms")
+    counts, step32 = phase_training(torch, fa, lap, maxpool, api, train, losses)
+    log(f"[training] ok in {time.perf_counter() - t:.1f} s, median step {step32['median']:.2f} ms")
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    counts16, step16 = phase_bf16_training(torch, fa, lap, maxpool, api, train, losses)
+    log(f"[bf16 training] ok in {time.perf_counter() - t:.1f} s; b8 376x672 step, bf16 / fp32: "
+        f"median wall {step16['median']:.2f} / {step32['median']:.2f} ms, under the profiler "
+        f"{step16['wall']:.2f} / {step32['wall']:.2f} ms wall, {step16['busy']:.2f} / "
+        f"{step32['busy']:.2f} ms device busy and {step16['events']:.0f} / "
+        f"{step32['events']:.0f} kernels and copies, peak memory {step16['peak_gb']:.2f} / "
+        f"{step32['peak_gb']:.2f} GiB")
     torch.cuda.empty_cache()
 
     t = time.perf_counter()
@@ -1678,7 +1908,12 @@ def main() -> int:
                     for (dtype, size), v in fused_ms.items()))
 
     a32, a16 = times[(2, 1232, 1232, "float32")], times[(2, 1232, 1232, "bfloat16")]
-    bwd = bwd_times[(252, 252)]
+    # The training shapes' times: fp32 under (Lq, Lk), bf16 under (Lq, Lk, "bfloat16").
+    bwd_times16 = {k[:2]: v for k, v in bwd_times.items() if len(k) == 3}
+    fwd_train16 = {k[:2]: v for k, v in fwd_train_times.items() if len(k) == 3}
+    bwd_times = {k: v for k, v in bwd_times.items() if len(k) == 2}
+    fwd_train_times = {k: v for k, v in fwd_train_times.items() if len(k) == 2}
+    bwd, bwd16, fwd16 = bwd_times[(252, 252)], bwd_times16[(252, 252)], fwd_train16[(252, 252)]
     per_step = {key: sum(LAUNCHES_PER_FORWARD // 3 * t[key] for t in bwd_times.values())
                 for key in ("mma", "simt", "plain", "sdpa")}
     log(f"[kernels] A' per training step (6 calls at each of {list(bwd_times)}), ms from CUDA "
@@ -1690,13 +1925,30 @@ def main() -> int:
         f"{list(fwd_train_times)}), ms from CUDA graphs: A-tf32 {fwd_step['tf32']:.4f}, SIMT "
         f"{fwd_step['simt']:.4f}, plain {fwd_step['plain']:.4f}, SDPA forward with dropout_p "
         f"{fwd_step['sdpa']:.4f}")
+    for label, table, keys in (("A (SIMT)", fwd_train16, ("simt", "plain", "sdpa")),
+                               ("A' (SIMT)", bwd_times16, ("simt", "plain", "sdpa"))):
+        step = {key: sum(LAUNCHES_PER_FORWARD // 3 * t[key] for t in table.values())
+                for key in keys}
+        bound = sum(LAUNCHES_PER_FORWARD // 3 * t["bound"][0] for t in table.values())
+        log(f"[kernels] {label} per bf16 training step at dropout {DROPOUT} (6 calls at each of "
+            f"{list(table)}), ms from CUDA graphs: kernel {step['simt']:.4f}, plain "
+            f"{step['plain']:.4f}, SDPA {step['sdpa']:.4f}, bound {bound:.4f}")
     lap_ms, lap_plain_ms, _, (lap_bound, lap_by), lap_loop_ms, lap_chain = lap_times
 
-    def entry(name, source, launches_, err, ms_, plain_, bound, by, library):
+    # "measured_at": the shape and dtype of the times, which differ between
+    # kernels and have changed between versions of this script.
+    def entry(name, source, launches_, err, ms_, plain_, bound, by, library, at):
         return {"name": name, "route": "cuda", "source": CSRC + source,
                 "replaces": REPLACES[name], "launches": launches_, "max_abs_err": err,
                 "ms": ms_, "plain_ms": plain_, "bound_ms": bound, "bound_by": by,
-                "library_ms": library}
+                "library_ms": library, "measured_at": at}
+
+    def train_at(dtype):
+        return f"(252,252) {dtype} B=8 H=8 Dh=32 dropout {DROPOUT}, one call"
+
+    def int8_at(per_forward):
+        return (f"b1 {INT8_BUCKET[0]}x{INT8_BUCKET[1]} int8 forward, summed over its "
+                f"{sum(per_forward.values())} launches")
 
     # A per-forward bound is bound by what bounds the larger part of it.
     int8_by = {n: "bytes" if v[4] >= v[3] / 2 else "operations" for n, v in int8_times.items()}
@@ -1705,35 +1957,42 @@ def main() -> int:
 
     def fused_entry(name, source, launches_, bucket, dtype="float32"):
         kms, pms, yard, b, b_bytes = fused_times[(name, bucket, dtype)]
+        at = (f"(1,64,448,704) {dtype}, the {bucket} stem, one call" if name == "maxpool" else
+              f"b1 {bucket} {dtype} forward, summed over its "
+              f"{12 if 'bottleneck' in name else 16} launches")
         return entry(name, source, launches_, fused_abs[(name, dtype)], kms, pms, b,
                      "bytes" if b_bytes >= b / 2 else "operations",
-                     yard if name == "maxpool" else None)
+                     yard if name == "maxpool" else None, at)
 
     record = {"kernels": [
-        entry("flash_attention_fwd", SOURCES[0], 0, worst["simt float32"], a32["simt"],
-              a32["plain"], *a32["bound"], a32["sdpa"]),
-        entry("flash_attention_bwd", SOURCES[1], counts[1], bwd_worst["simt float32"],
-              bwd["simt"], bwd["plain"], *bwd["bound32"], bwd["sdpa"]),
-        entry("lap", SOURCES[2], counts[2], lap_err, lap_ms, lap_plain_ms, lap_bound, lap_by,
-              None),
+        entry("flash_attention_fwd", SOURCES[0], counts16["A SIMT"],
+              max(t["err"] for t in fwd_train16.values()), fwd16["simt"], fwd16["plain"],
+              *fwd16["bound"], fwd16["sdpa"], train_at("bfloat16") + ", with the row lse"),
+        entry("flash_attention_bwd", SOURCES[1], counts16["A' SIMT"], bwd_worst["bfloat16"],
+              bwd16["simt"], bwd16["plain"], *bwd16["bound"], bwd16["sdpa"], train_at("bfloat16")),
+        entry("lap", SOURCES[2], counts[2] + counts16["B"], lap_err, lap_ms, lap_plain_ms,
+              lap_bound, lap_by, None, f"{LAP_PROBLEMS} problems of {LAP_SLOTS}x{LAP_SLOTS} "
+              "float32, one call"),
         entry("int8_matmul", SOURCES[3], sum(f_counts.values()), int8_worst["int8_matmul"],
               *int8_times["int8_matmul"][[0, 1, 3]], int8_by["int8_matmul"],
-              int8_times["int8_matmul"][2]),
+              int8_times["int8_matmul"][2], int8_at(F_PER_FORWARD)),
         entry("int8_conv", SOURCES[4], sum(g_counts.values()), int8_worst["int8_conv"],
               *int8_times["int8_conv"][[0, 1, 3]], int8_by["int8_conv"],
-              int8_times["int8_conv"][2]),
-        fused_entry("maxpool", SOURCES[5],
-                    pool_serving + counts[3] + fused_counts[0] + fused_bf16_counts[0], masked_tag),
+              int8_times["int8_conv"][2], int8_at(G_PER_FORWARD)),
+        fused_entry("maxpool", SOURCES[5], pool_serving + counts[3] + counts16["C"]
+                    + fused_counts[0] + fused_bf16_counts[0], masked_tag),
         fused_entry("fused_residual", SOURCES[6], fused_counts[1] + fused_bf16_counts[1],
                     masked_tag),
         fused_entry("fused_bottleneck", SOURCES[7], fused_counts[4] + fused_bf16_counts[4],
                     exact_tag),
         entry("flash_attention_fwd_mma", SOURCES[8], mma_serving + int8_a + fused_bf16_counts[8],
-              worst["bfloat16"], a16["mma"], a16["plain"], *a16["bound"], a16["sdpa"]),
+              worst["bfloat16"], a16["mma"], a16["plain"], *a16["bound"], a16["sdpa"],
+              "(1232,1232) bfloat16 B=2 H=8 Dh=32, one call"),
         entry("flash_attention_bwd_mma", SOURCES[9], counts[4], bwd_worst["float32"], bwd["mma"],
-              bwd["plain"], *bwd["bound3x"], bwd["sdpa"]),
+              bwd["plain"], *bwd["bound3x"], bwd["sdpa"], train_at("float32")),
         entry("flash_attention_fwd_tf32", SOURCES[10], launches + counts[0] + fused_counts[7],
-              worst["float32"], a32["tf32"], a32["plain"], *a32["bound3x"], a32["sdpa"]),
+              worst["float32"], a32["tf32"], a32["plain"], *a32["bound3x"], a32["sdpa"],
+              "(1232,1232) float32 B=2 H=8 Dh=32, one call"),
         fused_entry("fused_bottleneck_mma", SOURCES[11], fused_counts[5] + fused_bf16_counts[5],
                     exact_tag, "bfloat16"),
         fused_entry("fused_bottleneck_tf32", SOURCES[12], fused_counts[6] + fused_bf16_counts[6],
@@ -1744,27 +2003,31 @@ def main() -> int:
                     masked_tag),
     ]}
     tf32_chain = fused_times[("fused_bottleneck_tf32", exact_tag, "float32")][2]
+    a_bwd16 = counts16["A' SIMT"]
     d_mma_chain = fused_times[("fused_residual_mma", masked_tag, "bfloat16")][2]
     d_tf32_chain = fused_times[("fused_residual_tf32", masked_tag, "float32")][2]
-    log(f"[summary] flash_attention_fwd (SIMT): max_abs_err fp32 called directly "
-        f"{worst['simt float32']:.3e} (bf16 {worst['simt bfloat16']:.3e}), ms/plain_ms/library_ms "
-        f"(scaled_dot_product_attention) at (1232,1232) fp32 B=2 H=8 Dh=32 from CUDA graphs, "
-        f"launches 0 (no path of the port runs bf16 with dropout; fp32 runs A-tf32), bound on "
-        f"the fp32 pipes; flash_attention_fwd_tf32 (3xTF32): max_abs_err fp32 "
+    log(f"[summary] flash_attention_fwd (SIMT): max_abs_err bf16 dropout {DROPOUT} against "
+        f"plain given the keep mask at the training shapes, ms/plain_ms/library_ms "
+        f"(scaled_dot_product_attention with dropout_p) at (252,252) bf16 B=8 H=8 Dh=32 from CUDA "
+        f"graphs, launches {counts16['A SIMT']} in {BF16_TRAIN_STEPS} bf16 training steps, bound "
+        f"at the bf16 peak (called directly at (1232,1232) B=2: fp32 {a32['simt']:.4f} ms, "
+        f"max_abs_err {worst['simt float32']:.3e}; bf16 without dropout {a16['simt']:.4f} ms, "
+        f"{worst['simt bfloat16']:.3e}); flash_attention_fwd_tf32 (3xTF32): max_abs_err fp32 "
         f"{worst['float32']:.3e}, ms/plain_ms/library_ms at (1232,1232) fp32 B=2 from CUDA "
         f"graphs, launches {launches} fp32 serving + {counts[0]} training + {fused_counts[7]} "
         f"fused fp32 serving, bound as 3xTF32 on the tensor cores; flash_attention_fwd_mma: "
         f"max_abs_err bf16 {worst['bfloat16']:.3e}, "
         f"ms/plain_ms/library_ms at (1232,1232) bf16 B=2 from CUDA graphs, launches "
         f"{mma_serving} bf16 serving + {int8_a} int8 serving + {fused_bf16_counts[8]} fused bf16 "
-        f"serving; flash_attention_bwd (SIMT): gradient max_abs_err fp32 (called directly) "
-        f"{bwd_worst['simt float32']:.3e}, bf16 {bwd_worst['bfloat16']:.3e}, launches "
-        f"{counts[1]} (training runs the tensor-core A'), bound on the fp32 pipes; "
-        f"flash_attention_bwd_mma (3xTF32): gradient max_abs_err fp32 "
-        f"{bwd_worst['float32']:.3e}, launches {counts[4]} in {TRAIN_STEPS} training steps, "
-        f"bound as 3xTF32 on the tensor cores; both: ms/plain_ms/library_ms backward at (252,252) "
-        f"fp32 B=8 dropout {DROPOUT} from CUDA graphs (plain and library: forward and backward "
-        f"less forward); lap: optimal-cost max_abs_err "
+        f"serving; flash_attention_bwd (SIMT): gradient max_abs_err bf16 "
+        f"{bwd_worst['bfloat16']:.3e} (fp32, called directly, {bwd_worst['simt float32']:.3e}), "
+        f"launches {a_bwd16} in {BF16_TRAIN_STEPS} bf16 training "
+        f"steps, ms/plain_ms/library_ms backward at (252,252) bf16 B=8 dropout {DROPOUT}, bound "
+        f"at the bf16 peak; flash_attention_bwd_mma (3xTF32): gradient max_abs_err fp32 "
+        f"{bwd_worst['float32']:.3e}, launches {counts[4]} in {TRAIN_STEPS} fp32 training steps, "
+        f"ms/plain_ms/library_ms backward at (252,252) fp32 B=8 dropout {DROPOUT}, bound as 3xTF32 "
+        f"on the tensor cores; both backwards from CUDA graphs (plain and library: forward and "
+        f"backward less forward); lap: optimal-cost max_abs_err "
         f"{lap_err:.3e}, ms kernel from CUDA graphs ({lap_loop_ms:.4f} ms a call in a loop, host "
         f"included) / plain_ms plain version on 48 problems, no library call, bound on bytes "
         f"with a serial chain of {lap_chain} Dijkstra steps; "
@@ -1773,7 +2036,8 @@ def main() -> int:
         f"and the bf16 cuDNN conv, not the same functions), launches in 3 int8 forwards; "
         f"maxpool (C): max_abs_err fp32 0 (bit-equal), ms/plain_ms/library_ms (F.max_pool2d) "
         f"at the {masked_tag} stem (1,64,448,704) fp32, launches {pool_serving} serving + "
-        f"{counts[3]} training + {fused_counts[0] + fused_bf16_counts[0]} fused serving; "
+        f"{counts[3]} fp32 training + {counts16['C']} bf16 training + "
+        f"{fused_counts[0] + fused_bf16_counts[0]} fused serving; "
         f"fused_residual (D, SIMT) and "
         f"fused_bottleneck (E, SIMT), both called directly: max_abs_err fp32 "
         f"{fused_abs[('fused_residual', 'float32')]:.3e} and "

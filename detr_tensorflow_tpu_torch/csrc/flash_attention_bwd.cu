@@ -2,15 +2,16 @@
 //
 // Replaces the TPU kernel `_bwd_kernel` (with its launcher `_mha_bwd_rule`)
 // of detr_tensorflow_tpu/ops/pallas/flash_attention.py. Given the forward's
-// inputs, its output O, its row log-sum-exp (flash_attention_fwd.cu writes
-// it when autograd needs it) and dO, it computes dQ, dK and dV with the
+// inputs, its row log-sum-exp (flash_attention_fwd.cu writes it when
+// autograd needs it) and dO, it computes dQ, dK and dV with the
 // softmax recomputed and the dropout mask replayed, never storing an
 // (Lq, Lk) matrix:
 //
 //   p_ij  = exp(q_i . k_j + bias_j - lse_i)        (1 / Lk on a row whose keys are all padded)
 //   m_ij  = dropout multiplier (0 or 1 / (1 - rate)), flash_attention_common.cuh
 //   dV_j  = sum_i p_ij m_ij dO_i
-//   dS_ij = p_ij (m_ij dO_i . v_j - delta_i),  delta_i = dO_i . O_i;  0 on padded keys
+//   dS_ij = p_ij (m_ij dO_i . v_j - delta_i),  0 on padded keys
+//   delta_i = sum_j p_ij m_ij dO_i . v_j        (= dO_i . O_i in exact arithmetic)
 //   dQ_i  = sum_j dS_ij k_j,   dK_j = sum_i dS_ij q_i
 //
 // q is already scaled by head_dim ** -0.5, so dQ is the gradient of the
@@ -37,15 +38,23 @@
 //   * dQ: the forward's layout, one CTA per (batch * head, 16 query rows),
 //     8 lanes per row, K/V streamed in 64-key tiles through shared memory,
 //     the lanes' partial dq merged with warp shuffles at the end;
-//   * delta = rowsum(dO * O), the TPU kernel's `delta`, in a small pre-pass
-//     (flash_attention_common.cuh; flash_attention_bwd_mma.cu's pre-pass
-//     computes its rows with the same function).
+//   * delta_i = sum_j p_ij m_ij dO_i . v_j, the TPU kernel's `delta`, in a
+//     pre-pass: the dQ kernel's walk over the keys without the dS K product,
+//     summed in fp32. rowsum(dO * O) is the same sum in exact arithmetic
+//     (flash_attention_bwd_mma.cu computes it so, from its fp32 O), but
+//     from a bf16 O it misses the walk's sum by O's rounding: dS's rows no
+//     longer sum to zero, and where the keys share a large common component
+//     (DETR's cross-attention keys are memory + pos) dK carries it as error.
+//     A DETR-R50 bf16 step's k_proj weight gradient came out ~15x further
+//     from the fp32 step's than autograd's. The TPU kernel recomputes o in
+//     fp32 for the same reason. The walk serves both dtypes, so the
+//     forward's O is not read here.
 // The dropout bit is a pure function of (seed, b * H + h, i, j), so each
 // kernel regenerates the forward's mask whatever its own tiling.
 //
 // Numerics: in bf16 the products take bf16 operands as the TPU kernel's
 // astype() calls do (p * m rounded before P^T dO, dS rounded before dS K and
-// dS^T Q); accumulation is fp32 everywhere.
+// dS^T Q); accumulation is fp32 everywhere, delta included.
 //
 // Entry point: a plain C function launching the three kernels on the given
 // stream. It allocates nothing (the caller passes the delta scratch), does
@@ -200,11 +209,14 @@ constexpr int kRows = kQThreads / kSplit;      // query rows per CTA
 constexpr int kTileK = 64;                     // keys staged per step
 constexpr int kKeysPerLane = kTileK / kSplit;  // keys of a tile per lane
 
-template <typename T, int Dh>
+// kDelta: the pre-pass. The same walk writes delta_i = sum_j p_ij m_ij
+// dO_i . v_j (every key, a padded one with its p of 0, or 1 / Lk on a row
+// whose keys are all padded) to ``delta`` instead of reading it, and no dq.
+template <typename T, int Dh, bool kDelta>
 __global__ void __launch_bounds__(kQThreads)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           const T* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ delta, const unsigned char* __restrict__ mask,
+          float* __restrict__ delta, const unsigned char* __restrict__ mask,
           const unsigned long long* __restrict__ seed, unsigned threshold,
           float keep_scale, T* __restrict__ dq, int lq, int lk, int heads) {
   constexpr int kStride = Dh + 4;  // conflict-free reads by the 8 lanes of a row
@@ -237,7 +249,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       fa::load8(dout + row_offset + d, do_row + d);
     }
     l_row = lse[static_cast<long>(bh) * lq + row];
-    delta_row = delta[static_cast<long>(bh) * lq + row];
+    if constexpr (!kDelta) delta_row = delta[static_cast<long>(bh) * lq + row];
   } else {
 #pragma unroll
     for (int d = 0; d < Dh; ++d) q_row[d] = do_row[d] = 0.f;
@@ -298,6 +310,10 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
         const float p = row_padded ? inv_lk : __expf(s + bias - l_row);
         const float mf =
             dropout ? fa::dropout_factor(key, bh, row, j, threshold, keep_scale) : 1.f;
+        if constexpr (kDelta) {
+          delta_row = fmaf(p * mf, dpv, delta_row);
+          continue;
+        }
         const float ds = bias != 0.f ? 0.f : fa::round_to(p * (mf * dpv - delta_row), q);
 #pragma unroll
         for (int d = 0; d < Dh; d += 4) {
@@ -310,6 +326,14 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       }
     }
     __syncthreads();
+  }
+
+  if constexpr (kDelta) {
+#pragma unroll
+    for (int off = 1; off < kSplit; off <<= 1)
+      delta_row += __shfl_xor_sync(0xffffffffu, delta_row, off);
+    if (row_ok && lane_key == 0) delta[static_cast<long>(bh) * lq + row] = delta_row;
+    return;
   }
 
   // Sum the kSplit lanes' partial dq (neighbouring lanes of one warp).
@@ -328,7 +352,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 }
 
 template <typename T, int Dh>
-int launch(const void* q, const void* k, const void* v, const void* out, const void* dout,
+int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const void* mask, const void* seed, unsigned threshold,
            float keep_scale, void* dq, void* dk, void* dv, float* delta, int batch, int lq,
            int lk, int heads, cudaStream_t stream) {
@@ -338,8 +362,10 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
   const T* tdo = static_cast<const T*>(dout);
   const unsigned char* m = static_cast<const unsigned char*>(mask);
   const unsigned long long* sd = static_cast<const unsigned long long*>(seed);
-  cudaError_t err = fa::launch_delta<T, Dh>(static_cast<const T*>(out), tdo, delta, batch, lq,
-                                            heads, stream);
+  const dim3 q_grid((lq + kRows - 1) / kRows, batch * heads);
+  dq_kernel<T, Dh, true><<<q_grid, kQThreads, 0, stream>>>(
+      tq, tk, tv, tdo, lse, delta, m, sd, threshold, keep_scale, nullptr, lq, lk, heads);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   constexpr int kKeys = kKvThreads / (Dh / kPart);
@@ -350,10 +376,9 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const dim3 q_grid((lq + kRows - 1) / kRows, batch * heads);
-  dq_kernel<T, Dh><<<q_grid, kQThreads, 0, stream>>>(tq, tk, tv, tdo, lse, delta, m, sd,
-                                                     threshold, keep_scale,
-                                                     static_cast<T*>(dq), lq, lk, heads);
+  dq_kernel<T, Dh, false><<<q_grid, kQThreads, 0, stream>>>(tq, tk, tv, tdo, lse, delta, m, sd,
+                                                            threshold, keep_scale,
+                                                            static_cast<T*>(dq), lq, lk, heads);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -361,7 +386,9 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
 
 // q, dq: (batch, lq, heads, head_dim); k, v, dk, dv: (batch, lk, heads,
 // head_dim); out, dout: as q; all of dtype (0 = float32, 1 = bfloat16),
-// contiguous. lse: (batch * heads, lq) fp32 from flash_attention_fwd.
+// contiguous; out is not read (delta comes from the walk) and stays so
+// that both backwards share one entry signature. lse: (batch * heads, lq)
+// fp32 from flash_attention_fwd.
 // mask, seed, threshold, keep_scale: as for flash_attention_fwd (the same
 // values the forward got). delta: (batch * heads, lq) fp32 scratch.
 // Returns a cudaError_t as int (0 = launched).
@@ -378,16 +405,16 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if (dtype == 0 && head_dim == 32)
-    return launch<float, 32>(q, k, v, out, dout, l, mask, seed, threshold, keep_scale, dq, dk,
+    return launch<float, 32>(q, k, v, dout, l, mask, seed, threshold, keep_scale, dq, dk,
                              dv, dl, batch, lq, lk, heads, s);
   if (dtype == 0 && head_dim == 64)
-    return launch<float, 64>(q, k, v, out, dout, l, mask, seed, threshold, keep_scale, dq, dk,
+    return launch<float, 64>(q, k, v, dout, l, mask, seed, threshold, keep_scale, dq, dk,
                              dv, dl, batch, lq, lk, heads, s);
   if (dtype == 1 && head_dim == 32)
-    return launch<__nv_bfloat16, 32>(q, k, v, out, dout, l, mask, seed, threshold, keep_scale,
+    return launch<__nv_bfloat16, 32>(q, k, v, dout, l, mask, seed, threshold, keep_scale,
                                      dq, dk, dv, dl, batch, lq, lk, heads, s);
   if (dtype == 1 && head_dim == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, out, dout, l, mask, seed, threshold, keep_scale,
+    return launch<__nv_bfloat16, 64>(q, k, v, dout, l, mask, seed, threshold, keep_scale,
                                      dq, dk, dv, dl, batch, lq, lk, heads, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

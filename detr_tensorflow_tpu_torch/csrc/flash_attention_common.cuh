@@ -3,7 +3,7 @@
 // flash_attention_fwd_tf32.cu, flash_attention_bwd.cu,
 // flash_attention_bwd_mma.cu): vector loads that widen to fp32, the bf16
 // rounding points of the TPU kernel, the attention-dropout keep bit, the
-// backward's delta pre-pass, `cp.async` copies, and the helpers around the
+// tensor-core backward's delta rows, `cp.async` copies, and the helpers around the
 // 3xTF32 products (tf32_mma.cuh) of the two fp32 tensor-core kernels.
 //
 // Dropout: the TPU kernel draws its mask per grid block from the TPU's
@@ -99,6 +99,8 @@ __device__ __forceinline__ float dropout_factor(uint2 key, unsigned bh, unsigned
 
 // delta[b * H + h, i] = dO_i . O_i, the TPU kernel's `delta`, for row r =
 // (b, i, h) of (B, Lq, H, Dh) out and dout; delta is (B * H, Lq) fp32.
+// flash_attention_bwd_mma.cu's pre-pass, on its fp32 O; the SIMT backward
+// sums the same delta over its walk of the keys instead (see its header).
 template <typename T, int Dh>
 __device__ __forceinline__ void delta_row(const T* __restrict__ out, const T* __restrict__ dout,
                                           float* __restrict__ delta, long r, int lq, int heads) {
@@ -119,24 +121,6 @@ __device__ __forceinline__ void delta_row(const T* __restrict__ out, const T* __
   const long b = bi / lq;
   delta[(b * heads + h) * lq + i] = s;
 }
-
-template <typename T, int Dh>
-__global__ void delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
-                             float* __restrict__ delta, long rows, int lq, int heads) {
-  for (long r = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x; r < rows;
-       r += static_cast<long>(gridDim.x) * blockDim.x)
-    delta_row<T, Dh>(out, dout, delta, r, lq, heads);
-}
-
-template <typename T, int Dh>
-cudaError_t launch_delta(const T* out, const T* dout, float* delta, int batch, int lq, int heads,
-                         cudaStream_t stream) {
-  const long rows = static_cast<long>(batch) * lq * heads;
-  const int blocks = static_cast<int>((rows + 255) / 256 < 4096 ? (rows + 255) / 256 : 4096);
-  delta_kernel<T, Dh><<<blocks, 256, 0, stream>>>(out, dout, delta, rows, lq, heads);
-  return cudaGetLastError();
-}
-
 
 // ---- cp.async (cp_async.cuh) ------------------------------------------------
 

@@ -82,18 +82,22 @@ def build_detr(num_classes: int = 92, num_queries: int = 100, head: str = "detr"
     """Construct a DETR bundle on ``device`` (the card by default; the CPU
     only when asked, ``device="cpu"``).
 
+    ``dtype`` ("float32" or "bfloat16") is the compute dtype only: every
+    parameter is float32 in every build, as the JAX package keeps its
+    parameters, and each layer casts it at its use (``models/layers.py``).
+    A bf16 model trains (``train.Trainer``) with float32 master weights and
+    float32 Adam moments, and the int8 model's ``quantized.quantize_model``
+    calibrates from its float32 backbone.
+
     ``weights`` is a local ``.npz`` in the JAX package's format; with
     ``backbone_quant=True`` its "quant" collection, when present, fills the
     int8 backbone. Extra keyword args (model_dim, num_heads,
     dim_feedforward, dropout, backbone_quant, fuse_residual,
-    fuse_bottleneck) go to ``DETR``. With ``backbone_quant=True`` the fp32
-    backbone stays float32 whatever ``dtype`` is:
-    ``quantized.quantize_model`` calibrates from it.
+    fuse_bottleneck) go to ``DETR``.
 
     ``fuse_residual=True, fuse_bottleneck=True`` is the JAX package's
     fused-backbone serving configuration (kernels D and E, inference
-    only); its weights load as the unfused model's do, and its backbone's
-    conv weights stay float32 whatever ``dtype`` is.
+    only); its weights load as the unfused model's do.
     """
     module = DETR(
         num_classes=num_classes, num_queries=num_queries, head=head,
@@ -106,16 +110,6 @@ def build_detr(num_classes: int = 92, num_queries: int = 100, head: str = "detr"
     if weights is not None:
         _load_npz(module, weights, head)
     module.to(device)
-    # The int8 model's fp32 backbone stays fp32 for calibration; a fused
-    # backbone keeps fp32 conv weights, from which E folds its operands and
-    # casts them once, as JAX folds its fp32 parameters (its other convs
-    # read cached copies in the compute dtype, models/resnet.py).
-    keep_fp32 = set()
-    if module.backbone_quant is not None or module.fuse_residual or module.fuse_bottleneck:
-        keep_fp32 = set(module.backbone.modules())
-    for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d, nn.LayerNorm)) and m not in keep_fp32:
-            m.to(DTYPES[dtype])
     return DetrModel(module, normalized_method=normalized_method)
 
 

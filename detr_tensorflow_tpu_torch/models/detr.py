@@ -13,7 +13,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from .layers import MLP, feature_valid_mask
+from .layers import MLP, Conv2d, Linear, feature_valid_mask
 from .position import sine_position_embedding
 from .quantized import QuantizedBackbone
 from .resnet import ResNetBackbone
@@ -31,9 +31,12 @@ class DETR(nn.Module):
       * ``"finetune"``: fresh ``cls_layer`` Linear(nb_class) + ``pos_layer`` MLP;
       * ``"none"``: headless, returns ``hs`` (L, B, Q, D) and ``memory``.
 
-    ``dtype`` is the compute dtype (float32 or bfloat16). The caller casts
-    the Linear/Conv/LayerNorm parameters to it (``api.build_detr`` does);
-    FrozenBN buffers and ``query_embed`` stay float32, as in JAX.
+    ``dtype`` is the compute dtype (float32 or bfloat16; float64 on the CPU
+    for diagnosis, with ``.double()`` parameters), as flax's ``dtype=``:
+    the images enter in it, every Linear and Conv casts its float32
+    parameters to it at the call, LayerNorm computes in float32 and rounds
+    once to it, and the heads' outputs leave as float32 (``models/layers.py``).
+    Parameters, FrozenBN buffers and ``query_embed`` stay float32, as in JAX.
 
     ``backbone_quant=True`` (inference) takes the backbone's features from
     the int8 qtree in ``self.backbone_quant`` (filled by
@@ -68,16 +71,16 @@ class DETR(nn.Module):
         stage_sizes = backbone_stage_sizes or STAGE_SIZES[backbone_depth]
         self.backbone = ResNetBackbone(stage_sizes, fuse_residual, fuse_bottleneck)
         self.backbone_quant = QuantizedBackbone(stage_sizes) if backbone_quant else None
-        self.input_proj = nn.Conv2d(2048, model_dim, 1)
+        self.input_proj = Conv2d(2048, model_dim, 1)
         self.query_embed = nn.Parameter(torch.zeros(num_queries, model_dim))
         self.transformer = Transformer(model_dim, num_heads, num_encoder_layers,
                                        num_decoder_layers, dim_feedforward, attn_impl,
                                        dropout)
         if head == "detr":
-            self.class_embed = nn.Linear(model_dim, num_classes)
+            self.class_embed = Linear(model_dim, num_classes)
             self.bbox_embed = MLP(model_dim, model_dim, 4)
         elif head == "finetune":
-            self.cls_layer = nn.Linear(model_dim, nb_class)
+            self.cls_layer = Linear(model_dim, nb_class)
             self.pos_layer = MLP(model_dim, model_dim, 4)
 
     def forward(self, images: torch.Tensor, pixel_mask: Optional[torch.Tensor] = None,

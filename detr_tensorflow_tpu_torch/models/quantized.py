@@ -86,12 +86,13 @@ def _stage_sizes_of(backbone) -> tuple:
 
 
 def _require_fp32(backbone):
+    """Every model ``build_detr`` makes keeps float32 parameters at every
+    compute dtype; this refuses a backbone cast by hand."""
     dtypes = {p.dtype for p in backbone.parameters()}
     if dtypes != {torch.float32}:
         raise ValueError(
             f"calibration and quantization read the fp32 backbone, got {sorted(map(str, dtypes))}:"
-            " build the model in float32, or with backbone_quant=True, which keeps the"
-            " backbone's weights in float32 whatever the compute dtype")
+            " keep the backbone's parameters float32 (the model's dtype is its compute dtype)")
 
 
 @torch.no_grad()

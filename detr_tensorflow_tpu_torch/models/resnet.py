@@ -21,10 +21,12 @@ runs while autograd records raises):
   frozen BN folded into its weights.
 
 Both kernels' operands (D's bn3 scale and shift, E's folded weights) are
-computed once and cached until a weight or buffer changes. A fused backbone
-at bf16 keeps its conv weights in float32 (``models/api.py``), as the JAX
-package keeps its parameters: E's operands fold from them and are cast once,
-and a conv that runs unfused reads a bf16 copy cached the same way.
+computed once and cached until a weight or buffer changes. The conv weights
+are float32 at every compute dtype, as the JAX package keeps its parameters:
+every conv is a ``layers.Conv2d``, which casts its weight to its input's
+dtype (differentiably while autograd records, from a cached copy
+otherwise), and E's operands fold from the float32 weights and are cast
+once.
 
 The stem's max pool is kernel C on the card in every configuration.
 """
@@ -40,61 +42,14 @@ import torch.nn.functional as F
 from ..ops.fused_bottleneck import fold_bn_params, fused_bottleneck, pack_weights
 from ..ops.fused_residual import check_inference, conv1x1_bn_residual_relu
 from ..ops.maxpool import max_pool_3x3_s2
-from .layers import FrozenBatchNorm, feature_valid_mask
+from .layers import CachedOperands, Conv2d, FrozenBatchNorm, feature_valid_mask
 
 
-def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
+def _conv(cin: int, cout: int, k: int, stride: int = 1) -> Conv2d:
+    return Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
 
 
-class _CachedOperands(nn.Module):
-    """A module that keeps operands derived from its weights and buffers
-    (folded, cast) in ``_cache`` until one of them changes."""
-
-    def __init__(self):
-        super().__init__()
-        self._cache = {}
-
-    def _apply(self, fn, *args, **kwargs):
-        self._cache = {}  # .to(), .cuda(), .float(): new tensors, fold again
-        return super()._apply(fn, *args, **kwargs)
-
-    def _load_from_state_dict(self, *args, **kwargs):
-        # Loading writes the weights in place, inference tensors too (which
-        # keep their data pointer and have no version counter): fold again.
-        self._cache = {}
-        return super()._load_from_state_dict(*args, **kwargs)
-
-    def _folded(self, name, tensors, fold):
-        """``fold()``, computed once under ``name`` and kept until one of
-        ``tensors`` is replaced or written in place. An inference tensor has
-        no version counter, so its data pointer alone keys it: outside
-        inference mode it cannot be written in place, and inside it a
-        ``load_state_dict`` of this module or a parent drops the cache (a
-        write by other means is not seen)."""
-        key = tuple((t.data_ptr(), None if t.is_inference() else t._version) for t in tensors)
-        hit = self._cache.get(name)
-        if hit is None or hit[0] != key:
-            with torch.inference_mode(False), torch.no_grad():
-                hit = self._cache[name] = (key, fold())
-        return hit[1]
-
-    def _weight(self, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
-        """``conv``'s weight in ``dtype``: the parameter itself, or a copy
-        cast once and cached (the float32 weights of a bf16 fused backbone)."""
-        if conv.weight.dtype == dtype:
-            return conv.weight
-        check_inference("the cached copy of a conv weight in another dtype", conv.weight)
-        return self._folded(("weight", id(conv), dtype), [conv.weight],
-                            lambda: conv.weight.to(dtype))
-
-    def _conv(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-        if conv.weight.dtype == x.dtype:
-            return conv(x)
-        return F.conv2d(x, self._weight(conv, x.dtype), None, conv.stride, conv.padding)
-
-
-class Bottleneck(_CachedOperands):
+class Bottleneck(CachedOperands):
     """1x1 -> 3x3 (stride here) -> 1x1 with frozen BN and the residual."""
 
     def __init__(self, cin: int, dim1: int, dim2: int, stride: int = 1,
@@ -130,20 +85,20 @@ class Bottleneck(_CachedOperands):
                 and self.conv2.stride == (1, 1) and x.shape[1] == self.conv3.out_channels):
             check_inference("the fused bottleneck (kernel E)", x, *self.parameters())
             return fused_bottleneck(x, *self._whole_block_operands(x.dtype))
-        out = F.relu(self.bn1(self._conv(self.conv1, x)))
+        out = F.relu(self.bn1(self.conv1(x)))
         if valid is not None:
             # conv2 is the block's only conv with a halo: zero its input at
             # padded cells so the halo reads the zeros of SAME padding.
             out = out * valid
-        out = F.relu(self.bn2(self._conv(self.conv2, out)))
+        out = F.relu(self.bn2(self.conv2(out)))
         identity = x
         if self.downsample_conv is not None:
-            identity = self.downsample_bn(self._conv(self.downsample_conv, x))
+            identity = self.downsample_bn(self.downsample_conv(x))
         if self.fuse_residual:
             scale_shift = self._folded("tail", list(self.bn3.buffers()), self.bn3.scale_shift)
-            return conv1x1_bn_residual_relu(out, self._weight(self.conv3, out.dtype),
+            return conv1x1_bn_residual_relu(out, self.conv3.cast("weight", out.dtype),
                                             *scale_shift, identity)
-        out = self.bn3(self._conv(self.conv3, out))
+        out = self.bn3(self.conv3(out))
         return F.relu(out + identity)
 
 
@@ -173,7 +128,7 @@ class ResNetStage(nn.Module):
         return x
 
 
-class ResNetBackbone(_CachedOperands):
+class ResNetBackbone(nn.Module):
     """ResNet feature extractor: (B, H, W, 3) NHWC in, NCHW
     (B, 2048, H/32, W/32) out in channels_last memory (sizes rounded up at
     each halving)."""
@@ -181,7 +136,7 @@ class ResNetBackbone(_CachedOperands):
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), fuse_residual: bool = False,
                  fuse_bottleneck: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = FrozenBatchNorm(64)
         dims = [(64, 256), (128, 512), (256, 1024), (512, 2048)]
         cin = 64
@@ -197,7 +152,7 @@ class ResNetBackbone(_CachedOperands):
         """pixel_mask (B, H, W) bool, True = valid. The stem needs no mask:
         the image itself is zero at padded pixels."""
         x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        x = F.relu(self.bn1(self._conv(self.conv1, x)))
+        x = F.relu(self.bn1(self.conv1(x)))
         if pixel_mask is not None:
             # Post-relu activations are >= 0, so zeros beyond the valid
             # extent make the maxpool equal to the unpadded one (-inf pad).

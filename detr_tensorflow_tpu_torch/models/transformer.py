@@ -11,6 +11,11 @@ pipeline stages).
   * ``"plain"``: materialised scores and softmax in PyTorch.
 ``return_weights=True`` always takes the plain version.
 
+Every layer computes in its input's dtype from float32 parameters
+(``models/layers.py``), as the JAX layers with ``dtype=``: the attention
+scale is rounded to that dtype, the plain version's scores and softmax are
+float32, and ``query_pos`` is cast from the float32 ``query_embed``.
+
 ``train=True`` turns on dropout where the JAX layers have it: on the
 attention weights (inside the kernel, or on the plain version's
 probabilities with the same Philox mask), on each residual branch and
@@ -28,13 +33,14 @@ from torch import nn
 import torch.nn.functional as F
 
 from ..ops import flash_attention
+from .layers import LayerNorm, Linear
 
 _NEG_INF = -1e9
 ATTN_IMPLS = ("auto", "kernel", "plain")
 
 
-def _layer_norm(d: int) -> nn.LayerNorm:
-    return nn.LayerNorm(d, eps=1e-5)
+def _layer_norm(d: int) -> LayerNorm:
+    return LayerNorm(d, eps=1e-5)
 
 
 def _check_generator(rate: float, train: bool, generator) -> bool:
@@ -65,10 +71,10 @@ class MultiHeadAttention(nn.Module):
             raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
         self.model_dim, self.num_heads, self.attn_impl = model_dim, num_heads, attn_impl
         self.dropout = dropout
-        self.q_proj = nn.Linear(model_dim, model_dim)
-        self.k_proj = nn.Linear(model_dim, model_dim)
-        self.v_proj = nn.Linear(model_dim, model_dim)
-        self.out_proj = nn.Linear(model_dim, model_dim)
+        self.q_proj = Linear(model_dim, model_dim)
+        self.k_proj = Linear(model_dim, model_dim)
+        self.v_proj = Linear(model_dim, model_dim)
+        self.out_proj = Linear(model_dim, model_dim)
 
     def forward(self, query, key, value, key_padding_mask: Optional[torch.Tensor] = None,
                 return_weights: bool = False, train: bool = False, generator=None):
@@ -91,7 +97,11 @@ class MultiHeadAttention(nn.Module):
         if impl == "kernel" and not return_weights:
             out, attn = flash_attention.mha(q, k, v, key_padding_mask, rate, seed), None
         else:
-            logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+            # Scores and softmax in float32 whatever the compute dtype (the
+            # JAX model's preferred_element_type), float64 products summed
+            # in float64 first.
+            acc = torch.promote_types(q.dtype, torch.float32)
+            logits = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)).float()
             if key_padding_mask is not None:
                 logits = logits.masked_fill(key_padding_mask[:, None, None, :], _NEG_INF)
             attn = torch.softmax(logits, dim=-1)
@@ -115,8 +125,8 @@ class EncoderLayer(nn.Module):
         self.dropout = dropout
         self.self_attn = MultiHeadAttention(model_dim, num_heads, attn_impl, dropout)
         self.norm1 = _layer_norm(model_dim)
-        self.linear1 = nn.Linear(model_dim, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, model_dim)
+        self.linear1 = Linear(model_dim, dim_feedforward)
+        self.linear2 = Linear(dim_feedforward, model_dim)
         self.norm2 = _layer_norm(model_dim)
 
     def forward(self, src, pos, key_padding_mask=None, train=False, generator=None):
@@ -140,8 +150,8 @@ class DecoderLayer(nn.Module):
         self.norm1 = _layer_norm(model_dim)
         self.cross_attn = MultiHeadAttention(model_dim, num_heads, attn_impl, dropout)
         self.norm2 = _layer_norm(model_dim)
-        self.linear1 = nn.Linear(model_dim, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, model_dim)
+        self.linear1 = Linear(model_dim, dim_feedforward)
+        self.linear2 = Linear(dim_feedforward, model_dim)
         self.norm3 = _layer_norm(model_dim)
 
     def forward(self, tgt, memory, pos, query_pos, memory_key_padding_mask=None,

@@ -11,8 +11,8 @@ in memory, the TPU kernel's layout). The CUDA source is
 ``max_pool_3x3_s2(x, nonneg=True)`` is the stem's call: its input is
 post-ReLU, so x >= 0, the TPU kernel's contract. A CUDA tensor launches
 kernel C (which equals ``F.max_pool2d(x, 3, 2, 1)`` bit for bit at any H
-and W); a CPU tensor takes the plain version; there is no fallback from
-one to the other. ``nonneg=False`` is the general pool, ``F.max_pool2d``
+and W; float32 or bfloat16, any other dtype raises); a CPU tensor takes the
+plain version; there is no fallback from one to the other. ``nonneg=False`` is the general pool, ``F.max_pool2d``
 on any device, as the JAX package keeps XLA's ``reduce_window`` there.
 Both give the gradient of the JAX custom VJP: the first maximum in
 row-major window order takes the whole gradient. ``max_pool_3x3_s2.
@@ -47,13 +47,15 @@ def _library() -> ctypes.CDLL:
 
 
 def _forward(x: torch.Tensor) -> torch.Tensor:
-    if x.dim() != 4 or x.dtype not in DTYPES:
-        raise TypeError(f"x must be float32 or bfloat16 (B, C, H, W), got {x.dtype} "
+    if x.dim() != 4 or not x.is_floating_point():
+        raise TypeError(f"x must be a floating (B, C, H, W) tensor, got {x.dtype} "
                         f"{tuple(x.shape)}")
     if x.device.type == "cpu":
-        return reference_max_pool_3x3_s2(x)
+        return reference_max_pool_3x3_s2(x)  # any float dtype: float64 for diagnosis
     if x.device.type != "cuda":
         raise ValueError(f"no max pool kernel for device {x.device}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"the max pool kernel takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("the max pool kernel takes a channels_last tensor")
     b, c, h, w = x.shape

@@ -87,7 +87,9 @@ class Predictor:
 
     def warmup(self, shapes: Sequence[Tuple[int, int]]) -> None:
         """Run each (height, width) bucket once on zeros, so the first
-        request does not pay for a kernel build or library set-up. A model
+        request does not pay for a kernel build, a library set-up or, in a
+        bf16 model, the casts of its float32 parameters (the copies are
+        cached until the weights change, ``models/layers.py``). A model
         with ``fuse_bottleneck`` also runs it without a pixel mask: a batch
         that fills its bucket runs unmasked, the only route of kernel E;
         every other model runs the same kernels either way."""

@@ -8,6 +8,17 @@ through kernel B; matching and loss never synchronise with the host, and
 the step returns its log as device tensors, so consecutive steps queue
 back to back. ``fit`` reads the log on its logging cadence only.
 
+A bf16 step (``build_detr(dtype="bfloat16")``, or ``TrainingConfig(
+compute_dtype="bfloat16")`` through ``get_detr_model``) is the JAX
+package's: the parameters, their gradients, the clip and the Adam moments
+are float32, and only the forward and backward compute in bf16: each layer
+casts its float32 parameters at its use, so the gradient of every cast
+lands in the float32 ``.grad``, and an update below a bf16 ulp of a weight
+still moves it. On the card its attention runs the SIMT kernels A (with
+dropout) and A' (``ops/flash_attention.py``). A float64 model
+(``DETR(dtype=torch.float64)`` with ``.double()`` parameters) takes the
+same step on the CPU, for diagnosis against the JAX package at float64.
+
 ``Trainer`` owns the model's optimizer state and the dropout generator,
 a ``torch.Generator`` on the model's device seeded from an explicit seed:
 every dropout mask and every attention-kernel seed is drawn from it, on
@@ -81,15 +92,25 @@ def make_eval_step(model, config) -> Callable:
 class Trainer:
     """Model, optimizer state, dropout generator and step count.
 
-    ``model`` is a ``models.detr.DETR`` (float32) on its device; the trainer
-    sets which of its parameters require gradients from the config's
-    train_* flags.
+    ``model`` is a ``models.detr.DETR`` on its device whose compute dtype
+    is float32 or bfloat16 and whose parameters are float32 (every model
+    ``build_detr`` makes): the float32 parameters are the master weights of
+    a bf16 step. A float64 model with float64 parameters trains on the CPU
+    only. The trainer sets which parameters require gradients from the
+    config's train_* flags.
     """
 
     def __init__(self, model: torch.nn.Module, config, seed: int = 0):
-        if getattr(model, "dtype", torch.float32) != torch.float32:
-            raise NotImplementedError("training is float32 only: bf16 with fp32 master "
-                                      "weights is not ported yet")
+        compute = getattr(model, "dtype", torch.float32)
+        master = torch.float64 if compute == torch.float64 else torch.float32
+        dtypes = {p.dtype for p in model.parameters()}
+        if dtypes != {master}:
+            raise ValueError(f"a {compute} model trains on {master} parameters, got "
+                             f"{sorted(map(str, dtypes))}: the model's dtype is its compute "
+                             "dtype, and its parameters stay float32 (build_detr keeps them so)")
+        if master == torch.float64 and model.query_embed.device.type != "cpu":
+            raise ValueError("a float64 model trains on the CPU only (the kernels take float32 "
+                             "and bfloat16)")
         if getattr(model, "fuse_residual", False) or getattr(model, "fuse_bottleneck", False):
             raise ValueError("the fused backbone kernels (fuse_residual, fuse_bottleneck) "
                              "are inference only, as in the JAX package: train the unfused "

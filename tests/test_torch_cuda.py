@@ -1034,3 +1034,140 @@ def test_fused_detr_on_the_card(cuda_device, dtype):
             gap_fused, gap_plain = (_rel_err(v, c5[0]) for v in c5[1:])
             assert gap_fused <= FUSED_BF16_C5_RATIO * gap_plain, (pixel_mask is None, gap_fused,
                                                                   gap_plain)
+
+
+def _train_batch(device, b=1, seed=3):
+    from detr_tensorflow_tpu_torch.data import pad_targets
+    from detr_tensorflow_tpu_torch.train.engine import batch_to_device
+
+    rng = np.random.default_rng(seed)
+    boxes, classes, mask = zip(*(pad_targets(
+        np.concatenate([rng.uniform(0.2, 0.8, (4, 2)), rng.uniform(0.05, 0.4, (4, 2))], -1),
+        rng.integers(0, 91, size=4)) for _ in range(b)))
+    return batch_to_device({"images": rng.normal(size=(b, 128, 192, 3)).astype(np.float32),
+                            "boxes": np.stack(boxes), "classes": np.stack(classes),
+                            "mask": np.stack(mask)}, device)
+
+
+def test_bf16_train_step_launches_the_simt_kernels(cuda_device):
+    """One bf16 ``Trainer`` step of a DETR with the full 6 + 6 transformer
+    (reduced backbone) at dropout 0.1: 18 SIMT attention forwards (bf16 with
+    dropout), 18 SIMT backwards, no tensor-core one, one LAP launch, one
+    max pool; every parameter, gradient and Adam moment float32."""
+    from detr_tensorflow_tpu_torch.train import Trainer, TrainingConfig
+
+    config = TrainingConfig(background_class=91, train_backbone=True, train_transformers=True,
+                            batch_size=1)
+    model = api.build_detr(backbone_stage_sizes=(1, 1, 1, 1), dtype="bfloat16",
+                           device=cuda_device).module
+    trainer = Trainer(model, config, seed=0)
+    batch, logs = _train_batch(cuda_device), []
+    pool, mma = maxpool.max_pool_3x3_s2.launches, fa.mha.mma_launches
+    assert _counts(lambda: logs.append(trainer.step(batch))) == (0, 18, 18, 0, 1)
+    assert fa.mha.mma_launches == mma and maxpool.max_pool_3x3_s2.launches == pool + 1
+    assert bool(torch.isfinite(logs[0]["total_loss"]))
+    assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+               for p in model.parameters())
+    assert all(t.dtype == torch.float32 for s in trainer.optimizer.adam.state.values()
+               for t in s.values() if isinstance(t, torch.Tensor) and t.dim())
+
+
+def test_bf16_predictor_launches_as_before_and_casts_once(cuda_device):
+    """A bf16 ``Predictor`` (full 6 + 6 transformer, reduced backbone): each
+    request launches A-mma 18 times and C once, no other attention kernel;
+    ``warmup`` fills the cast copies of the float32 parameters, and a
+    request after it casts nothing (every cached copy is the same tensor)."""
+    from detr_tensorflow_tpu_torch.predictor import Predictor
+
+    model = api.build_detr(backbone_stage_sizes=(1, 1, 1, 1), dtype="bfloat16",
+                           device=cuda_device)
+    assert {p.dtype for p in model.module.parameters()} == {torch.float32}
+    predictor = Predictor(model, background_class=91)
+    predictor.warmup([(200, 300)])
+
+    def copies():
+        return {(n, k): hit[1] for n, m in model.module.named_modules()
+                for k, hit in getattr(m, "_cache", {}).items() if k[0] == "cast"}
+
+    warm = copies()
+    assert warm and all(t.dtype == torch.bfloat16 for t in warm.values())
+    img = np.random.default_rng(5).integers(0, 255, (200, 300, 3), dtype=np.uint8)
+    for _ in range(2):
+        before, pool = _forward_counts(), maxpool.max_pool_3x3_s2.launches
+        predictor([img])
+        assert _forward_counts(before) == (0, 18, 0)
+        assert maxpool.max_pool_3x3_s2.launches == pool + 1
+        now = copies()
+        assert now.keys() == warm.keys() and all(now[k] is t for k, t in warm.items())
+
+
+def test_fused_and_int8_bf16_models_launch_from_float32_parameters(cuda_device):
+    """The bf16 fused and int8 models keep float32 parameters and still run
+    their kernels: the fused one D-mma and E-mma (bucket-exact forward), the
+    int8 one F and G."""
+    cfg = dict(backbone_stage_sizes=(2, 1, 1, 1), num_encoder_layers=1, num_decoder_layers=1,
+               device=cuda_device, dtype="bfloat16")
+    x = torch.from_numpy(np.random.default_rng(8).normal(size=(1, 128, 192, 3)).astype(np.float32))
+    x = x.to(cuda_device)
+    fused = api.build_detr(fuse_residual=True, fuse_bottleneck=True, **cfg)
+    int8 = api.build_detr(backbone_quant=True, **cfg)
+    quantized.quantize_model(int8, x)
+    for model in (fused, int8):
+        assert {p.dtype for p in model.module.parameters()} == {torch.float32}
+    d, e = _d_counts(), _e_counts()
+    assert torch.isfinite(fused(x)["pred_boxes"]).all()
+    assert _d_counts(d) == (0, 4, 0) and _e_counts(e) == (0, 1, 0)
+    f, g = int8_matmul.qmatmul.launches, sum(int8_conv.conv3x3_int8.launches.values())
+    assert torch.isfinite(int8(x)["pred_boxes"]).all()
+    assert int8_matmul.qmatmul.launches - f == 5
+    assert sum(int8_conv.conv3x3_int8.launches.values()) - g == 5
+
+
+def test_float64_is_refused_on_the_card(cuda_device):
+    """float64 runs on the CPU only, for diagnosis: on the card the
+    attention and the max pool raise, and ``Trainer`` refuses a float64
+    model."""
+    from detr_tensorflow_tpu_torch.models.detr import DETR
+    from detr_tensorflow_tpu_torch.train import Trainer, TrainingConfig
+
+    q, k, v, mask = _inputs(cuda_device, torch.float64, 1, 16, 16, 2, 32, seed=0)
+    with pytest.raises(TypeError):
+        fa.mha(q, k, v, mask)
+    x = _channels_last(torch.rand(1, 4, 9, 11, device=cuda_device, dtype=torch.float64))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        maxpool.max_pool_3x3_s2(x, nonneg=True)
+    model = DETR(dtype=torch.float64, backbone_stage_sizes=(1, 1, 1, 1), num_encoder_layers=1,
+                 num_decoder_layers=1).double().to(cuda_device)
+    with pytest.raises(ValueError, match="CPU"):
+        Trainer(model, TrainingConfig())
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_backward_bf16_ds_rows_sum_to_zero(cuda_device, rate):
+    """The SIMT backward at bf16 on keys and values with a large common
+    component, as DETR's cross-attention keys (memory + pos): softmax's
+    dS rows sum to zero, so sum_j dK_j = sum_i q_i sum_j dS_ij vanishes up
+    to rounding. The kernel's delta is sum_j p_ij m_ij dO_i . v_j in fp32,
+    not rowsum(dO * O) with O rounded to bf16 (which left each row's sum at
+    O's rounding and made sum_j dK_j ~60x larger here): the kernel's
+    ||sum_j dK_j||, relative to ||dK||, is within 3x plain autograd's at
+    bf16, whose dS is fp32."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    b, lq, lk, h, dh = 8, 100, 252, 8, 32
+
+    def normal(*shape, mean=0.0):
+        return (mean + torch.randn(shape, device=cuda_device, generator=gen)).bfloat16()
+
+    q = normal(b, lq, h, dh) * dh**-0.5
+    k, v, dout = normal(b, lk, h, dh, mean=2.0), normal(b, lk, h, dh, mean=4.0), normal(b, lq, h, dh)
+    seed = torch.tensor([77], device=cuda_device)
+    keep = fa.kernel_keep_mask(seed, b * h, lq, lk, rate).view(b, h, lq, lk) if rate else None
+    _, _, dk, _ = _grads(lambda *t: fa.mha(*t, None, rate, seed), q, k, v, dout)
+    _, _, dk_ref, _ = _grads(lambda *t: fa.reference_mha(*t, None, keep, rate), q, k, v, dout)
+
+    def key_sum(g):
+        g = g.float()
+        return float(g.sum(dim=1).norm()) / float(g.norm())
+
+    assert key_sum(dk) <= 3 * key_sum(dk_ref), (key_sum(dk), key_sum(dk_ref))
+    assert _rel_err(dk, dk_ref) <= GRAD_RTOL[torch.bfloat16]

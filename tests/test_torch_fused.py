@@ -1118,7 +1118,7 @@ def test_bf16_fused_block_folds_float32_weights_once():
     seeded float32 weights come from the fp32 model of the same seed; the
     FrozenBN buffers are random. A fold of weights already rounded to bf16
     rounds twice and fails this test. The unfused convs read bf16 copies
-    cached once: a second forward casts nothing."""
+    cached once, each in its own conv: a second forward casts nothing."""
     cfg = dict(backbone_stage_sizes=(3, 1, 1, 1), num_encoder_layers=1, num_decoder_layers=1,
                device="cpu", seed=3, **FUSED)
     fp32 = api.build_detr(**cfg).module.backbone.layer1.block_1
@@ -1151,7 +1151,9 @@ def test_bf16_fused_block_folds_float32_weights_once():
     mask = torch.from_numpy(_pixel_mask(1, 64, 64, [(50, 37)]))
     x = torch.from_numpy(np.random.default_rng(13).normal(size=(1, 64, 64, 3)).astype(np.float32))
     model(x, mask)
-    casts = {k: v[1] for k, v in block._cache.items() if k[0] == "weight"}
-    assert len(casts) == 3 and all(t.dtype == torch.bfloat16 for t in casts.values())
+    convs = (block.conv1, block.conv2, block.conv3)
+    casts = [conv._cache[("cast", "weight", torch.bfloat16)][1] for conv in convs]
+    assert all(t.dtype == torch.bfloat16 for t in casts)
     model(x, mask)
-    assert all(block._cache[k][1] is t for k, t in casts.items())
+    assert all(conv._cache[("cast", "weight", torch.bfloat16)][1] is t
+               for conv, t in zip(convs, casts))

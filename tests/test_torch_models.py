@@ -248,7 +248,11 @@ def test_build_detr_seeded_and_bf16():
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not torch.equal(sa["query_embed"], sc["query_embed"])
     bf = api.build_detr(seed=7, dtype="bfloat16", device="cpu", **SMALL)
-    assert bf.module.transformer.decoder_norm.weight.dtype == torch.bfloat16
+    # Parameters stay float32 at every compute dtype, as in the JAX package:
+    # the bf16 build is the fp32 build's weights, computing in bf16.
+    assert all(p.dtype == torch.float32 for p in bf.module.parameters())
+    assert all(torch.equal(p, sa[n]) for n, p in bf.module.named_parameters())
+    assert bf.module.transformer.decoder_norm.weight.dtype == torch.float32
     assert bf.module.backbone.bn1.running_var.dtype == torch.float32
     assert bf.module.query_embed.dtype == torch.float32
     x = torch.from_numpy(np.random.default_rng(0).normal(size=(1, 64, 64, 3)).astype(np.float32))

@@ -391,15 +391,20 @@ def test_int8_detr_needs_quantized_weights():
 
 def test_bf16_build_keeps_the_fp32_backbone_for_calibration():
     """A bf16 model built with backbone_quant=True keeps its fp32 backbone,
-    so ``quantize_model`` calibrates from fp32 weights; a bf16-cast backbone
-    is refused."""
+    so ``quantize_model`` calibrates from fp32 weights. Every parameter is
+    float32 at every compute dtype, so a bf16 build without backbone_quant
+    calibrates exactly as the fp32 build of the same seed; a backbone cast
+    to bf16 by hand is refused."""
     model = api.build_detr(backbone_quant=True, dtype="bfloat16", device="cpu", **CONFIG)
-    assert model.module.backbone.conv1.weight.dtype == torch.float32
-    assert model.module.input_proj.weight.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.module.parameters())
     x = torch.from_numpy(np.random.default_rng(4).normal(size=(2, 64, 64, 3)).astype(np.float32))
     Q.quantize_model(model, x)
     out = model(x[:1])
     assert out["pred_boxes"].shape == (1, 6, 4) and torch.isfinite(out["pred_logits"]).all()
+    bf16 = api.build_detr(dtype="bfloat16", device="cpu", **CONFIG).module.backbone
+    fp32 = api.build_detr(device="cpu", **CONFIG).module.backbone
+    a, b = Q.calibrate_backbone(bf16, x), Q.calibrate_backbone(fp32, x)
+    assert torch.equal(a["stem_out"], b["stem_out"])
+    assert torch.equal(a["layer4"]["block_0"]["out"], b["layer4"]["block_0"]["out"])
     with pytest.raises(ValueError, match="fp32 backbone"):
-        Q.calibrate_backbone(api.build_detr(dtype="bfloat16", device="cpu", **CONFIG)
-                             .module.backbone, x)
+        Q.calibrate_backbone(bf16.to(torch.bfloat16), x)
