@@ -21,14 +21,15 @@ Phases, one status line each; any failure raises and exits non-zero:
      kernels at each CTA shape); then the attention forward with dropout
      and its backward at the training shapes, against plain autograd at
      dropout 0 and given the mask the kernel library materialises: fp32
-     through A-tf32 and the tensor-core A' (3xTF32) and through the SIMT A'
-     called directly, bf16 through the SIMT A and A'; at each training
-     shape the fp32 forward with dropout 0.1 (A-tf32 at each CTA shape, the
-     SIMT A, plain, SDPA) and the backward (the tensor-core A', the SIMT
-     A', plain, SDPA's backward) timed from CUDA graphs in turns, and their
-     sums per training step; at each training shape the bf16 step's SIMT A
-     (dropout 0.1) and SIMT A' against plain, SDPA and their bound, timed
-     the same way, and their sums per bf16 step;
+     through A-tf32 and the tensor-core A' (3xTF32), bf16 through the SIMT
+     A and A'-bf16 (bf16 tensor cores), and the SIMT A' called directly at
+     both dtypes; at each training shape the fp32 forward with dropout 0.1
+     (A-tf32 at each CTA shape, the SIMT A, plain, SDPA) and the backward
+     (the tensor-core A', the SIMT A', plain, SDPA's backward) timed from
+     CUDA graphs in turns, and their sums per training step; at each
+     training shape the bf16 step's SIMT A (dropout 0.1) and A'-bf16 with
+     the SIMT A' beside it against plain, SDPA and their bound, timed the
+     same way, and their sums per bf16 step;
   4. lap: the LAP kernel on 48 problems (6 decoder layers x batch 8)
      against its plain version and scipy, on prefix and scattered row
      masks, with its device time from CUDA graphs, the time of a loop of
@@ -57,23 +58,25 @@ Phases, one status line each; any failure raises and exits non-zero:
   9. training: full-width DETR-R50 at b8 376x672 fp32: one step's loss and
      gradients, kernel route against plain route at dropout 0; eight
      dropout-0.1 steps through ``fit`` with the counters reset just before
-     (per step A-tf32 18, SIMT A 0, tensor-core A' 18, SIMT A' 0, B 1, C 1);
+     (per step A-tf32 18, SIMT A 0, tensor-core A' 18, SIMT A' and A'-bf16
+     0, B 1, C 1);
      one more step under ``torch.profiler``: B's and C's device time and
      their share of the step's kernel time; matching and loss under
      ``torch.cuda.set_sync_debug_mode("error")``; the step's wall and
      device-busy time under ``torch.profiler`` and its peak memory;
  9b. bf16 training: the same model built with ``dtype="bfloat16"`` (float32
      parameters, bf16 compute). The kernel route against the plain-attention
-     route with the matching shared, at dropout 0 (A-mma and the SIMT A')
-     and at dropout 0.1 with every route's masks alike (the SIMT A and A',
+     route with the matching shared, at dropout 0 (A-mma and A'-bf16) and
+     at dropout 0.1 with every route's masks alike (the SIMT A and A'-bf16,
      the main path's kernels): loss within 1e-2 relative, every gradient
      float32 and no further from the fp32 step's on the same weights and
      masks than the plain route's (median over tensors within 2x, each
      tensor within 3x); then four dropout-0.1 steps through ``Trainer``
-     with the counters reset just before (per step SIMT A 18, SIMT A' 18,
-     B 1, C 1, A-tf32, A-mma and the tensor-core A' 0), every parameter and
+     with the counters reset just before (per step SIMT A 18, A'-bf16 18,
+     B 1, C 1, A-tf32, A-mma, SIMT A' and A'-mma 0), every parameter and
      Adam moment float32 after each; median step time, device-busy time and
-     peak memory beside the fp32 step's;
+     peak memory beside the fp32 step's, and one step's kernel time with the
+     attention kernels' share;
  10. fused kernels: C (stem max pool), D (fused bottleneck tail) and E
      (whole identity bottleneck) at every distinct shape of one b1 forward
      of the fused-backbone model, at 896x1408 with a mask (C, D x16) and
@@ -149,10 +152,10 @@ SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "lap.cu", "int8_m
            "int8_conv.cu", "maxpool.cu", "fused_residual.cu", "fused_bottleneck.cu",
            "flash_attention_fwd_mma.cu", "flash_attention_bwd_mma.cu",
            "flash_attention_fwd_tf32.cu", "fused_bottleneck_mma.cu", "fused_bottleneck_tf32.cu",
-           "fused_residual_mma.cu", "fused_residual_tf32.cu")
+           "fused_residual_mma.cu", "fused_residual_tf32.cu", "flash_attention_bwd_bf16.cu")
 MMA_SOURCES = ("flash_attention_fwd_mma.cu", "flash_attention_bwd_mma.cu",
                "flash_attention_fwd_tf32.cu", "fused_bottleneck_mma.cu", "fused_bottleneck_tf32.cu",
-               "fused_residual_mma.cu", "fused_residual_tf32.cu")
+               "fused_residual_mma.cu", "fused_residual_tf32.cu", "flash_attention_bwd_bf16.cu")
 CSRC = "detr_tensorflow_tpu_torch/csrc/"
 REPLACES = {
     "flash_attention_fwd": "detr_tensorflow_tpu/ops/pallas/flash_attention.py:77",
@@ -160,6 +163,7 @@ REPLACES = {
     "flash_attention_fwd_tf32": "detr_tensorflow_tpu/ops/pallas/flash_attention.py:77",
     "flash_attention_bwd": "detr_tensorflow_tpu/ops/pallas/flash_attention.py:115",
     "flash_attention_bwd_mma": "detr_tensorflow_tpu/ops/pallas/flash_attention.py:115",
+    "flash_attention_bwd_bf16": "detr_tensorflow_tpu/ops/pallas/flash_attention.py:115",
     "lap": "detr_tensorflow_tpu/ops/pallas/lap.py:77",
     "int8_matmul": "detr_tensorflow_tpu/ops/pallas/int8_matmul.py:96",
     "int8_conv": "detr_tensorflow_tpu/ops/pallas/int8_conv.py:64",
@@ -192,8 +196,8 @@ TRAIN_STEM = (8, 64, 188, 336)  # kernel C's input in a training step: conv1's o
 BACKGROUND = 91  # DETR-R50's "no object" logit of 92
 LOSS_RTOL, TENSOR_GRAD_RTOL, NOISE_FLOOR = 1e-4, 1e-3, 1e-6
 # The bf16 step (float32 parameters, bf16 compute), b8 376x672, dropout 0.1.
-# Parity at dropout 0 (A-mma forward, SIMT A' backward) and at dropout 0.1
-# (the SIMT A and A', every route given the same masks): the kernel
+# Parity at dropout 0 (A-mma forward, A'-bf16 backward) and at dropout 0.1
+# (the SIMT A and A'-bf16, every route given the same masks): the kernel
 # route's loss within BF16_LOSS_RTOL of the plain route's (the two round
 # attention at different points, and the rounding noise of a bf16 forward
 # reaches the loss at ~1e-3), and its gradients, against the fp32 step's on
@@ -498,14 +502,14 @@ def attention_grads(torch, fn, q, k, v, dout):
 
 def phase_train_kernels(torch, fa):
     """Kernel A with dropout and kernel A' at the training shapes: through
-    ``mha`` (fp32: A-tf32 and the tensor-core A', bf16: the SIMT A and A'),
-    and the SIMT A' called directly at fp32; each against plain autograd at
-    dropout 0 and 0.1. Then, at every training shape and dropout 0.1, the
-    forward and the backward from CUDA graphs, in turns: at fp32 A-tf32, the
-    SIMT A, the tensor-core A' and the SIMT A'; at bf16 the SIMT A and A';
-    each beside plain and SDPA (``time_train_forward``,
-    ``time_train_attention``)."""
-    worst = {"float32": 0.0, "bfloat16": 0.0, "simt float32": 0.0}
+    ``mha`` (fp32: A-tf32 and the tensor-core A' (3xTF32), bf16: the SIMT A
+    and A'-bf16), and the SIMT A' called directly at both dtypes; each
+    against plain autograd at dropout 0 and 0.1. Then, at every training
+    shape and dropout 0.1, the forward and the backward from CUDA graphs, in
+    turns: at fp32 A-tf32, the SIMT A, the tensor-core A' and the SIMT A';
+    at bf16 the SIMT A, A'-bf16 and the SIMT A'; each beside plain and SDPA
+    (``time_train_forward``, ``time_train_attention``)."""
+    worst = {"float32": 0.0, "bfloat16": 0.0, "simt float32": 0.0, "simt bfloat16": 0.0}
     times, fwd_times = {}, {}
     for lq, lk in TRAIN_ATTN_SHAPES:
         for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -526,10 +530,9 @@ def phase_train_kernels(torch, fa):
                 ref = attention_grads(torch, lambda *t: fa.reference_mha(*t, mask, keep, rate),
                                       q, k, v, dout)
                 checks = [(name, zip(got, ref, ("out", "dq", "dk", "dv")))]
-                if name == "float32":
-                    out, lse = fa.launch_forward(q, k, v, mask, seed, rate, True)
-                    simt = fa.launch_backward_simt(q, k, v, out, dout, lse, mask, seed, rate)
-                    checks.append(("simt float32", zip(simt, ref[1:], ("dq", "dk", "dv"))))
+                out, lse = fa.launch_forward(q, k, v, mask, seed, rate, True)
+                simt = fa.launch_backward_simt(q, k, v, out, dout, lse, mask, seed, rate)
+                checks.append((f"simt {name}", zip(simt, ref[1:], ("dq", "dk", "dv"))))
                 torch.cuda.synchronize()
                 errs = []
                 for label, pairs in checks:
@@ -617,8 +620,9 @@ def time_train_forward(torch, fa, q, k, v, mask):
 
 def time_train_attention(torch, fa, q, k, v, dout, mask):
     """A' at one training shape (b8, dropout 0.1) from CUDA graphs: at fp32
-    the tensor-core kernel and the SIMT kernel, at bf16 the SIMT kernel
-    (the route bf16 takes), in turns with plain, SDPA's backward beside;
+    the tensor-core kernel (3xTF32) and the SIMT kernel, at bf16 A'-bf16
+    (the route bf16 takes) and the SIMT kernel, in turns with plain, SDPA's
+    backward beside;
     the plain and library backwards as a graph of forward and backward
     less one of the forward (autograd runs a backward on its forward's
     stream, so both are captured). The bound at the dtype's peak (the fp32
@@ -633,8 +637,9 @@ def time_train_attention(torch, fa, q, k, v, dout, mask):
     plain_fwd = lambda: fa.reference_mha(qr, kr, vr, mask, keep, DROPOUT)  # noqa: E731
     fns = {"plain": lambda: torch.autograd.grad(plain_fwd(), (qr, kr, vr), dout),
            "simt": lambda: fa.launch_backward_simt(*args),
-           "mma": lambda: fa.launch_backward_mma(*args)}
-    routes = ["mma", "simt"] if name == "float32" else ["simt"]
+           "mma": lambda: fa.launch_backward_mma(*args),
+           "bf16": lambda: fa.launch_backward_bf16(*args)}
+    routes = ["mma", "simt"] if name == "float32" else ["bf16", "simt"]
     turns = graph_turns(torch, fns, routes)
     t = {what: mean for what, (mean, _) in turns.items()}
     t["plain"] -= graph_ms(torch, plain_fwd, iters=10)
@@ -643,14 +648,17 @@ def time_train_attention(torch, fa, q, k, v, dout, mask):
     lib_all = lambda: torch.autograd.grad(  # noqa: E731
         lib_fwd(), (qs, ks, vs), dout.transpose(1, 2))
     t["sdpa"] = graph_ms(torch, lib_all, iters=10) - graph_ms(torch, lib_fwd, iters=10)
-    # q, k, v, out, dout in; dq, dk, dv out; the row lse; the mask. Five
-    # products of 2 * Dh flops per (query, key) pair and head.
+    # q, k, v, dout in; dq, dk, dv out; the row lse; the mask; and at fp32
+    # out, which A'-mma reads for delta (A'-bf16 and the SIMT A' sum delta
+    # over the keys and never read it). Five products of 2 * Dh flops per
+    # (query, key) pair and head.
     size = q.element_size()
-    nbytes = (8 * 8 * 32 * (4 * lq + 4 * lk) * size + 8 * 8 * lq * 4
+    query_side = 4 if name == "float32" else 3
+    nbytes = (8 * 8 * 32 * (query_side * lq + 4 * lk) * size + 8 * 8 * lq * 4
               + (8 * lk if mask is not None else 0))
     flops = 10 * 8 * 8 * lq * lk * 32
     t["bound"] = bound_ms(nbytes, {name: flops})
-    label = {"mma": "tensor-core A'", "simt": "SIMT A'"}
+    label = {"mma": "tensor-core A'", "bf16": "A'-bf16", "simt": "SIMT A'"}
     log(f"  attention backward ({lq},{lk}) {name} B=8 H=8 Dh=32 dropout {DROPOUT}"
         f"{' masked' if mask is not None else ''}, CUDA graphs: "
         + ", ".join(f"{label[w]} {t[w]:.4f} ms ({turns[w][1][0]:.4f}, {turns[w][1][1]:.4f})"
@@ -1233,7 +1241,7 @@ def phase_training(torch, fa, lap, mp, api, train, losses):
 
     fa.mha.tf32_launches = fa.mha.backward_launches = lap.solve_lap_masked.launches = 0  # main path
     mp.max_pool_3x3_s2.launches = fa.mha.mma_launches = fa.mha.backward_mma_launches = 0
-    fa.mha.launches = 0
+    fa.mha.launches = fa.mha.backward_bf16_launches = 0
     train.fit(trainer, [batch] * TRAIN_STEPS, config, epoch_nb=0, log_fn=log_fn, log_every=1)
     counts = (fa.mha.tf32_launches, fa.mha.backward_launches, lap.solve_lap_masked.launches,
               mp.max_pool_3x3_s2.launches, fa.mha.backward_mma_launches)
@@ -1244,14 +1252,16 @@ def phase_training(torch, fa, lap, mp, api, train, losses):
     log(f"  step times {[round(x, 2) for x in step_ms]} ms, median {median:.2f} ms, "
         f"{TRAIN_BATCH * 1e3 / median:.2f} images/s, peak device memory {peak_gb:.2f} GiB")
     log(f"  launches in {TRAIN_STEPS} steps: attention forward A-tf32 {counts[0]}, SIMT "
-        f"{fa.mha.launches}, A-mma {fa.mha.mma_launches}; backward tensor-core {counts[4]} and "
-        f"SIMT {counts[1]}, lap {counts[2]}, max pool {counts[3]}")
+        f"{fa.mha.launches}, A-mma {fa.mha.mma_launches}; backward tensor-core {counts[4]}, "
+        f"A'-bf16 {fa.mha.backward_bf16_launches} and SIMT {counts[1]}, lap {counts[2]}, max pool "
+        f"{counts[3]}")
     per_step = (LAUNCHES_PER_FORWARD, 0, 1, 1, LAUNCHES_PER_FORWARD)
     if (counts != tuple(TRAIN_STEPS * c for c in per_step) or fa.mha.mma_launches
-            or fa.mha.launches):
-        raise AssertionError(f"launch counts {counts}, {fa.mha.launches} SIMT A and "
-                             f"{fa.mha.mma_launches} A-mma, expected {per_step} per step (A-tf32, "
-                             f"SIMT A', B, C, tensor-core A') and no SIMT A or A-mma (fp32)")
+            or fa.mha.launches or fa.mha.backward_bf16_launches):
+        raise AssertionError(f"launch counts {counts}, {fa.mha.launches} SIMT A, "
+                             f"{fa.mha.mma_launches} A-mma and {fa.mha.backward_bf16_launches} "
+                             f"A'-bf16, expected {per_step} per step (A-tf32, SIMT A', B, C, "
+                             f"tensor-core A') and no SIMT A, A-mma or A'-bf16 (fp32)")
     if not all(np.isfinite(losses_seen)) or not losses_seen[-1] < losses_seen[0]:
         raise AssertionError(f"losses not finite and falling: {losses_seen}")
     wall_ms, busy_ms, events = device_busy_ms(torch, lambda: trainer.step(batch))
@@ -1311,7 +1321,7 @@ def tensor_gaps(ours, plain, exact):
     return ours_med, plain_med, worst, len(noise)
 
 
-def bf16_parity(torch, api, losses, batch, rate):
+def bf16_parity(torch, fa, api, losses, batch, rate):
     """One step's loss and gradients of the bf16 kernel route, the bf16
     plain-attention route and the fp32 step on the same weights, batch,
     matching and dropout masks (each model's generator seeded alike: the
@@ -1322,6 +1332,7 @@ def bf16_parity(torch, api, losses, batch, rate):
     fp32 step's than the plain route's (``tensor_gaps``)."""
     targets = ("boxes", "classes", "mask")
     results, match = {}, None
+    before = (fa.mha.backward_bf16_launches, fa.mha.backward_launches)
     for key, dtype, impl in (("kernel", "bfloat16", "auto"), ("plain", "bfloat16", "plain"),
                              ("fp32", "float32", "auto")):
         model = api.build_detr(seed=0, device=DEVICE, dropout=rate, attn_impl=impl,
@@ -1339,10 +1350,17 @@ def bf16_parity(torch, api, losses, batch, rate):
         del model, out
     (loss_k, grads_k), (loss_p, grads_p), (loss_32, grads_32) = (
         results[k] for k in ("kernel", "plain", "fp32"))
+    launches = fa.mha.backward_bf16_launches - before[0]
+    if (launches, fa.mha.backward_launches - before[1]) != (LAUNCHES_PER_FORWARD, 0):
+        raise AssertionError(f"bf16 parity: {launches} A'-bf16 and "
+                             f"{fa.mha.backward_launches - before[1]} SIMT A' launches, expected "
+                             f"{LAUNCHES_PER_FORWARD} and 0")
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
     ours_med, plain_med, worst, n_noise = tensor_gaps(grads_k, grads_p, grads_32)
-    routes = "A-mma and SIMT A'" if rate == 0 else "SIMT A and A'"
-    log(f"  bf16 parity at dropout {rate} (kernel route: {routes}): loss kernel {loss_k:.6f} plain "
+    forward = {"mma": "A-mma", "simt": "SIMT A"}[fa.forward_route(torch.bfloat16, rate, 32)]
+    backward = {"bf16": "A'-bf16", "simt": "SIMT A'"}[fa.backward_route(torch.bfloat16, 32)]
+    log(f"  bf16 parity at dropout {rate} (kernel route: {forward} and {backward}, "
+        f"{launches} launches of {backward}): loss kernel {loss_k:.6f} plain "
         f"{loss_p:.6f} (rel {loss_err:.2e}, tol {BF16_LOSS_RTOL}), fp32 step {loss_32:.6f}; "
         f"gradients against the fp32 step's, median relative distance kernel route "
         f"{ours_med:.4f}, plain route {plain_med:.4f} (tol {BF16_GAP_FACTOR} x), worst tensor "
@@ -1360,15 +1378,16 @@ def phase_bf16_training(torch, fa, lap, mp, api, train, losses):
     """The bf16 training step (float32 parameters, bf16 compute): parity of
     the kernel route with the plain-attention route against the fp32 step
     on the same weights, batch and matching (``bf16_parity``), at dropout 0
-    (the forward on A-mma, the backward on the SIMT A') and at dropout 0.1
-    with the same masks (the SIMT A and A', the main path's kernels); then
+    (the forward on A-mma, the backward on A'-bf16) and at dropout 0.1 with
+    the same masks (the SIMT A and A'-bf16, the main path's kernels); then
     steps at dropout 0.1 through ``Trainer`` with the counts reset just
-    before; then its time under the profiler."""
+    before; then its time under the profiler, and one step's kernel time
+    with the attention's share."""
     from detr_tensorflow_tpu_torch.train.engine import batch_to_device
 
     batch = batch_to_device(train_batch(5), DEVICE)
     for rate in (0.0, DROPOUT):
-        bf16_parity(torch, api, losses, batch, rate)
+        bf16_parity(torch, fa, api, losses, batch, rate)
 
     config = train.TrainingConfig(background_class=BACKGROUND, train_backbone=True,
                                   train_transformers=True, batch_size=TRAIN_BATCH)
@@ -1388,12 +1407,12 @@ def phase_bf16_training(torch, fa, lap, mp, api, train, losses):
 
     fa.mha.tf32_launches = fa.mha.backward_launches = lap.solve_lap_masked.launches = 0  # main path
     mp.max_pool_3x3_s2.launches = fa.mha.mma_launches = fa.mha.backward_mma_launches = 0
-    fa.mha.launches = 0
+    fa.mha.launches = fa.mha.backward_bf16_launches = 0
     train.fit(trainer, [batch] * BF16_TRAIN_STEPS, config, epoch_nb=0, log_fn=log_fn, log_every=1)
-    counts = {"A SIMT": fa.mha.launches, "A' SIMT": fa.mha.backward_launches,
-              "B": lap.solve_lap_masked.launches, "C": mp.max_pool_3x3_s2.launches,
-              "A-tf32": fa.mha.tf32_launches, "A-mma": fa.mha.mma_launches,
-              "A'-mma": fa.mha.backward_mma_launches}
+    counts = {"A SIMT": fa.mha.launches, "A'-bf16": fa.mha.backward_bf16_launches,
+              "A' SIMT": fa.mha.backward_launches, "B": lap.solve_lap_masked.launches,
+              "C": mp.max_pool_3x3_s2.launches, "A-tf32": fa.mha.tf32_launches,
+              "A-mma": fa.mha.mma_launches, "A'-mma": fa.mha.backward_mma_launches}
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     step_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
     median = statistics.median(step_ms)
@@ -1403,8 +1422,8 @@ def phase_bf16_training(torch, fa, lap, mp, api, train, losses):
         f"{TRAIN_BATCH * 1e3 / median:.2f} images/s, peak device memory {peak_gb:.2f} GiB")
     per_step = {k: v / BF16_TRAIN_STEPS for k, v in counts.items()}
     log(f"  bf16 launches per step: {per_step}")
-    expected = {"A SIMT": LAUNCHES_PER_FORWARD, "A' SIMT": LAUNCHES_PER_FORWARD, "B": 1, "C": 1,
-                "A-tf32": 0, "A-mma": 0, "A'-mma": 0}
+    expected = {"A SIMT": LAUNCHES_PER_FORWARD, "A'-bf16": LAUNCHES_PER_FORWARD, "A' SIMT": 0,
+                "B": 1, "C": 1, "A-tf32": 0, "A-mma": 0, "A'-mma": 0}
     if per_step != expected:
         raise AssertionError(f"bf16 launches per step {per_step}, expected {expected}")
     if not all(np.isfinite(losses_seen)):
@@ -1416,8 +1435,16 @@ def phase_bf16_training(torch, fa, lap, mp, api, train, losses):
     wall_ms, busy_ms, events = device_busy_ms(torch, lambda: trainer.step(batch))
     log(f"  bf16 under torch.profiler: {wall_ms:.2f} ms wall, {busy_ms:.2f} ms device busy, "
         f"{events:.0f} kernels and copies a step")
+    # The attention's kernels: the SIMT A, A'-bf16's pre-pass and passes.
+    names = ("flash_attention_fwd_kernel", "prepass_kernel", "passes_kernel")
+    step_kernels, by_name = kernel_ms(torch, lambda: trainer.step(batch), names)
+    attention = sum(by_name.values())
+    log(f"  one bf16 step under torch.profiler: {step_kernels:.2f} ms of kernel time; attention "
+        f"{attention:.4f} ms ({attention / step_kernels:.2%}): SIMT A "
+        f"{by_name[names[0]]:.4f}, A'-bf16 {by_name[names[1]] + by_name[names[2]]:.4f} (pre-pass "
+        f"{by_name[names[1]]:.4f}, passes {by_name[names[2]]:.4f})")
     return counts, {"median": median, "peak_gb": peak_gb, "wall": wall_ms, "busy": busy_ms,
-                    "events": events}
+                    "events": events, "attention": attention, "kernels": step_kernels}
 
 
 def fused_path_shapes(height, width, masked):
@@ -1925,14 +1952,17 @@ def main() -> int:
         f"{list(fwd_train_times)}), ms from CUDA graphs: A-tf32 {fwd_step['tf32']:.4f}, SIMT "
         f"{fwd_step['simt']:.4f}, plain {fwd_step['plain']:.4f}, SDPA forward with dropout_p "
         f"{fwd_step['sdpa']:.4f}")
-    for label, table, keys in (("A (SIMT)", fwd_train16, ("simt", "plain", "sdpa")),
-                               ("A' (SIMT)", bwd_times16, ("simt", "plain", "sdpa"))):
+    for label, table, kernel in (("A (SIMT)", fwd_train16, "simt"),
+                                 ("A'-bf16", bwd_times16, "bf16"),
+                                 ("A' (SIMT, on no path)", bwd_times16, "simt")):
         step = {key: sum(LAUNCHES_PER_FORWARD // 3 * t[key] for t in table.values())
-                for key in keys}
+                for key in (kernel, "plain", "sdpa")}
         bound = sum(LAUNCHES_PER_FORWARD // 3 * t["bound"][0] for t in table.values())
         log(f"[kernels] {label} per bf16 training step at dropout {DROPOUT} (6 calls at each of "
-            f"{list(table)}), ms from CUDA graphs: kernel {step['simt']:.4f}, plain "
+            f"{list(table)}), ms from CUDA graphs: kernel {step[kernel]:.4f}, plain "
             f"{step['plain']:.4f}, SDPA {step['sdpa']:.4f}, bound {bound:.4f}")
+    faster = {shape: t["bf16"] < t["simt"] for shape, t in bwd_times16.items()}
+    log(f"[kernels] A'-bf16 faster than the SIMT A' at bf16, each training shape: {faster}")
     lap_ms, lap_plain_ms, _, (lap_bound, lap_by), lap_loop_ms, lap_chain = lap_times
 
     # "measured_at": the shape and dtype of the times, which differ between
@@ -1968,8 +1998,9 @@ def main() -> int:
         entry("flash_attention_fwd", SOURCES[0], counts16["A SIMT"],
               max(t["err"] for t in fwd_train16.values()), fwd16["simt"], fwd16["plain"],
               *fwd16["bound"], fwd16["sdpa"], train_at("bfloat16") + ", with the row lse"),
-        entry("flash_attention_bwd", SOURCES[1], counts16["A' SIMT"], bwd_worst["bfloat16"],
-              bwd16["simt"], bwd16["plain"], *bwd16["bound"], bwd16["sdpa"], train_at("bfloat16")),
+        entry("flash_attention_bwd", SOURCES[1], counts[1] + counts16["A' SIMT"],
+              bwd_worst["simt bfloat16"], bwd16["simt"], bwd16["plain"], *bwd16["bound"],
+              bwd16["sdpa"], train_at("bfloat16") + ", called directly"),
         entry("lap", SOURCES[2], counts[2] + counts16["B"], lap_err, lap_ms, lap_plain_ms,
               lap_bound, lap_by, None, f"{LAP_PROBLEMS} problems of {LAP_SLOTS}x{LAP_SLOTS} "
               "float32, one call"),
@@ -2001,9 +2032,11 @@ def main() -> int:
                     masked_tag, "bfloat16"),
         fused_entry("fused_residual_tf32", SOURCES[14], fused_counts[3] + fused_bf16_counts[3],
                     masked_tag),
+        entry("flash_attention_bwd_bf16", SOURCES[15], counts16["A'-bf16"], bwd_worst["bfloat16"],
+              bwd16["bf16"], bwd16["plain"], *bwd16["bound"], bwd16["sdpa"], train_at("bfloat16")),
     ]}
     tf32_chain = fused_times[("fused_bottleneck_tf32", exact_tag, "float32")][2]
-    a_bwd16 = counts16["A' SIMT"]
+    a_bwd16, simt_bwd16 = counts16["A'-bf16"], counts16["A' SIMT"]
     d_mma_chain = fused_times[("fused_residual_mma", masked_tag, "bfloat16")][2]
     d_tf32_chain = fused_times[("fused_residual_tf32", masked_tag, "float32")][2]
     log(f"[summary] flash_attention_fwd (SIMT): max_abs_err bf16 dropout {DROPOUT} against "
@@ -2019,11 +2052,14 @@ def main() -> int:
         f"max_abs_err bf16 {worst['bfloat16']:.3e}, "
         f"ms/plain_ms/library_ms at (1232,1232) bf16 B=2 from CUDA graphs, launches "
         f"{mma_serving} bf16 serving + {int8_a} int8 serving + {fused_bf16_counts[8]} fused bf16 "
-        f"serving; flash_attention_bwd (SIMT): gradient max_abs_err bf16 "
-        f"{bwd_worst['bfloat16']:.3e} (fp32, called directly, {bwd_worst['simt float32']:.3e}), "
-        f"launches {a_bwd16} in {BF16_TRAIN_STEPS} bf16 training "
+        f"serving; flash_attention_bwd_bf16 (A'-bf16): gradient max_abs_err bf16 "
+        f"{bwd_worst['bfloat16']:.3e}, launches {a_bwd16} in {BF16_TRAIN_STEPS} bf16 training "
         f"steps, ms/plain_ms/library_ms backward at (252,252) bf16 B=8 dropout {DROPOUT}, bound "
-        f"at the bf16 peak; flash_attention_bwd_mma (3xTF32): gradient max_abs_err fp32 "
+        f"at the bf16 peak; flash_attention_bwd (SIMT, on no path, called directly): gradient "
+        f"max_abs_err bf16 {bwd_worst['simt bfloat16']:.3e}, fp32 "
+        f"{bwd_worst['simt float32']:.3e}, launches {counts[1]} in {TRAIN_STEPS} fp32 and "
+        f"{simt_bwd16} in {BF16_TRAIN_STEPS} bf16 training steps, times as "
+        f"A'-bf16's; flash_attention_bwd_mma (3xTF32): gradient max_abs_err fp32 "
         f"{bwd_worst['float32']:.3e}, launches {counts[4]} in {TRAIN_STEPS} fp32 training steps, "
         f"ms/plain_ms/library_ms backward at (252,252) fp32 B=8 dropout {DROPOUT}, bound as 3xTF32 "
         f"on the tensor cores; both backwards from CUDA graphs (plain and library: forward and "

@@ -5,8 +5,9 @@ Replaces the TPU kernels ``_fwd_kernel`` and ``_bwd_kernel`` of
 ``detr_tensorflow_tpu/ops/pallas/flash_attention.py`` (reached through its
 ``mha``). The CUDA sources are ``csrc/flash_attention_fwd_tf32.cu``,
 ``csrc/flash_attention_fwd_mma.cu`` and ``csrc/flash_attention_fwd.cu``
-(forward) and ``csrc/flash_attention_bwd_mma.cu`` and
-``csrc/flash_attention_bwd.cu`` (backward); their header notes say what
+(forward) and ``csrc/flash_attention_bwd_mma.cu``,
+``csrc/flash_attention_bwd_bf16.cu`` and ``csrc/flash_attention_bwd.cu``
+(backward); their header notes say what
 bounds each kernel on the card and how it is laid out. In short: the
 forward streams K/V in 64-key tiles with an online softmax and, when
 autograd needs it, writes the row log-sum-exp; the backward recomputes the
@@ -20,7 +21,8 @@ into two TF32 parts, three TF32 MMAs per product: fp32 accuracy), bf16
 without dropout on the tensor cores in bf16 (``mma.sync`` bf16, the "mma"
 route), bf16 with dropout on the SIMT kernel (fp32 FMAs, the "simt" route).
 ``backward_route``: fp32 runs on the tensor cores with 3xTF32 products, bf16
-on the SIMT kernel. A failed build or launch raises on every route.
+on the tensor cores in bf16 (``mma.sync`` bf16, the "bf16" route). A failed
+build or launch raises on every route.
 
 Attention-weight dropout runs inside the kernels. Its keep bit is a pure
 function of the call's 64-bit seed and the element's coordinates
@@ -48,6 +50,7 @@ _MMA_SOURCE = "flash_attention_fwd_mma.cu"
 _TF32_SOURCE = "flash_attention_fwd_tf32.cu"
 _BWD_SOURCE = "flash_attention_bwd.cu"
 _BWD_MMA_SOURCE = "flash_attention_bwd_mma.cu"
+_BWD_BF16_SOURCE = "flash_attention_bwd_bf16.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
 # CTA shapes of the tensor-core forwards, four warps each: (row groups of 16
@@ -174,6 +177,7 @@ def _library(source: str) -> ctypes.CDLL:
         "flash_attention_keep_mask": [vp, vp, i, i, i, u, vp],
         "flash_attention_bwd": [vp] * 8 + [u, f] + [vp] * 4 + [i] * 6 + [vp],
         "flash_attention_bwd_mma": [vp] * 8 + [u, f] + [vp] * 4 + [i] * 6 + [vp],
+        "flash_attention_bwd_bf16": [vp] * 8 + [u, f] + [vp] * 4 + [i] * 6 + [vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name, None)
@@ -222,10 +226,15 @@ def forward_route(dtype: torch.dtype, dropout_rate: float, head_dim: int) -> str
 
 def backward_route(dtype: torch.dtype, head_dim: int) -> str:
     """The backward kernel a CUDA call takes: "mma" (tensor cores, 3xTF32,
-    ``csrc/flash_attention_bwd_mma.cu``) for fp32, "simt"
-    (``csrc/flash_attention_bwd.cu``) for bf16."""
-    if dtype == torch.float32 and head_dim in _HEAD_DIMS:
-        return "mma"
+    ``csrc/flash_attention_bwd_mma.cu``) for fp32, "bf16" (tensor cores in
+    bf16, ``csrc/flash_attention_bwd_bf16.cu``) for bf16; "simt"
+    (``csrc/flash_attention_bwd.cu``) for a head dim the tensor-core
+    kernels do not take, which ``mha`` refuses before routing."""
+    if head_dim in _HEAD_DIMS:
+        if dtype == torch.float32:
+            return "mma"
+        if dtype == torch.bfloat16:
+            return "bf16"
     return "simt"
 
 
@@ -340,9 +349,13 @@ def launch_forward_simt(q, k, v, key_padding_mask, dropout_seed, dropout_rate, w
 def launch_backward(q, k, v, out, dout, lse, key_padding_mask, dropout_seed, dropout_rate):
     """One launch of the backward kernels that ``backward_route`` picks, on
     CUDA tensors: (dq, dk, dv)."""
-    if backward_route(q.dtype, q.shape[-1]) == "mma":
+    route = backward_route(q.dtype, q.shape[-1])
+    if route == "mma":
         return launch_backward_mma(q, k, v, out, dout, lse, key_padding_mask, dropout_seed,
                                    dropout_rate)
+    if route == "bf16":
+        return launch_backward_bf16(q, k, v, out, dout, lse, key_padding_mask, dropout_seed,
+                                    dropout_rate)
     return launch_backward_simt(q, k, v, out, dout, lse, key_padding_mask, dropout_seed,
                                 dropout_rate)
 
@@ -385,10 +398,25 @@ def launch_backward_mma(q, k, v, out, dout, lse, key_padding_mask, dropout_seed,
     return grads
 
 
+def launch_backward_bf16(q, k, v, out, dout, lse, key_padding_mask, dropout_seed,
+                         dropout_rate):
+    """One launch of the bf16 tensor-core backward on bf16 CUDA tensors:
+    (dq, dk, dv). ``out`` is not read: delta is summed over the keys from
+    the kernel's own dP. With dropout its scratch also holds the keep bits
+    its pre-pass draws, a 32-bit word per 32 keys."""
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the bf16 attention backward takes bfloat16, got {q.dtype}")
+    keep_words = -(-k.shape[1] // 32) if dropout_threshold(dropout_rate) else 0
+    grads = _launch_backward(_BWD_BF16_SOURCE, q, k, v, out, dout, lse, key_padding_mask,
+                             dropout_seed, dropout_rate, scratch_per_row=1 + keep_words)
+    mha.backward_bf16_launches += 1
+    return grads
+
+
 def launch_backward_simt(q, k, v, out, dout, lse, key_padding_mask, dropout_seed, dropout_rate):
     """One launch of the SIMT backward on CUDA tensors, fp32 or bf16: (dq,
-    dk, dv). ``mha`` sends only bf16 calls here; a direct call also times it
-    at fp32 against the mma kernel."""
+    dk, dv). It runs on no path of ``mha``; a direct call times it beside
+    the tensor-core kernels at either dtype."""
     grads = _launch_backward(_BWD_SOURCE, q, k, v, out, dout, lse, key_padding_mask,
                              dropout_seed, dropout_rate)
     mha.backward_launches += 1
@@ -428,7 +456,8 @@ def mha(q, k, v, key_padding_mask=None, dropout_rate: float = 0.0, dropout_seed=
     3xTF32 tensor-core kernel, ``mha.mma_launches`` those of the bf16
     tensor-core kernel, ``mha.launches`` those of the SIMT kernel), and under
     autograd the backward on the route ``backward_route`` picks
-    (``mha.backward_mma_launches`` for the tensor-core kernel,
+    (``mha.backward_mma_launches`` for the 3xTF32 tensor-core kernel,
+    ``mha.backward_bf16_launches`` for the bf16 tensor-core kernel,
     ``mha.backward_launches`` for the SIMT kernel). A CPU tensor goes to
     ``reference_mha``; any other device raises.
     """
@@ -452,6 +481,7 @@ mha.mma_launches = 0
 mha.tf32_launches = 0
 mha.backward_launches = 0
 mha.backward_mma_launches = 0
+mha.backward_bf16_launches = 0
 
 
 def kernel_keep_mask(seed: torch.Tensor, batch_heads: int, lq: int, lk: int, rate: float):

@@ -34,10 +34,11 @@ HERE = Path(__file__).resolve().parent.parent
 REQUEST_HW, BUCKET = (800, 1333), (896, 1408)
 TRAIN_BATCH, TRAIN_HW = 8, (376, 672)
 BACKGROUND = 91  # DETR-R50's "no object" logit of 92
-# The kernels of these four paths: served fp32 (A-tf32, C), served bf16
-# (A-mma, C), the fp32 step (A-tf32, the tensor-core A', B, C) and the bf16
-# step (the SIMT A and A', B, C).
-SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "flash_attention_fwd_mma.cu",
+# The kernels of these four paths, built at once: served fp32 (A-tf32, C),
+# served bf16 (A-mma, C), the fp32 step (A-tf32, the tensor-core A', B, C)
+# and the bf16 step (the SIMT A, A'-bf16, B, C). Those a root's package
+# lacks are left out (an older checkout builds its own at first use).
+SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd_bf16.cu", "flash_attention_fwd_mma.cu",
            "flash_attention_bwd_mma.cu", "flash_attention_fwd_tf32.cu", "lap.cu", "maxpool.cu")
 MARK = "RESULT "
 
@@ -97,7 +98,7 @@ def measure(root: Path, requests: int, steps: int) -> dict:
         raise RuntimeError(f"imported {pkg.__file__}, not the package under {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    nvcc_build.build_all(SOURCES)
+    nvcc_build.build_all([src for src in SOURCES if (nvcc_build.CSRC_DIR / src).exists()])
     image = np.random.default_rng(1).integers(0, 256, size=REQUEST_HW + (3,), dtype=np.uint8)
     batch = batch_to_device(train_batch(6, pad_targets, MAX_TARGETS), "cuda")
     out = {"root": str(root)}

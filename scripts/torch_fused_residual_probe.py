@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import subprocess
 import sys
 from pathlib import Path
@@ -48,6 +47,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
 from detr_tensorflow_tpu_torch.ops import fused_residual as fr  # noqa: E402
 from detr_tensorflow_tpu_torch.ops import nvcc_build  # noqa: E402
+from torch_probe_common import build_text, edited  # noqa: E402
 
 # (bucket, launches a forward, b, Cin, Cout, H, W): the path's shapes, then
 # ragged ones (P, Cin, Cout off the tiles and chunks; a map under one tile).
@@ -107,15 +107,7 @@ extern "C" int mma_rate(int kind, int ctas, int iters, void* out, void* stream) 
 
 def mma_rates(iters=8192):
     """TFLOP/s of back-to-back m16n8k8 TF32 and m16n8k16 bf16 `mma.sync`."""
-    digest = hashlib.sha256(MMA_RATE_SOURCE.encode()).hexdigest()[:12]
-    src = nvcc_build.BUILD_DIR / f"mma_rate_{digest}.cu"
-    lib = src.with_suffix(".so")
-    if not lib.exists():
-        nvcc_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        src.write_text(MMA_RATE_SOURCE)
-        subprocess.run([nvcc_build.nvcc_path(), *nvcc_build.NVCC_FLAGS, "-o", str(lib), str(src)],
-                       check=True, capture_output=True, timeout=600)
-    fn = ctypes.CDLL(str(lib)).mma_rate
+    fn = build_text(nvcc_build, MMA_RATE_SOURCE, "mma_rate")[0].mma_rate
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
     ctas = 4 * torch.cuda.get_device_properties(0).multi_processor_count
     out = torch.empty(ctas * 256, device="cuda")
@@ -157,25 +149,12 @@ def variant_entries():
 
     def build(variant):
         name, edits = variant
-        src = base
-        for old, new in edits:
-            if old not in src:
-                raise RuntimeError(f"variant {name!r}: {old!r} is not in the source")
-            src = src.replace(old, new)
-        digest = hashlib.sha256(src.encode()).hexdigest()[:12]
-        path = nvcc_build.BUILD_DIR / f"fused_residual_tf32_variant_{digest}.cu"
-        lib = path.with_suffix(".so")
-        if not lib.exists():
-            nvcc_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            path.write_text(src)
-            proc = subprocess.run([nvcc_build.nvcc_path(), *nvcc_build.NVCC_FLAGS, "-I",
-                                   str(nvcc_build.CSRC_DIR), "-o", str(lib), str(path)],
-                                  capture_output=True, text=True, timeout=600)
-            if proc.returncode:
-                raise RuntimeError(f"variant {name!r} failed to build:\n{proc.stderr}")
-            report = [ln.strip() for ln in proc.stderr.splitlines() if "registers" in ln]
+        handle, log = build_text(nvcc_build, edited(base, edits, name),
+                                 "fused_residual_tf32_variant", timeout=600)
+        if log:
+            report = [ln.strip() for ln in log.splitlines() if "registers" in ln]
             print(f"variant {name!r}: {report}", flush=True)
-        fn = ctypes.CDLL(str(lib)).conv1x1_bn_residual_relu_tf32
+        fn = handle.conv1x1_bn_residual_relu_tf32
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         return fn
 

@@ -36,6 +36,7 @@ import sys
 from pathlib import Path
 
 import torch
+from torch_probe_common import build_text, edited
 
 REPO = Path(__file__).resolve().parent.parent
 # chip_smoke.py of this checkout: its timing, bound, operands and shapes.
@@ -100,21 +101,12 @@ VARIANTS = [
 def build_variant(nvcc_build, src):
     """The int8_conv3x3 entry point of a variant source (one build a distinct
     source), with the ptxas register lines of its configurations."""
-    digest = hashlib.sha256(src.encode()).hexdigest()[:12]
-    path = nvcc_build.BUILD_DIR / f"int8_conv_variant_{digest}.cu"
-    lib = path.with_suffix(".so")
-    if not lib.exists():
-        nvcc_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        path.write_text(src)
-        proc = subprocess.run([nvcc_build.nvcc_path(), *nvcc_build.NVCC_FLAGS, "-I",
-                               str(nvcc_build.CSRC_DIR), "-o", str(lib), str(path)],
-                              capture_output=True, text=True, timeout=900)
-        if proc.returncode:
-            raise RuntimeError(f"variant {digest} failed to build:\n{proc.stderr}")
-        regs = sorted({ln.split("Used ")[1].split(",")[0] for ln in proc.stderr.splitlines()
+    handle, log = build_text(nvcc_build, src, "int8_conv_variant")
+    if log:
+        regs = sorted({ln.split("Used ")[1].split(",")[0] for ln in log.splitlines()
                        if "Used " in ln})
-        print(f"  variant {digest}: {regs}", flush=True)
-    fn = ctypes.CDLL(str(lib)).int8_conv3x3
+        print(f"  variant {hashlib.sha256(src.encode()).hexdigest()[:12]}: {regs}", flush=True)
+    fn = handle.int8_conv3x3
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     return fn
 
@@ -125,14 +117,7 @@ def time_variants(conv, nvcc_build, operands):
     from concurrent.futures import ThreadPoolExecutor
 
     base = (nvcc_build.CSRC_DIR / "int8_conv.cu").read_text()
-    sources = []
-    for name, edits, *_ in VARIANTS:
-        src = base
-        for old, new in edits:
-            if old not in src:
-                raise RuntimeError(f"variant {name!r}: {old!r} is not in the source")
-            src = src.replace(old, new)
-        sources.append(src)
+    sources = [edited(base, edits, name) for name, edits, *_ in VARIANTS]
     unique = list(dict.fromkeys(sources))
     with ThreadPoolExecutor(len(unique)) as pool:
         built = dict(zip(unique, pool.map(lambda s: build_variant(nvcc_build, s), unique)))

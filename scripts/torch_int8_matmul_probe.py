@@ -32,13 +32,13 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import importlib.util
 import subprocess
 import sys
 from pathlib import Path
 
 import torch
+from torch_probe_common import build_text, edited
 
 REPO = Path(__file__).resolve().parent.parent
 # chip_smoke.py of this checkout: its timing, bound, operands and shapes.
@@ -119,34 +119,18 @@ def variant_entries(nvcc_build):
     from concurrent.futures import ThreadPoolExecutor
 
     base = (nvcc_build.CSRC_DIR / "int8_matmul.cu").read_text()
-    sources = []
-    for name, edits, *_ in VARIANTS:
-        src = base
-        for old, new in edits:
-            if old not in src:
-                raise RuntimeError(f"variant {name!r}: {old!r} is not in the source")
-            src = src.replace(old, new)
-        sources.append(src)
+    sources = [edited(base, edits, name) for name, edits, *_ in VARIANTS]
 
     def build(src):
-        digest = hashlib.sha256(src.encode()).hexdigest()[:12]
-        path = nvcc_build.BUILD_DIR / f"int8_matmul_variant_{digest}.cu"
-        lib = path.with_suffix(".so")
-        if not lib.exists():
-            nvcc_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            path.write_text(src)
-            proc = subprocess.run([nvcc_build.nvcc_path(), *nvcc_build.NVCC_FLAGS, "-I",
-                                   str(nvcc_build.CSRC_DIR), "-o", str(lib), str(path)],
-                                  capture_output=True, text=True, timeout=900)
-            if proc.returncode:
-                raise RuntimeError(f"variant {digest} failed to build:\n{proc.stderr}")
-            regs = sorted({ln.split("Used ")[1].split(",")[0] for ln in proc.stderr.splitlines()
+        handle, log = build_text(nvcc_build, src, "int8_matmul_variant")
+        if log:
+            regs = sorted({ln.split("Used ")[1].split(",")[0] for ln in log.splitlines()
                            if "Used " in ln})
-            spills = sorted({ln.strip() for ln in proc.stderr.splitlines()
+            spills = sorted({ln.strip() for ln in log.splitlines()
                              if "spill" in ln and not ln.strip().startswith("0 bytes stack")})
             names = [v[0] for v, other in zip(VARIANTS, sources) if other == src]
             print(f"variants {names}: {regs}; {spills or 'no spills'}", flush=True)
-        fn = ctypes.CDLL(str(lib)).int8_matmul
+        fn = handle.int8_matmul
         fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         return fn
 
@@ -205,15 +189,7 @@ def tile_bytes(mm, m, c, k, cd, variant):
 
 def mma_rate(nvcc_build, iters=8192):
     """TOP/s of back-to-back m16n8k32 s8 `mma.sync` (2 * 16 * 8 * 32 ops each)."""
-    digest = hashlib.sha256(MMA_RATE_SOURCE.encode()).hexdigest()[:12]
-    src = nvcc_build.BUILD_DIR / f"imma_rate_{digest}.cu"
-    lib = src.with_suffix(".so")
-    if not lib.exists():
-        nvcc_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        src.write_text(MMA_RATE_SOURCE)
-        subprocess.run([nvcc_build.nvcc_path(), *nvcc_build.NVCC_FLAGS, "-o", str(lib), str(src)],
-                       check=True, capture_output=True, timeout=600)
-    fn = ctypes.CDLL(str(lib)).imma_rate
+    fn = build_text(nvcc_build, MMA_RATE_SOURCE, "imma_rate")[0].imma_rate
     fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
     ctas = 4 * torch.cuda.get_device_properties(0).multi_processor_count
     out = torch.empty(ctas * 256, dtype=torch.int32, device="cuda")

@@ -42,6 +42,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch_probe_common import build_text, edited, registers
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
@@ -98,21 +99,11 @@ def build(nvcc_build, path: Path, text: str | None = None) -> ctypes.CDLL:
     nvcc flags, headers from ``path``'s directory, into the build directory
     under a name that carries its hash; print ptxas's register lines."""
     text = path.read_text() if text is None else text
-    digest = hashlib.sha256(text.encode()).hexdigest()[:12]
-    src = nvcc_build.BUILD_DIR / f"probe_{path.stem}_{digest}.cu"
-    lib = src.with_suffix(".so")
-    if not lib.exists():
-        nvcc_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        src.write_text(text)
-        proc = subprocess.run([nvcc_build.nvcc_path(), *nvcc_build.NVCC_FLAGS, "-I",
-                               str(path.parent), "-o", str(lib), str(src)],
-                              capture_output=True, text=True, timeout=900)
-        if proc.returncode:
-            raise RuntimeError(f"{path.name} {digest} failed to build:\n{proc.stderr}")
-        regs = [ln.split("ptxas info    : ")[-1] for ln in proc.stderr.splitlines()
-                if "registers" in ln or "spill" in ln]
-        print(f"  built {path.name} {digest}: {regs}", flush=True)
-    return ctypes.CDLL(str(lib))
+    handle, log = build_text(nvcc_build, text, f"probe_{path.stem}", include_dir=path.parent)
+    if log:
+        print(f"  built {path.name} {hashlib.sha256(text.encode()).hexdigest()[:12]}: "
+              f"{registers(log)}", flush=True)
+    return handle
 
 
 def lap_entry(handle):
@@ -253,11 +244,7 @@ def main() -> int:
             for kernel in ("lap.cu", "maxpool.cu")]
     if args.variants:
         for kernel, name, edits in VARIANTS:
-            text = (csrc / kernel).read_text()
-            for old, new in edits:
-                if old not in text:
-                    raise RuntimeError(f"variant {name!r}: {old!r} is not in {kernel}")
-                text = text.replace(old, new)
+            text = edited((csrc / kernel).read_text(), edits, f"{kernel} {name}")
             jobs.append((name, kernel, csrc / kernel, text))
     with ThreadPoolExecutor(len(jobs)) as pool:
         handles = list(pool.map(lambda j: build(nvcc_build, j[2], j[3]), jobs))

@@ -251,12 +251,12 @@ def test_model_attention_dropout_routes_agree():
 
 
 @pytest.mark.parametrize("dtype,head_dim,route", [
-    (torch.float32, 32, "mma"), (torch.float32, 64, "mma"), (torch.bfloat16, 32, "simt"),
-    (torch.bfloat16, 64, "simt"), (torch.float32, 16, "simt")])
+    (torch.float32, 32, "mma"), (torch.float32, 64, "mma"), (torch.bfloat16, 32, "bf16"),
+    (torch.bfloat16, 64, "bf16"), (torch.float32, 16, "simt")])
 def test_backward_route(dtype, head_dim, route):
     """A CUDA call's backward kernel depends on dtype and head dim alone: the
-    tensor-core kernel (3xTF32) for fp32, the SIMT kernel for bf16 (a head
-    dim of 16 is refused by ``mha`` before routing)."""
+    tensor-core kernel (3xTF32) for fp32, the bf16 tensor-core kernel for
+    bf16 (a head dim of 16 is refused by ``mha`` before routing)."""
     assert fa.backward_route(dtype, head_dim) == route
 
 
@@ -402,3 +402,152 @@ def test_tf32_forward_emulation_dropout_matches_plain():
                            keep.view(2, 2, 100, 37), 0.1)
     ref = ref.numpy().transpose(0, 2, 1, 3).reshape(4, 100, 32)
     np.testing.assert_allclose(ours, ref, atol=1e-5, rtol=0)
+
+
+def _bf16(x):
+    """float32 values rounded to bf16 (to nearest even), kept as float32."""
+    return torch.from_numpy(np.asarray(x, np.float32)).bfloat16().float().numpy()
+
+
+def _chunked(a, b):
+    """a @ b over (BH, M, K) x (BH, K, N) float32, as the kernel's MMAs sum:
+    each 16-deep slice of K summed, then added to the running sum in fp32
+    (the tensor cores truncate that add, 2**-23 of the sum, far below the
+    outputs' bf16 rounding)."""
+    out = np.zeros((a.shape[0], a.shape[1], b.shape[2]), np.float32)
+    for j in range(0, a.shape[2], 16):
+        out += a[:, :, j:j + 16] @ b[:, j:j + 16]
+    return out
+
+
+def _bf16_backward(q, k, v, dout, bias, lse, keep=None, rate=0.0, delta=None):
+    """numpy emulation of csrc/flash_attention_bwd_bf16.cu on (BH, L, Dh)
+    float32 arrays holding bf16 values, a (BH, Lk) additive bias and the
+    forward's (BH, Lq, 1) float32 lse: S and dP in fp32 (products of bf16
+    values are exact in fp32), p = exp(s + bias - lse) (1 / Lk on a fully
+    padded row), delta = sum_j p m dP in fp32 unless ``delta`` is given,
+    p m and dS rounded to bf16 at the TPU kernel's points (dS 0 on padded
+    keys), dV, dK and dQ summed 16 deep a step and rounded to bf16 once.
+    ``keep`` is a (BH, Lq, Lk) bool mask. Returns ([dq, dk, dv], dS before
+    its rounding, p m dP)."""
+    f32 = np.float32
+    lk = k.shape[1]
+    s = q @ k.transpose(0, 2, 1)
+    p = np.where(lse <= f32(-5e29), f32(1.0 / lk), np.exp(s + bias[:, None, :] - lse)).astype(f32)
+    m = np.ones_like(p) if keep is None else np.where(keep, f32(1.0 / (1.0 - rate)), f32(0))
+    dp = dout @ v.transpose(0, 2, 1)
+    terms = (p * m) * dp
+    if delta is None:
+        delta = terms.sum(axis=-1, keepdims=True, dtype=f32)
+    ds = np.where(bias[:, None, :] != 0, f32(0), p * (m * dp - delta)).astype(f32)
+    pm_low, ds_low = _bf16(p * m), _bf16(ds)
+    grads = (_chunked(ds_low, k), _chunked(np.ascontiguousarray(ds_low.transpose(0, 2, 1)), q),
+             _chunked(np.ascontiguousarray(pm_low.transpose(0, 2, 1)), dout))
+    return [_bf16(g) for g in grads], ds, terms
+
+
+def _unheads(x, b):
+    """(B * H, L, Dh) -> (B, L, H, Dh)."""
+    bh, l, d = x.shape
+    return x.reshape(b, bh // b, l, d).transpose(0, 2, 1, 3)
+
+
+def _lse(q, k, bias):
+    """The forward's row log-sum-exp, float64 rounded to float32, (BH, Lq, 1)."""
+    s = q.astype(np.float64) @ k.transpose(0, 2, 1).astype(np.float64) + bias[:, None, :]
+    top = s.max(axis=-1, keepdims=True)
+    return (top + np.log(np.exp(s - top).sum(axis=-1, keepdims=True))).astype(np.float32)
+
+
+def _rel(x, exact):
+    return float(np.linalg.norm(x - exact) / np.linalg.norm(exact))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("lq,lk", [(24, 40), (40, 40)])
+def test_bf16_backward_emulation_matches_jax_and_float64(lq, lk, masked, rate):
+    """The arithmetic of csrc/flash_attention_bwd_bf16.cu, emulated in numpy
+    on bf16 inputs, against float64 autograd of the plain version on the
+    same bf16 values and keep mask: each of dq, dk, dv no further from it,
+    in relative L2 distance, than TENSOR_GAP_FACTOR (3, as
+    tests/test_torch_bf16.py holds a bf16 gradient per tensor) times the
+    distance of ``jax.grad`` through the JAX package's kernel (custom VJP,
+    Pallas in interpret mode) at bf16 without dropout. At dropout 0 the
+    emulation also agrees with JAX's bf16 gradients within 4 bf16 ulps of
+    the largest value (2**-6 relative): the two round at the same points
+    but take delta differently (JAX from O recomputed from the rounded p).
+    In interpret mode Pallas's random bits are zeros, so JAX's gradients
+    are not taken with dropout; there the emulation gets ``keep_mask``'s
+    bits and JAX's dropout-0 distance stays the yardstick. No row is fully
+    padded: there the JAX kernel spreads over its 128-padded keys."""
+    tensor_gap_factor = 3.0
+    q, k, v, mask = _inputs(lq * 7 + lk, 2, lq, lk, 2, 32, masked)
+    g = np.random.default_rng(lq).normal(size=q.shape).astype(np.float32)
+    q, k, v, g = (_bf16(x) for x in (q, k, v, g))
+    jmask = None if mask is None else jnp.asarray(mask)
+
+    def loss(q_, k_, v_):
+        out = jax_fa.mha(q_, k_, v_, key_padding_mask=jmask, interpret=True)
+        return jnp.sum(out.astype(jnp.float32) * jnp.asarray(g))
+
+    jgrads = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+    assert all(x.dtype == jnp.bfloat16 for x in jgrads)
+    jgrads = [np.asarray(x, np.float32) for x in jgrads]
+
+    seed = torch.tensor([lq * 13 + lk])
+    keep = fa.keep_mask(seed, 4, lq, lk, rate) if rate else None
+    tmask = None if mask is None else torch.from_numpy(mask)
+    exact = {}
+    for key, keep_ in (("jax", None), ("ours", keep)):
+        t64 = [torch.from_numpy(x).double().requires_grad_() for x in (q, k, v)]
+        out = fa.reference_mha(*t64, tmask, None if keep_ is None else keep_.view(2, 2, lq, lk),
+                               rate)
+        out.backward(torch.from_numpy(g).double())
+        exact[key] = [t.grad.numpy() for t in t64]
+
+    bias = np.zeros((4, lk), np.float32)
+    if masked:
+        bias = np.repeat(np.where(mask, np.float32(-1e30), np.float32(0)), 2, axis=0)
+    qh, kh = _heads(q), _heads(k)
+    ours, _, _ = _bf16_backward(qh, kh, _heads(v), _heads(g), bias, _lse(qh, kh, bias),
+                                None if keep is None else keep.numpy(), rate)
+    for name, x, j, e_ours, e_jax in zip(("dq", "dk", "dv"), ours, jgrads, exact["ours"],
+                                         exact["jax"]):
+        x = _unheads(x, 2)
+        assert _rel(x, e_ours) <= tensor_gap_factor * _rel(j, e_jax), name
+        if not rate:
+            assert np.abs(x - j).max() <= 2**-6 * np.abs(j).max(), name
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bf16_backward_emulation_ds_rows_sum_to_zero(rate):
+    """On keys and values with a large common component, as DETR's
+    cross-attention keys (memory + pos), the emulation's dS rows (before
+    their bf16 rounding) sum to zero to fp32 precision: within 2**-20 of
+    the largest row's sum of |p m dP|, the terms whose cancellation leaves
+    them. delta is the kernel's fp32 sum of p m dP over the keys; taken as
+    rowsum(dO * O) from the bf16 O, the rows miss zero by over 100 times
+    as much."""
+    rng = np.random.default_rng(17)
+    b, h, lq, lk, dh = 2, 2, 40, 72, 32
+    q = _bf16(rng.normal(size=(b * h, lq, dh)) * dh**-0.5)
+    k = _bf16(2.0 + rng.normal(size=(b * h, lk, dh)))
+    v = _bf16(4.0 + rng.normal(size=(b * h, lk, dh)))
+    dout = _bf16(rng.normal(size=(b * h, lq, dh)))
+    bias = np.zeros((b * h, lk), np.float32)
+    bias[:2, 60:] = np.float32(-1e30)
+    lse = _lse(q, k, bias)
+    keep = fa.keep_mask(torch.tensor([5]), b * h, lq, lk, rate).numpy() if rate else None
+    _, ds, terms = _bf16_backward(q, k, v, dout, bias, lse, keep, rate)
+    scale = float(np.abs(terms).sum(axis=-1).max())
+    ours = float(np.abs(ds.sum(axis=-1)).max())
+    assert ours <= 2**-20 * scale
+    # O from the same p, m and v in float64, then rounded to bf16.
+    s = q.astype(np.float64) @ k.transpose(0, 2, 1) + bias[:, None, :]
+    p = np.exp(s - lse)
+    m = 1.0 if keep is None else np.where(keep, 1.0 / (1.0 - rate), 0.0)
+    out = _bf16(((p * m) @ v).astype(np.float32))
+    delta = (dout * out).sum(axis=-1, keepdims=True, dtype=np.float32)
+    _, ds_out, _ = _bf16_backward(q, k, v, dout, bias, lse, keep, rate, delta=delta)
+    assert float(np.abs(ds_out.sum(axis=-1)).max()) >= 100 * ours

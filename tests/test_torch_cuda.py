@@ -308,23 +308,30 @@ def test_attention_backward_matches_plain(cuda_device, b, lq, lk, dh, dtype, rat
     """Kernel forward and dQ/dK/dV against plain autograd; with dropout,
     the plain version gets the mask the kernel library materialises for
     the same seed, so forward and backward must use that one mask. fp32
-    runs the tensor-core backward (3xTF32), bf16 the SIMT one."""
+    runs the tensor-core backward (3xTF32), bf16 the bf16 tensor-core one;
+    neither the SIMT one."""
     q, k, v, mask = _inputs(cuda_device, dtype, b, lq, lk, 8, dh, seed=lq * 3 + lk)
     dout = torch.randn(q.shape, generator=torch.Generator(device=cuda_device).manual_seed(lk),
                        device=cuda_device).to(dtype)
     seed = torch.tensor([lq * 1000 + lk], device=cuda_device)
     keep = fa.kernel_keep_mask(seed, b * 8, lq, lk, rate).view(b, 8, lq, lk) if rate else None
-    before = (fa.mha.backward_mma_launches, fa.mha.backward_launches)
+    before = _backward_counts()
     got = _grads(lambda *t: fa.mha(*t, mask, rate, seed), q, k, v, dout)
     mma = dtype == torch.float32
-    assert (fa.mha.backward_mma_launches, fa.mha.backward_launches) == (before[0] + mma,
-                                                                        before[1] + (not mma))
+    assert _backward_counts(before) == (int(mma), int(not mma), 0)
     ref = _grads(lambda *t: fa.reference_mha(*t, mask, keep, rate), q, k, v, dout)
     torch.cuda.synchronize()
     assert _rel_err(got[0], ref[0]) <= (1e-4 if dtype == torch.float32 else 2e-2)
     for g, r in zip(got[1:], ref[1:]):
         assert g.dtype == dtype and g.shape == r.shape
         assert _rel_err(g, r) <= GRAD_RTOL[dtype]
+
+
+def _backward_counts(before=(0, 0, 0)):
+    """Backward launches (3xTF32 tensor-core, bf16 tensor-core, SIMT), less
+    ``before``."""
+    now = (fa.mha.backward_mma_launches, fa.mha.backward_bf16_launches, fa.mha.backward_launches)
+    return tuple(a - b for a, b in zip(now, before))
 
 
 def test_attention_fully_padded_row(cuda_device):
@@ -514,16 +521,17 @@ def test_train_step_kernel_route_matches_plain(cuda_device):
     trainer = Trainer(api.build_detr(**cfg).module, config, seed=0)
     logs = []
     counts = _counts(lambda: logs.extend(trainer.step(batch) for _ in range(2)))
-    assert counts == (2 * 6, 0, 0, 2 * 6, 2)  # fp32: the tensor-core kernels only
+    assert counts == (2 * 6, 0, 0, 2 * 6, 0, 2)  # fp32: the tensor-core kernels only
     assert all(bool(torch.isfinite(log["total_loss"])) for log in logs)
 
 
 def _counts(fn):
-    """Launches of A-tf32, A SIMT, A' SIMT, A' tensor-core and B during
-    ``fn()``."""
+    """Launches of A-tf32, A SIMT, A' SIMT, A'-mma (3xTF32), A'-bf16 and B
+    during ``fn()``."""
     def read():
         return (fa.mha.tf32_launches, fa.mha.launches, fa.mha.backward_launches,
-                fa.mha.backward_mma_launches, lap.solve_lap_masked.launches)
+                fa.mha.backward_mma_launches, fa.mha.backward_bf16_launches,
+                lap.solve_lap_masked.launches)
     before = read()
     fn()
     return tuple(a - b for a, b in zip(read(), before))
@@ -550,7 +558,7 @@ def test_train_step_launches_the_mma_backward_18_times(cuda_device):
     model = api.build_detr(backbone_stage_sizes=(1, 1, 1, 1), device=cuda_device).module
     trainer = Trainer(model, config, seed=0)
     logs = []
-    assert _counts(lambda: logs.append(trainer.step(batch))) == (18, 0, 0, 18, 1)
+    assert _counts(lambda: logs.append(trainer.step(batch))) == (18, 0, 0, 18, 0, 1)
     assert bool(torch.isfinite(logs[0]["total_loss"]))
 
 
@@ -1052,8 +1060,9 @@ def _train_batch(device, b=1, seed=3):
 def test_bf16_train_step_launches_the_simt_kernels(cuda_device):
     """One bf16 ``Trainer`` step of a DETR with the full 6 + 6 transformer
     (reduced backbone) at dropout 0.1: 18 SIMT attention forwards (bf16 with
-    dropout), 18 SIMT backwards, no tensor-core one, one LAP launch, one
-    max pool; every parameter, gradient and Adam moment float32."""
+    dropout), 18 bf16 tensor-core backwards (A'-bf16), no SIMT backward, no
+    3xTF32 kernel, one LAP launch, one max pool; every parameter, gradient
+    and Adam moment float32."""
     from detr_tensorflow_tpu_torch.train import Trainer, TrainingConfig
 
     config = TrainingConfig(background_class=91, train_backbone=True, train_transformers=True,
@@ -1063,7 +1072,7 @@ def test_bf16_train_step_launches_the_simt_kernels(cuda_device):
     trainer = Trainer(model, config, seed=0)
     batch, logs = _train_batch(cuda_device), []
     pool, mma = maxpool.max_pool_3x3_s2.launches, fa.mha.mma_launches
-    assert _counts(lambda: logs.append(trainer.step(batch))) == (0, 18, 18, 0, 1)
+    assert _counts(lambda: logs.append(trainer.step(batch))) == (0, 18, 0, 0, 18, 1)
     assert fa.mha.mma_launches == mma and maxpool.max_pool_3x3_s2.launches == pool + 1
     assert bool(torch.isfinite(logs[0]["total_loss"]))
     assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
@@ -1142,12 +1151,14 @@ def test_float64_is_refused_on_the_card(cuda_device):
         Trainer(model, TrainingConfig())
 
 
+@pytest.mark.parametrize("kernel", ["bf16", "simt"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_attention_backward_bf16_ds_rows_sum_to_zero(cuda_device, rate):
-    """The SIMT backward at bf16 on keys and values with a large common
-    component, as DETR's cross-attention keys (memory + pos): softmax's
-    dS rows sum to zero, so sum_j dK_j = sum_i q_i sum_j dS_ij vanishes up
-    to rounding. The kernel's delta is sum_j p_ij m_ij dO_i . v_j in fp32,
+def test_attention_backward_bf16_ds_rows_sum_to_zero(cuda_device, rate, kernel):
+    """A bf16 backward on keys and values with a large common component, as
+    DETR's cross-attention keys (memory + pos): A'-bf16 (through ``mha``,
+    the route bf16 takes) and the SIMT A' (called directly). Softmax's dS
+    rows sum to zero, so sum_j dK_j = sum_i q_i sum_j dS_ij vanishes up to
+    rounding. Both kernels' delta is sum_j p_ij m_ij dO_i . v_j in fp32,
     not rowsum(dO * O) with O rounded to bf16 (which left each row's sum at
     O's rounding and made sum_j dK_j ~60x larger here): the kernel's
     ||sum_j dK_j||, relative to ||dK||, is within 3x plain autograd's at
@@ -1162,7 +1173,13 @@ def test_attention_backward_bf16_ds_rows_sum_to_zero(cuda_device, rate):
     k, v, dout = normal(b, lk, h, dh, mean=2.0), normal(b, lk, h, dh, mean=4.0), normal(b, lq, h, dh)
     seed = torch.tensor([77], device=cuda_device)
     keep = fa.kernel_keep_mask(seed, b * h, lq, lk, rate).view(b, h, lq, lk) if rate else None
-    _, _, dk, _ = _grads(lambda *t: fa.mha(*t, None, rate, seed), q, k, v, dout)
+    before = _backward_counts()
+    if kernel == "bf16":
+        _, _, dk, _ = _grads(lambda *t: fa.mha(*t, None, rate, seed), q, k, v, dout)
+    else:
+        out, lse = fa.launch_forward(q, k, v, None, seed, rate, True)
+        _, dk, _ = fa.launch_backward_simt(q, k, v, out, dout, lse, None, seed, rate)
+    assert _backward_counts(before) == ((0, 1, 0) if kernel == "bf16" else (0, 0, 1))
     _, _, dk_ref, _ = _grads(lambda *t: fa.reference_mha(*t, None, keep, rate), q, k, v, dout)
 
     def key_sum(g):
@@ -1171,3 +1188,38 @@ def test_attention_backward_bf16_ds_rows_sum_to_zero(cuda_device, rate):
 
     assert key_sum(dk) <= 3 * key_sum(dk_ref), (key_sum(dk), key_sum(dk_ref))
     assert _rel_err(dk, dk_ref) <= GRAD_RTOL[torch.bfloat16]
+
+
+# A'-bf16 called directly where the training shapes do not reach: Dh 64,
+# ragged Lq and Lk (not multiples of 16, 32 or 64: the keep words and the
+# tiles end mid-way, and at Lk 37 a dK/dV CTA's last two warps hold no key),
+# and a batch element whose keys are all padded (uniform softmax over the
+# keys, as the plain version).
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,lq,lk,dh,padded_row", [
+    (3, 37, 5, 64, False), (2, 77, 129, 64, False), (3, 37, 70, 32, True),
+    (2, 130, 300, 64, True), (1, 200, 37, 32, False)])
+def test_attention_backward_bf16_ragged_and_padded(cuda_device, b, lq, lk, dh, padded_row, rate):
+    args, ref = _backward_case(cuda_device, torch.bfloat16, b, lq, lk, dh, rate, padded_row)
+    before = fa.mha.backward_bf16_launches
+    got = fa.launch_backward_bf16(*args)
+    torch.cuda.synchronize()
+    assert fa.mha.backward_bf16_launches == before + 1
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.bfloat16 and g.shape == r.shape
+        assert _rel_err(g, r) <= GRAD_RTOL[torch.bfloat16]
+
+
+def test_attention_backward_bf16_is_deterministic(cuda_device):
+    """No atomics: two calls on the same inputs give the same bits."""
+    args, _ = _backward_case(cuda_device, torch.bfloat16, 8, 100, 252, 32, 0.1)
+    first = fa.launch_backward_bf16(*args)
+    second = fa.launch_backward_bf16(*args)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+def test_attention_backward_bf16_rejects_fp32(cuda_device):
+    args, _ = _backward_case(cuda_device, torch.float32, 2, 16, 16, 32, 0.0)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.launch_backward_bf16(*args)
