@@ -21,15 +21,16 @@ Phases, one status line each; any failure raises and exits non-zero:
      kernels at each CTA shape); then the attention forward with dropout
      and its backward at the training shapes, against plain autograd at
      dropout 0 and given the mask the kernel library materialises: fp32
-     through A-tf32 and the tensor-core A' (3xTF32), bf16 through the SIMT
-     A and A'-bf16 (bf16 tensor cores), and the SIMT A' called directly at
-     both dtypes; at each training shape the fp32 forward with dropout 0.1
+     through A-tf32 and the tensor-core A' (3xTF32), bf16 through A-mma and
+     A'-bf16 (bf16 tensor cores), and the SIMT A' called directly at both
+     dtypes; at each training shape the fp32 forward with dropout 0.1
      (A-tf32 at each CTA shape, the SIMT A, plain, SDPA) and the backward
      (the tensor-core A', the SIMT A', plain, SDPA's backward) timed from
      CUDA graphs in turns, and their sums per training step; at each
-     training shape the bf16 step's SIMT A (dropout 0.1) and A'-bf16 with
-     the SIMT A' beside it against plain, SDPA and their bound, timed the
-     same way, and their sums per bf16 step;
+     training shape the bf16 step's A-mma with dropout 0.1 (at each CTA
+     shape, the SIMT A beside it) and A'-bf16 with the SIMT A' beside it
+     against plain, SDPA and their bound, timed the same way, and their
+     sums per bf16 step;
   4. lap: the LAP kernel on 48 problems (6 decoder layers x batch 8)
      against its plain version and scipy, on prefix and scattered row
      masks, with its device time from CUDA graphs, the time of a loop of
@@ -66,14 +67,14 @@ Phases, one status line each; any failure raises and exits non-zero:
      device-busy time under ``torch.profiler`` and its peak memory;
  9b. bf16 training: the same model built with ``dtype="bfloat16"`` (float32
      parameters, bf16 compute). The kernel route against the plain-attention
-     route with the matching shared, at dropout 0 (A-mma and A'-bf16) and
-     at dropout 0.1 with every route's masks alike (the SIMT A and A'-bf16,
-     the main path's kernels): loss within 1e-2 relative, every gradient
+     route with the matching shared, at dropout 0 and at dropout 0.1 with
+     every route's masks alike (A-mma and A'-bf16 at both, the main path's
+     kernels): loss within 1e-2 relative, every gradient
      float32 and no further from the fp32 step's on the same weights and
      masks than the plain route's (median over tensors within 2x, each
      tensor within 3x); then four dropout-0.1 steps through ``Trainer``
-     with the counters reset just before (per step SIMT A 18, A'-bf16 18,
-     B 1, C 1, A-tf32, A-mma, SIMT A' and A'-mma 0), every parameter and
+     with the counters reset just before (per step A-mma 18, A'-bf16 18,
+     B 1, C 1, A-tf32, SIMT A, SIMT A' and A'-mma 0), every parameter and
      Adam moment float32 after each; median step time, device-busy time and
      peak memory beside the fp32 step's, and one step's kernel time with the
      attention kernels' share;
@@ -196,8 +197,8 @@ TRAIN_STEM = (8, 64, 188, 336)  # kernel C's input in a training step: conv1's o
 BACKGROUND = 91  # DETR-R50's "no object" logit of 92
 LOSS_RTOL, TENSOR_GRAD_RTOL, NOISE_FLOOR = 1e-4, 1e-3, 1e-6
 # The bf16 step (float32 parameters, bf16 compute), b8 376x672, dropout 0.1.
-# Parity at dropout 0 (A-mma forward, A'-bf16 backward) and at dropout 0.1
-# (the SIMT A and A'-bf16, every route given the same masks): the kernel
+# Parity at dropout 0 and at dropout 0.1 (A-mma forward, A'-bf16 backward,
+# every route given the same masks): the kernel
 # route's loss within BF16_LOSS_RTOL of the plain route's (the two round
 # attention at different points, and the rounding noise of a bf16 forward
 # reaches the loss at ~1e-3), and its gradients, against the fp32 step's on
@@ -464,7 +465,7 @@ def phase_kernels(torch, fa):
                     t["bound3x"] = attention_bound(b, lq, lk, "tf32")
                 times[(b, lq, lk, name)] = t
                 sms = torch.cuda.get_device_properties(0).multi_processor_count
-                shape = (fa.mma_shape if name == "bfloat16" else fa.tf32_shape)(b * 8, lq, sms)
+                shape = fa.cta_shape(b * 8, lq, sms)
                 bound3x = (f", {t['bound3x'][0]:.4f} ms as 3xTF32 ({t['bound3x'][1]})"
                            if name == "float32" else "")
                 log(f"  attention ({lq},{lk}) {name} B={b}: {len(errs)} outputs against plain, "
@@ -502,12 +503,12 @@ def attention_grads(torch, fn, q, k, v, dout):
 
 def phase_train_kernels(torch, fa):
     """Kernel A with dropout and kernel A' at the training shapes: through
-    ``mha`` (fp32: A-tf32 and the tensor-core A' (3xTF32), bf16: the SIMT A
-    and A'-bf16), and the SIMT A' called directly at both dtypes; each
-    against plain autograd at dropout 0 and 0.1. Then, at every training
-    shape and dropout 0.1, the forward and the backward from CUDA graphs, in
-    turns: at fp32 A-tf32, the SIMT A, the tensor-core A' and the SIMT A';
-    at bf16 the SIMT A, A'-bf16 and the SIMT A'; each beside plain and SDPA
+    ``mha`` (fp32: A-tf32 and the tensor-core A' (3xTF32), bf16: A-mma and
+    A'-bf16), and the SIMT A' called directly at both dtypes; each against
+    plain autograd at dropout 0 and 0.1. Then, at every training shape and
+    dropout 0.1, the forward and the backward from CUDA graphs, in turns: at
+    fp32 A-tf32, the SIMT A, the tensor-core A' and the SIMT A'; at bf16
+    A-mma, the SIMT A, A'-bf16 and the SIMT A'; each beside plain and SDPA
     (``time_train_forward``, ``time_train_attention``)."""
     worst = {"float32": 0.0, "bfloat16": 0.0, "simt float32": 0.0, "simt bfloat16": 0.0}
     times, fwd_times = {}, {}
@@ -570,25 +571,28 @@ def graph_turns(torch, fns, routes):
 def time_train_forward(torch, fa, q, k, v, mask):
     """A at one training shape (b8, dropout 0.1, with the row lse the
     backward reads) from CUDA graphs, each kernel held against plain given
-    the kernel library's keep mask first. fp32: A-tf32 (the CTA shape
-    ``tf32_shape`` picks, and each shape) and the SIMT kernel; bf16: the
-    SIMT kernel, the route bf16 with dropout takes. Kernels and plain in
-    turns, SDPA's forward with ``dropout_p`` beside; the bound at the
-    dtype's peak (the fp32 pipes or bf16) and, at fp32, as 3xTF32 on the
-    tensor cores."""
+    the kernel library's keep mask first: the tensor-core kernel of the
+    dtype's route (fp32: A-tf32, bf16: A-mma) at the CTA shape ``cta_shape``
+    picks and at each shape, and the SIMT kernel called directly. Kernels
+    and plain in turns, SDPA's forward with ``dropout_p`` beside; the bound
+    at the dtype's peak (the fp32 pipes or bf16) and, at fp32, as 3xTF32 on
+    the tensor cores."""
     name = "float32" if q.dtype == torch.float32 else "bfloat16"
     lq, lk = q.shape[1], k.shape[1]
     seed = torch.tensor([54321], device=DEVICE)
     keep = fa.kernel_keep_mask(seed, 64, lq, lk, DROPOUT).view(8, 8, lq, lk)
-    fns = {"plain": lambda: fa.reference_mha(q, k, v, mask, keep, DROPOUT),
-           "simt": lambda: fa.launch_forward_simt(q, k, v, mask, seed, DROPOUT, True)}
-    routes, shapes = ["simt"], []
-    if name == "float32":
-        tf32 = lambda shape=None: fa.launch_forward_tf32(  # noqa: E731
+    route = fa.forward_route(q.dtype, DROPOUT, 32)
+    if route == "tf32":
+        fast = lambda shape=None: fa.launch_forward_tf32(  # noqa: E731
             q, k, v, mask, seed, DROPOUT, True, shape=shape)
-        fns["tf32"] = tf32
-        fns.update({shape: functools.partial(tf32, shape) for shape in fa.MMA_SHAPES})
-        routes, shapes = ["tf32", "simt"], list(fa.MMA_SHAPES)
+    else:
+        fast = lambda shape=None: fa.launch_forward_mma(  # noqa: E731
+            q, k, v, mask, True, dropout_seed=seed, dropout_rate=DROPOUT, shape=shape)
+    fns = {"plain": lambda: fa.reference_mha(q, k, v, mask, keep, DROPOUT),
+           "simt": lambda: fa.launch_forward_simt(q, k, v, mask, seed, DROPOUT, True),
+           route: fast}
+    fns.update({shape: functools.partial(fast, shape) for shape in fa.MMA_SHAPES})
+    routes, shapes = [route, "simt"], list(fa.MMA_SHAPES)
     ref = fns["plain"]()
     outs = {what: fns[what]()[0] for what in routes + shapes}
     torch.cuda.synchronize()
@@ -597,18 +601,18 @@ def time_train_forward(torch, fa, q, k, v, mask):
     turns = graph_turns(torch, fns, routes)
     t = {what: mean for what, (mean, _) in turns.items()}
     t.update({shape: graph_ms(torch, fns[shape], iters=10) for shape in shapes})
-    t.update(err=max(errs.values()),
+    t.update(err=max(errs.values()), errs=errs,
              sdpa=graph_ms(torch, lambda: sdpa(torch, q, k, v, mask, DROPOUT), iters=10),
              bound=attention_bound(8, lq, lk, name, mask is not None, lse=True))
-    label = {"tf32": "A-tf32", "simt": "SIMT A"}
+    label = {"tf32": "A-tf32", "mma": "A-mma", "simt": "SIMT A"}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     log(f"  attention forward ({lq},{lk}) {name} B=8 H=8 Dh=32 dropout {DROPOUT}"
         f"{' masked' if mask is not None else ''}, against plain given the keep mask: "
         + ", ".join(f"{w} {e:.2e}" for w, e in errs.items()) + "; CUDA graphs: "
         + ", ".join(f"{label[w]} {t[w]:.4f} ms ({turns[w][1][0]:.4f}, {turns[w][1][1]:.4f})"
                     for w in routes)
-        + (f" (A-tf32 CTA shape {fa.tf32_shape(64, lq, sms)}; "
-           + ", ".join(f"{s_} {t[s_]:.4f}" for s_ in shapes) + ")" if shapes else "")
+        + f" ({label[route]} CTA shape {fa.cta_shape(64, lq, sms)}; "
+        + ", ".join(f"{s_} {t[s_]:.4f}" for s_ in shapes) + ")"
         + f", plain {t['plain']:.4f} ms, library scaled_dot_product_attention with dropout_p "
         f"{t['sdpa']:.4f} ms, bound {t['bound'][0]:.4f} ms at the {name} peak "
         f"({t['bound'][1]})")
@@ -1338,7 +1342,10 @@ def bf16_parity(torch, fa, api, losses, batch, rate):
         model = api.build_detr(seed=0, device=DEVICE, dropout=rate, attn_impl=impl,
                                dtype=dtype).module
         gen = torch.Generator(device=DEVICE).manual_seed(17)
+        fwd_before = forward_counts(fa)
         out = model(batch["images"], train=True, generator=gen)
+        if key == "kernel":
+            fwd_counts = tuple(a - b for a, b in zip(forward_counts(fa), fwd_before))
         if match is None:
             match = losses.match_all_layers(out, *(batch[k] for k in targets))
         total, _ = losses.detr_loss(out, *(batch[k] for k in targets), BACKGROUND, match=match)
@@ -1355,12 +1362,16 @@ def bf16_parity(torch, fa, api, losses, batch, rate):
         raise AssertionError(f"bf16 parity: {launches} A'-bf16 and "
                              f"{fa.mha.backward_launches - before[1]} SIMT A' launches, expected "
                              f"{LAUNCHES_PER_FORWARD} and 0")
+    if fwd_counts != (0, LAUNCHES_PER_FORWARD, 0):
+        raise AssertionError(f"bf16 parity: (SIMT A, A-mma, A-tf32) launches {fwd_counts} in the "
+                             f"kernel route's forward, expected (0, {LAUNCHES_PER_FORWARD}, 0)")
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
     ours_med, plain_med, worst, n_noise = tensor_gaps(grads_k, grads_p, grads_32)
     forward = {"mma": "A-mma", "simt": "SIMT A"}[fa.forward_route(torch.bfloat16, rate, 32)]
     backward = {"bf16": "A'-bf16", "simt": "SIMT A'"}[fa.backward_route(torch.bfloat16, 32)]
     log(f"  bf16 parity at dropout {rate} (kernel route: {forward} and {backward}, "
-        f"{launches} launches of {backward}): loss kernel {loss_k:.6f} plain "
+        f"{LAUNCHES_PER_FORWARD} launches of {forward}, {launches} of {backward}): loss kernel "
+        f"{loss_k:.6f} plain "
         f"{loss_p:.6f} (rel {loss_err:.2e}, tol {BF16_LOSS_RTOL}), fp32 step {loss_32:.6f}; "
         f"gradients against the fp32 step's, median relative distance kernel route "
         f"{ours_med:.4f}, plain route {plain_med:.4f} (tol {BF16_GAP_FACTOR} x), worst tensor "
@@ -1378,8 +1389,8 @@ def phase_bf16_training(torch, fa, lap, mp, api, train, losses):
     """The bf16 training step (float32 parameters, bf16 compute): parity of
     the kernel route with the plain-attention route against the fp32 step
     on the same weights, batch and matching (``bf16_parity``), at dropout 0
-    (the forward on A-mma, the backward on A'-bf16) and at dropout 0.1 with
-    the same masks (the SIMT A and A'-bf16, the main path's kernels); then
+    and at dropout 0.1 with the same masks (the forward on A-mma, the
+    backward on A'-bf16: the main path's kernels); then
     steps at dropout 0.1 through ``Trainer`` with the counts reset just
     before; then its time under the profiler, and one step's kernel time
     with the attention's share."""
@@ -1409,10 +1420,10 @@ def phase_bf16_training(torch, fa, lap, mp, api, train, losses):
     mp.max_pool_3x3_s2.launches = fa.mha.mma_launches = fa.mha.backward_mma_launches = 0
     fa.mha.launches = fa.mha.backward_bf16_launches = 0
     train.fit(trainer, [batch] * BF16_TRAIN_STEPS, config, epoch_nb=0, log_fn=log_fn, log_every=1)
-    counts = {"A SIMT": fa.mha.launches, "A'-bf16": fa.mha.backward_bf16_launches,
+    counts = {"A-mma": fa.mha.mma_launches, "A'-bf16": fa.mha.backward_bf16_launches,
               "A' SIMT": fa.mha.backward_launches, "B": lap.solve_lap_masked.launches,
               "C": mp.max_pool_3x3_s2.launches, "A-tf32": fa.mha.tf32_launches,
-              "A-mma": fa.mha.mma_launches, "A'-mma": fa.mha.backward_mma_launches}
+              "A SIMT": fa.mha.launches, "A'-mma": fa.mha.backward_mma_launches}
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     step_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
     median = statistics.median(step_ms)
@@ -1422,8 +1433,8 @@ def phase_bf16_training(torch, fa, lap, mp, api, train, losses):
         f"{TRAIN_BATCH * 1e3 / median:.2f} images/s, peak device memory {peak_gb:.2f} GiB")
     per_step = {k: v / BF16_TRAIN_STEPS for k, v in counts.items()}
     log(f"  bf16 launches per step: {per_step}")
-    expected = {"A SIMT": LAUNCHES_PER_FORWARD, "A'-bf16": LAUNCHES_PER_FORWARD, "A' SIMT": 0,
-                "B": 1, "C": 1, "A-tf32": 0, "A-mma": 0, "A'-mma": 0}
+    expected = {"A-mma": LAUNCHES_PER_FORWARD, "A'-bf16": LAUNCHES_PER_FORWARD, "A' SIMT": 0,
+                "B": 1, "C": 1, "A-tf32": 0, "A SIMT": 0, "A'-mma": 0}
     if per_step != expected:
         raise AssertionError(f"bf16 launches per step {per_step}, expected {expected}")
     if not all(np.isfinite(losses_seen)):
@@ -1435,12 +1446,12 @@ def phase_bf16_training(torch, fa, lap, mp, api, train, losses):
     wall_ms, busy_ms, events = device_busy_ms(torch, lambda: trainer.step(batch))
     log(f"  bf16 under torch.profiler: {wall_ms:.2f} ms wall, {busy_ms:.2f} ms device busy, "
         f"{events:.0f} kernels and copies a step")
-    # The attention's kernels: the SIMT A, A'-bf16's pre-pass and passes.
-    names = ("flash_attention_fwd_kernel", "prepass_kernel", "passes_kernel")
+    # The attention's kernels: A-mma, A'-bf16's pre-pass and passes.
+    names = ("flash_attention_fwd_mma_kernel", "prepass_kernel", "passes_kernel")
     step_kernels, by_name = kernel_ms(torch, lambda: trainer.step(batch), names)
     attention = sum(by_name.values())
     log(f"  one bf16 step under torch.profiler: {step_kernels:.2f} ms of kernel time; attention "
-        f"{attention:.4f} ms ({attention / step_kernels:.2%}): SIMT A "
+        f"{attention:.4f} ms ({attention / step_kernels:.2%}): A-mma "
         f"{by_name[names[0]]:.4f}, A'-bf16 {by_name[names[1]] + by_name[names[2]]:.4f} (pre-pass "
         f"{by_name[names[1]]:.4f}, passes {by_name[names[2]]:.4f})")
     return counts, {"median": median, "peak_gb": peak_gb, "wall": wall_ms, "busy": busy_ms,
@@ -1952,7 +1963,8 @@ def main() -> int:
         f"{list(fwd_train_times)}), ms from CUDA graphs: A-tf32 {fwd_step['tf32']:.4f}, SIMT "
         f"{fwd_step['simt']:.4f}, plain {fwd_step['plain']:.4f}, SDPA forward with dropout_p "
         f"{fwd_step['sdpa']:.4f}")
-    for label, table, kernel in (("A (SIMT)", fwd_train16, "simt"),
+    for label, table, kernel in (("A-mma", fwd_train16, "mma"),
+                                 ("A (SIMT, on no path)", fwd_train16, "simt"),
                                  ("A'-bf16", bwd_times16, "bf16"),
                                  ("A' (SIMT, on no path)", bwd_times16, "simt")):
         step = {key: sum(LAUNCHES_PER_FORWARD // 3 * t[key] for t in table.values())
@@ -1963,6 +1975,12 @@ def main() -> int:
             f"{step['plain']:.4f}, SDPA {step['sdpa']:.4f}, bound {bound:.4f}")
     faster = {shape: t["bf16"] < t["simt"] for shape, t in bwd_times16.items()}
     log(f"[kernels] A'-bf16 faster than the SIMT A' at bf16, each training shape: {faster}")
+    faster = {shape: (t["mma"] < t["simt"], t["mma"] < t["sdpa"])
+              for shape, t in fwd_train16.items()}
+    log(f"[kernels] A-mma with dropout faster than (the SIMT A, SDPA with dropout_p) at bf16, each "
+        f"training shape: {faster}")
+    mma_err = max([worst["bfloat16"]] + [e for t in fwd_train16.values()
+                                         for w, e in t["errs"].items() if w != "simt"])
     lap_ms, lap_plain_ms, _, (lap_bound, lap_by), lap_loop_ms, lap_chain = lap_times
 
     # "measured_at": the shape and dtype of the times, which differ between
@@ -1996,8 +2014,9 @@ def main() -> int:
 
     record = {"kernels": [
         entry("flash_attention_fwd", SOURCES[0], counts16["A SIMT"],
-              max(t["err"] for t in fwd_train16.values()), fwd16["simt"], fwd16["plain"],
-              *fwd16["bound"], fwd16["sdpa"], train_at("bfloat16") + ", with the row lse"),
+              max(t["errs"]["simt"] for t in fwd_train16.values()), fwd16["simt"],
+              fwd16["plain"], *fwd16["bound"], fwd16["sdpa"],
+              train_at("bfloat16") + ", with the row lse, called directly"),
         entry("flash_attention_bwd", SOURCES[1], counts[1] + counts16["A' SIMT"],
               bwd_worst["simt bfloat16"], bwd16["simt"], bwd16["plain"], *bwd16["bound"],
               bwd16["sdpa"], train_at("bfloat16") + ", called directly"),
@@ -2016,8 +2035,9 @@ def main() -> int:
                     masked_tag),
         fused_entry("fused_bottleneck", SOURCES[7], fused_counts[4] + fused_bf16_counts[4],
                     exact_tag),
-        entry("flash_attention_fwd_mma", SOURCES[8], mma_serving + int8_a + fused_bf16_counts[8],
-              worst["bfloat16"], a16["mma"], a16["plain"], *a16["bound"], a16["sdpa"],
+        entry("flash_attention_fwd_mma", SOURCES[8],
+              mma_serving + int8_a + fused_bf16_counts[8] + counts16["A-mma"], mma_err,
+              a16["mma"], a16["plain"], *a16["bound"], a16["sdpa"],
               "(1232,1232) bfloat16 B=2 H=8 Dh=32, one call"),
         entry("flash_attention_bwd_mma", SOURCES[9], counts[4], bwd_worst["float32"], bwd["mma"],
               bwd["plain"], *bwd["bound3x"], bwd["sdpa"], train_at("float32")),
@@ -2039,20 +2059,24 @@ def main() -> int:
     a_bwd16, simt_bwd16 = counts16["A'-bf16"], counts16["A' SIMT"]
     d_mma_chain = fused_times[("fused_residual_mma", masked_tag, "bfloat16")][2]
     d_tf32_chain = fused_times[("fused_residual_tf32", masked_tag, "float32")][2]
-    log(f"[summary] flash_attention_fwd (SIMT): max_abs_err bf16 dropout {DROPOUT} against "
-        f"plain given the keep mask at the training shapes, ms/plain_ms/library_ms "
-        f"(scaled_dot_product_attention with dropout_p) at (252,252) bf16 B=8 H=8 Dh=32 from CUDA "
-        f"graphs, launches {counts16['A SIMT']} in {BF16_TRAIN_STEPS} bf16 training steps, bound "
+    log(f"[summary] flash_attention_fwd (SIMT, on no path, called directly): max_abs_err bf16 "
+        f"dropout {DROPOUT} against plain given the keep mask at the training shapes, "
+        f"ms/plain_ms/library_ms (scaled_dot_product_attention with dropout_p) at (252,252) bf16 "
+        f"B=8 H=8 Dh=32 from CUDA graphs, launches {counts16['A SIMT']} in {BF16_TRAIN_STEPS} "
+        f"bf16 training steps, bound "
         f"at the bf16 peak (called directly at (1232,1232) B=2: fp32 {a32['simt']:.4f} ms, "
         f"max_abs_err {worst['simt float32']:.3e}; bf16 without dropout {a16['simt']:.4f} ms, "
         f"{worst['simt bfloat16']:.3e}); flash_attention_fwd_tf32 (3xTF32): max_abs_err fp32 "
         f"{worst['float32']:.3e}, ms/plain_ms/library_ms at (1232,1232) fp32 B=2 from CUDA "
         f"graphs, launches {launches} fp32 serving + {counts[0]} training + {fused_counts[7]} "
         f"fused fp32 serving, bound as 3xTF32 on the tensor cores; flash_attention_fwd_mma: "
-        f"max_abs_err bf16 {worst['bfloat16']:.3e}, "
-        f"ms/plain_ms/library_ms at (1232,1232) bf16 B=2 from CUDA graphs, launches "
+        f"max_abs_err bf16 {mma_err:.3e} (served shapes and the training shapes with dropout), "
+        f"ms/plain_ms/library_ms at (1232,1232) bf16 B=2 from CUDA graphs (with dropout "
+        f"{DROPOUT} at (252,252) B=8: {fwd16['mma']:.4f} ms, SDPA with dropout_p "
+        f"{fwd16['sdpa']:.4f}), launches "
         f"{mma_serving} bf16 serving + {int8_a} int8 serving + {fused_bf16_counts[8]} fused bf16 "
-        f"serving; flash_attention_bwd_bf16 (A'-bf16): gradient max_abs_err bf16 "
+        f"serving + {counts16['A-mma']} in {BF16_TRAIN_STEPS} bf16 training steps; "
+        f"flash_attention_bwd_bf16 (A'-bf16): gradient max_abs_err bf16 "
         f"{bwd_worst['bfloat16']:.3e}, launches {a_bwd16} in {BF16_TRAIN_STEPS} bf16 training "
         f"steps, ms/plain_ms/library_ms backward at (252,252) bf16 B=8 dropout {DROPOUT}, bound "
         f"at the bf16 peak; flash_attention_bwd (SIMT, on no path, called directly): gradient "

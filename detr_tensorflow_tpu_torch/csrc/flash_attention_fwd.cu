@@ -2,7 +2,12 @@
 //
 // Replaces the TPU kernel `_fwd_kernel` in
 // detr_tensorflow_tpu/ops/pallas/flash_attention.py (launched by
-// `_mha_fwd_call` through `pl.pallas_call`). It computes the same function:
+// `_mha_fwd_call` through `pl.pallas_call`). It runs on no path: fp32 calls
+// run flash_attention_fwd_tf32.cu and bf16 calls, with or without dropout,
+// flash_attention_fwd_mma.cu (ops/flash_attention.py:forward_route). It
+// stays callable (launch_forward_simt) as their yardstick, and its
+// flash_attention_keep_mask writes the keep mask the tests hold the others
+// to. It computes the same function:
 //
 //   out[b, i, h, :] = sum_j drop_ij softmax_j(q[b, i, h, :] . k[b, j, h, :] + bias[b, j]) v[b, j, h, :]
 //

@@ -2,17 +2,22 @@
 //
 // Replaces the TPU kernel `_fwd_kernel` in
 // detr_tensorflow_tpu/ops/pallas/flash_attention.py (launched by
-// `_mha_fwd_call` through `pl.pallas_call`) for bf16 calls without dropout:
+// `_mha_fwd_call` through `pl.pallas_call`) for bf16 calls, with or without
+// dropout:
 //
-//   out[b, i, h, :] = sum_j softmax_j(q[b, i, h, :] . k[b, j, h, :] + bias[b, j]) v[b, j, h, :]
+//   out[b, i, h, :] =
+//       sum_j m_ij softmax_j(q[b, i, h, :] . k[b, j, h, :] + bias[b, j]) v[b, j, h, :]
 //
 // with scores and softmax in fp32, bias = -1e30 on padded keys (mask true)
-// and 0 elsewhere, and q already scaled by head_dim ** -0.5 by the caller.
-// Optionally it writes the row log-sum-exp lse[b, h, i] = max_j s_ij +
-// log sum_j exp(s_ij - max) that the backward (flash_attention_bwd.cu)
-// reads. fp32 calls run on the tensor cores too, with 3xTF32 products
-// (flash_attention_fwd_tf32.cu); bf16 calls with dropout stay on the SIMT
-// kernel of flash_attention_fwd.cu (ops/flash_attention.py:forward_route).
+// and 0 elsewhere, q already scaled by head_dim ** -0.5 by the caller, and
+// m_ij the dropout multiplier (1 without dropout; else 0 or 1 / (1 - rate)
+// from the Philox bits of flash_attention_common.cuh, which the backward
+// replays). Optionally it writes the row log-sum-exp lse[b, h, i] = max_j
+// s_ij + log sum_j exp(s_ij - max), taken before dropout, that the backward
+// (flash_attention_bwd_bf16.cu) reads. fp32 calls run on the tensor cores
+// too, with 3xTF32 products (flash_attention_fwd_tf32.cu); the SIMT kernel
+// of flash_attention_fwd.cu runs on no path (ops/flash_attention.py:
+// forward_route).
 //
 // What bounds it on this card, and what the design does about each:
 //   * The exps. At Dh = 32 each (query, key) pair costs 64 tensor-core
@@ -44,20 +49,45 @@
 //     the decoder (Lq = 100) 16. So the four warps of a CTA may instead
 //     split each tile's keys over one row group of 16 rows, each warp with
 //     its own running softmax, merged through shared memory at the end.
-//     The wrapper (ops/flash_attention.py:mma_shape) takes 64-row CTAs
-//     when they fill every SM (the encoder at b1 and B=2) and the 4-way
-//     split otherwise (the 100 decoder queries: 1.37x faster than 64-row
-//     CTAs at b1 on an H100). A 2 x 2 shape (32 rows, 312 CTAs at b1) tied
-//     the 64-row CTAs there and was dropped. Splitting keys across CTAs is
-//     the next lever for the decoder.
+//     The wrapper (ops/flash_attention.py:cta_shape, the tf32 kernel's rule
+//     too) takes 64-row CTAs when they number at least half the SMs (the
+//     encoder at b1 and B=2; (320, 320) at B=2, 80 CTAs: 0.0063 ms against
+//     0.0073 split; the b8 training step's 100 decoder queries, 128 CTAs:
+//     10-20% faster than split, with or without dropout) and the 4-way
+//     split otherwise (the 100 decoder queries served: 1.37x faster than
+//     64-row CTAs at b1 on an H100). A 2 x 2 shape (32 rows, 312 CTAs at
+//     b1) tied the 64-row CTAs there and was dropped. Splitting keys across
+//     CTAs is the next lever for the decoder.
+//   * Dropout (the bf16 training step): the Philox4x32-10 rounds, ~40
+//     integer multiplies for the bits of 4 keys. The m16n8k16 accumulator
+//     has the m16n8k8 TF32 layout of flash_attention_fwd_tf32.cu, so its
+//     draw carries over: lanes t and t + 1 hold keys 4u .. 4u + 3 of rows g
+//     and g + 8, lane t draws row g's call if t is even and row g + 8's if
+//     odd, and the pair swap the two words the other needs (one call per 4
+//     elements). The counters take the absolute key index, so the (1, 4)
+//     shape, whose warps split each tile's keys, draws the bits of the
+//     (4, 1) shape, of ops/flash_attention.py:keep_mask and of the
+//     backward's pre-pass. The served kernel compiles without it (template
+//     flag kDropout): its instructions are those of the kernel before. On
+//     an H100 the draws take about a third of a b8 training call at Dh 32
+//     ((252, 252): 0.0113 ms against 0.0076 without them). Moving them to
+//     four warps of their own a tile ahead (A'-bf16's pre-pass design)
+//     saved 2-9% at the 64-row shape but, at 8 warps a CTA, lost 40-80% at
+//     the split shape, so the softmax warps draw. Nothing spills: ptxas
+//     gives the dropout instantiations 140 / 94 registers at Dh 32 (64-row
+//     / split shape; 103 / 72 without dropout, so three 64-row CTAs an SM
+//     in place of four) and 136 / 124 at Dh 64; a cap of 128 (four CTAs an
+//     SM) spilled 36-48 bytes and was slower (0.0122 ms).
 // `wgmma` with TMA-fed tiles is the next step if this kernel stays behind
 // PyTorch's scaled_dot_product_attention at the same shapes.
 //
-// Numerics: P is left unnormalised, rounded to bf16 for the PV product, and
-// the fp32 row sum (of the unrounded p) is divided out at the end, as in
-// flash_attention_fwd.cu; bf16 results differ from the TPU kernel's (which
-// normalises before rounding) by rounding only. The row max and sum are
-// merged across the four lanes that hold a row with quad shuffles.
+// Numerics: P is left unnormalised, multiplied by the dropout factor in
+// fp32, rounded to bf16 for the PV product, and the fp32 row sum (of the
+// unrounded p, before dropout) is divided out at the end; bf16 results
+// differ from the TPU kernel's (which normalises and drops before rounding)
+// by rounding only. The row max and sum are merged across the four lanes
+// that hold a row with quad shuffles. A fully padded row stays uniform and
+// is then dropped; keys past Lk keep p = 0, so a dropped key adds no NaN.
 //
 // Entry point: a plain C function, built with nvcc into a shared library
 // and called through ctypes. It launches on the given stream, allocates
@@ -100,14 +130,15 @@ __device__ __forceinline__ float exp2_approx(float x) {
 // end. Fragment coordinates follow the PTX ISA's m16n8k16 layouts: lane =
 // 4 * g + t holds rows g and g + 8 and, in each 8-column block, columns 2t
 // and 2t + 1.
-template <int Dh, int kRowGroups, int kSplit>
+template <int Dh, int kRowGroups, int kSplit, bool kDropout>
 __global__ void __launch_bounds__(32 * kRowGroups * kSplit)
 flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                                const __nv_bfloat16* __restrict__ k,
                                const __nv_bfloat16* __restrict__ v,
                                const unsigned char* __restrict__ mask,
-                               __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                               int lq, int lk, int heads) {
+                               const unsigned long long* __restrict__ seed, unsigned threshold,
+                               float keep_scale, __nv_bfloat16* __restrict__ out,
+                               float* __restrict__ lse, int lq, int lk, int heads) {
   constexpr int kThreads = 32 * kRowGroups * kSplit;
   constexpr int kStride = Dh + 8;              // padded shared row, in elements
   constexpr int kChunks = Dh / 8;              // 16-byte chunks of one key row
@@ -205,6 +236,12 @@ flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
+  // Dropout: this lane draws the Philox call of row g (t even) or g + 8 (t
+  // odd) for keys 4 (t / 2) .. + 3 of each 8-key column block.
+  const uint2 philox_key = kDropout ? fa::seed_key(seed) : make_uint2(0u, 0u);
+  const bool odd = (t & 1) != 0;
+  const unsigned philox_row = static_cast<unsigned>(odd ? row1 : row0);
+
   float o[kDT][4];
 #pragma unroll
   for (int d = 0; d < kDT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
@@ -292,9 +329,23 @@ flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       s[n][3] = exp2_approx((s[n][3] - mn1) * kLog2e);
       l0 += s[n][0] + s[n][1];
       l1 += s[n][2] + s[n][3];
+      if constexpr (kDropout) {
+        // Keys 4 (t / 2) .. + 3 of the block (absolute key indices): this
+        // lane's call covers its own row's two keys and its partner's (lane
+        // t ^ 1) two.
+        const unsigned j0 = static_cast<unsigned>(tile * kTileK + key0 + 8 * n);
+        const uint4 r = fa::philox4x32_10(
+            make_uint4(j0 / 4 + t / 2, philox_row, static_cast<unsigned>(bh), 0u), philox_key);
+        const unsigned x0 = __shfl_xor_sync(0xffffffffu, odd ? r.x : r.z, 1);
+        const unsigned x1 = __shfl_xor_sync(0xffffffffu, odd ? r.y : r.w, 1);
+        const unsigned bits[4] = {odd ? x0 : r.x, odd ? x1 : r.y, odd ? r.z : x0,
+                                  odd ? r.w : x1};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] *= bits[e] >= threshold ? keep_scale : 0.f;
+      }
     }
 
-    // O += P V: P's accumulators, rounded to bf16, are the A fragments.
+    // O += (P o M) V: the accumulators, rounded to bf16, are the A fragments.
 #pragma unroll
     for (int ks = 0; ks < kNT / 2; ++ks) {
       unsigned pa[4];
@@ -384,55 +435,71 @@ flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 struct Args {
   const void *q, *k, *v, *mask;
+  const unsigned long long* seed;
+  unsigned threshold;
+  float keep_scale;
   void* out;
   float* lse;
   int batch, lq, lk, heads;
   cudaStream_t stream;
 };
 
-template <int Dh, int kRowGroups, int kSplit>
+template <int Dh, int kRowGroups, int kSplit, bool kDropout>
 bool launch(const Args& a) {
   const dim3 grid((a.lq + 16 * kRowGroups - 1) / (16 * kRowGroups), a.batch * a.heads);
-  flash_attention_fwd_mma_kernel<Dh, kRowGroups, kSplit>
+  flash_attention_fwd_mma_kernel<Dh, kRowGroups, kSplit, kDropout>
       <<<grid, 32 * kRowGroups * kSplit, 0, a.stream>>>(
           static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
           static_cast<const __nv_bfloat16*>(a.v), static_cast<const unsigned char*>(a.mask),
-          static_cast<__nv_bfloat16*>(a.out), a.lse, a.lq, a.lk, a.heads);
+          a.seed, a.threshold, a.keep_scale, static_cast<__nv_bfloat16*>(a.out), a.lse, a.lq,
+          a.lk, a.heads);
   return true;
 }
 
 // The CTA shapes the wrapper may ask for, four warps each: row groups of
 // 16 queries times warps sharing each row group's keys.
-template <int Dh>
+template <int Dh, bool kDropout>
 bool launch_shape(int row_groups, int split, const Args& a) {
   switch (row_groups * 10 + split) {
-    case 41: return launch<Dh, 4, 1>(a);
-    case 14: return launch<Dh, 1, 4>(a);
+    case 41: return launch<Dh, 4, 1, kDropout>(a);
+    case 14: return launch<Dh, 1, 4, kDropout>(a);
     default: return false;
   }
 }
 
+template <int Dh>
+bool launch_dh(int row_groups, int split, const Args& a) {
+  return a.threshold != 0u ? launch_shape<Dh, true>(row_groups, split, a)
+                           : launch_shape<Dh, false>(row_groups, split, a);
+}
+
 }  // namespace
 
-// q, k, v, out: bf16 (batch, L, heads, head_dim), contiguous, 16-byte
-// aligned; head_dim 32 or 64. mask: (batch, lk) bytes, nonzero = padded
-// key, or null. lse: (batch, heads, lq) fp32, or null. A CTA takes
-// 16 * row_groups query rows with split warps on each 16 rows: (row_groups,
+// The arguments of flash_attention_fwd_tf32 (flash_attention_fwd_tf32.cu)
+// at bf16. q, k, v, out: bf16 (batch, L, heads, head_dim), contiguous,
+// 16-byte aligned; head_dim 32 or 64. mask: (batch, lk) bytes, nonzero =
+// padded key, or null. threshold: 0 for no dropout, else ceil(rate * 2^32)
+// with seed a device pointer to one 64-bit seed and keep_scale = 1 / (1 -
+// rate). lse: (batch * heads, lq) fp32, or null. A CTA takes 16 *
+// row_groups query rows with split warps on each 16 rows: (row_groups,
 // split) one of (4, 1), (1, 4). Returns a cudaError_t as int (0 =
 // launched).
 extern "C" int flash_attention_fwd_mma(const void* q, const void* k, const void* v,
-                                       const void* mask, void* out, void* lse, int batch,
+                                       const void* mask, const void* seed, unsigned threshold,
+                                       float keep_scale, void* out, void* lse, int batch,
                                        int lq, int lk, int heads, int head_dim, int row_groups,
                                        int split, void* stream) {
-  if (batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || batch * heads > 65535)
+  if (batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || batch * heads > 65535 ||
+      (threshold != 0u && seed == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, mask, out, static_cast<float*>(lse), batch, lq, lk, heads,
+  const Args a{q, k, v, mask, static_cast<const unsigned long long*>(seed), threshold,
+               keep_scale, out, static_cast<float*>(lse), batch, lq, lk, heads,
                static_cast<cudaStream_t>(stream)};
   bool ok = false;
   if (head_dim == 32) {
-    ok = launch_shape<32>(row_groups, split, a);
+    ok = launch_dh<32>(row_groups, split, a);
   } else if (head_dim == 64) {
-    ok = launch_shape<64>(row_groups, split, a);
+    ok = launch_dh<64>(row_groups, split, a);
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -4,9 +4,9 @@
 // Replaces the TPU kernel `_fwd_kernel` (detr_tensorflow_tpu/ops/pallas/
 // flash_attention.py:77, launched by `_mha_fwd_call` through
 // `pl.pallas_call`) for fp32 calls at head dim 32 and 64, with or without
-// dropout; bf16 calls run flash_attention_fwd_mma.cu (no dropout) or the
-// SIMT kernel of flash_attention_fwd.cu (dropout)
-// (ops/flash_attention.py:forward_route). It computes what those compute:
+// dropout; bf16 calls, with or without dropout, run
+// flash_attention_fwd_mma.cu (ops/flash_attention.py:forward_route). It
+// computes what that computes:
 //
 //   out[b, i, h, :] = sum_j m_ij softmax_j(q[b, i, h, :] . k[b, j, h, :] + bias[b, j]) v[b, j, h, :]
 //
@@ -68,7 +68,7 @@
 //     query rows a CTA, a warp per 16 rows, each walking every key; or (1,
 //     4), 16 rows a CTA whose four warps split each tile's keys, each with
 //     its own running softmax, merged through shared memory at the end. The
-//     wrapper picks with ops/flash_attention.py:tf32_shape: (4, 1) where
+//     wrapper picks with ops/flash_attention.py:cta_shape: (4, 1) where
 //     64-row CTAs number at least half the SMs (every encoder shape, and
 //     the 100 decoder queries of b8 training: 128 CTAs), (1, 4) below (the
 //     100 decoder queries served at b1 and B=2: 16 and 32 CTAs), each the

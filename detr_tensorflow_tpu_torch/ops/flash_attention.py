@@ -14,12 +14,13 @@ autograd needs it, writes the row log-sum-exp; the backward recomputes the
 softmax from it in two kernels, one over key tiles for dK/dV and one over
 query tiles for dQ, after a pre-pass over the rows.
 
-The kernel is picked from the call's dtype, head dim and (forward) dropout
-rate alone. ``forward_route``: fp32, with or without dropout, runs on the
+The kernel is picked from the call's dtype and head dim alone.
+``forward_route``: fp32, with or without dropout, runs on the
 tensor cores with 3xTF32 products (the "tf32" route; each fp32 operand split
-into two TF32 parts, three TF32 MMAs per product: fp32 accuracy), bf16
-without dropout on the tensor cores in bf16 (``mma.sync`` bf16, the "mma"
-route), bf16 with dropout on the SIMT kernel (fp32 FMAs, the "simt" route).
+into two TF32 parts, three TF32 MMAs per product: fp32 accuracy), bf16, with
+or without dropout, on the tensor cores in bf16 (``mma.sync`` bf16, the
+"mma" route). The SIMT forward (fp32 FMAs) runs on no route; it stays
+callable as ``launch_forward_simt``, a yardstick for the tensor-core ones.
 ``backward_route``: fp32 runs on the tensor cores with 3xTF32 products, bf16
 on the tensor cores in bf16 (``mma.sync`` bf16, the "bf16" route). A failed
 build or launch raises on every route.
@@ -172,7 +173,7 @@ def _library(source: str) -> ctypes.CDLL:
     vp, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     signatures = {
         "flash_attention_fwd": [vp] * 5 + [u, f, vp, vp] + [i] * 6 + [vp],
-        "flash_attention_fwd_mma": [vp] * 6 + [i] * 7 + [vp],
+        "flash_attention_fwd_mma": [vp] * 5 + [u, f, vp, vp] + [i] * 7 + [vp],
         "flash_attention_fwd_tf32": [vp] * 5 + [u, f, vp, vp] + [i] * 7 + [vp],
         "flash_attention_keep_mask": [vp, vp, i, i, i, u, vp],
         "flash_attention_bwd": [vp] * 8 + [u, f] + [vp] * 4 + [i] * 6 + [vp],
@@ -212,14 +213,15 @@ def _dropout_args(dropout_rate):
 
 def forward_route(dtype: torch.dtype, dropout_rate: float, head_dim: int) -> str:
     """The forward kernel a CUDA call takes: "tf32" (tensor cores, 3xTF32,
-    ``csrc/flash_attention_fwd_tf32.cu``) for fp32 at any dropout rate,
-    "mma" (tensor cores, ``csrc/flash_attention_fwd_mma.cu``) for bf16
-    without dropout, "simt" (``csrc/flash_attention_fwd.cu``) for bf16 with
-    dropout."""
+    ``csrc/flash_attention_fwd_tf32.cu``) for fp32 and "mma" (bf16 tensor
+    cores, ``csrc/flash_attention_fwd_mma.cu``) for bf16, each at any
+    dropout rate; "simt" (``csrc/flash_attention_fwd.cu``) for a head dim
+    the tensor-core kernels do not take, which ``mha`` refuses before
+    routing."""
     if head_dim in _HEAD_DIMS:
         if dtype == torch.float32:
             return "tf32"
-        if dtype == torch.bfloat16 and dropout_rate == 0.0:
+        if dtype == torch.bfloat16:
             return "mma"
     return "simt"
 
@@ -238,19 +240,14 @@ def backward_route(dtype: torch.dtype, head_dim: int) -> str:
     return "simt"
 
 
-def mma_shape(batch_heads: int, lq: int, sms: int) -> tuple:
-    """The mma kernel's CTA shape, (row groups, split), on a card of ``sms``
-    SMs: four row groups of 16 queries, one warp each, when those 64-row
-    CTAs fill every SM; otherwise one row group whose keys the four warps
-    split."""
-    return (4, 1) if batch_heads * -(-lq // 64) >= sms else (1, 4)
-
-
-def tf32_shape(batch_heads: int, lq: int, sms: int) -> tuple:
-    """The tf32 kernel's CTA shape on a card of ``sms`` SMs: 64-row CTAs
-    when they number at least half the SMs, otherwise 16 rows a CTA with
-    each tile's keys split 4 ways. On an H100 the 64-row shape won at every
-    DETR shape with 128 or more such CTAs, the split at 16 and 32."""
+def cta_shape(batch_heads: int, lq: int, sms: int) -> tuple:
+    """The CTA shape of the tensor-core forwards, (row groups, split), on a
+    card of ``sms`` SMs: four row groups of 16 queries, one warp each, when
+    those 64-row CTAs number at least half the SMs; otherwise one row group
+    whose keys the four warps split. On an H100 the 64-row shape won at
+    every DETR shape timed with 80 or more such CTAs (the bf16 kernel's
+    (320, 320) at B=2 and, with and without dropout, the b8 training
+    step's 100 decoder queries included), the split at 16 and 32."""
     return (4, 1) if 2 * batch_heads * -(-lq // 64) >= sms else (1, 4)
 
 
@@ -262,14 +259,16 @@ def launch_forward(q, k, v, key_padding_mask, dropout_seed, dropout_rate, with_l
         return launch_forward_tf32(q, k, v, key_padding_mask, dropout_seed, dropout_rate,
                                    with_lse)
     if route == "mma":
-        return launch_forward_mma(q, k, v, key_padding_mask, with_lse)
+        return launch_forward_mma(q, k, v, key_padding_mask, with_lse,
+                                  dropout_seed=dropout_seed, dropout_rate=dropout_rate)
     return launch_forward_simt(q, k, v, key_padding_mask, dropout_seed, dropout_rate, with_lse)
 
 
-def _cta_shape(q, shape, rule):
+def _cta_shape(q, shape):
     b, lq, h, _ = q.shape
     if shape is None:
-        shape = rule(b * h, lq, torch.cuda.get_device_properties(q.device).multi_processor_count)
+        shape = cta_shape(b * h, lq,
+                          torch.cuda.get_device_properties(q.device).multi_processor_count)
     if shape not in MMA_SHAPES:
         raise ValueError(f"attention CTA shape {shape} not in {MMA_SHAPES}")
     return shape
@@ -279,12 +278,12 @@ def launch_forward_tf32(q, k, v, key_padding_mask, dropout_seed, dropout_rate, w
                         shape=None):
     """One launch of the tensor-core forward (3xTF32) on fp32 CUDA tensors,
     with or without dropout: (out, lse or None). ``shape``, one of
-    ``MMA_SHAPES``, defaults to ``tf32_shape``."""
+    ``MMA_SHAPES``, defaults to ``cta_shape``."""
     _check_kernel_inputs(q, k, v, key_padding_mask)
     if q.dtype != torch.float32:
         raise TypeError(f"the tf32 attention kernel takes float32, got {q.dtype}")
     b, lq, h, dh = q.shape
-    shape = _cta_shape(q, shape, tf32_shape)
+    shape = _cta_shape(q, shape)
     threshold, keep_scale = _dropout_args(dropout_rate)
     out = torch.empty_like(q)
     lse = torch.empty((b * h, lq), device=q.device, dtype=torch.float32) if with_lse else None
@@ -300,20 +299,24 @@ def launch_forward_tf32(q, k, v, key_padding_mask, dropout_seed, dropout_rate, w
     return out, lse
 
 
-def launch_forward_mma(q, k, v, key_padding_mask, with_lse, shape=None):
-    """One launch of the tensor-core forward on bf16 CUDA tensors: (out, lse
-    or None). ``shape``, one of ``MMA_SHAPES``, defaults to ``mma_shape``."""
+def launch_forward_mma(q, k, v, key_padding_mask, with_lse, dropout_seed=None,
+                       dropout_rate=0.0, shape=None):
+    """One launch of the bf16 tensor-core forward on bf16 CUDA tensors, with
+    or without dropout: (out, lse or None). ``shape``, one of
+    ``MMA_SHAPES``, defaults to ``cta_shape``."""
     _check_kernel_inputs(q, k, v, key_padding_mask)
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the mma attention kernel takes bfloat16, got {q.dtype}")
     b, lq, h, dh = q.shape
-    shape = _cta_shape(q, shape, mma_shape)
+    shape = _cta_shape(q, shape)
+    threshold, keep_scale = _dropout_args(dropout_rate)
     out = torch.empty_like(q)
     lse = torch.empty((b * h, lq), device=q.device, dtype=torch.float32) if with_lse else None
     with torch.cuda.device(q.device):
         err = _library(_MMA_SOURCE).flash_attention_fwd_mma(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask), out.data_ptr(),
-            _ptr(lse), b, lq, k.shape[1], h, dh, *shape, _stream(q.device),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
+            _ptr(dropout_seed) if threshold else None, threshold, keep_scale,
+            out.data_ptr(), _ptr(lse), b, lq, k.shape[1], h, dh, *shape, _stream(q.device),
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd_mma launch failed: cudaError {err}")
@@ -323,10 +326,9 @@ def launch_forward_mma(q, k, v, key_padding_mask, with_lse, shape=None):
 
 def launch_forward_simt(q, k, v, key_padding_mask, dropout_seed, dropout_rate, with_lse):
     """One launch of the SIMT forward kernel on CUDA tensors, fp32 or bf16,
-    with or without dropout: (out, lse or None). ``mha`` sends only
-    bf16-with-dropout calls here; a direct call also times it at fp32
-    against the tf32 kernel and at bf16 without dropout against the mma
-    kernel."""
+    with or without dropout: (out, lse or None). It runs on no path of
+    ``mha``; a direct call times it against the tf32 kernel at fp32 and the
+    mma kernel at bf16."""
     _check_kernel_inputs(q, k, v, key_padding_mask)
     b, lq, h, dh = q.shape
     lk = k.shape[1]
@@ -454,7 +456,8 @@ def mha(q, k, v, key_padding_mask=None, dropout_rate: float = 0.0, dropout_seed=
     A CUDA tensor launches the kernels: the forward on the route
     ``forward_route`` picks (``mha.tf32_launches`` counts launches of the
     3xTF32 tensor-core kernel, ``mha.mma_launches`` those of the bf16
-    tensor-core kernel, ``mha.launches`` those of the SIMT kernel), and under
+    tensor-core kernel, ``mha.launches`` those of the SIMT kernel, which
+    only a direct call reaches), and under
     autograd the backward on the route ``backward_route`` picks
     (``mha.backward_mma_launches`` for the 3xTF32 tensor-core kernel,
     ``mha.backward_bf16_launches`` for the bf16 tensor-core kernel,

@@ -66,42 +66,31 @@ def test_mha_bf16_matches_jax_reference():
 
 @pytest.mark.parametrize("dtype,rate,head_dim,route", [
     (torch.bfloat16, 0.0, 32, "mma"), (torch.bfloat16, 0.0, 64, "mma"),
-    (torch.bfloat16, 0.1, 32, "simt"), (torch.float32, 0.0, 32, "tf32"),
+    (torch.bfloat16, 0.1, 32, "mma"), (torch.float32, 0.0, 32, "tf32"),
     (torch.float32, 0.1, 64, "tf32"), (torch.bfloat16, 0.0, 16, "simt"),
     (torch.float32, 0.1, 32, "tf32"), (torch.float32, 0.0, 64, "tf32"),
-    (torch.bfloat16, 0.1, 64, "simt"), (torch.float32, 0.0, 16, "simt")])
+    (torch.bfloat16, 0.1, 64, "mma"), (torch.float32, 0.0, 16, "simt")])
 def test_forward_route(dtype, rate, head_dim, route):
-    """A CUDA call's forward kernel depends on dtype, dropout and head dim
-    alone: the 3xTF32 tensor-core kernel for fp32 at any dropout rate, the
-    bf16 tensor-core kernel for bf16 without dropout, the SIMT kernel for
-    bf16 with dropout (a head dim of 16 is refused by ``mha`` before
-    routing)."""
+    """A CUDA call's forward kernel depends on dtype and head dim alone: the
+    3xTF32 tensor-core kernel for fp32, the bf16 tensor-core kernel for
+    bf16, each at any dropout rate; the SIMT kernel on no route (a head dim
+    of 16 is refused by ``mha`` before routing)."""
     assert fa.forward_route(dtype, rate, head_dim) == route
 
 
 @pytest.mark.parametrize("batch_heads,lq,shape", [
     (16, 1232, (4, 1)), (8, 1232, (4, 1)), (8, 1050, (4, 1)), (8, 100, (1, 4)),
-    (16, 100, (1, 4)), (16, 320, (1, 4)), (64, 252, (4, 1)), (64, 100, (1, 4))])
-def test_mma_cta_shape(batch_heads, lq, shape):
-    """The mma kernel's CTA shape (row groups of 16 queries, warps on each
-    row group's keys) on a 132-SM card at DETR's shapes: 64 rows a CTA when
-    that fills the SMs (320 CTAs for B=2 at 1232 queries, 160 for b1, 136
-    at 1050), else one row group with its keys split 4 ways (the 100
-    decoder queries; 80 CTAs at 320 queries; 128 for 64 heads of 100)."""
-    assert fa.mma_shape(batch_heads, lq, 132) == shape
-    assert shape in fa.MMA_SHAPES
-
-
-@pytest.mark.parametrize("batch_heads,lq,shape", [
-    (16, 1232, (4, 1)), (8, 1232, (4, 1)), (8, 1050, (4, 1)), (8, 100, (1, 4)),
-    (16, 100, (1, 4)), (16, 320, (4, 1)), (64, 252, (4, 1)), (64, 100, (4, 1)),
-    (32, 100, (1, 4)), (33, 100, (4, 1))])
-def test_tf32_cta_shape(batch_heads, lq, shape):
-    """The tf32 kernel's CTA shape on a 132-SM card: 64 rows a CTA when those
-    CTAs number at least 66 (every encoder shape; the 100 decoder queries of
-    b8 training, 128 CTAs), else one row group with its keys split 4 ways
-    (the 100 decoder queries served at b1 and B=2, 16 and 32 CTAs)."""
-    assert fa.tf32_shape(batch_heads, lq, 132) == shape
+    (16, 100, (1, 4)), (16, 320, (4, 1)), (8, 320, (1, 4)), (64, 252, (4, 1)),
+    (64, 100, (4, 1)), (32, 100, (1, 4)), (33, 100, (4, 1)), (64, 1232, (4, 1))])
+def test_cta_shape(batch_heads, lq, shape):
+    """The tensor-core forwards' CTA shape (row groups of 16 queries, warps
+    on each row group's keys) on a 132-SM card: 64 rows a CTA when those
+    CTAs number at least 66 (every encoder shape served at b1, B=2 and b8,
+    160, 320 and 1280 CTAs; (320, 320) at B=2, 80; the b8 training step's three
+    shapes, the 100 decoder queries' 128 included), else one row group with
+    its keys split 4 ways (the 100 decoder queries served at b1 and B=2, 16
+    and 32 CTAs; (320, 320) at b1, 40)."""
+    assert fa.cta_shape(batch_heads, lq, 132) == shape
     assert shape in fa.MMA_SHAPES
 
 
@@ -551,3 +540,159 @@ def test_bf16_backward_emulation_ds_rows_sum_to_zero(rate):
     delta = (dout * out).sum(axis=-1, keepdims=True, dtype=np.float32)
     _, ds_out, _ = _bf16_backward(q, k, v, dout, bias, lse, keep, rate, delta=delta)
     assert float(np.abs(ds_out.sum(axis=-1)).max()) >= 100 * ours
+
+
+_LOG2E = np.float32(1.4426950408889634)
+
+
+def _mma_forward(q, k, v, bias, keep=None, rate=0.0, split=1):
+    """numpy emulation of csrc/flash_attention_fwd_mma.cu on (BH, L, Dh)
+    float32 arrays holding bf16 values and a (BH, Lk) additive bias, at the
+    CTA shape (4, 1) (``split`` 1) or (1, 4) (``split`` 4: each of four
+    warps takes 16 keys of every 64-key tile with a running max and sum of
+    its own, merged at the end). Scores in fp32 (products of bf16 values are
+    exact in fp32), keys past Lk at -inf; p = exp2((s - max) log2 e) left
+    unnormalised; the row sum takes p before dropout; p times the keep
+    factor (``keep``, a (BH, Lq, Lk) bool mask) in fp32, rounded to bf16
+    for PV, summed in fp32; O and the sum rescaled a tile; O times 1 / sum
+    rounded to bf16 at the end. Returns (out, lse) with lse = max + log sum,
+    (BH, Lq, 1)."""
+    f32 = np.float32
+    bh, lq, dh = q.shape
+    lk = k.shape[1]
+    tiles = -(-lk // 64)
+    pad = ((0, 0), (0, tiles * 64 - lk), (0, 0))
+    k, v = np.pad(k, pad), np.pad(v, pad)
+    bias = np.pad(bias, ((0, 0), (0, tiles * 64 - lk)), constant_values=-np.inf)
+    factor = np.ones((bh, lq, tiles * 64), f32)
+    if keep is not None:
+        factor[:, :, :lk] = np.where(keep, f32(1.0 / (1.0 - rate)), f32(0))
+    width = 64 // split
+    shares = []
+    for part in range(split):
+        o = np.zeros((bh, lq, dh), f32)
+        m = np.full((bh, lq, 1), -np.inf, f32)
+        l = np.zeros((bh, lq, 1), f32)
+        for tile in range(tiles):
+            cols = slice(tile * 64 + part * width, tile * 64 + (part + 1) * width)
+            s = q @ k[:, cols].transpose(0, 2, 1) + bias[:, None, cols]
+            mx = np.maximum(m, s.max(axis=-1, keepdims=True))
+            mn = np.where(mx == -np.inf, f32(0), mx)
+            alpha = np.exp2((m - mn) * _LOG2E)
+            p = np.exp2((s - mn) * _LOG2E)
+            l = l * alpha + p.sum(axis=-1, keepdims=True, dtype=f32)
+            m = mx
+            o = o * alpha + _bf16(p * factor[:, :, cols]) @ v[:, cols]
+        shares.append((o, m, l))
+    o, m, l = shares[0]
+    for o_, m_, l_ in shares[1:]:  # the first share holds key 0: its max is finite
+        mx = np.maximum(m, m_)
+        a, c = np.exp2((m - mx) * _LOG2E), np.exp2((m_ - mx) * _LOG2E)
+        o, l, m = o * a + o_ * c, l * a + l_ * c, mx
+    return _bf16(o * (f32(1) / l)), m + np.log(l)
+
+
+# (Lq, Lk, case): "full" keeps every key; "ragged" pads a different tail of
+# each batch element's keys; "padded" pads every key of batch element 1 (a
+# uniform softmax) and a tail of element 0's.
+_MMA_CASES = [(252, 252, "full"), (100, 37, "ragged"), (40, 70, "padded")]
+
+
+def _mma_case(lq, lk, case):
+    """bf16 values (as float32) at b2 h2 Dh 32, the (B, Lk) key-padding mask
+    (None for "full") and the kernel's (B * H, Lk) bias."""
+    q, k, v, _ = _inputs(lq * 5 + lk, 2, lq, lk, 2, 32, False)
+    q, k, v = (_bf16(x) for x in (q, k, v))
+    mask = np.zeros((2, lk), bool)
+    if case == "ragged":
+        mask[0, lk - lk // 3:] = True
+        mask[1, lk // 2:] = True
+    elif case == "padded":
+        mask[0, lk - lk // 4:] = True
+        mask[1] = True
+    bias = np.repeat(np.where(mask, np.float32(-1e30), np.float32(0)), 2, axis=0)
+    return q, k, v, (mask if case != "full" else None), bias
+
+
+def _float64_attention(q, k, v, bias, keep=None, rate=0.0):
+    """Softmax attention in float64 on (BH, L, Dh) arrays, with the keep
+    mask's multipliers: (out, lse)."""
+    s = q.astype(np.float64) @ k.transpose(0, 2, 1).astype(np.float64) + bias[:, None, :]
+    top = s.max(axis=-1, keepdims=True)
+    e = np.exp(s - top)
+    p = e / e.sum(axis=-1, keepdims=True)
+    if keep is not None:
+        p = p * np.where(keep, 1.0 / (1.0 - rate), 0.0)
+    return p @ v.astype(np.float64), top + np.log(e.sum(axis=-1, keepdims=True))
+
+
+@pytest.mark.parametrize("lq,lk,case", _MMA_CASES)
+def test_mma_forward_emulation_matches_jax_kernel(lq, lk, case):
+    """At dropout 0, the emulation of A-mma at both CTA shapes agrees with
+    the JAX package's kernel (Pallas, interpret mode) on the same bf16
+    inputs within 4 bf16 ulps of the largest output (2**-6 relative): both
+    round P to bf16 before PV, the JAX kernel after normalising it, A-mma
+    before. A batch element whose keys are all padded is left out: the JAX
+    kernel spreads it over its 128-padded keys."""
+    q, k, v, mask, bias = _mma_case(lq, lk, case)
+    jmask = None if mask is None else jnp.asarray(mask)
+    ref = jax_fa.mha(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), key_padding_mask=jmask,
+                     interpret=True)
+    assert ref.dtype == jnp.bfloat16
+    ref = np.asarray(ref, np.float32)
+    rows = slice(0, 1) if case == "padded" else slice(None)
+    for split in (1, 4):
+        ours, _ = _mma_forward(_heads(q), _heads(k), _heads(v), bias, split=split)
+        ours = _unheads(ours, 2)
+        tol = 2**-6 * np.abs(ref[rows]).max()
+        np.testing.assert_allclose(ours[rows], ref[rows], atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("split", [1, 4])
+@pytest.mark.parametrize("lq,lk,case", _MMA_CASES)
+def test_mma_forward_emulation_dropout_matches_plain(lq, lk, case, split):
+    """At dropout 0.1, the emulation given ``keep_mask``'s bits agrees with
+    the port's plain version (``reference_mha`` on the same bf16 tensors,
+    given the same mask) within 4 bf16 ulps of the largest output (2**-6
+    relative), the fully padded element included: plain normalises and
+    drops before rounding P to bf16, the kernel drops, rounds and divides
+    by the row sum at the end. (Interpret mode's random bits are zeros, so
+    the JAX kernel is not taken with dropout.)"""
+    q, k, v, mask, bias = _mma_case(lq, lk, case)
+    keep = fa.keep_mask(torch.tensor([lq * 11 + lk]), 4, lq, lk, 0.1)
+    ours, _ = _mma_forward(_heads(q), _heads(k), _heads(v), bias, keep.numpy(), 0.1, split)
+    ref = fa.reference_mha(*(torch.from_numpy(x).bfloat16() for x in (q, k, v)),
+                           None if mask is None else torch.from_numpy(mask),
+                           keep.view(2, 2, lq, lk), 0.1)
+    assert ref.dtype == torch.bfloat16
+    ref = ref.float().numpy()
+    np.testing.assert_allclose(_unheads(ours, 2), ref, atol=2**-6 * np.abs(ref).max(), rtol=0)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("lq,lk,case", _MMA_CASES)
+def test_mma_forward_emulation_is_near_float64(lq, lk, case, rate):
+    """Against float64 attention on the same bf16 values and keep mask, the
+    emulation at both CTA shapes is no further off, in the largest error
+    relative to the largest output, than 1.5 times the plain bf16 version
+    (``reference_mha``, which rounds P once, normalised) and than 2**-8
+    (one bf16 ulp at 1); its lse, taken before dropout, is within 1e-5 of
+    float64's on every row that keeps a key and below -1e29 on a fully
+    padded one."""
+    q, k, v, mask, bias = _mma_case(lq, lk, case)
+    keep = fa.keep_mask(torch.tensor([lq * 13 + lk]), 4, lq, lk, rate) if rate else None
+    keep_np = None if keep is None else keep.numpy()
+    qh, kh, vh = _heads(q), _heads(k), _heads(v)
+    exact, exact_lse = _float64_attention(qh, kh, vh, bias, keep_np, rate)
+    plain = fa.reference_mha(*(torch.from_numpy(x).bfloat16() for x in (q, k, v)),
+                             None if mask is None else torch.from_numpy(mask),
+                             None if keep is None else keep.view(2, 2, lq, lk), rate)
+    scale = np.abs(exact).max()
+    plain_err = np.abs(_heads(plain.float().numpy()) - exact).max() / scale
+    valid = (bias > -1e29).any(axis=-1)
+    for split in (1, 4):
+        ours, lse = _mma_forward(qh, kh, vh, bias, keep_np, rate, split)
+        err = np.abs(ours - exact).max() / scale
+        assert err <= min(1.5 * plain_err, 2**-8), (split, err, plain_err)
+        np.testing.assert_allclose(lse[valid], exact_lse[valid], atol=1e-5, rtol=0)
+        assert (lse[~valid] < -1e29).all()

@@ -69,24 +69,30 @@ def _forward_counts(before=(0, 0, 0)):
 
 
 # The tensor-core forward (csrc/flash_attention_fwd_mma.cu) at every CTA shape
-# it has: DETR's shapes, Dh 64, and a ragged Lq and Lk (not multiples of 16
-# or 64; at 129 keys a warp of a 4-way split sees no valid key in the last
-# tile). bf16: P rounded to bf16 before PV on both sides, normalised at
-# different points; chip_smoke.ATOL.
+# it has: DETR's shapes, the three b8 training shapes, Dh 64, and a ragged Lq
+# and Lk (not multiples of 16 or 64; at 129 keys a warp of a 4-way split
+# sees no valid key in the last tile), with and without dropout (plain given
+# the kernel library's keep mask), masked and not. bf16: P rounded to bf16
+# before PV on both sides, normalised at different points; chip_smoke.ATOL.
+@pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("shape", fa.MMA_SHAPES)
 @pytest.mark.parametrize("b,lq,lk,dh", [(2, 1232, 1232, 32), (2, 100, 1232, 32),
                                          (1, 100, 100, 32), (2, 320, 320, 64),
-                                         (3, 77, 129, 32)])
-def test_attention_mma_kernel_matches_plain(cuda_device, b, lq, lk, dh, shape):
+                                         (3, 77, 129, 32), (8, 252, 252, 32),
+                                         (8, 100, 252, 32), (8, 100, 100, 32)])
+def test_attention_mma_kernel_matches_plain(cuda_device, b, lq, lk, dh, shape, rate):
     q, k, v, mask = _inputs(cuda_device, torch.bfloat16, b, lq, lk, 8, dh, seed=lq + lk + dh)
-    before = fa.mha.mma_launches
+    seed = torch.tensor([lq * 131 + lk], device=cuda_device)
+    keep = fa.kernel_keep_mask(seed, b * 8, lq, lk, rate).view(b, 8, lq, lk) if rate else None
+    before = _forward_counts()
     for m in (mask, None):
-        out, lse = fa.launch_forward_mma(q, k, v, m, False, shape=shape)
+        out, lse = fa.launch_forward_mma(q, k, v, m, False, dropout_seed=seed, dropout_rate=rate,
+                                         shape=shape)
         torch.cuda.synchronize()
         assert lse is None and out.dtype == torch.bfloat16 and out.shape == q.shape
-        ref = fa.reference_mha(q, k, v, m)
+        ref = fa.reference_mha(q, k, v, m, keep, rate)
         assert float((out.float() - ref.float()).abs().max()) <= 2e-2
-    assert fa.mha.mma_launches == before + 2
+    assert _forward_counts(before) == (0, 2, 0)
 
 
 def test_attention_mma_kernel_fully_padded_row_and_lse(cuda_device):
@@ -112,6 +118,52 @@ def test_attention_mma_kernel_fully_padded_row_and_lse(cuda_device):
     want_grads = _grads(lambda *t: fa.reference_mha(*t, mask), q, k, v, dout)
     for g, r in zip(got[1:], want_grads[1:]):
         assert _rel_err(g, r) <= GRAD_RTOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("shape", fa.MMA_SHAPES)
+def test_attention_mma_dropout_bits_are_keep_mask(cuda_device, shape):
+    """A-mma's dropout multipliers, read out exactly: with q = 0 every p is
+    exp2(0) = 1 and the row sum is 64, and with V's key j the unit vector
+    e_j (Dh 64) out[i, j] = bf16(m_ij) / 64, a power-of-two scaling of a
+    bf16 value, so 64 out / bf16(keep_scale) equals the keep mask of
+    ``keep_mask`` (PyTorch Philox) bit for bit."""
+    b, lq, lk, h, rate = 2, 100, 64, 8, 0.1
+    q = torch.zeros((b, lq, h, 64), device=cuda_device, dtype=torch.bfloat16)
+    v = torch.eye(64, device=cuda_device, dtype=torch.bfloat16)[None, :, None, :]
+    v = v.expand(b, lk, h, 64).contiguous()
+    k = torch.randn((b, lk, h, 64), device=cuda_device).bfloat16()
+    seed = torch.tensor([0xDEAD_BEEF_1234], device=cuda_device)
+    out, _ = fa.launch_forward_mma(q, k, v, None, True, dropout_seed=seed, dropout_rate=rate,
+                                   shape=shape)
+    scale = torch.tensor(1 / (1 - rate)).bfloat16().float()
+    got = (out.float() * lk / scale).permute(0, 2, 1, 3).reshape(b * h, lq, lk)
+    want = fa.keep_mask(seed, b * h, lq, lk, rate)
+    assert torch.equal(got, want.float())
+
+
+@pytest.mark.parametrize("shape", fa.MMA_SHAPES)
+@pytest.mark.parametrize("b,lq,lk,dh", [(8, 252, 252, 32), (8, 100, 252, 32), (3, 77, 129, 64)])
+def test_attention_mma_lse_is_taken_before_dropout(cuda_device, b, lq, lk, dh, shape):
+    """A-mma's row lse with dropout equals its lse without dropout bit for
+    bit (the row sum takes p before the keep factor), and the output with
+    dropout differs."""
+    q, k, v, mask = _inputs(cuda_device, torch.bfloat16, b, lq, lk, 8, dh, seed=lq * 3 + lk)
+    seed = torch.tensor([lq + 7 * lk], device=cuda_device)
+    out0, lse0 = fa.launch_forward_mma(q, k, v, mask, True, shape=shape)
+    out1, lse1 = fa.launch_forward_mma(q, k, v, mask, True, dropout_seed=seed, dropout_rate=0.1,
+                                       shape=shape)
+    assert torch.equal(lse0, lse1)
+    assert not torch.equal(out0, out1)
+
+
+def test_attention_mma_dropout_refuses_a_missing_seed(cuda_device):
+    """A rate above 0 without a seed is refused by the C entry point: the
+    wrapper raises and launches nothing."""
+    q, k, v, mask = _inputs(cuda_device, torch.bfloat16, 2, 16, 16, 8, 32, seed=0)
+    before = fa.mha.mma_launches
+    with pytest.raises(RuntimeError, match="flash_attention_fwd_mma"):
+        fa.launch_forward_mma(q, k, v, mask, False, dropout_rate=0.1)
+    assert fa.mha.mma_launches == before
 
 
 def test_attention_simt_kernel_still_takes_bf16(cuda_device):
@@ -325,6 +377,26 @@ def test_attention_backward_matches_plain(cuda_device, b, lq, lk, dh, dtype, rat
     for g, r in zip(got[1:], ref[1:]):
         assert g.dtype == dtype and g.shape == r.shape
         assert _rel_err(g, r) <= GRAD_RTOL[dtype]
+
+
+def test_bf16_attention_with_dropout_under_autograd(cuda_device):
+    """bf16 ``mha`` under autograd at dropout 0.1, the bf16 step's call: the
+    forward on A-mma, the backward on A'-bf16 (no SIMT kernel), output and
+    gradients against plain autograd given the kernel library's keep mask,
+    at each training shape."""
+    for lq, lk in ((252, 252), (100, 252), (100, 100)):
+        q, k, v, mask = _inputs(cuda_device, torch.bfloat16, 8, lq, lk, 8, 32, seed=lq + 5 * lk)
+        dout = torch.randn(q.shape, generator=torch.Generator(device=cuda_device).manual_seed(lq),
+                           device=cuda_device).bfloat16()
+        seed = torch.tensor([lq * 977 + lk], device=cuda_device)
+        keep = fa.kernel_keep_mask(seed, 64, lq, lk, 0.1).view(8, 8, lq, lk)
+        fwd, bwd = _forward_counts(), _backward_counts()
+        got = _grads(lambda *t: fa.mha(*t, mask, 0.1, seed), q, k, v, dout)
+        assert _forward_counts(fwd) == (0, 1, 0) and _backward_counts(bwd) == (0, 1, 0)
+        ref = _grads(lambda *t: fa.reference_mha(*t, mask, keep, 0.1), q, k, v, dout)
+        assert float((got[0].float() - ref[0].float()).abs().max()) <= 2e-2
+        for g, r in zip(got[1:], ref[1:]):
+            assert g.dtype == torch.bfloat16 and _rel_err(g, r) <= GRAD_RTOL[torch.bfloat16]
 
 
 def _backward_counts(before=(0, 0, 0)):
@@ -1057,12 +1129,12 @@ def _train_batch(device, b=1, seed=3):
                             "mask": np.stack(mask)}, device)
 
 
-def test_bf16_train_step_launches_the_simt_kernels(cuda_device):
+def test_bf16_train_step_launches_the_tensor_core_kernels(cuda_device):
     """One bf16 ``Trainer`` step of a DETR with the full 6 + 6 transformer
-    (reduced backbone) at dropout 0.1: 18 SIMT attention forwards (bf16 with
-    dropout), 18 bf16 tensor-core backwards (A'-bf16), no SIMT backward, no
-    3xTF32 kernel, one LAP launch, one max pool; every parameter, gradient
-    and Adam moment float32."""
+    (reduced backbone) at dropout 0.1: 18 bf16 tensor-core attention
+    forwards (A-mma with dropout), 18 bf16 tensor-core backwards (A'-bf16),
+    no SIMT forward or backward, no 3xTF32 kernel, one LAP launch, one max
+    pool; every parameter, gradient and Adam moment float32."""
     from detr_tensorflow_tpu_torch.train import Trainer, TrainingConfig
 
     config = TrainingConfig(background_class=91, train_backbone=True, train_transformers=True,
@@ -1072,8 +1144,8 @@ def test_bf16_train_step_launches_the_simt_kernels(cuda_device):
     trainer = Trainer(model, config, seed=0)
     batch, logs = _train_batch(cuda_device), []
     pool, mma = maxpool.max_pool_3x3_s2.launches, fa.mha.mma_launches
-    assert _counts(lambda: logs.append(trainer.step(batch))) == (0, 18, 0, 0, 18, 1)
-    assert fa.mha.mma_launches == mma and maxpool.max_pool_3x3_s2.launches == pool + 1
+    assert _counts(lambda: logs.append(trainer.step(batch))) == (0, 0, 0, 0, 18, 1)
+    assert fa.mha.mma_launches == mma + 18 and maxpool.max_pool_3x3_s2.launches == pool + 1
     assert bool(torch.isfinite(logs[0]["total_loss"]))
     assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
                for p in model.parameters())
