@@ -78,6 +78,15 @@ Phases, one status line each; any failure raises and exits non-zero:
      Adam moment float32 after each; median step time, device-busy time and
      peak memory beside the fp32 step's, and one step's kernel time with the
      attention kernels' share;
+ 9c. entry points: a synthetic COCO set of 16 PNG images at COCO-like sizes
+     with 1-20 boxes each; ``train_coco.main`` trains full-width DETR-R50
+     on it for 4 steps at b8 376x672 fp32 with augmentation through
+     ``Trainer.prefetch``, checkpointing; ``restore_latest`` and one more
+     step (A-tf32 and A'-mma 18 a step, B 1, C 1); the loader's images/s
+     and a loader-fed step beside an in-memory one; ``eval.main`` at
+     original size, batch 1 and batch 4, with equal AP tables (A-tf32 18 a
+     forward, C 1), one eval batch against the plain-attention model;
+     SIGTERM during ``fit`` under ``PreemptionGuard``;
  10. fused kernels: C (stem max pool), D (fused bottleneck tail) and E
      (whole identity bottleneck) at every distinct shape of one b1 forward
      of the fused-backbone model, at 896x1408 with a mask (C, D x16) and
@@ -1292,6 +1301,218 @@ def phase_training(torch, fa, lap, mp, api, train, losses):
                     "events": events}
 
 
+# The entry-points phase: a synthetic COCO set of COCO-like image sizes
+# written as PNG, DETR-R50 trained on it from image files by
+# ``train_coco.main`` (b8 376x672, augmentation, Trainer.prefetch) and
+# evaluated by ``eval.main`` at original size, batch 1 and batch 4. The
+# rates are taken on a second set of ENTRY_RATE_IMAGES: one epoch of it is
+# many times the batches the loader holds ahead of a step, so the later
+# steps of a loader-fed epoch wait on the loader if it falls behind.
+ENTRY_SIZES = [(480, 640), (427, 640), (640, 480)]
+ENTRY_IMAGES, ENTRY_BOXES, ENTRY_STEPS, ENTRY_EVAL_BATCH = 16, (1, 20), 4, 4
+ENTRY_RATE_IMAGES = 256
+
+
+def reset_counts(fa, lap, mp):
+    fa.mha.tf32_launches = fa.mha.backward_launches = lap.solve_lap_masked.launches = 0
+    mp.max_pool_3x3_s2.launches = fa.mha.mma_launches = fa.mha.backward_mma_launches = 0
+    fa.mha.launches = fa.mha.backward_bf16_launches = 0
+
+
+def read_counts(fa, lap, mp) -> dict:
+    return {"A-tf32": fa.mha.tf32_launches, "A'-mma": fa.mha.backward_mma_launches,
+            "B": lap.solve_lap_masked.launches, "C": mp.max_pool_3x3_s2.launches,
+            "A-mma": fa.mha.mma_launches, "A SIMT": fa.mha.launches,
+            "A' SIMT": fa.mha.backward_launches, "A'-bf16": fa.mha.backward_bf16_launches}
+
+
+def expect_counts(label, counts, steps=0, forwards=0):
+    """A fp32 training step launches A-tf32 and A'-mma 18 times, B and C
+    once; an eval forward A-tf32 18 times and C once; nothing else runs."""
+    want = {"A-tf32": LAUNCHES_PER_FORWARD * (steps + forwards),
+            "A'-mma": LAUNCHES_PER_FORWARD * steps, "B": steps, "C": steps + forwards,
+            "A-mma": 0, "A SIMT": 0, "A' SIMT": 0, "A'-bf16": 0}
+    log(f"  launches {label}: {counts}")
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+
+
+def phase_entry_points(torch, fa, lap, mp, api, train):
+    """The port's workflows from image files at DETR-R50's full width,
+    fp32: ``train_coco.main`` for ENTRY_STEPS loader-fed steps with a
+    checkpoint, ``restore_latest`` and one more step; the loader's
+    throughput and a loader-fed step against an in-memory one;
+    ``eval.main`` at batch 1 and ENTRY_EVAL_BATCH with equal AP tables, the
+    eval rates, one eval batch's forward against the plain-attention
+    model's; SIGTERM
+    during ``fit`` under ``PreemptionGuard``. Counts reset just before each
+    run and read just after."""
+    import itertools
+    import math
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from detr_tensorflow_tpu_torch import eval as eval_main
+    from detr_tensorflow_tpu_torch import train_coco
+    from detr_tensorflow_tpu_torch.data import load_coco_dataset, make_synthetic_coco
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_coco_")
+    try:
+        t = time.perf_counter()
+        make_synthetic_coco(root, n_images=ENTRY_IMAGES, seed=0, sizes=ENTRY_SIZES,
+                            boxes_per_image=ENTRY_BOXES)
+        log(f"  wrote {ENTRY_IMAGES} PNG images ({ENTRY_SIZES} in turn, {ENTRY_BOXES[0]}-"
+            f"{ENTRY_BOXES[1]} boxes each) in {time.perf_counter() - t:.2f} s")
+        ckpt = os.path.join(root, "ckpt")
+        data = ["--data_dir", root, "--img_dir", "images", "--ann_file", "ann.json",
+                "--device", DEVICE]
+        argv = data + ["--batch_size", str(TRAIN_BATCH), "--target_batch", str(TRAIN_BATCH),
+                       "--image_size", *map(str, TRAIN_HW), "--epochs", str(ENTRY_STEPS),
+                       "--steps_per_epoch", "1", "--evaluation_steps", "0",
+                       "--checkpoint_dir", ckpt]
+        path_counts = collections.Counter()
+
+        def main_path_counts(label, **runs):
+            counts = read_counts(fa, lap, mp)
+            expect_counts(label, counts, **runs)
+            path_counts.update(counts)
+
+        reset_counts(fa, lap, mp)  # main path: training from image files
+        t = time.perf_counter()
+        trainer = train_coco.main(argv)
+        torch.cuda.synchronize()
+        log(f"  train_coco.main: {trainer.steps} steps in {time.perf_counter() - t:.2f} s "
+            "(model build and first-call setup included)")
+        main_path_counts("train_coco.main", steps=ENTRY_STEPS)
+        if trainer.steps != ENTRY_STEPS or train.latest_step(ckpt) != ENTRY_STEPS:
+            raise AssertionError(f"{trainer.steps} steps, checkpoint at "
+                                 f"{train.latest_step(ckpt)}, expected {ENTRY_STEPS}")
+        config = trainer.config
+        loader, _ = load_coco_dataset(config, TRAIN_BATCH, augmentation=True, seed=1)
+
+        resumed = train.Trainer(api.get_detr_model(
+            config, include_top=False, nb_class=config.background_class + 1, tf_backbone=True,
+            device=DEVICE).module, config)
+        train.restore_latest(resumed, ckpt)
+        for (name, p), q in zip(trainer.model.named_parameters(), resumed.model.parameters()):
+            if not torch.equal(p, q):
+                raise AssertionError(f"restored {name} differs from the trained one")
+        reset_counts(fa, lap, mp)  # main path: one more step after the restore
+        log_after = resumed.step(next(resumed.prefetch(itertools.islice(loader, 1))))
+        loss = float(log_after["total_loss"])
+        main_path_counts("the step after restore_latest", steps=1)
+        if not (math.isfinite(loss) and resumed.steps == ENTRY_STEPS + 1):
+            raise AssertionError(f"step after the restore: loss {loss}, step {resumed.steps}")
+        log(f"  restore_latest: step {ENTRY_STEPS} restored (parameters equal), step "
+            f"{resumed.steps} loss {loss:.4f}")
+        del resumed
+
+        rate_root = os.path.join(root, "rate")
+        t = time.perf_counter()
+        make_synthetic_coco(rate_root, n_images=ENTRY_RATE_IMAGES, seed=1, sizes=ENTRY_SIZES,
+                            boxes_per_image=ENTRY_BOXES)
+        log(f"  wrote a second set of {ENTRY_RATE_IMAGES} PNG images for the rates in "
+            f"{time.perf_counter() - t:.2f} s")
+        rate_data = train.DataConfig(data_dir=rate_root, img_dir="images", ann_file="ann.json")
+        rate_loader, _ = load_coco_dataset(config.replace(data=rate_data), TRAIN_BATCH,
+                                           augmentation=True, seed=1)
+        t, images = time.perf_counter(), 0
+        for batch in rate_loader:
+            images += len(batch["images"])
+        loader_rate = images / (time.perf_counter() - t)
+        log(f"  loader alone ({rate_loader.num_workers} threads, PNG decode, augmentation, "
+            f"normalization, b{TRAIN_BATCH} {TRAIN_HW[0]}x{TRAIN_HW[1]}): {images} images in one "
+            f"epoch, {loader_rate:.1f} images/s")
+
+        def step_times(batches):
+            marks = [time.perf_counter()]
+
+            def log_fn(host_log, step):
+                marks.append(time.perf_counter())
+
+            train.fit(trainer, batches, config, epoch_nb=0, log_fn=log_fn, log_every=1)
+            return [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+
+        # Batches ready before a step can wait: the HostDataset queue, the
+        # one its producer holds, and Trainer.prefetch's two in flight.
+        ahead = rate_loader.prefetch + 1 + 2
+        fed = step_times(rate_loader)
+        in_memory_batch = next(iter(loader))
+        in_memory = step_times([in_memory_batch] * len(fed))
+        fed_ms, memory_ms = statistics.median(fed), statistics.median(in_memory)
+        steady_ms = statistics.median(fed[ahead:])
+        log(f"  fp32 step fed by the loader over one epoch of {len(fed)} steps: "
+            f"{[round(x, 2) for x in fed]} ms, median {fed_ms:.2f}, {steady_ms:.2f} over steps "
+            f"{ahead}-{len(fed) - 1} (past the {ahead} batches held ahead); fed one in-memory "
+            f"batch: median {memory_ms:.2f} over {len(in_memory)} steps")
+
+        shapes = [ENTRY_SIZES[i % len(ENTRY_SIZES)] for i in range(ENTRY_IMAGES)]
+        buckets = collections.Counter((-(-h // 128) * 128, -(-w // 128) * 128) for h, w in shapes)
+        tables = {}
+        for batch_size in (1, ENTRY_EVAL_BATCH):
+            forwards = sum(-(-n // batch_size) for n in buckets.values())
+            reset_counts(fa, lap, mp)  # main path: evaluation from image files
+            tables[batch_size] = eval_main.main(data + ["--batch", str(batch_size)])
+            torch.cuda.synchronize()
+            main_path_counts(f"eval.main --batch {batch_size}", forwards=forwards)
+            log(f"  eval.main --batch {batch_size}: {forwards} forwards, box AP "
+                f"{dict(tables[batch_size]['box'])}")
+        if tables[1] != tables[ENTRY_EVAL_BATCH]:
+            raise AssertionError(f"AP tables differ: batch 1 {tables[1]}, batch "
+                                 f"{ENTRY_EVAL_BATCH} {tables[ENTRY_EVAL_BATCH]}")
+        # Eval's images/s on a model built beforehand, warm (eval.main ran both
+        # batch sizes' shapes): reading, padding, the forward and the AP.
+        model = api.get_detr_model(None, include_top=True, device=DEVICE)
+        eval_config = train.TrainingConfig(data=train.DataConfig(
+            data_dir=root, img_dir="images", ann_file="ann.json"))
+        eval_rates = {}
+        for batch_size in (1, ENTRY_EVAL_BATCH):
+            valid, names = load_coco_dataset(eval_config.replace(data=rate_data), batch_size,
+                                             augmentation=None)
+            cfg = eval_config.replace(background_class=valid.background_class)
+            t = time.perf_counter()
+            eval_main.eval_model(model, cfg, names, valid)
+            torch.cuda.synchronize()
+            eval_rates[batch_size] = ENTRY_RATE_IMAGES / (time.perf_counter() - t)
+        log(f"  eval images/s over the {ENTRY_RATE_IMAGES} images, warm, model built beforehand: "
+            + ", ".join(f"b{b} {r:.2f}" for b, r in eval_rates.items()))
+        # One eval batch through the kernel model and the plain-attention model.
+        valid, _ = load_coco_dataset(eval_config, ENTRY_EVAL_BATCH, augmentation=None,
+                                     shuffle=False)
+        batch = next(iter(valid))
+        images = torch.as_tensor(batch["images"]).to(DEVICE)
+        pixel_mask = torch.as_tensor(batch["pixel_mask"]).to(DEVICE)
+        plain = api.get_detr_model(None, include_top=True, device=DEVICE, attn_impl="plain")
+        outs = [m(images, pixel_mask) for m in (model, plain)]
+        errs = {k: float((outs[0][k] - outs[1][k]).abs().max())
+                for k in ("pred_boxes", "pred_logits")}
+        log(f"  eval forward ({tuple(images.shape)} with a pixel mask) against the plain-attention "
+            f"model: boxes {errs['pred_boxes']:.3e} (tol {BOX_ATOL}), logits "
+            f"{errs['pred_logits']:.3e} (tol {LOGIT_ATOL})")
+        if not (errs["pred_boxes"] <= BOX_ATOL and errs["pred_logits"] <= LOGIT_ATOL):
+            raise AssertionError(f"eval forward against plain attention: {errs}")
+        del outs, model, plain
+
+        steps_before = trainer.steps
+        with train.PreemptionGuard() as guard:  # the signal lands as the first step logs
+            done = train.fit(trainer, [in_memory_batch] * 4, config, epoch_nb=0,
+                             preemption_guard=guard, log_every=1,
+                             log_fn=lambda host_log, step: os.kill(os.getpid(), signal.SIGTERM))
+        if done is not False or train.latest_step(ckpt) != trainer.steps \
+                or trainer.steps != steps_before + 2:
+            raise AssertionError(f"preemption: fit returned {done}, checkpoint at "
+                                 f"{train.latest_step(ckpt)}, step {trainer.steps}")
+        log(f"  SIGTERM during fit under PreemptionGuard: fit returned False with a checkpoint "
+            f"at step {trainer.steps}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return path_counts, {"loader_images_s": loader_rate, "fed_ms": fed_ms, "ahead": ahead,
+                         "steady_ms": steady_ms, "memory_ms": memory_ms,
+                         "eval_images_s": eval_rates}
+
+
 def tensor_gaps(ours, plain, exact):
     """The bf16 kernel route's gradients (or outputs) ``ours`` and the bf16
     plain route's ``plain`` against the fp32 step's ``exact``, in relative
@@ -1933,6 +2154,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t = time.perf_counter()
+    entry_counts, entry = phase_entry_points(torch, fa, lap, maxpool, api, train)
+    log(f"[entry points] ok in {time.perf_counter() - t:.1f} s; loader {entry['loader_images_s']:.1f} "
+        f"images/s, b{TRAIN_BATCH} fp32 step fed by the loader (past the {entry['ahead']} "
+        f"batches held ahead) / in memory, median {entry['fed_ms']:.2f} "
+        f"({entry['steady_ms']:.2f}) / "
+        f"{entry['memory_ms']:.2f} ms, eval images/s "
+        + ", ".join(f"b{b} {r:.2f}" for b, r in entry["eval_images_s"].items()))
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
     fused_worst, fused_abs, fused_times = phase_fused_kernels(
         torch, maxpool, fused_residual, fused_bottleneck)
     log(f"[fused kernels] ok in {time.perf_counter() - t:.1f} s; worst kernel vs plain rel err "
@@ -2020,7 +2251,8 @@ def main() -> int:
         entry("flash_attention_bwd", SOURCES[1], counts[1] + counts16["A' SIMT"],
               bwd_worst["simt bfloat16"], bwd16["simt"], bwd16["plain"], *bwd16["bound"],
               bwd16["sdpa"], train_at("bfloat16") + ", called directly"),
-        entry("lap", SOURCES[2], counts[2] + counts16["B"], lap_err, lap_ms, lap_plain_ms,
+        entry("lap", SOURCES[2], counts[2] + counts16["B"] + entry_counts["B"], lap_err, lap_ms,
+              lap_plain_ms,
               lap_bound, lap_by, None, f"{LAP_PROBLEMS} problems of {LAP_SLOTS}x{LAP_SLOTS} "
               "float32, one call"),
         entry("int8_matmul", SOURCES[3], sum(f_counts.values()), int8_worst["int8_matmul"],
@@ -2030,7 +2262,7 @@ def main() -> int:
               *int8_times["int8_conv"][[0, 1, 3]], int8_by["int8_conv"],
               int8_times["int8_conv"][2], int8_at(G_PER_FORWARD)),
         fused_entry("maxpool", SOURCES[5], pool_serving + counts[3] + counts16["C"]
-                    + fused_counts[0] + fused_bf16_counts[0], masked_tag),
+                    + entry_counts["C"] + fused_counts[0] + fused_bf16_counts[0], masked_tag),
         fused_entry("fused_residual", SOURCES[6], fused_counts[1] + fused_bf16_counts[1],
                     masked_tag),
         fused_entry("fused_bottleneck", SOURCES[7], fused_counts[4] + fused_bf16_counts[4],
@@ -2039,9 +2271,11 @@ def main() -> int:
               mma_serving + int8_a + fused_bf16_counts[8] + counts16["A-mma"], mma_err,
               a16["mma"], a16["plain"], *a16["bound"], a16["sdpa"],
               "(1232,1232) bfloat16 B=2 H=8 Dh=32, one call"),
-        entry("flash_attention_bwd_mma", SOURCES[9], counts[4], bwd_worst["float32"], bwd["mma"],
+        entry("flash_attention_bwd_mma", SOURCES[9], counts[4] + entry_counts["A'-mma"],
+              bwd_worst["float32"], bwd["mma"],
               bwd["plain"], *bwd["bound3x"], bwd["sdpa"], train_at("float32")),
-        entry("flash_attention_fwd_tf32", SOURCES[10], launches + counts[0] + fused_counts[7],
+        entry("flash_attention_fwd_tf32", SOURCES[10],
+              launches + counts[0] + entry_counts["A-tf32"] + fused_counts[7],
               worst["float32"], a32["tf32"], a32["plain"], *a32["bound3x"], a32["sdpa"],
               "(1232,1232) float32 B=2 H=8 Dh=32, one call"),
         fused_entry("fused_bottleneck_mma", SOURCES[11], fused_counts[5] + fused_bf16_counts[5],
@@ -2057,6 +2291,7 @@ def main() -> int:
     ]}
     tf32_chain = fused_times[("fused_bottleneck_tf32", exact_tag, "float32")][2]
     a_bwd16, simt_bwd16 = counts16["A'-bf16"], counts16["A' SIMT"]
+    entry_bwd = entry_counts["A'-mma"]
     d_mma_chain = fused_times[("fused_residual_mma", masked_tag, "bfloat16")][2]
     d_tf32_chain = fused_times[("fused_residual_tf32", masked_tag, "float32")][2]
     log(f"[summary] flash_attention_fwd (SIMT, on no path, called directly): max_abs_err bf16 "
@@ -2068,7 +2303,8 @@ def main() -> int:
         f"max_abs_err {worst['simt float32']:.3e}; bf16 without dropout {a16['simt']:.4f} ms, "
         f"{worst['simt bfloat16']:.3e}); flash_attention_fwd_tf32 (3xTF32): max_abs_err fp32 "
         f"{worst['float32']:.3e}, ms/plain_ms/library_ms at (1232,1232) fp32 B=2 from CUDA "
-        f"graphs, launches {launches} fp32 serving + {counts[0]} training + {fused_counts[7]} "
+        f"graphs, launches {launches} fp32 serving + {counts[0]} training + "
+        f"{entry_counts['A-tf32']} entry points + {fused_counts[7]} "
         f"fused fp32 serving, bound as 3xTF32 on the tensor cores; flash_attention_fwd_mma: "
         f"max_abs_err bf16 {mma_err:.3e} (served shapes and the training shapes with dropout), "
         f"ms/plain_ms/library_ms at (1232,1232) bf16 B=2 from CUDA graphs (with dropout "
@@ -2084,7 +2320,8 @@ def main() -> int:
         f"{bwd_worst['simt float32']:.3e}, launches {counts[1]} in {TRAIN_STEPS} fp32 and "
         f"{simt_bwd16} in {BF16_TRAIN_STEPS} bf16 training steps, times as "
         f"A'-bf16's; flash_attention_bwd_mma (3xTF32): gradient max_abs_err fp32 "
-        f"{bwd_worst['float32']:.3e}, launches {counts[4]} in {TRAIN_STEPS} fp32 training steps, "
+        f"{bwd_worst['float32']:.3e}, launches {counts[4]} in {TRAIN_STEPS} fp32 training steps "
+        f"+ {entry_bwd} in the entry points' {ENTRY_STEPS + 1} steps, "
         f"ms/plain_ms/library_ms backward at (252,252) fp32 B=8 dropout {DROPOUT}, bound as 3xTF32 "
         f"on the tensor cores; both backwards from CUDA graphs (plain and library: forward and "
         f"backward less forward); lap: optimal-cost max_abs_err "
@@ -2097,6 +2334,7 @@ def main() -> int:
         f"maxpool (C): max_abs_err fp32 0 (bit-equal), ms/plain_ms/library_ms (F.max_pool2d) "
         f"at the {masked_tag} stem (1,64,448,704) fp32, launches {pool_serving} serving + "
         f"{counts[3]} fp32 training + {counts16['C']} bf16 training + "
+        f"{entry_counts['C']} entry points + "
         f"{fused_counts[0] + fused_bf16_counts[0]} fused serving; "
         f"fused_residual (D, SIMT) and "
         f"fused_bottleneck (E, SIMT), both called directly: max_abs_err fp32 "

@@ -1,5 +1,22 @@
-"""COCO display names, copied from ``detr_tensorflow_tpu/data/coco.py``
-(that module imports JAX)."""
+"""COCO dataset loader (port of ``detr_tensorflow_tpu/data/coco.py``).
+
+The class-name table with N/A gaps and a trailing "back" background class
+at max category id + 1, relative xcycwh boxes, crowd and empty images
+dropped, shuffled fixed-slot batches; images read by ``data/image_io.py``
+and transformed by ``data/transforms.py``. Instance masks (``include_masks``,
+``full_res_masks``) are not ported yet and raise.
+"""
+
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+
+from . import processing, transforms
+from .coco_api import CocoIndex
+from .image_io import read_image
+from .multiscale import MultiScalePlan
+from .pipeline import HostDataset, WorkerRNG
 
 # Display names for the standard 91-id COCO category space + "back".
 COCO_CLASS_NAME = [
@@ -18,3 +35,97 @@ COCO_CLASS_NAME = [
     "N/A", "book", "clock", "vase", "scissors", "teddy bear", "hair drier",
     "toothbrush", "back",
 ]
+
+
+def _no_masks(include_masks: bool, full_res_masks: bool = False) -> None:
+    if include_masks or full_res_masks:
+        raise NotImplementedError("instance masks are not ported yet (segmentation and "
+                                  "panoptic come in a later slice)")
+
+
+def get_coco_labels(coco: CocoIndex, img_id: int, image_shape, include_masks: bool = False):
+    """Boxes (n, 4) relative xcycwh, classes (n,) and the is_crowd flag of
+    one image."""
+    _no_masks(include_masks)
+    h, w = float(image_shape[0]), float(image_shape[1])
+    bbox, cls, crowd = [], [], 0
+    for ann in coco.loadAnnsForImage(img_id):
+        x, y, bw, bh = ann["bbox"]
+        if ann.get("iscrowd", 0):
+            crowd = 1
+        bbox.append([(x + bw / 2) / w, (y + bh / 2) / h, bw / w, bh / h])
+        cls.append(ann["category_id"])
+    return (np.asarray(bbox, np.float32).reshape(-1, 4), np.asarray(cls, np.int32).reshape(-1),
+            crowd)
+
+
+def load_coco_dataset(config, batch_size: int, augmentation: Optional[bool] = False,
+                      ann_dir: Optional[str] = None, ann_file: Optional[str] = None,
+                      img_dir: Optional[str] = None, shuffle: bool = True,
+                      bucket_divisor: int = 128, num_workers: int = 8, seed: int = 0,
+                      include_masks: bool = False,
+                      paper_protocol: Optional[Tuple[int, int]] = None,
+                      full_res_masks: bool = False,
+                      multi_scale: Optional[Tuple[Tuple[int, int], ...]] = None):
+    """Build (dataset, class_names); ``dataset.background_class`` is max
+    category id + 1.
+
+    augmentation:
+      * True: train transforms and resize to ``config.image_size`` (or a
+        ``multi_scale`` rung, batches bucketed by shape);
+      * False: resize only;
+      * None: original size, bucket-padded with a pixel mask (evaluation);
+        with ``batch_size`` > 1, batches are bucketed by padded shape and
+        each bucket's last batch is padded (``batch_valid``) so every image
+        is scored once. ``paper_protocol=(min_side, max_side)`` resizes the
+        shortest side first.
+    """
+    del ann_dir
+    _no_masks(include_masks, full_res_masks)
+    ann_file = ann_file or config.data.full_ann_file
+    img_dir = img_dir or config.data.full_img_dir
+    coco = CocoIndex(ann_file)
+
+    cats = coco.loadCats(coco.getCatIds())
+    max_id = max(c["id"] for c in cats)
+    class_names = ["N/A"] * (max_id + 2)
+    class_names[-1] = "back"
+    for c in cats:
+        class_names[c["id"]] = c["name"]
+
+    worker_rng = WorkerRNG(seed)
+    if multi_scale is None:
+        multi_scale = getattr(config, "multi_scale", None)
+    plan = MultiScalePlan(multi_scale, seed) if (multi_scale and augmentation is True) else None
+    max_t = getattr(config, "num_queries", processing.MAX_TARGETS)
+
+    def load_example(img_id):
+        img = coco.loadImgs([img_id])[0]
+        image = read_image(os.path.join(img_dir, img["file_name"]))
+        t_bbox, t_class, is_crowd = get_coco_labels(coco, img["id"], image.shape)
+        if is_crowd or len(t_bbox) == 0:
+            return None
+        if augmentation is not None:
+            image, t_bbox, t_class = transforms.detr_transform(
+                image, t_bbox, t_class, config, augmentation, rng=worker_rng.get(),
+                image_size=plan.size_for(img_id) if plan else None)
+            if len(t_bbox) == 0:
+                return None
+            boxes, classes, mask = processing.pad_targets(t_bbox, t_class, max_targets=max_t)
+            return {"images": processing.normalized_images(image, config).astype(np.float32),
+                    "boxes": boxes, "classes": classes, "mask": mask}
+        if paper_protocol is not None:
+            image = transforms.shortest_side_resize(image, paper_protocol[0], paper_protocol[1])
+        return processing.make_eval_example(image, t_bbox, t_class, config, bucket_divisor)
+
+    eval_batched = augmentation is None and batch_size > 1
+    dataset = HostDataset(
+        coco.getImgIds(), load_example, batch_size, shuffle=shuffle, seed=seed,
+        num_workers=num_workers,
+        bucket_key=(plan.bucket_key if plan
+                    else (lambda ex: ex["images"].shape) if eval_batched else None),
+        batch_transform=plan.batch_transform if plan else None,
+        on_epoch_start=plan.set_epoch if plan else None,
+        pad_remainder=eval_batched)
+    dataset.background_class = max_id + 1
+    return dataset, class_names

@@ -1,8 +1,9 @@
-"""Normalization constants and fixed-slot target packing, copied from
-``detr_tensorflow_tpu/data/processing.py`` (that module imports JAX).
+"""Image normalization, bucket padding and fixed-slot target packing
+(port of ``detr_tensorflow_tpu/data/processing.py``, which imports JAX).
 
 Every image carries exactly ``MAX_TARGETS`` target slots: ``boxes (T, 4)``,
-``classes (T,)`` and a bool ``mask (T,)``, real targets first.
+``classes (T,)`` and a bool ``mask (T,)``, real targets first. Instance
+masks (``inst_masks``, ``full_res_masks``) are not ported yet.
 """
 
 from typing import Tuple
@@ -16,6 +17,48 @@ IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 # Caffe-style means for TF-pretrained ResNet backbones.
 CAFFE_MEAN = np.array([103.939, 116.779, 123.68], np.float32)
+
+
+def normalize_numpy(image: np.ndarray, method: str) -> np.ndarray:
+    """The plain numpy normalization of an HWC image: ``torch_resnet`` is
+    x / 255 then ImageNet mean/std, ``tf_resnet`` RGB -> BGR then the caffe
+    mean. The plain version of the native kernels (``data/native.py``)."""
+    if method == "torch_resnet":
+        out = (image.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
+    elif method == "tf_resnet":
+        out = image.astype(np.float32)[..., ::-1] - CAFFE_MEAN
+    else:
+        raise ValueError(f"unknown normalization method: {method}")
+    return out.astype(np.float32)
+
+
+def _is_rgb_u8(image: np.ndarray) -> bool:
+    return image.dtype == np.uint8 and image.ndim == 3 and image.shape[-1] == 3
+
+
+def normalized_images(image: np.ndarray, config) -> np.ndarray:
+    """Normalize a uint8/float HWC image per ``config.normalized_method``.
+    An (H, W, 3) uint8 image goes through the fused C++ kernel
+    (``data/native.py``), anything else through ``normalize_numpy``."""
+    method = getattr(config, "normalized_method", "torch_resnet")
+    if _is_rgb_u8(image) and method in ("torch_resnet", "tf_resnet"):
+        from . import native
+
+        return (native.normalize_torch(image) if method == "torch_resnet"
+                else native.normalize_caffe(image))
+    return normalize_numpy(image, method)
+
+
+def denormalize_image(image: np.ndarray, config) -> np.ndarray:
+    """Invert ``normalized_images`` back to uint8 RGB for visualization."""
+    method = getattr(config, "normalized_method", "torch_resnet")
+    if method == "torch_resnet":
+        out = (image * IMAGENET_STD + IMAGENET_MEAN) * 255.0
+    elif method == "tf_resnet":
+        out = (image + CAFFE_MEAN)[..., ::-1]
+    else:
+        raise ValueError(f"unknown normalization method: {method}")
+    return np.clip(out, 0, 255).astype(np.uint8)
 
 
 def pad_targets(t_bbox: np.ndarray, t_class: np.ndarray,
@@ -35,3 +78,49 @@ def pad_targets(t_bbox: np.ndarray, t_class: np.ndarray,
         classes[:n] = t_class[:n]
         mask[:n] = True
     return boxes, classes, mask
+
+
+def _bucket(n: int, divisor: int) -> int:
+    return ((n + divisor - 1) // divisor) * divisor
+
+
+def pad_image_to_bucket(image: np.ndarray, divisor: int = 128):
+    """Zero-pad an image so H and W are multiples of ``divisor``.
+
+    Returns (padded_image, pixel_mask (H', W') bool, (orig_h, orig_w)).
+    """
+    h, w = image.shape[:2]
+    ph, pw = _bucket(h, divisor), _bucket(w, divisor)
+    out = np.zeros((ph, pw) + image.shape[2:], image.dtype)
+    out[:h, :w] = image
+    mask = np.zeros((ph, pw), bool)
+    mask[:h, :w] = True
+    return out, mask, (h, w)
+
+
+def make_eval_example(image: np.ndarray, t_bbox: np.ndarray, t_class: np.ndarray, config,
+                      bucket_divisor: int = 128):
+    """Original-size evaluation example: the normalized image zero-padded to
+    its bucket, the pixel mask of its valid region and the padded targets,
+    in one dict ready for ``stack_batch``.
+
+    Ground truth stays in the original frame's normalized coordinates: the
+    masked forward is padding-invariant, so its boxes are normalized to the
+    valid region as well. An (H, W, 3) uint8 image under ``torch_resnet``
+    is normalized straight into the bucket by the C++ kernel.
+    """
+    h, w = image.shape[:2]
+    ph, pw = _bucket(h, bucket_divisor), _bucket(w, bucket_divisor)
+    if getattr(config, "normalized_method", "torch_resnet") == "torch_resnet" \
+            and _is_rgb_u8(image):
+        from . import native
+
+        padded = native.normalize_torch_into_bucket(image, ph, pw)
+    else:
+        padded, _, _ = pad_image_to_bucket(normalized_images(image, config), bucket_divisor)
+    pixel_mask = np.zeros((ph, pw), bool)
+    pixel_mask[:h, :w] = True
+    boxes, classes, mask = pad_targets(t_bbox, t_class,
+                                       max_targets=getattr(config, "num_queries", MAX_TARGETS))
+    return {"images": padded.astype(np.float32), "pixel_mask": pixel_mask, "boxes": boxes,
+            "classes": classes, "mask": mask}

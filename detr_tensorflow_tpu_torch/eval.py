@@ -1,0 +1,114 @@
+"""Evaluate DETR on a COCO-format set with the port: box AP (twin of the
+repository's ``eval.py``).
+
+  python -m detr_tensorflow_tpu_torch.eval --data_dir /path/coco \\
+      --img_dir val2017 --ann_file annotations/instances_val2017.json \\
+      --weights detr_r50.npz [--batch 4] [--protocol cocoeval] [--device cpu]
+
+Each image is evaluated at its original size, zero-padded to a multiple of
+128 with a pixel mask; the masked forward is padding-invariant, so
+``--batch N`` (images grouped by padded shape, the last batch of each
+shape padded and masked out by ``batch_valid``) scores as batch 1 does.
+``--weights`` is the model as a JAX-format ``.npz``; without it the model
+starts from its seeded initialization. Masks and panoptic quality are not
+ported yet: ``--masks`` and ``--pq`` raise.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+
+from . import inference
+from .data import load_coco_dataset
+from .metrics import COCOProtocolEvaluator, MeanAPEvaluator
+from .models import get_detr_model
+from .ops import boxes as bbox_ops
+from .train import TrainingConfig, training_config_parser
+
+
+def build_model(config, **model_kwargs):
+    """DETR with its COCO heads, from ``config.weights`` when given."""
+    return get_detr_model(config, include_top=True, weights=config.weights, **model_kwargs)
+
+
+def eval_model(model, config, class_names, valid_dt, protocol: str = "reference"):
+    """Box AP of ``model`` (a ``DetrModel``) over ``valid_dt``: prints the
+    table and returns it; ``protocol="cocoeval"`` adds the COCOeval
+    protocol's box AP under ``table["box_cocoeval"]``."""
+    background = int(config.background_class)
+    device = model.device
+    evaluator = MeanAPEvaluator(num_classes=len(class_names), class_names=class_names)
+    coco_ev = COCOProtocolEvaluator(num_classes=len(class_names)) if protocol == "cocoeval" \
+        else None
+    for it, batch in enumerate(valid_dt):
+        images = torch.as_tensor(batch["images"]).to(device)
+        pixel_mask = (torch.as_tensor(batch["pixel_mask"]).to(device)
+                      if "pixel_mask" in batch else None)
+        outputs = model(images, pixel_mask)
+        boxes_, labels_, scores_, keep_ = (t.float().cpu().numpy() if t.is_floating_point()
+                                           else t.cpu().numpy() for t in inference.postprocess(
+                                               outputs, background, "yxyx"))
+        bvalid = batch.get("batch_valid", np.ones(batch["images"].shape[0], bool))
+        for bi in np.nonzero(bvalid)[0]:
+            keep0 = keep_[bi]
+            p_bbox, p_labels, p_scores = boxes_[bi][keep0], labels_[bi][keep0], scores_[bi][keep0]
+            n = int(batch["mask"][bi].sum())
+            t_yxyx = bbox_ops.np_yxyx_to_xyxy(bbox_ops.np_xcycwh_to_xyxy(batch["boxes"][bi][:n]))
+            evaluator.add_image(p_bbox, p_labels, p_scores, t_yxyx, batch["classes"][bi][:n])
+            if coco_ev is not None:
+                coco_ev.add_image(p_bbox, p_labels, p_scores, t_yxyx, batch["classes"][bi][:n])
+        print(f"Computing map.....{it}", end="\r")
+    table = evaluator.print_table()
+    if coco_ev is not None:
+        ct = coco_ev.compute()["box"]
+        print("cocoeval-protocol box AP: " + "  ".join(f"{k}: {v:5.2f}" for k, v in ct.items()))
+        table["box_cocoeval"] = ct
+    return table
+
+
+def parser():
+    p = training_config_parser()
+    p.description = "Evaluate DETR's box AP on a COCO-format set (PyTorch port)"
+    p.add_argument("--device", default="cuda",
+                   help="where the model runs: the card (cuda, the default) or cpu")
+    p.add_argument("--batch", type=int, default=1,
+                   help="images a forward: 1 (the reference's protocol) or N, grouped by "
+                        "padded shape; the same AP")
+    p.add_argument("--exact_shapes", action="store_true",
+                   help="run each image at its exact shape instead of padding it to a "
+                        "multiple of 128 (batch 1 only)")
+    p.add_argument("--protocol", choices=["reference", "cocoeval"], default="reference",
+                   help="'cocoeval' also reports box AP under the pycocotools convention")
+    p.add_argument("--paper_protocol", action="store_true",
+                   help="the DETR paper's resize: shortest side 800, longest at most 1333")
+    p.add_argument("--num_workers", type=int, default=8, help="data loading threads")
+    for flag in ("--masks", "--pq"):
+        p.add_argument(flag, action="store_true", help="not ported yet (raises)")
+    return p
+
+
+def main(argv=None, **model_kwargs) -> dict:
+    """Parse ``argv`` and evaluate; returns the AP table. ``model_kwargs``
+    go to ``get_detr_model`` (a smaller model for tests)."""
+    p = parser()
+    args = p.parse_args(argv)
+    if args.masks or args.pq:
+        raise NotImplementedError("mask AP and panoptic quality are not ported yet")
+    if args.batch > 1 and args.exact_shapes:
+        p.error("--batch N>1 requires bucket padding; drop --exact_shapes")
+    config = TrainingConfig().update_from_args(args)
+    model_kwargs.setdefault("device", args.device)
+    model = build_model(config, **model_kwargs)
+    valid_dt, class_names = load_coco_dataset(
+        config, args.batch, augmentation=None, bucket_divisor=1 if args.exact_shapes else 128,
+        paper_protocol=(800, 1333) if args.paper_protocol else None,
+        num_workers=args.num_workers)
+    config = config.replace(background_class=valid_dt.background_class)
+    return eval_model(model, config, class_names, valid_dt, protocol=args.protocol)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

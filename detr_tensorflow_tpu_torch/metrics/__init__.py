@@ -1,0 +1,5 @@
+"""Evaluation metrics: COCO-style mAP under the reference's and the
+COCOeval protocols (numpy, host side)."""
+
+from .ap import APAccumulator, DEFAULT_IOU_THRESHOLDS, MeanAPEvaluator  # noqa: F401
+from .coco_protocol import COCOProtocolEvaluator  # noqa: F401

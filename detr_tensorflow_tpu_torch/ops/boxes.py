@@ -8,6 +8,7 @@ Formats: ``xcycwh`` (x_center, y_center, width, height), ``xyxy``
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -78,3 +79,21 @@ def elementwise_giou(box_a: torch.Tensor, box_b: torch.Tensor) -> torch.Tensor:
               - torch.minimum(box_a[..., :2], box_b[..., :2])).clamp(min=0.0)
     enclose = enc_wh[..., 0] * enc_wh[..., 1]
     return inter / union - (enclose - union) / enclose
+
+
+# numpy twins for the host data pipeline and the AP bookkeeping.
+def np_xcycwh_to_xyxy(b: np.ndarray) -> np.ndarray:
+    b = np.asarray(b)
+    return np.concatenate([b[..., :2] - b[..., 2:] / 2.0, b[..., :2] + b[..., 2:] / 2.0], axis=-1)
+
+
+def np_xyxy_to_xcycwh(b: np.ndarray) -> np.ndarray:
+    b = np.asarray(b)
+    return np.concatenate(
+        [b[..., :2] + (b[..., 2:] - b[..., :2]) / 2.0, b[..., 2:] - b[..., :2]], axis=-1)
+
+
+def np_yxyx_to_xyxy(b: np.ndarray) -> np.ndarray:
+    """Swap the axes of corner boxes (involutive: xyxy -> yxyx as well)."""
+    b = np.asarray(b)
+    return np.stack([b[..., 1], b[..., 0], b[..., 3], b[..., 2]], axis=-1)

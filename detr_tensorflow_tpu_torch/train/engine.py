@@ -14,8 +14,8 @@ package's: the parameters, their gradients, the clip and the Adam moments
 are float32, and only the forward and backward compute in bf16: each layer
 casts its float32 parameters at its use, so the gradient of every cast
 lands in the float32 ``.grad``, and an update below a bf16 ulp of a weight
-still moves it. On the card its attention runs the SIMT kernels A (with
-dropout) and A' (``ops/flash_attention.py``). A float64 model
+still moves it. On the card its attention runs A-mma (with dropout) and
+A'-bf16 (``ops/flash_attention.py``). A float64 model
 (``DETR(dtype=torch.float64)`` with ``.double()`` parameters) takes the
 same step on the CPU, for diagnosis against the JAX package at float64.
 
@@ -23,12 +23,18 @@ same step on the CPU, for diagnosis against the JAX package at float64.
 a ``torch.Generator`` on the model's device seeded from an explicit seed:
 every dropout mask and every attention-kernel seed is drawn from it, on
 the device. Left out of this port: the AUTO-layout AOT step, meshes and
-the 1F1B schedule, and the preemption guard (it comes with the data
-entry points).
+the 1F1B schedule.
+
+``Trainer.prefetch`` copies batches to the card ``depth`` steps ahead:
+from pinned host memory on a side CUDA stream, which the step's stream
+waits on. ``fit`` runs an epoch through it; under a ``PreemptionGuard``
+a SIGTERM or SIGINT makes it save a checkpoint and return False.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import time
 from typing import Callable, Dict, Optional
 
@@ -118,6 +124,10 @@ class Trainer:
         self.model = model
         self.config = config
         self.device = model.query_embed.device
+        # A bf16 model's first op casts its images to bf16: ``prefetch`` does
+        # it on the host (round to nearest even, the same values) and copies
+        # half the bytes.
+        self.image_dtype = torch.bfloat16 if compute == torch.bfloat16 else None
         self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
         self.steps = 0
         self.optimizer = opt_lib.make_optimizer(config, model)
@@ -148,6 +158,47 @@ class Trainer:
     def evaluate(self, batch):
         return self.eval_step(batch_to_device(batch, self.device))
 
+    def prefetch(self, iterator, depth: int = 2):
+        """Yield ``iterator``'s batches on the model's device, ``depth``
+        batches copied ahead of the one being consumed.
+
+        On the card each batch is staged in pinned host memory (a bf16
+        model's images cast to bf16 first) and copied on a side CUDA stream;
+        the consumer's stream waits on the copy's event before it gets the
+        batch, and ``record_stream`` keeps the allocator from reusing the
+        batch's memory while that stream may still read it. A tensor already
+        on the device passes through. On the CPU this is a plain generator."""
+        if self.device.type != "cuda":
+            for batch in iterator:
+                yield batch_to_device(batch, self.device)
+            return
+        stream = torch.cuda.Stream(self.device)
+        pending = collections.deque()
+        for batch in iterator:
+            staged = {}
+            for k in _TARGET_KEYS:
+                if k in batch:
+                    t = torch.as_tensor(batch[k])
+                    if k == "images" and self.image_dtype is not None:
+                        t = t.to(self.image_dtype)
+                    staged[k] = t if t.device == self.device else t.pin_memory()
+            with torch.cuda.stream(stream):
+                dev = {k: t.to(self.device, non_blocking=True) for k, t in staged.items()}
+                ready = torch.cuda.Event()
+                ready.record(stream)
+            pending.append((dev, ready))
+            if len(pending) >= depth:
+                yield self._consume(*pending.popleft())
+        while pending:
+            yield self._consume(*pending.popleft())
+
+    def _consume(self, dev, ready):
+        consumer = torch.cuda.current_stream(self.device)
+        consumer.wait_event(ready)
+        for t in dev.values():
+            t.record_stream(consumer)
+        return dev
+
     @property
     def variables(self) -> Dict[str, torch.Tensor]:
         """Parameters and FrozenBN statistics (the model's state_dict)."""
@@ -171,18 +222,72 @@ def _host_log(log) -> Dict[str, float]:
     return {k: float(v) for k, v in log.items()}
 
 
-def fit(trainer: Trainer, train_dataset, config, epoch_nb: int, log_fn=None,
-        log_every: int = 100, checkpoint_every: Optional[int] = None) -> bool:
-    """One epoch over ``train_dataset``, an iterable of native batches. The
-    log is read back (a host sync) only every ``log_every`` steps; with
-    ``checkpoint_every`` and ``config.checkpoint_dir`` the full state is
-    saved periodically. Returns True when the epoch completed."""
-    t0 = time.time()
-    for epoch_step, batch in enumerate(train_dataset):
-        log = trainer.step(batch)
-        if checkpoint_every and config.checkpoint_dir and (epoch_step + 1) % checkpoint_every == 0:
-            from .checkpoint import save_checkpoint
+class PreemptionGuard:
+    """Graceful stop: while entered (in the main thread), SIGTERM and SIGINT
+    only set ``requested``; ``fit`` checks it between steps, saves a
+    checkpoint and returns False. A run resumes with
+    ``checkpoint.restore_latest``. Outside the main thread it stays passive."""
 
+    def __init__(self):
+        self.requested = False
+        self._previous = {}
+
+    def __enter__(self):
+        import signal
+
+        def handler(signum, frame):
+            del signum, frame
+            self.requested = True
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                self._previous[sig] = signal.signal(sig, handler)
+            except ValueError:  # not the main thread
+                pass
+        return self
+
+    def __exit__(self, *exc):
+        import signal
+
+        for sig, prev in self._previous.items():
+            signal.signal(sig, prev)
+        self._previous = {}
+        return False
+
+
+def fit(trainer: Trainer, train_dataset, config, epoch_nb: int, log_fn=None,
+        log_every: int = 100, checkpoint_every: Optional[int] = None,
+        preemption_guard: Optional[PreemptionGuard] = None) -> bool:
+    """One epoch over ``train_dataset``, an iterable of native batches, fed
+    through ``trainer.prefetch``. The log is read back (a host sync) only
+    every ``log_every`` steps; with ``checkpoint_every`` and
+    ``config.checkpoint_dir`` the full state is saved periodically. A
+    ``PreemptionGuard`` (the caller's, or a fresh one when
+    ``config.checkpoint_dir`` is set) turns SIGTERM/SIGINT into
+    checkpoint-and-return. Returns True when the epoch completed, False
+    when it was preempted."""
+    own_guard = (PreemptionGuard() if preemption_guard is None and config.checkpoint_dir
+                 else None)
+    guard = preemption_guard or own_guard
+    with own_guard if own_guard is not None else contextlib.nullcontext():
+        return _fit_inner(trainer, train_dataset, config, epoch_nb, log_fn, log_every,
+                          checkpoint_every, guard)
+
+
+def _fit_inner(trainer, train_dataset, config, epoch_nb, log_fn, log_every, checkpoint_every,
+               guard) -> bool:
+    from .checkpoint import save_checkpoint
+
+    t0 = time.time()
+    for epoch_step, batch in enumerate(trainer.prefetch(train_dataset)):
+        log = trainer.step(batch)
+        if guard is not None and guard.requested:
+            if config.checkpoint_dir:
+                save_checkpoint(trainer, config.checkpoint_dir)
+                print(f"Preemption signal received: checkpoint saved at step {trainer.steps}; "
+                      f"stopping epoch {epoch_nb}.")
+            return False
+        if checkpoint_every and config.checkpoint_dir and (epoch_step + 1) % checkpoint_every == 0:
             save_checkpoint(trainer, config.checkpoint_dir)
         if epoch_step % log_every == 0:
             host = _host_log(log)

@@ -36,6 +36,7 @@ from detr_tensorflow_tpu_torch.models.weights import from_jax_variables
 from detr_tensorflow_tpu_torch.train import (
     TrainingConfig, Trainer, latest_step, restore_latest, save_checkpoint,
 )
+from detr_tensorflow_tpu_torch.train.engine import batch_to_device, forward_loss
 from test_torch_models import SMALL, _pixel_mask
 from test_torch_models import random_variables as random_variables_for
 from test_torch_training import LRS, TINY, make_batch, random_variables
@@ -97,18 +98,32 @@ def jax_clipped_grads(model, variables, batch):
 
 
 def jax_steps(dtype, variables, batches):
-    """A JAX trainer over ``batches`` with STEP_LRS: the losses and the
-    parameters after each step (the port's names, float64)."""
+    """A JAX trainer over ``batches`` with STEP_LRS: the losses, the
+    parameters after each step (the port's names, float64) and the
+    parameter trees after each step (JAX's layout, float32)."""
     config = JaxConfig(background_class=0, train_backbone=True, train_transformers=True,
                        target_batch=None, auto_input_layout=False, **LRS)
     trainer = JaxTrainer(JaxDETR(dropout=0.0, attn_impl="xla", dtype=dtype, **TINY), variables,
                          config)
-    losses, params = [], []
+    losses, params, trees = [], [], []
     for batch, lrs in zip(batches, STEP_LRS):
         trainer.set_learning_rates(**lrs)
         losses.append(float(trainer.step(batch)["total_loss"]))
         params.append(port_names(trainer.state.params))
-    return losses, params
+        trees.append(jax.tree.map(lambda a: np.asarray(a, np.float32),
+                                  jax.device_get(trainer.state.params)))
+    return losses, params, trees
+
+
+def jax_losses(model, trees, frozen, batches):
+    """The set loss of one forward (what a train step reports before its
+    update) of each params tree on its batch, through one compile."""
+    @jax.jit
+    def loss(params, batch):
+        out = model.apply({"params": params, "frozen": frozen}, batch["images"], train=True)
+        return jax_detr_loss(out, batch["boxes"], batch["classes"], batch["mask"], 0)[0]
+
+    return [float(loss(tree, batch)) for tree, batch in zip(trees, batches)]
 
 
 @pytest.fixture(scope="module")
@@ -132,6 +147,11 @@ def jax_runs():
             {k: _as64(v) for k, v in batch.items()})
         runs["f64 steps"] = jax_steps(jnp.float64, v64,
                                       [{k: _as64(v) for k, v in b.items()} for b in batches])
+    # JAX bf16's loss at steps 1 and 2 from the float64 trainer's parameters
+    # of the step before (rounded to float32, as the port receives them).
+    runs["bf16 held losses"] = [runs["bf16 steps"][0][0]] + jax_losses(
+        JaxDETR(dropout=0.0, attn_impl="xla", dtype=jnp.bfloat16, **TINY),
+        runs["f64 steps"][2][:2], variables["frozen"], batches[1:])
     return runs
 
 
@@ -250,28 +270,49 @@ def test_bf16_adam_steps_keep_float32_master_weights(jax_runs):
     """Three bf16 ``Trainer`` steps at dropout 0 against a bf16 and a
     float64 JAX trainer from the same variables over the same batches.
 
-    Step 1 trains the backbone group at SUB_ULP_LR: its Adam update (about
+    Step 0 trains the backbone group at SUB_ULP_LR: its Adam update (about
     the rate) is below half a bf16 ulp of all but the smallest weights, so
     weights held in bf16 would not move. The port's float32 weights move by
     the JAX float32 update: every backbone tensor's update no further from
     the float64 trainer's than TENSOR_GAP_FACTOR times the JAX bf16
     trainer's, while 99% of the moved weights keep their bf16 rounding.
-    After three steps (2 and 3 at 1e-3) every parameter and Adam moment is
-    float32, each loss within the loss form of the step test, and every
+
+    Each loss is held in the loss form of the step test, with steps 1 and 2
+    taken from the float64 trainer's parameters of the step before (beside
+    JAX bf16's loss from the same parameters): Adam's first update is about
+    lr * sign(g) at 1e-3, so each gradient element that bf16 noise flips
+    moves its weight a full 2e-3, and a free-running step 1's loss is a
+    compounded draw of that noise, differently on each machine's bf16 CPU
+    kernels and thread count. A free-running trainer's three steps are held
+    too: every parameter and Adam moment float32 after them, and every
     tensor's update within the gradients' forms."""
-    losses16, params16 = jax_runs["bf16 steps"]
-    losses64, params64 = jax_runs["f64 steps"]
+    losses16 = jax_runs["bf16 held losses"]
+    losses64, params64, trees64 = jax_runs["f64 steps"]
+    params16 = jax_runs["bf16 steps"][1]
+
+    def check_loss(i, loss):
+        exact = losses64[i]
+        print(f"step {i}: loss port {loss!r}, jax bf16 {losses16[i]!r}, jax f64 {exact!r}")
+        assert abs(loss - exact) <= GAP_FACTOR * max(abs(losses16[i] - exact),
+                                                     2**-8 * abs(exact)), i
+
+    held = port_model(jax_runs["variables"])
+    for i, batch in enumerate(jax_runs["batches"][1:], 1):
+        held.load_state_dict(from_jax_variables(
+            {"params": trees64[i - 1], "frozen": jax_runs["variables"]["frozen"]}))
+        with torch.no_grad():  # the loss a step reports is its forward's, before the update
+            total, _, _ = forward_loss(held, batch_to_device(batch, torch.device("cpu")),
+                                       CONFIG, True)
+        check_loss(i, float(total))
+
     model = port_model(jax_runs["variables"])
     trainer = Trainer(model, CONFIG, seed=0)
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
     for i, (batch, lrs) in enumerate(zip(jax_runs["batches"], STEP_LRS)):
         trainer.set_learning_rates(**lrs)
         loss = float(trainer.step(batch)["total_loss"])
-        print(f"step {i}: loss port {loss!r}, jax bf16 {losses16[i]!r}, jax f64 {losses64[i]!r}")
-        exact = losses64[i]
-        assert abs(loss - exact) <= GAP_FACTOR * max(abs(losses16[i] - exact),
-                                                     2**-8 * abs(exact))
         if i == 0:
+            check_loss(i, loss)
             backbone = [n for n in start if trainer.optimizer.groups["backbone"]
                         and n.startswith(("backbone.", "input_proj."))]
             moved = {n: (model.get_parameter(n).detach() - start[n]).double().numpy()

@@ -1295,3 +1295,42 @@ def test_attention_backward_bf16_rejects_fp32(cuda_device):
     args, _ = _backward_case(cuda_device, torch.float32, 2, 16, 16, 32, 0.0)
     with pytest.raises(TypeError, match="bfloat16"):
         fa.launch_backward_bf16(*args)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefetch_equals_a_synchronous_copy(cuda_device, dtype):
+    """``Trainer.prefetch`` (pinned host memory, a side stream, ``depth``
+    batches ahead): every batch bit-equal to a synchronous ``.to("cuda")``
+    of the same numpy batch, images cast to bf16 on the host for a bf16
+    model (the values of ``.to(torch.bfloat16)`` on the card), while the
+    consumer's stream runs work of its own between batches; a batch already
+    on the card passes through (its images cast alike)."""
+    from detr_tensorflow_tpu_torch.train import Trainer, TrainingConfig
+    from detr_tensorflow_tpu_torch.train.engine import batch_to_device
+
+    model = api.build_detr(num_classes=5, num_queries=6, model_dim=32, num_heads=2,
+                           num_encoder_layers=1, num_decoder_layers=1, dim_feedforward=32,
+                           backbone_stage_sizes=(1, 1, 1, 1), dtype=dtype, device="cuda")
+    trainer = Trainer(model.module, TrainingConfig(train_transformers=True))
+    rng = np.random.default_rng(0)
+    batches = [{"images": rng.normal(size=(2, 96, 128, 3)).astype(np.float32),
+                "pixel_mask": rng.random((2, 96, 128)) < 0.9,
+                "boxes": rng.random((2, 6, 4)).astype(np.float32),
+                "classes": rng.integers(0, 5, (2, 6)).astype(np.int32),
+                "mask": rng.random((2, 6)) < 0.5} for _ in range(6)]
+    on_card = batch_to_device(batches[0], "cuda")
+    busy = torch.randn(2048, 2048, device="cuda")
+    seen = []
+    for batch in trainer.prefetch(batches + [on_card], depth=3):
+        busy = busy @ busy / 2048  # the consumer stream's own work
+        seen.append({k: v.clone() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert len(seen) == len(batches) + 1
+    for got, batch in zip(seen, batches + [on_card]):
+        want = batch_to_device(batch, "cuda")
+        if dtype == "bfloat16":
+            want["images"] = want["images"].to(torch.bfloat16)
+        assert got.keys() == want.keys()
+        for k in want:
+            assert got[k].device.type == "cuda" and got[k].dtype == want[k].dtype, k
+            assert torch.equal(got[k], want[k]), k
