@@ -116,7 +116,26 @@ Phases, one status line each; any failure raises and exits non-zero:
      bf16 model's c5 against the unfused fp32 model's beside the unfused
      bf16 model's own gap at both, and the median latency of both models at
      768x1280 b1 and 800x1333 b1, fp32 and bf16, with each one's
-     device-busy time and idle share under ``torch.profiler``.
+     device-busy time and idle share under ``torch.profiler``;
+ 12. checkpoints and DC5: a seeded DETR-R50-DC5 state_dict in facebook's
+     naming, saved as ``{"model", "args": Namespace}`` and built with
+     ``build_detr(weights=.pth, dilation=True)``; served at 800x1333 b1
+     (the 896x1408 bucket: 56x88 = 4928 keys), 3 requests each at fp32
+     (TF32 off, A-tf32 18 a forward) and bf16 (A-mma 18), held against the
+     plain-attention model (golden tolerances at fp32, the bf16 test's at
+     bf16); p50 latency, device busy time and idle share beside DETR-R50's;
+     A-tf32 and A-mma at (4928, 4928) and (100, 4928) against plain, SDPA
+     and the bound; the fused DC5 model (bucket-exact: C 1, D-tf32 6,
+     E-tf32 10, E on undilated identity blocks only; masked: D-tf32 16)
+     against the unfused one; the int8 DC5 model (G 12 at stride 1 and 2 at
+     stride 2, the 2 dilated 3x3s outside G as taps and ``torch._int_mm``,
+     bit-exact and timed beside G and the float64 convolution), its c5
+     integer-equal to the plain int8 route; a DC5 b8 376x672 fp32 step at
+     dropout 0.1 without remat (A-tf32 18, A'-mma 18, B 1, C 1) and with
+     ``remat=True, backbone_remat=2`` (A-tf32 36: every layer recomputed),
+     gradients within twice two identical steps' difference, the generator
+     in the same state, memory and step times beside; ``DetrModel.save``
+     and ``build_detr(weights=.npz)`` on the card, outputs bit-equal.
 Kernel C runs in every ``ResNetBackbone`` forward: serving, training and
 fused serving count it (1 per forward or step); the int8 model's stem is
 not a ``ResNetBackbone`` and launches none.
@@ -2028,6 +2047,408 @@ def phase_fused_serving(torch, fa, mp, fr, fb, api, Predictor):
     return totals, bf16_counts, medians
 
 
+def facebook_state_dict(seed, depth=50, num_encoder_layers=6, num_decoder_layers=6,
+                        model_dim=256, dim_feedforward=2048, num_classes=92, num_queries=100,
+                        base=64):
+    """A torch DETR state_dict in facebookresearch/detr's naming
+    (``backbone.0.body.*``, packed ``in_proj`` attention, ``class_embed``,
+    ``bbox_embed.layers.*``) with float32 values from a numpy seed: conv and
+    linear weights N(0, 1/fan_in), biases N(0, 0.1^2), FrozenBN weight
+    1 + N(0, 0.1^2), bias and running mean N(0, 0.1^2), running variance
+    U(0.5, 1.5), ``query_embed`` N(0, 1). ``base`` is the stem's width
+    (64 in a ResNet; smaller for naming tests)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def put(key, x):
+        sd[key] = torch.from_numpy(np.asarray(x, np.float32))
+
+    def weight(key, *shape):
+        put(key, rng.normal(size=shape) / np.sqrt(np.prod(shape[1:])))
+
+    def bias(key, n):
+        put(key, 0.1 * rng.normal(size=n))
+
+    def bn(prefix, c):
+        put(prefix + ".weight", 1.0 + 0.1 * rng.normal(size=c))
+        bias(prefix + ".bias", c)
+        bias(prefix + ".running_mean", c)
+        put(prefix + ".running_var", rng.uniform(0.5, 1.5, size=c))
+
+    def linear(prefix, cout, cin):
+        weight(prefix + ".weight", cout, cin)
+        bias(prefix + ".bias", cout)
+
+    def norm(prefix, c):
+        put(prefix + ".weight", 1.0 + 0.1 * rng.normal(size=c))
+        bias(prefix + ".bias", c)
+
+    root = "backbone.0.body."
+    weight(root + "conv1.weight", base, 3, 7, 7)
+    bn(root + "bn1", base)
+    cin = base
+    for s, n_blocks in enumerate({50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}[depth]):
+        d1 = base * 2 ** s
+        for b in range(n_blocks):
+            p = f"{root}layer{s + 1}.{b}."
+            for j, (ci, co, k) in enumerate(((cin, d1, 1), (d1, d1, 3), (d1, 4 * d1, 1))):
+                weight(f"{p}conv{j + 1}.weight", co, ci, k, k)
+                bn(f"{p}bn{j + 1}", co)
+            if b == 0:
+                weight(p + "downsample.0.weight", 4 * d1, cin, 1, 1)
+                bn(p + "downsample.1", 4 * d1)
+            cin = 4 * d1
+    weight("input_proj.weight", model_dim, cin, 1, 1)
+    bias("input_proj.bias", model_dim)
+    put("query_embed.weight", rng.normal(size=(num_queries, model_dim)))
+
+    def attention(prefix):
+        linear(prefix + ".in_proj", 3 * model_dim, model_dim)
+        sd[prefix + ".in_proj_weight"] = sd.pop(prefix + ".in_proj.weight")
+        sd[prefix + ".in_proj_bias"] = sd.pop(prefix + ".in_proj.bias")
+        linear(prefix + ".out_proj", model_dim, model_dim)
+
+    for side, n_layers, attns, norms in (
+            ("encoder", num_encoder_layers, ("self_attn",), 2),
+            ("decoder", num_decoder_layers, ("self_attn", "multihead_attn"), 3)):
+        for i in range(n_layers):
+            p = f"transformer.{side}.layers.{i}."
+            for a in attns:
+                attention(p + a)
+            linear(p + "linear1", dim_feedforward, model_dim)
+            linear(p + "linear2", model_dim, dim_feedforward)
+            for j in range(norms):
+                norm(f"{p}norm{j + 1}", model_dim)
+    norm("transformer.decoder.norm", model_dim)
+    linear("class_embed", num_classes, model_dim)
+    for j, cout in enumerate((model_dim, model_dim, 4)):
+        linear(f"bbox_embed.layers.{j}", cout, model_dim)
+    return sd
+
+
+# Checkpoints and DC5. DETR-R50-DC5 (the last stage dilated: C5 at stride 16)
+# loaded from a facebook-named .pth. At the 896x1408 serving bucket its
+# encoder sees 56x88 = 4928 keys (DETR-R50: 28x44 = 1232).
+DC5_SERVE, DC5_BUCKET, DC5_EXACT = (800, 1333), (896, 1408), (768, 1280)
+DC5_KEYS = 56 * 88
+DC5_ATTN_SHAPES = [(DC5_KEYS, DC5_KEYS), (100, DC5_KEYS)]
+# A fused DC5 forward: (C, D-tf32, E-tf32). Bucket-exact, E on the ten
+# undilated identity blocks (2 + 3 + 5), D on the four block_0 and the two
+# dilated blocks; masked, D on all 16.
+DC5_FUSED_PER_FORWARD = {"exact": (1, 6, 10), "masked": (1, 16, 0)}
+# An int8 DC5 forward: G at stride 1 on 12 blocks (the dilated stage's
+# block_0 among them) and at stride 2 on 2; the 2 dilated 3x3s outside G.
+DC5_G_PER_FORWARD = {1: 12, 2: 2}
+DC5_DILATED_PER_FORWARD = 2
+# remat recomputes every encoder and decoder layer in the backward: the
+# attention forward launches twice a step.
+REMAT_A_PER_STEP = 2 * LAUNCHES_PER_FORWARD
+# The remat step's gradients may differ from the step's without remat by
+# at most this factor times two identical steps' difference (cuDNN's and
+# A' reductions may sum in another order from one run to the next), with
+# a floor of REMAT_FLOOR of each tensor's norm.
+REMAT_GAP_FACTOR, REMAT_FLOOR = 2.0, 1e-6
+BF16_FORWARD_ATOL = {"pred_boxes": 1.5e-2, "pred_logits": 7.5e-2}  # tests/test_torch_bf16.py
+
+
+def phase_dc5(torch, fa, lap, mp, fr, fb, mm, conv, api, quantized, train, Predictor):
+    """Checkpoints and the DC5 family: a seeded DETR-R50-DC5 written as
+    facebook publishes it, served, fused, quantized, trained with and
+    without remat, saved and loaded."""
+    import argparse
+    import os
+    import tempfile
+
+    from detr_tensorflow_tpu_torch.train.engine import batch_to_device, forward_loss
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dc5_")
+    path = os.path.join(tmp.name, "detr-r50-dc5.pth")
+    t0 = time.perf_counter()
+    torch.save({"model": facebook_state_dict(seed=41), "args": argparse.Namespace(
+        backbone="resnet50", dilation=True, lr=1e-4, dec_layers=6)}, path)
+    t1 = time.perf_counter()
+    build = functools.partial(api.build_detr, weights=path, dilation=True, device=DEVICE)
+    models = {(dt, impl): build(dtype=dt, attn_impl=impl)
+              for dt in ("float32", "bfloat16") for impl in ("auto", "plain")}
+    log(f"  facebook-named DETR-R50-DC5 .pth with args written in {t1 - t0:.2f} s, 4 models "
+        f"built from it in {time.perf_counter() - t1:.2f} s")
+    # Launches on this phase's main paths, by the kernel's entry in the kernels line.
+    launches = collections.Counter()
+    out = {"launches": launches}
+
+    # Served at 800x1333 b1 (the 896x1408 bucket, masked): 3 requests a dtype.
+    img = random_images([DC5_SERVE], seed=43)[0]
+    predictors = {dt: Predictor(models[(dt, "auto")], background_class=BACKGROUND)
+                  for dt in ("float32", "bfloat16")}
+    for dtype, pred in predictors.items():
+        pred.warmup([DC5_SERVE])
+        reset_counts(fa, lap, mp)  # main path
+        for _ in range(3):
+            check_detections(pred([img]))
+        counts = read_counts(fa, lap, mp)
+        route = "A-tf32" if dtype == "float32" else "A-mma"
+        want = {k: 0 for k in counts}
+        want.update({route: 3 * LAUNCHES_PER_FORWARD, "C": 3})
+        log(f"  DC5 {dtype} 800x1333 b1, 3 requests: launches {counts}")
+        if counts != want:
+            raise AssertionError(f"DC5 {dtype} serving launches {counts}, expected {want}")
+        launches["flash_attention_fwd_tf32" if dtype == "float32" else
+                 "flash_attention_fwd_mma"] += counts[route]
+        launches["maxpool"] += counts["C"]
+    (h, w), (bh, bw) = DC5_SERVE, DC5_BUCKET
+    frames = np.zeros((1, bh, bw, 3), np.uint8)
+    frames[0, :h, :w] = img
+    pm = torch.zeros((1, bh, bw), dtype=torch.bool, device=DEVICE)
+    pm[0, :h, :w] = True
+    with torch.inference_mode():
+        x = predictors["float32"].normalize(torch.from_numpy(frames).to(DEVICE)) * pm[..., None]
+        res = {key: m(x, pm) for key, m in models.items()}
+    torch.cuda.synchronize()
+    ours32 = res[("float32", "auto")]
+    for key, atol in (("pred_boxes", BOX_ATOL), ("pred_logits", LOGIT_ATOL)):
+        err = float((ours32[key] - res[("float32", "plain")][key]).abs().max())
+        direct = float((res[("bfloat16", "auto")][key] - res[("bfloat16", "plain")][key]).abs().max())
+        gap, plain_gap = (float((res[("bfloat16", impl)][key] - ours32[key]).abs().max())
+                          for impl in ("auto", "plain"))
+        log(f"  DC5 forward {key}: fp32 kernel vs plain attention max_abs_err {err:.3e} (tol "
+            f"{atol}); bf16 kernel vs plain {direct:.3e} (tol {BF16_FORWARD_ATOL[key]}), from the "
+            f"fp32 forward kernel {gap:.3e}, plain {plain_gap:.3e} (tol {BF16_GAP_FACTOR} x)")
+        if not (err <= atol and direct <= BF16_FORWARD_ATOL[key]
+                and gap <= BF16_GAP_FACTOR * plain_gap):
+            raise AssertionError(f"DC5 {key} disagrees with the plain-attention model")
+    if not all(bool(torch.isfinite(v).all()) for r in res.values() for v in r.values()):
+        raise AssertionError("DC5 forward: non-finite outputs")
+
+    # Request latency and device busy time, DETR-R50 beside DETR-R50-DC5.
+    out["latency"] = {}
+    for dtype in ("float32", "bfloat16"):
+        r50 = Predictor(api.build_detr(seed=0, device=DEVICE, dtype=dtype),
+                        background_class=BACKGROUND)
+        r50.warmup([DC5_SERVE])
+        for name, pred in (("DETR-R50", r50), ("DETR-R50-DC5", predictors[dtype])):
+            lat = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                pred([img])
+                lat.append(1e3 * (time.perf_counter() - t0))
+            wall, busy, events = device_busy_ms(torch, lambda: pred([img]))
+            share = "not measured" if busy is None else f"{busy:.2f} ms, idle {1 - busy / wall:.2f}"
+            out["latency"][(name, dtype)] = (statistics.median(lat), busy, wall)
+            log(f"  {name} {dtype} 800x1333 b1: p50 {statistics.median(lat):.2f} ms of "
+                f"{[round(v, 2) for v in lat]}; under torch.profiler wall {wall:.2f} ms, device "
+                f"busy {share}, {events:.0f} kernels and copies")
+        del r50
+    del res, predictors, models[("float32", "plain")], models[("bfloat16", "plain")]
+    torch.cuda.empty_cache()
+
+    # A-tf32 and A-mma at DC5's b1 shapes against plain, SDPA and the bound.
+    out["attention"] = {}
+    for lq, lk in DC5_ATTN_SHAPES:
+        for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            q, k, v, mask = attention_inputs(torch, 1, lq, lk, dtype, seed=lq + lk)
+            fast = lambda: fa.mha(q, k, v, mask)  # noqa: E731
+            plain = lambda: fa.reference_mha(q, k, v, mask)  # noqa: E731
+            err = check_attention(name, f"DC5 ({lq},{lk}) {name}", fast(), plain(), q)
+            p1, k1, k2, p2 = (graph_ms(torch, f, iters=10) for f in (plain, fast, fast, plain))
+            lib = graph_ms(torch, lambda: sdpa(torch, q, k, v, mask), iters=10)
+            bound = attention_bound(1, lq, lk, "tf32" if name == "float32" else name)
+            out["attention"][(lq, lk, name)] = dict(ms=(k1 + k2) / 2, plain=(p1 + p2) / 2,
+                                                    sdpa=lib, bound=bound, err=err)
+            del q, k, v, mask
+            log(f"  attention ({lq},{lk}) {name} B=1 H=8 Dh=32 masked, CUDA graphs: "
+                f"{'A-tf32' if name == 'float32' else 'A-mma'} {(k1 + k2) / 2:.4f} ms ({k1:.4f}, "
+                f"{k2:.4f}), plain {(p1 + p2) / 2:.4f} ms, scaled_dot_product_attention "
+                f"{lib:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}"
+                f"{', as 3xTF32' if name == 'float32' else ''}); max_abs_err {err:.3e}")
+    torch.cuda.empty_cache()
+
+    # The fused DC5 model: E on undilated identity blocks only, D on every tail.
+    fused = build(fuse_residual=True, fuse_bottleneck=True)
+    unfused = models[("float32", "auto")]
+    img_e = random_images([DC5_EXACT], seed=44)[0]
+    pred = Predictor(fused, background_class=BACKGROUND)
+    pred.warmup([DC5_EXACT, DC5_SERVE])
+    d, e = fr.conv1x1_bn_residual_relu, fb.fused_bottleneck
+    per = {}
+    for label, image in (("exact", img_e), ("masked", img)):
+        mp.max_pool_3x3_s2.launches = d.launches = d.mma_launches = d.tf32_launches = 0
+        e.launches = e.mma_launches = e.tf32_launches = fa.mha.tf32_launches = 0  # main path
+        check_detections(pred([image]))
+        per[label] = (mp.max_pool_3x3_s2.launches, d.tf32_launches, e.tf32_launches)
+        others = (d.launches, d.mma_launches, e.launches, e.mma_launches)
+        log(f"  fused DC5 fp32 {label} b1: (C, D-tf32, E-tf32) {per[label]}, A-tf32 "
+            f"{fa.mha.tf32_launches}, (SIMT D, D-mma, SIMT E, E-mma) {others}")
+        if (per[label] != DC5_FUSED_PER_FORWARD[label] or any(others)
+                or fa.mha.tf32_launches != LAUNCHES_PER_FORWARD):
+            raise AssertionError(f"fused DC5 {label} launches {per[label]}, {others}")
+        launches["maxpool"] += per[label][0]
+        launches["fused_residual_tf32"] += per[label][1]
+        launches["fused_bottleneck_tf32"] += per[label][2]
+        launches["flash_attention_fwd_tf32"] += fa.mha.tf32_launches
+    with torch.inference_mode():
+        exact = pred.normalize(torch.from_numpy(img_e[None]).to(DEVICE))
+        for label, xx, mask in (("768x1280 exact", exact, None), ("800x1333 masked", x, pm)):
+            rel = fused_rel_err(fused.module.backbone(xx, mask), unfused.module.backbone(xx, mask))
+            a, b = fused(xx, mask), unfused(xx, mask)
+            errs = {k: float((a[k] - b[k]).abs().max()) for k in ("pred_boxes", "pred_logits")}
+            log(f"  fused DC5 fp32 {label} against unfused: c5 rel err {rel:.2e} (tol "
+                f"{FUSED_C5_RTOL}), boxes {errs['pred_boxes']:.3e} (tol {BOX_ATOL}), logits "
+                f"{errs['pred_logits']:.3e} (tol {LOGIT_ATOL})")
+            if not (rel <= FUSED_C5_RTOL and errs["pred_boxes"] <= BOX_ATOL
+                    and errs["pred_logits"] <= LOGIT_ATOL):
+                raise AssertionError(f"fused DC5 differs from unfused at {label}")
+    del fused, pred
+    torch.cuda.empty_cache()
+
+    # The int8 DC5 model: G on the undilated 3x3s, the dilated ones outside G.
+    int8 = build(dtype="bfloat16", backbone_quant=True)
+    pred = Predictor(int8, background_class=BACKGROUND)
+    with torch.inference_mode():
+        calib = pred.normalize(
+            torch.from_numpy(np.stack(random_images([DC5_SERVE] * 2, seed=11))).to(DEVICE))
+    quantized.quantize_model(int8, calib)
+    del calib
+    pred.warmup([DC5_SERVE])
+    reset_int8_counts(mm, conv)  # main path
+    conv.dilated_conv3x3_int8.calls = fa.mha.mma_launches = 0
+    check_detections(pred([img]))
+    g_counts, dilated = dict(conv.conv3x3_int8.launches), conv.dilated_conv3x3_int8.calls
+    f_counts = (mm.qmatmul.launches, mm.qmatmul_residual.launches, mm.qmatmul_residual2.launches)
+    log(f"  int8 DC5 800x1333 b1: G {g_counts}, dilated 3x3s outside G {dilated}, F {f_counts}, "
+        f"A-mma {fa.mha.mma_launches}")
+    if (g_counts != DC5_G_PER_FORWARD or dilated != DC5_DILATED_PER_FORWARD
+            or f_counts != tuple(F_PER_FORWARD.values())
+            or fa.mha.mma_launches != LAUNCHES_PER_FORWARD):
+        raise AssertionError("int8 DC5 launch counts")
+    launches["int8_conv"] += sum(g_counts.values())
+    launches["int8_matmul"] += sum(f_counts)
+    launches["flash_attention_fwd_mma"] += fa.mha.mma_launches
+    with torch.inference_mode():
+        c5 = int8.module.backbone_quant(x, pm, torch.float32)
+        c5_plain = int8.module.backbone_quant(x, pm, torch.float32, use_kernels=False)
+    if not torch.equal(c5, c5_plain):
+        raise AssertionError("int8 DC5 c5: kernel route differs from the plain int8 route")
+    rng = np.random.default_rng(45)
+    c5_map = (1, bh // 16, bw // 16, 512)  # the dilated stage's conv2 input
+    a1 = torch.from_numpy(rng.integers(-128, 128, c5_map, dtype=np.int8)).to(DEVICE)
+    w2 = torch.from_numpy(rng.integers(-127, 128, (512, 3, 3, 512), dtype=np.int8)).to(DEVICE)
+    s2 = torch.full((512,), 1e-4, device=DEVICE)
+    b2 = torch.from_numpy(rng.normal(size=512).astype(np.float32)).to(DEVICE)
+    lib = lambda: conv.dilated_conv3x3_int8(a1, w2, s2, b2, dilation=2, relu=True)  # noqa: E731
+    plain = lambda: conv.reference_dilated_conv3x3_int8(  # noqa: E731
+        a1, w2, s2, b2, dilation=2, relu=True)
+    g = lambda: conv.conv3x3_int8(a1, w2, s2, b2, stride=1, relu=True)  # noqa: E731
+    if not torch.equal(lib(), plain()):
+        raise AssertionError("the dilated int8 3x3 differs from the plain int32 convolution")
+    times = [graph_ms(torch, f, iters=10) for f in (plain, lib, lib, plain, g)]
+    bound = bound_ms(2 * a1.numel() + w2.numel() + 2 * 512 * 4,
+                     {"int8": 2 * a1.numel() // 512 * 9 * 512 * 512})
+    out["dilated"] = dict(ms=(times[1] + times[2]) / 2, plain=(times[0] + times[3]) / 2,
+                          g=times[4], bound=bound)
+    log(f"  c5 of the int8 DC5 model: kernel route integer-equal to the plain int8 route; the "
+        f"dilated 3x3 at {c5_map}->512 bit-exact against the float64 convolution, CUDA "
+        f"graphs: taps + torch._int_mm {out['dilated']['ms']:.4f} ms, float64 convolution "
+        f"{out['dilated']['plain']:.4f} ms, kernel G undilated at the same shape {times[4]:.4f} "
+        f"ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    del int8, pred, c5, c5_plain, a1, w2, models[("bfloat16", "auto")]
+    torch.cuda.empty_cache()
+
+    # A DC5 training step at b8 376x672 (24x42 = 1008 keys), fp32, dropout 0.1,
+    # without remat, and with remat and backbone_remat=2.
+    config = train.TrainingConfig(background_class=BACKGROUND, train_backbone=True,
+                                  train_transformers=True, batch_size=TRAIN_BATCH)
+    batch = batch_to_device(train_batch(46), DEVICE)
+
+    def grads(model, seed=7):
+        """Loss, gradients, the generator's end state and the peak memory
+        above what was allocated before the forward, in GiB."""
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        total, _, _ = forward_loss(model, batch, config, True, gen)
+        total.backward()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        return (total.detach(), {n: p.grad.clone() for n, p in model.named_parameters()},
+                gen.get_state(), peak)
+
+    step = {}
+    for label, kw in (("without remat", {}), ("remat", dict(remat=True, backbone_remat=2))):
+        model = build(**kw).module
+        step[label] = {"grads": [grads(model) for _ in range(2 if not kw else 1)]}
+        trainer = train.Trainer(model, config, seed=0)
+        trainer.step(batch)  # cuDNN plans, kernel loads
+        reset_counts(fa, lap, mp)  # main path
+        trainer.step(batch)
+        counts = read_counts(fa, lap, mp)
+        want = {k: 0 for k in counts}
+        want.update({"A-tf32": REMAT_A_PER_STEP if kw else LAUNCHES_PER_FORWARD,
+                     "A'-mma": LAUNCHES_PER_FORWARD, "B": 1, "C": 1})
+        log(f"  DC5 b{TRAIN_BATCH} 376x672 fp32 step {label}: launches {counts}")
+        if counts != want:
+            raise AssertionError(f"DC5 step {label}: launches {counts}, expected {want}")
+        for name, key in (("flash_attention_fwd_tf32", "A-tf32"),
+                          ("flash_attention_bwd_mma", "A'-mma"), ("lap", "B"), ("maxpool", "C")):
+            launches[name] += counts[key]
+        wall, busy, events = device_busy_ms(torch, lambda: trainer.step(batch))
+        step[label].update(counts=counts, wall=wall, busy=busy, events=events)
+        del trainer, model
+        torch.cuda.empty_cache()
+    (l_a, g_a, s_a, peak), (l_b, g_b, s_b, _) = step["without remat"]["grads"]
+    l_r, g_r, s_r, peak_r = step["remat"]["grads"][0]
+    worst = (0.0, "")
+    for name, ga in g_a.items():
+        rerun = float((g_b[name] - ga).norm())
+        allowed = REMAT_GAP_FACTOR * max(rerun, REMAT_FLOOR * float(ga.norm()), 1e-30)
+        diff = float((g_r[name] - ga).norm())
+        worst = max(worst, (diff / allowed, name))
+        if not diff <= allowed:
+            raise AssertionError(f"remat gradient {name}: {diff} from the step without remat, "
+                                 f"two identical steps {rerun}")
+    loss_rerun = float((l_b - l_a).abs())
+    if not (float((l_r - l_a).abs()) <= REMAT_GAP_FACTOR * max(loss_rerun, REMAT_FLOOR * float(l_a.abs()))
+            and torch.equal(s_r, s_a) and torch.equal(s_b, s_a)):
+        raise AssertionError("remat: loss or the generator's state differs from the step without")
+    bitequal = all(torch.equal(g_r[n], g) for n, g in g_a.items())
+    rerun_bitequal = all(torch.equal(g_b[n], g) for n, g in g_a.items())
+    log(f"  remat=True, backbone_remat=2 against the step without remat: loss {float(l_r):.6f} / "
+        f"{float(l_a):.6f}, gradients bit-equal {bitequal} (two steps without remat bit-equal "
+        f"{rerun_bitequal}), worst tensor at {worst[0]:.3f} of its allowance ({worst[1]}), the "
+        f"generator in the same state; torch.cuda.max_memory_allocated of a forward and backward, "
+        f"above the memory held before it: {peak_r:.2f} GiB with remat against {peak:.2f} GiB")
+    for label, st in step.items():
+        log(f"  DC5 step {label} under torch.profiler: wall {st['wall']:.2f} ms, device busy "
+            f"{st['busy']:.2f} ms, {st['events']:.0f} kernels and copies")
+    out["step"] = {k: dict(v, grads=None) for k, v in step.items()}
+    out["peak"] = (peak, peak_r)
+    del step, g_a, g_b, g_r
+    torch.cuda.empty_cache()
+
+    # Save in the JAX package's .npz and load back on the card: bit-equal.
+    model = models.pop(("float32", "auto"))
+    npz = os.path.join(tmp.name, "dc5.npz")
+    model.save(npz)
+    back = api.build_detr(weights=npz, dilation=True, device=DEVICE, seed=1)
+    with torch.inference_mode():
+        a, b = model(x, pm), back(x, pm)
+    if not all(torch.equal(a[k], b[k]) for k in a):
+        raise AssertionError("DC5 saved and loaded: outputs differ")
+    dets = [Predictor(m, background_class=BACKGROUND)([img])[0] for m in (model, back)]
+    if not all(np.array_equal(getattr(dets[0], f), getattr(dets[1], f))
+               for f in ("boxes", "labels", "scores")):
+        raise AssertionError("DC5 saved and loaded: detections differ")
+    log(f"  DetrModel.save -> build_detr(weights=.npz) on the card: outputs and "
+        f"{len(dets[0].boxes)} detections bit-equal ({os.path.getsize(npz) / 2**20:.1f} MiB)")
+    del model, back
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return out
+
+
 def sass_counts(nvcc_build, path, op="HMMA") -> dict:
     """``op`` instructions (HMMA: bf16 and TF32 tensor cores, IMMA: int8) in
     the SASS of each kernel of a built library, by mangled name."""
@@ -2176,6 +2597,16 @@ def main() -> int:
         + ", ".join(f"{size} {dtype} {v[True]:.2f} / {v[False]:.2f} ms"
                     for (dtype, size), v in fused_ms.items()))
 
+    t = time.perf_counter()
+    dc5 = phase_dc5(torch, fa, lap, maxpool, fused_residual, fused_bottleneck, int8_matmul,
+                    int8_conv, api, quantized, train, Predictor)
+    lat = dc5["latency"]
+    log(f"[checkpoints and DC5] ok in {time.perf_counter() - t:.1f} s; 800x1333 b1 p50 DETR-R50 / "
+        f"DETR-R50-DC5: " + ", ".join(
+            f"{dt} {lat[('DETR-R50', dt)][0]:.2f} / {lat[('DETR-R50-DC5', dt)][0]:.2f} ms"
+            for dt in ("float32", "bfloat16"))
+        + f"; launches on its main paths {dict(dc5['launches'])}")
+
     a32, a16 = times[(2, 1232, 1232, "float32")], times[(2, 1232, 1232, "bfloat16")]
     # The training shapes' times: fp32 under (Lq, Lk), bf16 under (Lq, Lk, "bfloat16").
     bwd_times16 = {k[:2]: v for k, v in bwd_times.items() if len(k) == 3}
@@ -2218,7 +2649,8 @@ def main() -> int:
     # kernels and have changed between versions of this script.
     def entry(name, source, launches_, err, ms_, plain_, bound, by, library, at):
         return {"name": name, "route": "cuda", "source": CSRC + source,
-                "replaces": REPLACES[name], "launches": launches_, "max_abs_err": err,
+                "replaces": REPLACES[name], "launches": launches_ + dc5["launches"][name],
+                "max_abs_err": err,
                 "ms": ms_, "plain_ms": plain_, "bound_ms": bound, "bound_by": by,
                 "library_ms": library, "measured_at": at}
 

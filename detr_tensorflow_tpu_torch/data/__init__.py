@@ -6,7 +6,7 @@ from .coco_api import CocoIndex  # noqa: F401
 from .pipeline import HostDataset  # noqa: F401
 from .processing import (  # noqa: F401
     CAFFE_MEAN, IMAGENET_MEAN, IMAGENET_STD, MAX_TARGETS, denormalize_image, make_eval_example,
-    normalized_images, pad_image_to_bucket, pad_targets,
+    normalized_images, pad_image_to_bucket, pad_labels, pad_targets, unpack_labels,
 )
 from .synthetic import make_synthetic_coco  # noqa: F401
 from .transforms import detr_transform  # noqa: F401

@@ -2,13 +2,16 @@
 (port of ``detr_tensorflow_tpu/data/processing.py``, which imports JAX).
 
 Every image carries exactly ``MAX_TARGETS`` target slots: ``boxes (T, 4)``,
-``classes (T,)`` and a bool ``mask (T,)``, real targets first. Instance
-masks (``inst_masks``, ``full_res_masks``) are not ported yet.
+``classes (T,)`` and a bool ``mask (T,)``, real targets first. The
+reference's header-row layout (row 0 ``[n, 0, 0, 0]``, then the targets)
+goes in with ``pad_labels`` and out with ``unpack_labels``. Instance masks
+(``inst_masks``, ``full_res_masks``) are not ported yet.
 """
 
 from typing import Tuple
 
 import numpy as np
+import torch
 
 MAX_TARGETS = 100
 
@@ -78,6 +81,40 @@ def pad_targets(t_bbox: np.ndarray, t_class: np.ndarray,
         classes[:n] = t_class[:n]
         mask[:n] = True
     return boxes, classes, mask
+
+
+def pad_labels(images, t_bbox, t_class, max_targets: int = MAX_TARGETS):
+    """Reference-layout padding (reference processing.py:35-55): header row
+    ``[n, 0, 0, 0]`` followed by up to ``max_targets - 1`` real boxes.
+    Returns (images, bbox (T, 4) f32, classes (T, 1) int64)."""
+    t_class = np.asarray(t_class).reshape(-1, 1)
+    n = min(len(t_class), max_targets - 1)
+    bbox_out = np.zeros((max_targets, 4), np.float32)
+    cls_out = np.zeros((max_targets, 1), np.int64)
+    bbox_out[0, 0] = n
+    if n:
+        bbox_out[1:n + 1] = np.asarray(t_bbox, np.float32)[:n]
+        cls_out[1:n + 1] = t_class[:n]
+    return images, bbox_out, cls_out
+
+
+def unpack_labels(t_bbox, t_class):
+    """The reference's header layout, batched, to the native (boxes,
+    classes, mask) one, on the tensors' device with static shapes.
+
+    Args:
+      t_bbox: (B, T, 4) with header row 0.
+      t_class: (B, T, 1) or (B, T).
+
+    Returns (boxes (B, T-1, 4), classes (B, T-1) int32, mask (B, T-1) bool).
+    """
+    t_bbox, t_class = torch.as_tensor(t_bbox), torch.as_tensor(t_class)
+    if t_class.dim() == 3:
+        t_class = t_class[..., 0]
+    counts = t_bbox[:, 0, 0].to(torch.int32)
+    boxes = t_bbox[:, 1:, :]
+    slot = torch.arange(boxes.shape[1], dtype=torch.int32, device=boxes.device)[None, :]
+    return boxes, t_class[:, 1:].to(torch.int32), slot < counts[:, None]
 
 
 def _bucket(n: int, divisor: int) -> int:

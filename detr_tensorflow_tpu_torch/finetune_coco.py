@@ -5,8 +5,10 @@ port (twin of the repository's ``finetune_coco.py``).
       --img_dir train2017 --ann_file annotations/instances_train2017.json \\
       --batch_size 8 --weights detr_r50.npz [--device cpu]
 
-``--weights`` is the pretrained model as a JAX-format ``.npz``; without
-it the model starts from its seeded initialization.
+``--weights`` is the pretrained model: a JAX-format ``.npz``, a facebook
+(``detr-r50-e632da11.pth``) or HuggingFace torch checkpoint, or a short
+name (``detr``) under ``weights/detr`` or ``$DETR_TPU_WEIGHTS``; without it
+the model starts from its seeded initialization.
 """
 
 from __future__ import annotations

@@ -6,7 +6,9 @@ heads only at 1e-3, from epoch 1 the transformer joins at 1e-4.
       --img_dir JPEGImages --ann_dir Annotations --batch_size 8 \\
       --target_batch 32 --weights detr_r50.npz [--device cpu]
 
-VOC's JPEG images decode through ``imageio`` where it is installed.
+``--weights`` takes a JAX-format ``.npz``, a facebook or HuggingFace torch
+checkpoint or a short name (its trunk loads, the heads start fresh). VOC's
+JPEG images decode through ``imageio`` where it is installed.
 """
 
 from __future__ import annotations

@@ -1,9 +1,11 @@
-"""Batched postprocess (port of ``detr_tensorflow_tpu/inference.py:postprocess``)."""
+"""Batched postprocess and the reference's single-image inference (port of
+``detr_tensorflow_tpu/inference.py``: ``postprocess``, ``get_model_inference``)."""
 
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from .ops import boxes as bbox_ops
@@ -33,3 +35,13 @@ def postprocess(m_outputs: Dict[str, torch.Tensor], background_class: int,
     else:
         raise NotImplementedError(bbox_format)
     return out_boxes, labels, scores, keep
+
+
+def get_model_inference(m_outputs: Dict[str, torch.Tensor], background_class: int,
+                        bbox_format: str = "xy_center"):
+    """The reference's single-image inference (reference inference.py:68-95):
+    batch element 0's non-background detections as numpy arrays (boxes,
+    labels, scores)."""
+    boxes, labels, scores, keep = postprocess(m_outputs, background_class, bbox_format)
+    keep0 = keep[0].cpu().numpy()
+    return tuple(np.asarray(t[0].cpu().numpy())[keep0] for t in (boxes, labels, scores))

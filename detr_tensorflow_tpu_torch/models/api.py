@@ -2,8 +2,11 @@
 
 ``build_detr`` makes a ``DETR`` on a device (the card unless the caller
 asks for another), with weights drawn from a ``torch.Generator`` seeded by
-``seed`` or loaded from a JAX-format ``.npz``; ``get_detr_model`` keeps the
-reference's signature and its three head variants.
+``seed`` or loaded from a local checkpoint (``weights.load_weights``: the
+JAX package's ``.npz``, a facebook or HuggingFace torch state_dict, or a
+short name), and the backbone optionally from a torchvision ResNet;
+``DetrModel.save`` writes the JAX package's ``.npz``. ``get_detr_model``
+keeps the reference's signature and its three head variants.
 """
 
 from __future__ import annotations
@@ -38,6 +41,26 @@ class DetrModel:
         with torch.inference_mode():
             return self.module(images, pixel_mask)
 
+    def save(self, path: str) -> None:
+        """Save the model as the JAX package's ``.npz`` (its
+        ``DetrModel.save`` format: ``params``, ``frozen`` and, once the int8
+        backbone is filled, ``quant``), which ``build_detr(weights=path)``
+        and ``load`` here, and the JAX package's ``load_weights``, read
+        back."""
+        variables = weights_lib.to_jax_variables(self.module.state_dict())
+        quant = self.module.backbone_quant
+        if quant is not None and quant.loaded:
+            variables["quant"] = {"backbone": weights_lib.to_jax_quant(dict(quant.named_buffers()))}
+        weights_lib.save_variables_npz(variables, path)
+
+    def load(self, path_or_name: str) -> "DetrModel":
+        """Replace every parameter and buffer from a local checkpoint (any
+        file or name ``weights.load_weights`` takes); an ``.npz`` with the
+        "quant" collection fills the int8 backbone too. Every cached cast
+        and fold is dropped, as by ``load_state_dict``."""
+        _load_weights(self.module, path_or_name, "all")
+        return self
+
 
 def init_weights(module: DETR, generator: torch.Generator) -> None:
     """Seeded initialisation, in parameter order: Linear and Conv weights
@@ -57,28 +80,49 @@ def init_weights(module: DETR, generator: torch.Generator) -> None:
         module.query_embed.normal_(0.0, 1.0, generator=generator)
 
 
-def _load_npz(module: DETR, path: str, head: str) -> None:
-    tree = weights_lib.load_variables_npz(path)
+def _load_weights(module: DETR, name: str, heads: str) -> None:
+    """Load ``name`` (``weights.load_weights``) into ``module``. ``heads``:
+    "all" loads every tensor and needs each of them; "trunk" keeps fresh
+    heads and loads the rest (the JAX ``build_detr``'s rule for a head
+    other than "detr")."""
+    tree = weights_lib.load_weights(
+        name, backbone_depth=module.backbone_depth,
+        num_encoder_layers=module.transformer.num_encoder_layers,
+        num_decoder_layers=module.transformer.num_decoder_layers, model_dim=module.model_dim)
     quant = tree.pop("quant", None)
     state = weights_lib.from_jax_variables(tree)
-    if head != "detr":
-        # Pretrained trunk, fresh heads (the JAX build_detr does the same).
+    if heads == "trunk":
         state = {k: v for k, v in state.items() if not k.startswith(_DETR_HEAD_PREFIXES)}
-    missing, unexpected = module.load_state_dict(state, strict=head == "detr")
-    fresh = tuple(n + "." for n in ("cls_layer", "pos_layer"))
-    if unexpected or any(not k.startswith(fresh) for k in missing):
-        raise ValueError(f"{path}: missing {missing}, unexpected {unexpected}")
+    missing, unexpected = module.load_state_dict(state, strict=False)
+    missing = [k for k in missing if not k.startswith("backbone_quant.")]  # from "quant"
+    if unexpected or any(heads == "all" or not k.startswith(("cls_layer.", "pos_layer."))
+                         for k in missing):
+        raise ValueError(f"{name}: missing {missing}, unexpected {unexpected}")
     if module.backbone_quant is not None and quant is not None:
         module.backbone_quant.load(weights_lib.from_jax_quant(quant["backbone"]))
+
+
+def _load_backbone_weights(module: DETR, path: str) -> None:
+    """The backbone's parameters and FrozenBN statistics from a local
+    torchvision ResNet checkpoint (``weights.load_backbone_weights``)."""
+    tree = weights_lib.load_backbone_weights(path, depth=module.backbone_depth)
+    state = {"backbone." + k: v for k, v in weights_lib.from_jax_variables(
+        {c: tree[c]["backbone"] for c in ("params", "frozen")}).items()}
+    expected = {k for k in module.state_dict() if k.startswith("backbone.")}
+    if set(state) != expected:
+        raise ValueError(f"{path}: missing {sorted(expected - set(state))}, unexpected "
+                         f"{sorted(set(state) - expected)}")
+    module.load_state_dict(state, strict=False)
 
 
 def build_detr(num_classes: int = 92, num_queries: int = 100, head: str = "detr",
                nb_class: Optional[int] = None, num_encoder_layers: int = 6,
                num_decoder_layers: int = 6, backbone_depth: int = 50,
-               backbone_stage_sizes=None, dtype: str = "float32",
+               backbone_stage_sizes=None, dilation: bool = False, dtype: str = "float32",
                attn_impl: str = "auto", weights: Optional[str] = None,
-               seed: int = 42, normalized_method: str = "torch_resnet",
-               device="cuda", **model_kwargs) -> DetrModel:
+               backbone_weights: Optional[str] = None, seed: int = 42,
+               normalized_method: str = "torch_resnet", device="cuda",
+               **model_kwargs) -> DetrModel:
     """Construct a DETR bundle on ``device`` (the card by default; the CPU
     only when asked, ``device="cpu"``).
 
@@ -89,11 +133,19 @@ def build_detr(num_classes: int = 92, num_queries: int = 100, head: str = "detr"
     float32 Adam moments, and the int8 model's ``quantized.quantize_model``
     calibrates from its float32 backbone.
 
-    ``weights`` is a local ``.npz`` in the JAX package's format; with
-    ``backbone_quant=True`` its "quant" collection, when present, fills the
-    int8 backbone. Extra keyword args (model_dim, num_heads,
-    dim_feedforward, dropout, backbone_quant, fuse_residual,
-    fuse_bottleneck) go to ``DETR``.
+    ``dilation=True`` is the DC5 family (DETR-R50-DC5, DETR-R101-DC5): the
+    last stage keeps stride 16 through dilated convolutions.
+
+    ``weights`` is any local file or short name ``weights.load_weights``
+    takes: the JAX package's ``.npz`` (with ``backbone_quant=True`` its
+    "quant" collection, when present, fills the int8 backbone) or a facebook
+    or HuggingFace torch DETR checkpoint. ``head="detr"`` loads every
+    tensor; another head keeps the checkpoint's trunk with fresh heads.
+    ``backbone_weights`` is a local torchvision ResNet checkpoint loaded
+    into the backbone after ``weights`` (ImageNet initialization). Extra
+    keyword args (model_dim, num_heads, dim_feedforward, dropout,
+    backbone_quant, fuse_residual, fuse_bottleneck, remat, backbone_remat)
+    go to ``DETR``.
 
     ``fuse_residual=True, fuse_bottleneck=True`` is the JAX package's
     fused-backbone serving configuration (kernels D and E, inference
@@ -103,12 +155,14 @@ def build_detr(num_classes: int = 92, num_queries: int = 100, head: str = "detr"
         num_classes=num_classes, num_queries=num_queries, head=head,
         nb_class=nb_class, num_encoder_layers=num_encoder_layers,
         num_decoder_layers=num_decoder_layers, backbone_depth=backbone_depth,
-        backbone_stage_sizes=backbone_stage_sizes, dtype=DTYPES[dtype],
+        backbone_stage_sizes=backbone_stage_sizes, dilation=dilation, dtype=DTYPES[dtype],
         attn_impl=attn_impl, **model_kwargs,
     )
     init_weights(module, torch.Generator().manual_seed(seed))
     if weights is not None:
-        _load_npz(module, weights, head)
+        _load_weights(module, weights, "all" if head == "detr" else "trunk")
+    if backbone_weights is not None:
+        _load_backbone_weights(module, backbone_weights)
     module.to(device)
     return DetrModel(module, normalized_method=normalized_method)
 
@@ -131,6 +185,8 @@ def get_detr_model(config=None, include_top: bool = False,
     kwargs.setdefault("attn_impl", getattr(config, "attn_impl", "auto"))
     kwargs.setdefault("num_queries", getattr(config, "num_queries", 100))
     kwargs.setdefault("backbone_depth", getattr(config, "backbone_depth", 50))
+    kwargs.setdefault("dilation", getattr(config, "dilation", False))
+    kwargs.setdefault("backbone_weights", getattr(config, "backbone_weights", None))
     return build_detr(
         head=head, nb_class=nb_class, weights=weights,
         num_encoder_layers=num_encoder_layers, num_decoder_layers=num_decoder_layers,

@@ -4,7 +4,8 @@ transformer -> heads. Detection heads only: no segmentation head and no
 pipeline stages. ``backbone_quant=True`` runs the int8 post-training-quantized
 backbone of ``models/quantized.py`` instead of the fp32 one;
 ``fuse_residual`` and ``fuse_bottleneck`` run the fused backbone kernels
-(inference only)."""
+(inference only); ``dilation`` builds the DC5 family; ``remat`` and
+``backbone_remat`` trade recomputation for activation memory in training."""
 
 from __future__ import annotations
 
@@ -50,6 +51,12 @@ class DETR(nn.Module):
     model's ``fuse_bottleneck and pixel_mask is None``: with a mask every
     block gets a validity map and stays off E). The parameter tree does
     not change with either flag.
+
+    ``dilation=True`` (DC5) dilates the backbone's last stage, fp32 and int8
+    alike: C5 at stride 16, four times the encoder's keys. ``remat=True``
+    recomputes each encoder and decoder layer in the backward, replaying its
+    dropout draws; ``backbone_remat=n`` recomputes the first n backbone
+    stages. Neither changes the forward or the gradients.
     """
 
     def __init__(self, num_classes: int = 92, num_queries: int = 100,
@@ -60,22 +67,26 @@ class DETR(nn.Module):
                  head: str = "detr", nb_class: Optional[int] = None,
                  dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
                  dropout: float = 0.1, backbone_quant: bool = False,
-                 fuse_residual: bool = False, fuse_bottleneck: bool = False):
+                 fuse_residual: bool = False, fuse_bottleneck: bool = False,
+                 dilation: bool = False, remat: bool = False, backbone_remat: int = 0):
         super().__init__()
         if head not in HEADS:
             raise ValueError(f"unknown head: {head}")
         if head == "finetune" and nb_class is None:
             raise ValueError("finetune head needs nb_class")
         self.model_dim, self.head, self.dtype = model_dim, head, dtype
+        self.backbone_depth, self.dilation = backbone_depth, dilation
         self.fuse_residual, self.fuse_bottleneck = fuse_residual, fuse_bottleneck
         stage_sizes = backbone_stage_sizes or STAGE_SIZES[backbone_depth]
-        self.backbone = ResNetBackbone(stage_sizes, fuse_residual, fuse_bottleneck)
-        self.backbone_quant = QuantizedBackbone(stage_sizes) if backbone_quant else None
+        self.backbone = ResNetBackbone(stage_sizes, fuse_residual, fuse_bottleneck,
+                                       (False, False, dilation), backbone_remat)
+        self.backbone_quant = (QuantizedBackbone(stage_sizes, dilation) if backbone_quant
+                               else None)
         self.input_proj = Conv2d(2048, model_dim, 1)
         self.query_embed = nn.Parameter(torch.zeros(num_queries, model_dim))
         self.transformer = Transformer(model_dim, num_heads, num_encoder_layers,
                                        num_decoder_layers, dim_feedforward, attn_impl,
-                                       dropout)
+                                       dropout, remat)
         if head == "detr":
             self.class_embed = Linear(model_dim, num_classes)
             self.bbox_embed = MLP(model_dim, model_dim, 4)

@@ -13,7 +13,11 @@
      (``ops/int8_matmul.qmatmul``), conv2 on kernel G
      (``ops/int8_conv.conv3x3_int8``, stride 1 or 2) and conv3 with the
      residual join on kernel F (``qmatmul_residual`` /
-     ``qmatmul_residual2``), int8 between them.
+     ``qmatmul_residual2``), int8 between them. With DC5's ``dilation`` the
+     last stage's ``block_0`` runs G at stride 1 and its later blocks'
+     dilated conv2 runs outside G as exact int32 sums
+     (``ops/int8_conv.dilated_conv3x3_int8``), as the JAX package gives
+     them to XLA.
 
 Scheme (the JAX package's): symmetric per-tensor activation scales with
 zero-point 0, so SAME zero padding and validity masking stay exact, and
@@ -22,8 +26,7 @@ per-output-channel weight scales. Layouts: activations NHWC flattened to
 ``QuantizedBackbone`` holds a qtree as buffers for ``DETR(backbone_quant=
 True)``; ``quantize_model`` fills it from the model's own fp32 backbone.
 
-Not ported: ``return_interm`` (feeds the segmentation head, not ported)
-and the DC5 ``dilation`` option (the port's fp32 backbone lacks it too).
+Not ported: ``return_interm`` (feeds the segmentation head, not ported).
 """
 
 from __future__ import annotations
@@ -34,7 +37,12 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from ..ops.int8_conv import conv3x3_int8, reference_conv3x3_int8
+from ..ops.int8_conv import (
+    conv3x3_int8,
+    dilated_conv3x3_int8,
+    reference_conv3x3_int8,
+    reference_dilated_conv3x3_int8,
+)
 from ..ops.int8_matmul import (
     qmatmul,
     qmatmul_residual,
@@ -62,10 +70,13 @@ def _bn_of(module) -> Dict[str, torch.Tensor]:
     return {k: getattr(module, k) for k in _BN_KEYS}
 
 
-def _stage_plan(stage_sizes: Sequence[int]):
-    """(name, n_blocks, dim1, dim2, stride) per stage, as ``ResNetBackbone``."""
+def _stage_plan(stage_sizes: Sequence[int], dilation: bool = False):
+    """(name, n_blocks, dim1, dim2, stride, dilation) per stage, as
+    ``ResNetBackbone``: a dilated stage runs at stride 1, its later blocks
+    at dilation 2."""
     dims = [(64, 256), (128, 512), (256, 1024), (512, 2048)]
-    return [(f"layer{s + 1}", n, d1, d2, 1 if s == 0 else 2)
+    dilate = (False, False, False, dilation)
+    return [(f"layer{s + 1}", n, d1, d2, *((1, 2) if dilate[s] else (1 if s == 0 else 2, 1)))
             for s, (n, (d1, d2)) in enumerate(zip(stage_sizes, dims))]
 
 
@@ -105,7 +116,7 @@ def calibrate_backbone(backbone, images: torch.Tensor,
     _require_fp32(backbone)
     x = _stem_float(backbone.conv1.weight, _bn_of(backbone.bn1), images.float(), pixel_mask)
     calib: Dict[str, object] = {"stem_out": x.abs().amax()}
-    for name, n_blocks, _, _, _ in _stage_plan(_stage_sizes_of(backbone)):
+    for name, n_blocks, *_ in _stage_plan(_stage_sizes_of(backbone)):
         stage = {}
         for b in range(n_blocks):
             blk = getattr(getattr(backbone, name), f"block_{b}")
@@ -150,7 +161,7 @@ def quantize_backbone(backbone, calib: Mapping) -> QTree:
     for k, v in _bn_of(backbone.bn1).items():
         qt[f"stem.bn.{k}"] = v.detach().float().clone()
     in_scale = qt["stem.out_scale"]
-    for name, n_blocks, _, _, _ in _stage_plan(_stage_sizes_of(backbone)):
+    for name, n_blocks, *_ in _stage_plan(_stage_sizes_of(backbone)):
         for b in range(n_blocks):
             blk = getattr(getattr(backbone, name), f"block_{b}")
             cb = calib[name][f"block_{b}"]
@@ -186,7 +197,7 @@ def qtree_shapes(stage_sizes: Sequence[int]) -> Dict[str, tuple]:
     shapes = {"stem.kernel": ((64, 3, 7, 7), f32), "stem.out_scale": ((), f32)}
     shapes.update({f"stem.bn.{k}": ((64,), f32) for k in _BN_KEYS})
     cin = 64
-    for name, n_blocks, d1, d2, _ in _stage_plan(stage_sizes):
+    for name, n_blocks, d1, d2, *_ in _stage_plan(stage_sizes):
         for b in range(n_blocks):
             p = f"{name}.block_{b}."
             shapes.update({
@@ -206,31 +217,33 @@ def _requant(x: torch.Tensor) -> torch.Tensor:
     return torch.round(x).clamp(-128.0, 127.0).to(torch.int8)
 
 
-_KERNELS = (qmatmul, qmatmul_residual, qmatmul_residual2, conv3x3_int8)
+_KERNELS = (qmatmul, qmatmul_residual, qmatmul_residual2, conv3x3_int8, dilated_conv3x3_int8)
 _PLAIN = (reference_qmatmul, reference_qmatmul_residual, reference_qmatmul_residual2,
-          reference_conv3x3_int8)
+          reference_conv3x3_int8, reference_dilated_conv3x3_int8)
 
 
 def quant_backbone_forward(qtree: Mapping[str, torch.Tensor], images: torch.Tensor,
                            stage_sizes: Sequence[int] = (3, 4, 6, 3),
                            pixel_mask: Optional[torch.Tensor] = None,
                            compute_dtype: torch.dtype = torch.bfloat16,
-                           use_kernels: bool = True) -> torch.Tensor:
-    """int8 backbone forward: NHWC images -> (B, H/32, W/32, 2048) NHWC in
-    ``compute_dtype``, with the precise (fp32) epilogues, as the JAX
-    package's DETR runs it. ``use_kernels=False`` takes the plain versions
-    on any device (the JAX package's ``use_pallas=False`` route)."""
-    mm, mm_res, mm_res2, conv = _KERNELS if use_kernels else _PLAIN
+                           use_kernels: bool = True, dilation: bool = False) -> torch.Tensor:
+    """int8 backbone forward: NHWC images -> (B, H/32, W/32, 2048) NHWC
+    (H/16, W/16 with ``dilation``) in ``compute_dtype``, with the precise
+    (fp32) epilogues, as the JAX package's DETR runs it. ``use_kernels=False``
+    takes the plain versions on any device (the JAX package's
+    ``use_pallas=False`` route)."""
+    mm, mm_res, mm_res2, conv, dilated_conv = _KERNELS if use_kernels else _PLAIN
     q = qtree
     stem_bn = {k: q[f"stem.bn.{k}"] for k in _BN_KEYS}
     x = _stem_float(q["stem.kernel"], stem_bn, images.to(compute_dtype), pixel_mask)
     # Enter the int8 domain, NHWC.
     x = _requant(x.permute(0, 2, 3, 1).float() / q["stem.out_scale"])
     out_scale = q["stem.out_scale"]
-    for name, n_blocks, _, _, stride in _stage_plan(stage_sizes):
+    for name, n_blocks, _, _, stride, dil in _stage_plan(stage_sizes, dilation):
         for b in range(n_blocks):
             p = f"{name}.block_{b}."
             st = stride if b == 0 else 1
+            d_b = 1 if b == 0 else dil
             identity = x
             a1 = mm(x, q[p + "w1"], q[p + "m1"], q[p + "b1"], relu=True)
             if pixel_mask is not None:
@@ -238,7 +251,11 @@ def quant_backbone_forward(qtree: Mapping[str, torch.Tensor], images: torch.Tens
                 # cells (zero-point 0 makes this exact).
                 v_in = feature_valid_mask(pixel_mask, x.shape[1], x.shape[2], dtype=torch.int8)
                 a1 = a1 * v_in[..., None]
-            a2 = conv(a1, q[p + "w2"], q[p + "m2"], q[p + "b2"], stride=st, relu=True)
+            if d_b == 1:
+                a2 = conv(a1, q[p + "w2"], q[p + "m2"], q[p + "b2"], stride=st, relu=True)
+            else:
+                a2 = dilated_conv(a1, q[p + "w2"], q[p + "m2"], q[p + "b2"], dilation=d_b,
+                                  relu=True)
             # conv3 + folded BN + residual join + ReLU + requant; 1/out_scale
             # folds into every epilogue coefficient, divided here in fp32.
             so = q[p + "out_scale"]
@@ -255,11 +272,13 @@ def quant_backbone_forward(qtree: Mapping[str, torch.Tensor], images: torch.Tens
 
 class QuantizedBackbone(nn.Module):
     """A qtree as buffers (``stem.kernel``, ``layer1.block_0.w1``, ...), so
-    ``.to(device)`` and ``state_dict`` carry it. Empty until ``load``."""
+    ``.to(device)`` and ``state_dict`` carry it. Empty until ``load``.
+    ``dilation`` (DC5) changes the forward, not the qtree."""
 
-    def __init__(self, stage_sizes: Sequence[int]):
+    def __init__(self, stage_sizes: Sequence[int], dilation: bool = False):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
+        self.dilation = dilation
         self.loaded = False
 
     def load(self, qtree: Mapping[str, torch.Tensor]) -> None:
@@ -286,7 +305,7 @@ class QuantizedBackbone(nn.Module):
                              "models.quantized.quantize_model, or load an .npz that carries "
                              "the 'quant' collection")
         return quant_backbone_forward(dict(self.named_buffers()), images, self.stage_sizes,
-                                      pixel_mask, compute_dtype, use_kernels)
+                                      pixel_mask, compute_dtype, use_kernels, self.dilation)
 
 
 def quantize_model(model, calibration_images: torch.Tensor,

@@ -1,6 +1,6 @@
 """DETR transformer: post-norm encoder-decoder over batch-first tensors
-(port of ``detr_tensorflow_tpu/models/transformer.py``; no remat, no
-pipeline stages).
+(port of ``detr_tensorflow_tpu/models/transformer.py``; no pipeline
+stages).
 
 ``attn_impl`` picks the attention of every ``MultiHeadAttention``:
   * ``"auto"``: the CUDA kernels (``ops.flash_attention.mha``) for every
@@ -22,6 +22,13 @@ probabilities with the same Philox mask), on each residual branch and
 after the FFN's ReLU. Every draw comes from the ``generator`` the caller
 passes (the trainer owns it), never from the global RNG; the attention
 takes one 64-bit seed per call from it, on the device.
+
+``remat=True`` checkpoints every encoder and decoder layer while autograd
+records (``torch.utils.checkpoint``, the JAX package's ``nn.remat``): the
+backward recomputes the layer. ``torch.utils.checkpoint`` restores only
+the global RNG states, so the recompute first sets the caller's generator
+back to where the layer's forward found it, which replays the same keep
+masks and attention seeds, and then returns it to where it stood.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from typing import Optional
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import flash_attention
 from .layers import LayerNorm, Linear
@@ -167,16 +175,41 @@ class DecoderLayer(nn.Module):
         return self.norm3(tgt + drop(x))
 
 
+def _recomputed(layer: nn.Module, generator, *args):
+    """``layer(*args, generator=generator)`` under a non-reentrant
+    checkpoint whose recompute replays the generator's draws."""
+    if generator is None:
+        return checkpoint(layer, *args, generator=None, use_reentrant=False,
+                          preserve_rng_state=False)
+    start = generator.get_state()
+    calls = []
+
+    def run(*a):
+        if not calls:  # the forward: the generator is at ``start``
+            calls.append(1)
+            return layer(*a, generator=generator)
+        after = generator.get_state()
+        generator.set_state(start)
+        try:
+            return layer(*a, generator=generator)
+        finally:
+            generator.set_state(after)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 class Transformer(nn.Module):
     """Encoder-decoder. Inputs: src and pos (B, S, D), query_embed (Q, D).
     Returns hs (L, B, Q, D), every decoder layer's output through the
-    shared ``decoder_norm``, and the encoder memory (B, S, D)."""
+    shared ``decoder_norm``, and the encoder memory (B, S, D). ``remat``
+    recomputes each layer in the backward."""
 
     def __init__(self, model_dim: int = 256, num_heads: int = 8,
                  num_encoder_layers: int = 6, num_decoder_layers: int = 6,
                  dim_feedforward: int = 2048, attn_impl: str = "auto",
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.num_encoder_layers = num_encoder_layers
         self.num_decoder_layers = num_decoder_layers
         for i in range(num_encoder_layers):
@@ -189,15 +222,21 @@ class Transformer(nn.Module):
 
     def forward(self, src, pos, query_embed, key_padding_mask=None, train=False,
                 generator=None):
+        remat = self.remat and torch.is_grad_enabled()
+
+        def run(layer, *args):
+            if remat:
+                return _recomputed(layer, generator, *args, train)
+            return layer(*args, train, generator)
+
         memory = src
         for i in range(self.num_encoder_layers):
-            memory = getattr(self, f"encoder_layer_{i}")(
-                memory, pos, key_padding_mask, train, generator)
+            memory = run(getattr(self, f"encoder_layer_{i}"), memory, pos, key_padding_mask)
         query_pos = query_embed[None].expand(src.shape[0], -1, -1).to(src.dtype)
         tgt = torch.zeros_like(query_pos)
         intermediate = []
         for i in range(self.num_decoder_layers):
-            tgt = getattr(self, f"decoder_layer_{i}")(
-                tgt, memory, pos, query_pos, key_padding_mask, train, generator)
+            tgt = run(getattr(self, f"decoder_layer_{i}"), tgt, memory, pos, query_pos,
+                      key_padding_mask)
             intermediate.append(self.decoder_norm(tgt))
         return torch.stack(intermediate, dim=0), memory

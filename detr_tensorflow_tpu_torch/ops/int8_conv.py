@@ -16,6 +16,13 @@ tensor takes the plain version; there is no fallback from one to the
 other. ``plan`` picks the kernel's configuration (output patch, cluster)
 from the shape alone. ``conv3x3_int8.launches`` counts kernel launches per
 stride.
+
+DC5's dilated 3x3s (dilation 2, stride 1) do not go through the kernel,
+as in the JAX package, which gives them to XLA's int8 convolution
+(``_conv3x3_int8_xla``): ``dilated_conv3x3_int8`` gathers the nine taps
+into (M, 9C) int8 rows and contracts them with ``torch._int_mm`` into exact
+int32 sums, then applies the same epilogue (``dilated_conv3x3_int8.calls``
+counts them).
 """
 
 from __future__ import annotations
@@ -105,11 +112,12 @@ def smem_bytes(stride: int, patch, out_dtype=torch.int8) -> int:
             + 2 * W_STAGES * 8)
 
 
-def _int_conv3x3(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+def _int_conv3x3(x: torch.Tensor, w: torch.Tensor, stride: int,
+                 dilation: int = 1) -> torch.Tensor:
     """SAME 3x3 convolution of int8 NHWC x with int8 (K, 3, 3, C) w as exact
     integers in float64 (|acc| <= 9 * C * 128^2 < 2^53), NHWC out."""
     acc = F.conv2d(x.double().permute(0, 3, 1, 2), w.double().permute(0, 3, 1, 2),
-                   stride=stride, padding=1)
+                   stride=stride, padding=dilation, dilation=dilation)
     return acc.permute(0, 2, 3, 1)
 
 
@@ -182,3 +190,47 @@ def conv3x3_int8(x, w, scale, bias=None, *, stride=1, relu=False, out_dtype=torc
 
 
 conv3x3_int8.launches = {s: 0 for s in STRIDES}
+
+
+def dilated_conv3x3_int32(x: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
+    """Exact int32 sums of the SAME 3x3 convolution at ``dilation``, stride
+    1, of int8 (N, H, W, C) x with int8 (K, 3, 3, C) w: the taps gathered
+    into (N*H*W, 9C) rows (zeros past the image) and one ``torch._int_mm``
+    against the (9C, K) weights. NHWC int32 out."""
+    n, h, width, c = x.shape
+    k = w.shape[0]
+    d = dilation
+    xp = F.pad(x, (0, 0, d, d, d, d))
+    cols = torch.stack([xp[:, i * d:i * d + h, j * d:j * d + width, :]
+                        for i in range(3) for j in range(3)], dim=3)
+    rows = cols.reshape(n * h * width, 9 * c)
+    m = rows.shape[0]
+    if m <= 16:  # torch._int_mm takes more than 16 rows
+        rows = F.pad(rows, (0, 0, 0, 17 - m))
+    acc = torch._int_mm(rows, w.reshape(k, 9 * c).t())[:m]
+    return acc.reshape(n, h, width, k)
+
+
+def dilated_conv3x3_int8(x, w, scale, bias=None, *, dilation=2, relu=False,
+                         out_dtype=torch.int8, precise=True):
+    """Quantized SAME 3x3 convolution at ``dilation``, stride 1: int8
+    (N, H, W, C) x (K, 3, 3, C) -> (N, H, W, K) int8 (or bf16), the int32
+    sums of ``dilated_conv3x3_int32`` through ``conv3x3_int8``'s epilogue.
+    Equal to ``reference_dilated_conv3x3_int8`` on every device."""
+    if bias is None:
+        bias = torch.zeros_like(scale)
+    dilated_conv3x3_int8.calls += 1
+    return epilogue(dilated_conv3x3_int32(x, w, dilation), scale, bias, relu=relu,
+                    out_dtype=out_dtype, precise=precise)
+
+
+dilated_conv3x3_int8.calls = 0
+
+
+def reference_dilated_conv3x3_int8(x, w, scale, bias=None, *, dilation=2, relu=False,
+                                   out_dtype=torch.int8, precise=True):
+    """Plain version of ``dilated_conv3x3_int8``: the float64 convolution."""
+    if bias is None:
+        bias = torch.zeros_like(scale)
+    return epilogue(_int_conv3x3(x, w, 1, dilation), scale, bias, relu=relu,
+                    out_dtype=out_dtype, precise=precise)

@@ -150,3 +150,20 @@ def detr_loss(outputs, t_bbox, t_class, t_mask, background_class: int,
             for key in _LOG_KEYS:
                 log[f"{key}_{a}"] = aux[key]
     return total_from_log(log), log
+
+
+def get_losses(m_outputs, t_bbox, t_class, config):
+    """The reference's ``get_losses`` signature (reference loss.py:22-35)
+    on its header-row target layout (``data.processing.unpack_labels``);
+    the aux outputs may be stacked or the reference's list of dicts.
+    Returns (total, log)."""
+    from ..data.processing import unpack_labels
+
+    boxes_, classes_, mask_ = unpack_labels(t_bbox, t_class)
+    outputs = dict(m_outputs)
+    aux = outputs.pop("aux", None)
+    if aux:
+        outputs["aux_logits"] = torch.stack([a["pred_logits"] for a in aux])
+        outputs["aux_boxes"] = torch.stack([a["pred_boxes"] for a in aux])
+    return detr_loss(outputs, boxes_, classes_, mask_, int(config.background_class),
+                     lap_impl=getattr(config, "lap_impl", "auto"))

@@ -4,10 +4,11 @@ A frozen dataclass: what a component discovers (the dataset's background
 class) is returned and folded into a new config with ``replace``.
 Learning rates are runtime values: the trainer reads them at every step,
 so a change (``Trainer.set_learning_rates``) takes effect at once. The
-TPU-only knobs of the JAX config (``auto_input_layout``) and the options
-not ported yet (``data_parallel``, ``dilation``, ``backbone_weights``)
-have no field here; ``weights`` (a JAX-format ``.npz``) feeds
-``build_detr(weights=)``.
+TPU-only knob of the JAX config (``auto_input_layout``) and the option not
+ported yet (``data_parallel``) have no field here. ``weights`` (a JAX-format
+``.npz``, a torch DETR checkpoint or a short name) feeds
+``build_detr(weights=)``; ``dilation`` (DC5) and ``backbone_weights`` (a
+local torchvision ResNet) feed ``get_detr_model``.
 """
 
 from __future__ import annotations
@@ -75,12 +76,15 @@ class TrainingConfig:
     multi_scale: Optional[Tuple[Tuple[int, int], ...]] = None
 
     backbone_depth: int = 50  # 50 | 101
+    dilation: bool = False  # DC5: stride-16 C5 via dilated convs
     compute_dtype: str = "float32"
     attn_impl: str = "auto"  # "auto" | "kernel" | "plain" (models/transformer.py)
     lap_impl: str = "auto"  # "auto" | "kernel" | "plain" (ops/matcher.py)
     num_queries: int = 100
     checkpoint_dir: Optional[str] = None
-    weights: Optional[str] = None  # a JAX-format .npz for build_detr(weights=)
+    weights: Optional[str] = None  # build_detr(weights=): .npz, torch checkpoint or name
+    # Local torchvision resnet checkpoint for ImageNet backbone init.
+    backbone_weights: Optional[str] = None
 
     @property
     def gradient_aggregate(self) -> int:
@@ -115,8 +119,8 @@ class TrainingConfig:
 
 def training_config_parser() -> argparse.ArgumentParser:
     """The JAX package's training flags, with the port's own values for
-    ``--attn_impl`` and ``--lap_impl`` and ``--weights`` for a JAX-format
-    ``.npz``."""
+    ``--attn_impl`` and ``--lap_impl`` and ``--weights`` for a local
+    checkpoint."""
     p = argparse.ArgumentParser(description="detr_tensorflow_tpu_torch training")
     # Dataset
     p.add_argument("--data_dir", type=str, default=None)
@@ -152,7 +156,14 @@ def training_config_parser() -> argparse.ArgumentParser:
                    help="Hungarian-matching LAP solver: the CUDA kernel or the plain version")
     p.add_argument("--backbone_depth", type=int, default=None, choices=[50, 101],
                    help="ResNet depth: DETR-R50 (default) or DETR-R101")
+    p.add_argument("--dilation", action="store_true", default=None,
+                   help="DC5 variant: dilated stride-16 final stage")
     p.add_argument("--checkpoint_dir", type=str, default=None)
+    p.add_argument("--backbone_weights", type=str, default=None,
+                   help="local torchvision resnet50/101 .pth for ImageNet "
+                        "backbone initialization")
     p.add_argument("--weights", type=str, default=None,
-                   help="a JAX-format .npz of the model's variables (DetrModel.save)")
+                   help="the model's weights: a JAX-format .npz (DetrModel.save), a facebook "
+                        "or HuggingFace DETR .pth/.bin, or a short name under weights/detr "
+                        "or $DETR_TPU_WEIGHTS")
     return p

@@ -4,11 +4,13 @@ one validation pass then one training epoch per outer iteration.
 
   python -m detr_tensorflow_tpu_torch.train_coco --data_dir /path/coco \\
       --img_dir train2017 --ann_file annotations/instances_train2017.json \\
-      --batch_size 8 --target_batch 32 [--checkpoint_dir DIR] [--device cpu]
+      --batch_size 8 --target_batch 32 [--backbone_weights resnet50.pth] \\
+      [--checkpoint_dir DIR] [--device cpu]
 
-With no ImageNet backbone loader ported yet, the backbone starts from the
-seeded initialization and takes the caffe-style ``tf_resnet`` input
-normalization, as the JAX script does without ``--backbone_weights``.
+``--backbone_weights`` starts the backbone from a local torchvision
+ImageNet ResNet, with the torch input normalization; without it the
+backbone starts from the seeded initialization and takes the caffe-style
+``tf_resnet`` normalization, as the JAX script does.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ def main(argv=None, **model_kwargs) -> Trainer:
     n_class = max(CocoIndex(config.data.full_ann_file).getCatIds()) + 2
     model_kwargs.setdefault("device", args.device)
     model = get_detr_model(config, include_top=False, nb_class=n_class, weights=config.weights,
-                           tf_backbone=True, **model_kwargs)
+                           tf_backbone=config.backbone_weights is None, **model_kwargs)
     config = config.replace(normalized_method=model.normalized_method, train_nlayers=True)
     train_dt, class_names = load_coco_dataset(config, config.batch_size, augmentation=True,
                                               num_workers=args.num_workers, seed=args.seed)

@@ -1334,3 +1334,86 @@ def test_prefetch_equals_a_synchronous_copy(cuda_device, dtype):
         for k in want:
             assert got[k].device.type == "cuda" and got[k].dtype == want[k].dtype, k
             assert torch.equal(got[k], want[k]), k
+
+
+# DC5 (the last stage dilated, C5 at stride 16), remat, and checkpoints on the card.
+DC5_CFG = dict(backbone_stage_sizes=(1, 1, 1, 2), dilation=True, num_encoder_layers=2,
+               num_decoder_layers=2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dc5_forward_matches_plain_route(cuda_device, dtype):
+    """A reduced-depth DC5 DETR at a 512x768 bucket with a pixel mask
+    (32x48 = 1536 keys): the kernel route (A-tf32 at fp32, A-mma at bf16, 6
+    launches a forward) against the plain-attention route from the same
+    weights: fp32 within the golden tolerances (TF32 off), bf16 within
+    tests/test_torch_bf16.py's direct bounds."""
+    models = [api.build_detr(attn_impl=impl, dtype=dtype, device=cuda_device, **DC5_CFG)
+              for impl in ("auto", "plain")]
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(1, 512, 768, 3)).astype(np.float32)).to(cuda_device)
+    mask = torch.zeros((1, 512, 768), dtype=torch.bool, device=cuda_device)
+    mask[:, :450, :700] = True
+    before = _forward_counts()
+    out = models[0](x * mask[..., None], mask)
+    mma = dtype == "bfloat16"
+    assert _forward_counts(before) == (0, 6 * mma, 6 * (not mma))
+    ref = models[1](x * mask[..., None], mask)
+    tol = {"pred_boxes": 1.5e-2, "pred_logits": 7.5e-2} if mma else {"pred_boxes": 5e-4,
+                                                                      "pred_logits": 5e-3}
+    for key, atol in tol.items():
+        assert float((out[key] - ref[key]).abs().max()) <= atol, key
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_remat_on_the_card(cuda_device, dtype):
+    """A DC5 forward and backward at dropout 0.1 on the card with ``remat``
+    and ``backbone_remat=2``: every attention call's seed and every keep
+    mask replayed from the generator in the recompute, so the loss and the
+    gradients lie no further from the run without remat than twice a
+    second run without remat does (cuDNN's reductions may sum in another
+    order from one run to the next; floor 1e-6 of each tensor's norm), the
+    generator ends in the same state, and the recompute launches the
+    attention forward a second time (12 launches with 2 + 2 layers, 6
+    without)."""
+    from detr_tensorflow_tpu_torch.ops.losses import detr_loss
+
+    batch = _train_batch(cuda_device, b=2)
+    runs = []
+    for kw in ({}, {}, dict(remat=True, backbone_remat=2)):
+        model = api.build_detr(dropout=0.1, dtype=dtype, device=cuda_device, **DC5_CFG,
+                               **kw).module
+        gen = torch.Generator(device=cuda_device).manual_seed(7)
+        before = _forward_counts()
+        out = model(batch["images"], train=True, generator=gen)
+        total, _ = detr_loss(out, batch["boxes"], batch["classes"], batch["mask"], 91)
+        total.backward()
+        runs.append((total.detach(), {n: p.grad for n, p in model.named_parameters()},
+                     gen.get_state(), sum(_forward_counts(before))))
+    (l0, g0, s0, n0), (l2, g2, s2, _), (l1, g1, s1, n1) = runs
+    assert (n0, n1) == (6, 12) and torch.equal(s0, s1) and torch.equal(s0, s2)
+
+    def allowed(a, b, ref):
+        return 2 * max(float((b - a).norm()), 1e-6 * float(ref.norm()), 1e-30)
+
+    assert float((l1 - l0).abs()) <= allowed(l0, l2, l0)
+    for name, g in g0.items():
+        assert float((g1[name] - g).norm()) <= allowed(g, g2[name], g), name
+
+
+def test_save_and_load_on_the_card(cuda_device, tmp_path):
+    """``DetrModel.save`` of a DC5 model on the card and
+    ``build_detr(weights=.npz)`` on the card: every tensor and the outputs
+    bit-equal; ``DetrModel.load`` into a model of another seed the same."""
+    model = api.build_detr(seed=1, device=cuda_device, **DC5_CFG)
+    path = str(tmp_path / "dc5.npz")
+    model.save(path)
+    x = torch.from_numpy(np.random.default_rng(6).normal(size=(1, 256, 384, 3)).astype(
+        np.float32)).to(cuda_device)
+    ref = model(x)
+    for other in (api.build_detr(weights=path, device=cuda_device, **DC5_CFG),
+                  api.build_detr(seed=2, device=cuda_device, **DC5_CFG).load(path)):
+        state, want = other.module.state_dict(), model.module.state_dict()
+        assert all(torch.equal(state[k], want[k]) for k in want)
+        out = other(x)
+        assert all(torch.equal(out[k], ref[k]) for k in ref)
