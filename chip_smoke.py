@@ -135,7 +135,26 @@ Phases, one status line each; any failure raises and exits non-zero:
      ``remat=True, backbone_remat=2`` (A-tf32 36: every layer recomputed),
      gradients within twice two identical steps' difference, the generator
      in the same state, memory and step times beside; ``DetrModel.save``
-     and ``build_detr(weights=.npz)`` on the card, outputs bit-equal.
+     and ``build_detr(weights=.npz)`` on the card, outputs bit-equal;
+ 13. segmentation: a seeded DETR-R50 DETRsegm state_dict in facebook's
+     naming (``detr.``-prefixed detector, ``mask_head.*``,
+     ``bbox_attention.*``) loaded by ``build_detr(weights=.pth, masks=True)``;
+     ``Predictor(masks=True)`` at 800x1333 b1, fp32 (TF32 off, A-tf32 18 a
+     request) and bf16 (A-mma 18), C 1, 5 requests after one warm-up, each
+     mask bool at the image's size, with p50 latency, device busy time, idle
+     share and peak memory beside the same detector's requests without
+     masks, and the segmentation head's device time alone; one int8 segm
+     forward (F 32, G 16, A-mma 18) and one bucket-exact fused fp32 segm
+     forward at 768x1280 (C 1, D-tf32 4, E-tf32 12, A-tf32 18), each one's
+     pred_masks gap against the unfused fp32 model printed as a reading; a
+     reduced-depth segm model on the card against the CPU (the CPU parity
+     tests' bounds); one POST /detect with masks whose ``mask_rle`` decodes
+     to the Predictor's masks; the frozen-detector mask-head step at b8
+     376x672 fp32 dropout 0.1 (2 steps: A-tf32 18, A' 0, B 1, C 1 a step;
+     mask_loss and dice_loss logged), its busy time and memory;
+     ``finetune_coco_masks`` for 2 steps, then ``eval --masks`` over 4
+     synthetic PNG images with polygon masks (A-tf32 18 and C 1 an image),
+     whose AP table has a mask row.
 Kernel C runs in every ``ResNetBackbone`` forward: serving, training and
 fused serving count it (1 per forward or step); the int8 model's stem is
 not a ``ResNetBackbone`` and launches none.
@@ -2128,6 +2147,41 @@ def facebook_state_dict(seed, depth=50, num_encoder_layers=6, num_decoder_layers
     return sd
 
 
+def segmentation_state_dict(seed, num_heads=8, model_dim=256, base=64, **detector):
+    """A facebook DETRsegm state_dict: ``facebook_state_dict``'s detector
+    under ``detr.``, beside ``bbox_attention.{q,k}_linear`` and
+    ``mask_head.*`` (``MaskHeadSmallConv``: lay1 over concat(features,
+    attention maps), lay2-lay5, out_lay, GroupNorms gn1-gn5 and the FPN
+    adapters over c4/c3/c2), values from a numpy seed as the detector's.
+    ``detector`` goes to ``facebook_state_dict``."""
+    import torch
+
+    sd = {"detr." + k: v for k, v in facebook_state_dict(seed, model_dim=model_dim, base=base,
+                                                         **detector).items()}
+    rng = np.random.default_rng(seed + 1)
+
+    def put(key, x):
+        sd[key] = torch.from_numpy(np.asarray(x, np.float32))
+
+    for name in ("q_linear", "k_linear"):
+        put(f"bbox_attention.{name}.weight",
+            rng.normal(size=(model_dim, model_dim)) / np.sqrt(model_dim))
+        put(f"bbox_attention.{name}.bias", 0.1 * rng.normal(size=model_dim))
+    dims = [model_dim + num_heads, model_dim // 2, model_dim // 4, model_dim // 8,
+            model_dim // 16]
+    convs = [("lay1", dims[0], dims[0], 3)] + [
+        (f"lay{j + 2}", dims[j], dims[j + 1], 3) for j in range(4)] + [
+        ("out_lay", dims[4], 1, 3)] + [
+        (f"adapter{j + 1}", base * 4 * 2 ** (2 - j), dims[j + 1], 1) for j in range(3)]
+    for name, cin, cout, k in convs:
+        put(f"mask_head.{name}.weight", rng.normal(size=(cout, cin, k, k)) / np.sqrt(cin * k * k))
+        put(f"mask_head.{name}.bias", 0.1 * rng.normal(size=cout))
+    for j, c in enumerate(dims):
+        put(f"mask_head.gn{j + 1}.weight", 1.0 + 0.1 * rng.normal(size=c))
+        put(f"mask_head.gn{j + 1}.bias", 0.1 * rng.normal(size=c))
+    return sd
+
+
 # Checkpoints and DC5. DETR-R50-DC5 (the last stage dilated: C5 at stride 16)
 # loaded from a facebook-named .pth. At the 896x1408 serving bucket its
 # encoder sees 56x88 = 4928 keys (DETR-R50: 28x44 = 1232).
@@ -2449,6 +2503,334 @@ def phase_dc5(torch, fa, lap, mp, fr, fb, mm, conv, api, quantized, train, Predi
     return out
 
 
+# Instance segmentation: DETR-R50 with its mask head (DETRsegm), served at
+# 800x1333 b1 (the 896x1408 bucket: stride-4 masks of 224x352), the int8 and
+# fused backbones under it, the mask-head training step of the frozen-detector
+# recipe, and the entry points. The CPU comparison runs a reduced-depth model.
+SEG_SERVE, SEG_BUCKET, SEG_EXACT = (800, 1333), (896, 1408), (768, 1280)
+SEG_SMALL = dict(backbone_stage_sizes=(1, 1, 1, 1), num_encoder_layers=2, num_decoder_layers=2)
+SEG_SMALL_IN = (256, 384, 230, 301)  # canvas (H, W) and the image's valid extent in it
+# The CPU parity tests' bounds (tests/test_torch_segmentation.py).
+SEG_MASK_ATOL = 1e-3
+SEG_STEPS, SEG_ENTRY_IMAGES = 2, 4
+SEG_FUSED_PER_FORWARD = (1, 4, 12)  # (C, D-tf32, E-tf32) of a bucket-exact fused forward
+
+
+def _mask_head_ms(torch, model, x, mask):
+    """Device ms of the segmentation head alone (``bbox_attention`` and
+    ``mask_head``) on the inputs one forward gives them, from CUDA events
+    around 3 calls of each after one warm call."""
+    args = {}
+    hooks = [getattr(model.module, name).register_forward_hook(
+        lambda m, a, o, name=name: args.__setitem__(name, a)) for name in ("bbox_attention",
+                                                                           "mask_head")]
+    try:
+        with torch.inference_mode():
+            model(x, mask)
+    finally:
+        for h in hooks:
+            h.remove()
+    out = {}
+    with torch.inference_mode():
+        for name, a in args.items():
+            fn = getattr(model.module, name)
+            out[name] = time_ms(torch, lambda: fn(*a), iters=3, warmup=1)
+    return out
+
+
+def phase_segmentation(torch, fa, lap, mp, fr, fb, mm, conv, api, quantized, train, serve,
+                       Predictor):
+    """Instance segmentation: a seeded DETR-R50 DETRsegm checkpoint in
+    facebook's naming, served with masks at fp32 and bf16 beside the same
+    detector without masks, through the int8 and the fused backbones, held
+    against the CPU at reduced depth, over HTTP, trained by the
+    frozen-detector recipe, and through ``finetune_coco_masks`` and
+    ``eval --masks``. Counts reset just before each main-path run and read
+    just after."""
+    import math
+    import os
+    import tempfile
+
+    from detr_tensorflow_tpu_torch import eval as eval_main
+    from detr_tensorflow_tpu_torch import finetune_coco_masks
+    from detr_tensorflow_tpu_torch.data import make_synthetic_coco
+    from detr_tensorflow_tpu_torch.data.masks import rle_to_mask
+    from detr_tensorflow_tpu_torch.train.engine import batch_to_device
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_segm_")
+    path = os.path.join(tmp.name, "detr-r50-segm.pth")
+    t0 = time.perf_counter()
+    torch.save({"model": segmentation_state_dict(seed=51)}, path)
+    build = functools.partial(api.build_detr, weights=path, device=DEVICE)
+    models = {(dt, masks): build(dtype=dt, masks=masks)
+              for dt in ("float32", "bfloat16") for masks in (True, False)}
+    log(f"  facebook-named DETR-R50 DETRsegm .pth written and 4 models built from it (with and "
+        f"without masks, fp32 and bf16) in {time.perf_counter() - t0:.2f} s")
+    launches = collections.Counter()
+    out = {"launches": launches}
+
+    # Serving at 800x1333 b1, 5 requests a model after one warm-up.
+    img = random_images([SEG_SERVE], seed=52)[0]
+    (h, w), (bh, bw) = SEG_SERVE, SEG_BUCKET
+    frames = np.zeros((1, bh, bw, 3), np.uint8)
+    frames[0, :h, :w] = img
+    pm = torch.zeros((1, bh, bw), dtype=torch.bool, device=DEVICE)
+    pm[0, :h, :w] = True
+    out["serving"] = {}
+    for dtype in ("float32", "bfloat16"):
+        route = "A-tf32" if dtype == "float32" else "A-mma"
+        for masks in (True, False):
+            pred = Predictor(models[(dtype, masks)], background_class=BACKGROUND, masks=masks)
+            pred.warmup([SEG_SERVE])
+            reset_counts(fa, lap, mp)  # main path
+            lat = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                dets = pred([img])
+                lat.append(1e3 * (time.perf_counter() - t0))
+            counts = read_counts(fa, lap, mp)
+            want = {k: 0 for k in counts}
+            want.update({route: 5 * LAUNCHES_PER_FORWARD, "C": 5})
+            if counts != want:
+                raise AssertionError(f"segm {dtype} masks={masks} serving launches {counts}, "
+                                     f"expected {want}")
+            launches["flash_attention_fwd_tf32" if dtype == "float32" else
+                     "flash_attention_fwd_mma"] += counts[route]
+            launches["maxpool"] += counts["C"]
+            check_detections(dets)
+            d = dets[0]
+            if masks and (d.masks is None or d.masks.dtype != bool
+                          or d.masks.shape != (len(d.boxes), h, w)):
+                raise AssertionError(f"masks {None if d.masks is None else d.masks.shape}, "
+                                     f"expected bool ({len(d.boxes)}, {h}, {w})")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            pred([img])
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            wall, busy, events = device_busy_ms(torch, lambda: pred([img]))
+            share = "not measured" if busy is None else f"{busy:.2f} ms, idle {1 - busy / wall:.2f}"
+            head = _mask_head_ms(torch, models[(dtype, masks)], pred.normalize(
+                torch.from_numpy(frames).to(DEVICE)) * pm[..., None], pm) if masks else {}
+            out["serving"][(dtype, masks)] = dict(p50=statistics.median(lat), busy=busy,
+                                                  wall=wall, peak=peak, head=head)
+            log(f"  DETR-R50 {'with masks' if masks else 'without masks'} {dtype} 800x1333 b1: "
+                f"p50 {statistics.median(lat):.2f} ms of {[round(v, 2) for v in lat]}; under "
+                f"torch.profiler wall {wall:.2f} ms, device busy {share}, {events:.0f} kernels "
+                f"and copies; peak memory above the model {peak:.2f} GiB; launches {counts}"
+                + (f"; {len(d.boxes)} masks ({h}x{w} bool); segmentation head alone, CUDA events: "
+                   f"bbox_attention {head['bbox_attention']:.2f} ms, mask_head "
+                   f"{head['mask_head']:.2f} ms" if masks else ""))
+            del pred
+    torch.cuda.empty_cache()
+
+    # The int8 and fused backbones under the mask head, against the unfused
+    # fp32 model (readings of the pred_masks gap).
+    with torch.inference_mode():
+        x = Predictor(models[("float32", True)], BACKGROUND).normalize(
+            torch.from_numpy(frames).to(DEVICE)) * pm[..., None]
+        ref = models[("float32", True)](x, pm)
+    int8 = build(dtype="bfloat16", masks=True, backbone_quant=True)
+    with torch.inference_mode():
+        calib = Predictor(int8, BACKGROUND).normalize(
+            torch.from_numpy(np.stack(random_images([SEG_SERVE] * 2, seed=53))).to(DEVICE))
+    quantized.quantize_model(int8, calib)
+    del calib
+    with torch.inference_mode():
+        int8(x, pm)  # kernel builds and plans
+    reset_int8_counts(mm, conv)  # main path
+    fa.mha.mma_launches = 0
+    with torch.inference_mode():
+        q8 = int8(x, pm)
+    torch.cuda.synchronize()
+    f_counts = (mm.qmatmul.launches, mm.qmatmul_residual.launches, mm.qmatmul_residual2.launches)
+    g_counts = dict(conv.conv3x3_int8.launches)
+    if (f_counts != tuple(F_PER_FORWARD.values()) or g_counts != G_PER_FORWARD
+            or fa.mha.mma_launches != LAUNCHES_PER_FORWARD):
+        raise AssertionError(f"int8 segm launches: F {f_counts}, G {g_counts}, A-mma "
+                             f"{fa.mha.mma_launches}")
+    launches["int8_matmul"] += sum(f_counts)
+    launches["int8_conv"] += sum(g_counts.values())
+    launches["flash_attention_fwd_mma"] += fa.mha.mma_launches
+    int8_gap = float((q8["pred_masks"] - ref["pred_masks"]).abs().max())
+    if not bool(torch.isfinite(q8["pred_masks"]).all()):
+        raise AssertionError("int8 segm forward: non-finite pred_masks")
+    del int8, q8
+    fused = build(masks=True, fuse_residual=True, fuse_bottleneck=True)
+    xe = random_images([SEG_EXACT], seed=54)[0]
+    with torch.inference_mode():
+        xe = Predictor(fused, BACKGROUND).normalize(torch.from_numpy(xe[None]).to(DEVICE))
+        fused(xe)  # kernel builds
+    d, e = fr.conv1x1_bn_residual_relu, fb.fused_bottleneck
+    d.tf32_launches = e.tf32_launches = mp.max_pool_3x3_s2.launches = 0  # main path
+    d.launches = d.mma_launches = e.launches = e.mma_launches = fa.mha.tf32_launches = 0
+    with torch.inference_mode():
+        fo = fused(xe)
+    torch.cuda.synchronize()
+    fused_counts = (mp.max_pool_3x3_s2.launches, d.tf32_launches, e.tf32_launches,
+                    fa.mha.tf32_launches)
+    if fused_counts != SEG_FUSED_PER_FORWARD + (LAUNCHES_PER_FORWARD,) or any(
+            (d.launches, d.mma_launches, e.launches, e.mma_launches)):
+        raise AssertionError(f"fused segm launches (C, D-tf32, E-tf32, A-tf32) {fused_counts}")
+    for name, n in zip(("maxpool", "fused_residual_tf32", "fused_bottleneck_tf32",
+                        "flash_attention_fwd_tf32"), fused_counts):
+        launches[name] += n
+    with torch.inference_mode():
+        fused_gap = float((fo["pred_masks"] - models[("float32", True)](xe)["pred_masks"])
+                          .abs().max())
+    log(f"  int8 segm 800x1333 b1 (bf16 compute): F {f_counts}, G {g_counts}, A-mma "
+        f"{LAUNCHES_PER_FORWARD}; fused segm fp32 768x1280 bucket-exact: (C, D-tf32, E-tf32, "
+        f"A-tf32) {fused_counts}; pred_masks max |gap| against the unfused fp32 model (a "
+        f"reading): int8 {int8_gap:.3e}, fused {fused_gap:.3e}")
+    out["gaps"] = (int8_gap, fused_gap)
+    del fused, fo, ref, x, xe
+    torch.cuda.empty_cache()
+
+    # The card against the CPU at reduced depth (fp32, TF32 off).
+    small = {d: api.build_detr(device=d, masks=True, **SEG_SMALL) for d in (DEVICE, "cpu")}
+    sh, sw, vh, vw = SEG_SMALL_IN
+    xs = torch.from_numpy(np.random.default_rng(55).normal(size=(1, sh, sw, 3)).astype(
+        np.float32))
+    ms = torch.zeros((1, sh, sw), dtype=torch.bool)
+    ms[:, :vh, :vw] = True
+    xs = xs * ms[..., None]
+    card = small[DEVICE](xs.to(DEVICE), ms.to(DEVICE))
+    cpu = small["cpu"](xs, ms)
+    errs = {k: float((card[k].cpu() - cpu[k]).abs().max())
+            for k in ("pred_boxes", "pred_logits", "pred_masks")}
+    log(f"  reduced-depth segm model (stages 1,1,1,1, 2+2 layers) {sh}x{sw} masked, card fp32 "
+        f"against the CPU: boxes {errs['pred_boxes']:.3e} (tol {BOX_ATOL}), logits "
+        f"{errs['pred_logits']:.3e} (tol {LOGIT_ATOL}), pred_masks {errs['pred_masks']:.3e} (tol "
+        f"{SEG_MASK_ATOL})")
+    if not (errs["pred_boxes"] <= BOX_ATOL and errs["pred_logits"] <= LOGIT_ATOL
+            and errs["pred_masks"] <= SEG_MASK_ATOL):
+        raise AssertionError(f"segm card against CPU: {errs}")
+    out["cpu_errs"] = errs
+    del small, card, cpu
+
+    # HTTP: mask_rle decodes to the Predictor's mask.
+    pred = Predictor(models[("float32", True)], background_class=BACKGROUND, masks=True)
+    service = serve.DetrService(pred, [str(i) for i in range(92)])
+    service.submit(pred.warmup, [SEG_SERVE])
+    server = serve.make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        buf = io.BytesIO()
+        np.save(buf, img)
+        req = urllib.request.Request(f"http://127.0.0.1:{server.server_address[1]}/detect",
+                                     data=buf.getvalue(), method="POST")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as r:
+            status, payload = r.status, json.loads(r.read())
+        ms_post = 1e3 * (time.perf_counter() - t0)
+        det = service.detect([img])[0]
+        dets = payload.get("detections", [])
+        if status != 200 or len(dets) != len(det.masks) or not all(
+                np.array_equal(rle_to_mask(dd["mask_rle"]).astype(bool), m)
+                for dd, m in zip(dets, det.masks)):
+            raise AssertionError("POST /detect with masks: mask_rle does not decode to the "
+                                 "Predictor's masks")
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise AssertionError("server thread did not stop")
+    log(f"  POST /detect 800x1333 with --masks: 200 in {ms_post:.2f} ms, {len(dets)} detections, "
+        f"each mask_rle decoding to the Predictor's mask")
+    del pred, service, models
+    torch.cuda.empty_cache()
+
+    # The mask-head training step: the frozen-detector recipe, b8 376x672,
+    # dropout 0.1.
+    config = train.TrainingConfig(background_class=BACKGROUND, train_backbone=False,
+                                  train_transformers=False, train_nlayers=True,
+                                  batch_size=TRAIN_BATCH)
+    batch = train_batch(56)
+    rng = np.random.default_rng(56)
+    hm, wm = (-(-TRAIN_HW[0] // 4), -(-TRAIN_HW[1] // 4))
+    batch["t_masks"] = (rng.random((TRAIN_BATCH, 100, hm, wm)) < 0.3).astype(np.uint8)
+    batch = batch_to_device(batch, DEVICE)
+    model = build(masks=True).module
+    trainer = train.Trainer(model, config, seed=0)
+    trainer.step(batch)  # cuDNN plans, kernel loads
+    reset_counts(fa, lap, mp)  # main path
+    logs = [trainer.step(batch) for _ in range(SEG_STEPS)]
+    counts = read_counts(fa, lap, mp)
+    want = {k: 0 for k in counts}
+    want.update({"A-tf32": SEG_STEPS * LAUNCHES_PER_FORWARD, "B": SEG_STEPS, "C": SEG_STEPS})
+    losses_ = [float(lg["total_loss"]) for lg in logs]
+    if counts != want or not all(math.isfinite(v) for v in losses_) or not all(
+            {"mask_loss", "dice_loss"} <= set(lg) for lg in logs):
+        raise AssertionError(f"mask-head step: launches {counts} (expected {want}), losses "
+                             f"{losses_}")
+    for name, key in (("flash_attention_fwd_tf32", "A-tf32"), ("lap", "B"), ("maxpool", "C")):
+        launches[name] += counts[key]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    trainer.step(batch)
+    torch.cuda.synchronize()
+    step_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    wall, busy, events = device_busy_ms(torch, lambda: trainer.step(batch))
+    out["step"] = dict(wall=wall, busy=busy, peak=step_peak)
+    log(f"  mask-head step (frozen detector) b{TRAIN_BATCH} {TRAIN_HW[0]}x{TRAIN_HW[1]} fp32 "
+        f"dropout {DROPOUT}, {SEG_STEPS} steps: launches {counts}; losses "
+        f"{[round(v, 4) for v in losses_]}, mask_loss {float(logs[-1]['mask_loss']):.4f}, "
+        f"dice_loss {float(logs[-1]['dice_loss']):.4f}; under torch.profiler wall {wall:.2f} ms, "
+        f"device busy {busy:.2f} ms, {events:.0f} kernels and copies; peak memory of a step "
+        f"above the memory held before it {step_peak:.2f} GiB")
+    del trainer, model, batch
+    torch.cuda.empty_cache()
+
+    # Entry points from image files with polygon masks: a training set of
+    # SEG_STEPS batches and an evaluation set of SEG_ENTRY_IMAGES images.
+    def data(name, n, seed):
+        root = os.path.join(tmp.name, name)
+        make_synthetic_coco(root, n_images=n, seed=seed, masks=True, sizes=ENTRY_SIZES,
+                            boxes_per_image=ENTRY_BOXES)
+        return ["--data_dir", root, "--img_dir", "images", "--ann_file", "ann.json",
+                "--device", DEVICE]
+
+    reset_counts(fa, lap, mp)  # main path: mask-head training from image files
+    t0 = time.perf_counter()
+    trainer = finetune_coco_masks.main(data("train", SEG_STEPS * TRAIN_BATCH, 57) + [
+        "--weights", path, "--batch_size", str(TRAIN_BATCH), "--target_batch", str(TRAIN_BATCH),
+        "--image_size", *map(str, TRAIN_HW), "--epochs", "1", "--steps_per_epoch",
+        str(SEG_STEPS), "--evaluation_steps", "0"])
+    torch.cuda.synchronize()
+    counts = read_counts(fa, lap, mp)
+    want = {k: 0 for k in counts}
+    want.update({"A-tf32": SEG_STEPS * LAUNCHES_PER_FORWARD, "B": SEG_STEPS, "C": SEG_STEPS})
+    if counts != want or trainer.steps != SEG_STEPS:
+        raise AssertionError(f"finetune_coco_masks: {trainer.steps} steps, launches {counts}")
+    for name, key in (("flash_attention_fwd_tf32", "A-tf32"), ("lap", "B"), ("maxpool", "C")):
+        launches[name] += counts[key]
+    npz = os.path.join(tmp.name, "segm.npz")
+    api.DetrModel(trainer.model).save(npz)
+    log(f"  finetune_coco_masks.main: {trainer.steps} steps in {time.perf_counter() - t0:.2f} s "
+        f"(model build included), launches {counts}; saved as .npz")
+    del trainer
+    torch.cuda.empty_cache()
+    reset_counts(fa, lap, mp)  # main path: mask AP from image files
+    table = eval_main.main(data("val", SEG_ENTRY_IMAGES, 58) + ["--weights", npz, "--masks"])
+    counts = read_counts(fa, lap, mp)
+    want = {k: 0 for k in counts}
+    want.update({"A-tf32": SEG_ENTRY_IMAGES * LAUNCHES_PER_FORWARD, "C": SEG_ENTRY_IMAGES})
+    if counts != want or set(table) != {"box", "mask"}:
+        raise AssertionError(f"eval --masks: launches {counts}, table {table}")
+    for name, key in (("flash_attention_fwd_tf32", "A-tf32"), ("maxpool", "C")):
+        launches[name] += counts[key]
+    log(f"  eval.main --masks (full lattice, batch 1, {SEG_ENTRY_IMAGES} images): launches "
+        f"{counts}; mask AP {dict(table['mask'])}")
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return out
+
+
 def sass_counts(nvcc_build, path, op="HMMA") -> dict:
     """``op`` instructions (HMMA: bf16 and TF32 tensor cores, IMMA: int8) in
     the SASS of each kernel of a built library, by mangled name."""
@@ -2607,6 +2989,15 @@ def main() -> int:
             for dt in ("float32", "bfloat16"))
         + f"; launches on its main paths {dict(dc5['launches'])}")
 
+    t = time.perf_counter()
+    seg = phase_segmentation(torch, fa, lap, maxpool, fused_residual, fused_bottleneck,
+                             int8_matmul, int8_conv, api, quantized, train, serve, Predictor)
+    sv = seg["serving"]
+    log(f"[segmentation] ok in {time.perf_counter() - t:.1f} s; 800x1333 b1 p50 with / without "
+        f"masks: " + ", ".join(f"{dt} {sv[(dt, True)]['p50']:.2f} / {sv[(dt, False)]['p50']:.2f} "
+                               f"ms" for dt in ("float32", "bfloat16"))
+        + f"; launches on its main paths {dict(seg['launches'])}")
+
     a32, a16 = times[(2, 1232, 1232, "float32")], times[(2, 1232, 1232, "bfloat16")]
     # The training shapes' times: fp32 under (Lq, Lk), bf16 under (Lq, Lk, "bfloat16").
     bwd_times16 = {k[:2]: v for k, v in bwd_times.items() if len(k) == 3}
@@ -2649,7 +3040,8 @@ def main() -> int:
     # kernels and have changed between versions of this script.
     def entry(name, source, launches_, err, ms_, plain_, bound, by, library, at):
         return {"name": name, "route": "cuda", "source": CSRC + source,
-                "replaces": REPLACES[name], "launches": launches_ + dc5["launches"][name],
+                "replaces": REPLACES[name],
+                "launches": launches_ + dc5["launches"][name] + seg["launches"][name],
                 "max_abs_err": err,
                 "ms": ms_, "plain_ms": plain_, "bound_ms": bound, "bound_by": by,
                 "library_ms": library, "measured_at": at}

@@ -3,8 +3,10 @@
 The class-name table with N/A gaps and a trailing "back" background class
 at max category id + 1, relative xcycwh boxes, crowd and empty images
 dropped, shuffled fixed-slot batches; images read by ``data/image_io.py``
-and transformed by ``data/transforms.py``. Instance masks (``include_masks``,
-``full_res_masks``) are not ported yet and raise.
+and transformed by ``data/transforms.py``. ``include_masks`` rasterizes each
+annotation's segmentation (``data/masks.py``) and carries the instance masks
+through the transforms as ``t_masks`` (T, H/4, W/4); ``full_res_masks`` adds
+``t_masks_full`` to an evaluation example.
 """
 
 import os
@@ -12,6 +14,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from . import masks as seg_masks
 from . import processing, transforms
 from .coco_api import CocoIndex
 from .image_io import read_image
@@ -37,26 +40,26 @@ COCO_CLASS_NAME = [
 ]
 
 
-def _no_masks(include_masks: bool, full_res_masks: bool = False) -> None:
-    if include_masks or full_res_masks:
-        raise NotImplementedError("instance masks are not ported yet (segmentation and "
-                                  "panoptic come in a later slice)")
-
-
 def get_coco_labels(coco: CocoIndex, img_id: int, image_shape, include_masks: bool = False):
     """Boxes (n, 4) relative xcycwh, classes (n,) and the is_crowd flag of
-    one image."""
-    _no_masks(include_masks)
+    one image; with ``include_masks`` also its instance masks, (n, H, W)
+    uint8."""
     h, w = float(image_shape[0]), float(image_shape[1])
-    bbox, cls, crowd = [], [], 0
+    ih, iw = int(image_shape[0]), int(image_shape[1])
+    bbox, cls, crowd, masks = [], [], 0, []
     for ann in coco.loadAnnsForImage(img_id):
         x, y, bw, bh = ann["bbox"]
         if ann.get("iscrowd", 0):
             crowd = 1
         bbox.append([(x + bw / 2) / w, (y + bh / 2) / h, bw / w, bh / h])
         cls.append(ann["category_id"])
-    return (np.asarray(bbox, np.float32).reshape(-1, 4), np.asarray(cls, np.int32).reshape(-1),
-            crowd)
+        if include_masks:
+            masks.append(seg_masks.ann_to_mask(ann, ih, iw))
+    out = (np.asarray(bbox, np.float32).reshape(-1, 4), np.asarray(cls, np.int32).reshape(-1),
+           crowd)
+    if include_masks:
+        return out + (np.stack(masks) if masks else np.zeros((0, ih, iw), np.uint8),)
+    return out
 
 
 def load_coco_dataset(config, batch_size: int, augmentation: Optional[bool] = False,
@@ -79,9 +82,13 @@ def load_coco_dataset(config, batch_size: int, augmentation: Optional[bool] = Fa
         each bucket's last batch is padded (``batch_valid``) so every image
         is scored once. ``paper_protocol=(min_side, max_side)`` resizes the
         shortest side first.
+
+    ``include_masks`` adds ``t_masks`` (T, H/4, W/4) uint8, the instance
+    masks slotted like the boxes at the mask head's stride-4 lattice; with
+    ``augmentation=None``, ``full_res_masks`` adds ``t_masks_full`` (n, PH,
+    PW) in the bucket frame (batch 1).
     """
     del ann_dir
-    _no_masks(include_masks, full_res_masks)
     ann_file = ann_file or config.data.full_ann_file
     img_dir = img_dir or config.data.full_img_dir
     coco = CocoIndex(ann_file)
@@ -102,21 +109,32 @@ def load_coco_dataset(config, batch_size: int, augmentation: Optional[bool] = Fa
     def load_example(img_id):
         img = coco.loadImgs([img_id])[0]
         image = read_image(os.path.join(img_dir, img["file_name"]))
-        t_bbox, t_class, is_crowd = get_coco_labels(coco, img["id"], image.shape)
+        labels = get_coco_labels(coco, img["id"], image.shape, include_masks=include_masks)
+        t_bbox, t_class, is_crowd = labels[:3]
+        inst_masks = labels[3] if include_masks else None
         if is_crowd or len(t_bbox) == 0:
             return None
         if augmentation is not None:
-            image, t_bbox, t_class = transforms.detr_transform(
+            out = transforms.detr_transform(
                 image, t_bbox, t_class, config, augmentation, rng=worker_rng.get(),
-                image_size=plan.size_for(img_id) if plan else None)
+                masks=inst_masks, image_size=plan.size_for(img_id) if plan else None)
+            image, t_bbox, t_class = out[:3]
             if len(t_bbox) == 0:
                 return None
             boxes, classes, mask = processing.pad_targets(t_bbox, t_class, max_targets=max_t)
-            return {"images": processing.normalized_images(image, config).astype(np.float32),
-                    "boxes": boxes, "classes": classes, "mask": mask}
+            example = {"images": processing.normalized_images(image, config).astype(np.float32),
+                       "boxes": boxes, "classes": classes, "mask": mask}
+            if include_masks:
+                example["t_masks"] = seg_masks.pad_instance_masks(out[3], max_t)
+            return example
         if paper_protocol is not None:
-            image = transforms.shortest_side_resize(image, paper_protocol[0], paper_protocol[1])
-        return processing.make_eval_example(image, t_bbox, t_class, config, bucket_divisor)
+            image = transforms.shortest_side_resize(image, paper_protocol[0], paper_protocol[1],
+                                                    masks=inst_masks)
+            if include_masks:
+                image, inst_masks = image
+        return processing.make_eval_example(image, t_bbox, t_class, config, bucket_divisor,
+                                            inst_masks=inst_masks,
+                                            full_res_masks=full_res_masks)
 
     eval_batched = augmentation is None and batch_size > 1
     dataset = HostDataset(

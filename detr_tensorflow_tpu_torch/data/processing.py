@@ -4,8 +4,10 @@
 Every image carries exactly ``MAX_TARGETS`` target slots: ``boxes (T, 4)``,
 ``classes (T,)`` and a bool ``mask (T,)``, real targets first. The
 reference's header-row layout (row 0 ``[n, 0, 0, 0]``, then the targets)
-goes in with ``pad_labels`` and out with ``unpack_labels``. Instance masks
-(``inst_masks``, ``full_res_masks``) are not ported yet.
+goes in with ``pad_labels`` and out with ``unpack_labels``. An evaluation
+example may carry instance masks: ``t_masks`` at the mask head's stride-4
+lattice of the bucket, and with ``full_res_masks`` ``t_masks_full`` in the
+bucket frame.
 """
 
 from typing import Tuple
@@ -136,7 +138,8 @@ def pad_image_to_bucket(image: np.ndarray, divisor: int = 128):
 
 
 def make_eval_example(image: np.ndarray, t_bbox: np.ndarray, t_class: np.ndarray, config,
-                      bucket_divisor: int = 128):
+                      bucket_divisor: int = 128, inst_masks: np.ndarray = None,
+                      full_res_masks: bool = False):
     """Original-size evaluation example: the normalized image zero-padded to
     its bucket, the pixel mask of its valid region and the padded targets,
     in one dict ready for ``stack_batch``.
@@ -145,6 +148,12 @@ def make_eval_example(image: np.ndarray, t_bbox: np.ndarray, t_class: np.ndarray
     masked forward is padding-invariant, so its boxes are normalized to the
     valid region as well. An (H, W, 3) uint8 image under ``torch_resnet``
     is normalized straight into the bucket by the C++ kernel.
+
+    ``inst_masks`` (n, H, W) uint8 adds ``t_masks``: the masks padded into
+    the bucket and subsampled to its stride-4 lattice, slotted like the
+    boxes, where the predicted masks live. ``full_res_masks`` adds
+    ``t_masks_full``, the (n, PH, PW) masks in the bucket frame (ragged in
+    n: batch 1 only), for scoring at the image's own size.
     """
     h, w = image.shape[:2]
     ph, pw = _bucket(h, bucket_divisor), _bucket(w, bucket_divisor)
@@ -157,7 +166,16 @@ def make_eval_example(image: np.ndarray, t_bbox: np.ndarray, t_class: np.ndarray
         padded, _, _ = pad_image_to_bucket(normalized_images(image, config), bucket_divisor)
     pixel_mask = np.zeros((ph, pw), bool)
     pixel_mask[:h, :w] = True
-    boxes, classes, mask = pad_targets(t_bbox, t_class,
-                                       max_targets=getattr(config, "num_queries", MAX_TARGETS))
-    return {"images": padded.astype(np.float32), "pixel_mask": pixel_mask, "boxes": boxes,
-            "classes": classes, "mask": mask}
+    max_t = getattr(config, "num_queries", MAX_TARGETS)
+    boxes, classes, mask = pad_targets(t_bbox, t_class, max_targets=max_t)
+    example = {"images": padded.astype(np.float32), "pixel_mask": pixel_mask, "boxes": boxes,
+               "classes": classes, "mask": mask}
+    if inst_masks is not None:
+        from .masks import pad_instance_masks
+
+        bucketed = np.zeros((len(inst_masks), ph, pw), np.uint8)
+        bucketed[:, :h, :w] = inst_masks
+        example["t_masks"] = pad_instance_masks(bucketed, max_t)
+        if full_res_masks:
+            example["t_masks_full"] = bucketed
+    return example

@@ -24,7 +24,14 @@ uint8 INTER_LINEAR (and INTER_AREA where it does not shrink both axes)
 runs OpenCV's 11-bit fixed point; it and INTER_AREA are bit-equal to
 OpenCV's. Cubic sums in float32 where OpenCV keeps 11-bit weights, so a
 result can land one level away (``tests/test_torch_data.py`` measures the
-bound per mode). Instance masks are not ported yet.
+bound per mode).
+
+Instance masks (n, H, W) uint8 ride along through every step with nearest
+sampling, bit-equal to OpenCV 5.0's: ``cv2.resize`` with INTER_NEAREST
+(``resize_masks``) and ``cv2.warpAffine`` with INTER_NEAREST for the scale
+about the centre (``warp_scale_nearest``); flips and crops slice them, and
+the boxes' keep mask drops their instances. Masks draw nothing from the
+Generator, as in the JAX transform.
 """
 
 from __future__ import annotations
@@ -231,43 +238,87 @@ def warp_scale(image: np.ndarray, sx: float, sy: float, cx: float, cy: float) ->
     with the source position in float32 as OpenCV 5 computes it."""
     h, w = image.shape[:2]
     c = 1 if image.ndim == 2 else image.shape[2]
-    tx, ty = cx * (1 - sx), cy * (1 - sy)
-    # invertAffineTransform, in OpenCV's order of operations.
-    det = 1.0 / (sx * sy)
-    a11, a22, a12, a21 = sy * det, sx * det, -0.0 * det, -0.0 * det
-    b1, b2 = -a11 * tx - a12 * ty, -a21 * tx - a22 * ty
+    a11, b1, a22, b2 = _inverse_scale(sx, sy, cx, cy)
     x = image.reshape(h, w * c).astype(np.float32)
     x = _lerp_axis(x, w, a11, b1, axis=1, c=c)
     x = _lerp_axis(x, h, a22, b2, axis=0)
     return _from_float(x, image.dtype).reshape(image.shape)
 
 
-def _resize(image, boxes_xyxy, out_h, out_w, rng: Optional[np.random.Generator] = None):
+def _inverse_scale(sx: float, sy: float, cx: float, cy: float):
+    """OpenCV's invertAffineTransform of a scale about (cx, cy), in its
+    order of operations: (a11, b1, a22, b2), the source position of output
+    pixel d being a * d + b along each axis."""
+    tx, ty = cx * (1 - sx), cy * (1 - sy)
+    det = 1.0 / (sx * sy)
+    a11, a22, a12, a21 = sy * det, sx * det, -0.0 * det, -0.0 * det
+    return a11, -a11 * tx - a12 * ty, a22, -a21 * tx - a22 * ty
+
+
+def warp_scale_nearest(masks: np.ndarray, sx: float, sy: float, cx: float,
+                       cy: float) -> np.ndarray:
+    """``cv2.warpAffine(mask, [[sx, 0, cx (1 - sx)], [0, sy, cy (1 - sy)]],
+    (W, H), flags=INTER_NEAREST)`` of each (n, H, W) mask: the source
+    pixel nearest (ties to even) to the float32 position OpenCV 5.0
+    computes, zero outside. Its vector loop takes columns in blocks of 16
+    and computes a * d + b with one rounding (a fused multiply-add); the
+    last W mod 16 columns, and every row, round the product and the sum
+    apart."""
+    n, h, w = masks.shape
+    a11, b1, a22, b2 = (np.float32(v) for v in _inverse_scale(sx, sy, cx, cy))
+    d = np.arange(w)
+    fused = (np.float64(a11) * d + np.float64(b1)).astype(np.float32)
+    px = np.where(d < w - w % 16, fused, a11 * d.astype(np.float32) + b1)
+    py = a22 * np.arange(h, dtype=np.float32) + b2
+    ix, iy = np.rint(px).astype(np.int64), np.rint(py).astype(np.int64)
+    vx, vy = (ix >= 0) & (ix < w), (iy >= 0) & (iy < h)
+    out = np.zeros_like(masks)
+    out[:, vy[:, None] & vx[None, :]] = masks[:, iy[vy]][:, :, ix[vx]].reshape(n, -1)
+    return out
+
+
+def resize_masks(masks: Optional[np.ndarray], out_h: int, out_w: int):
+    """``cv2.resize(mask, (out_w, out_h), interpolation=INTER_NEAREST)`` of
+    each (n, H, W) mask, in one gather."""
+    if masks is None or len(masks) == 0:
+        return masks
+    rows = axis_taps(masks.shape[1], out_h, NEAREST)[0][:, 0]
+    cols = axis_taps(masks.shape[2], out_w, NEAREST)[0][:, 0]
+    return np.ascontiguousarray(masks[:, rows][:, :, cols])
+
+
+def _resize(image, boxes_xyxy, out_h, out_w, rng: Optional[np.random.Generator] = None,
+            masks=None):
     h, w = image.shape[:2]
     mode = INTERPOLATIONS[rng.integers(0, len(INTERPOLATIONS))] if rng is not None else LINEAR
     image = resize(image, out_h, out_w, mode)
     scale = np.array([out_w / w, out_h / h, out_w / w, out_h / h])
-    return image, boxes_xyxy * scale
+    return image, boxes_xyxy * scale, resize_masks(masks, out_h, out_w)
 
 
-def _hflip(image, boxes_xyxy):
+def _hflip(image, boxes_xyxy, masks=None):
     w = image.shape[1]
     flipped = boxes_xyxy.copy()
     flipped[:, 0] = w - boxes_xyxy[:, 2]
     flipped[:, 2] = w - boxes_xyxy[:, 0]
-    return np.ascontiguousarray(image[:, ::-1]), flipped
+    if masks is not None:
+        masks = np.ascontiguousarray(masks[:, :, ::-1])
+    return np.ascontiguousarray(image[:, ::-1]), flipped, masks
 
 
-def _crop_to_fixed_size(image, boxes_xyxy, out_h, out_w, rng):
+def _crop_to_fixed_size(image, boxes_xyxy, out_h, out_w, rng, masks=None):
     h, w = image.shape[:2]
     ch, cw = min(out_h, h), min(out_w, w)
     top = int(rng.integers(0, h - ch + 1))
     left = int(rng.integers(0, w - cw + 1))
     image = image[top:top + ch, left:left + cw]
-    return np.ascontiguousarray(image), boxes_xyxy - np.array([left, top, left, top])
+    if masks is not None:
+        masks = np.ascontiguousarray(masks[:, top:top + ch, left:left + cw])
+    return (np.ascontiguousarray(image), boxes_xyxy - np.array([left, top, left, top]),
+            masks)
 
 
-def _affine_scale(image, boxes_xyxy, rng):
+def _affine_scale(image, boxes_xyxy, rng, masks=None):
     h, w = image.shape[:2]
     sx = float(rng.uniform(0.5, 1.5))
     sy = float(rng.uniform(0.5, 1.5))
@@ -276,13 +327,16 @@ def _affine_scale(image, boxes_xyxy, rng):
     scaled = boxes_xyxy.copy().astype(np.float64)
     scaled[:, [0, 2]] = cx + sx * (scaled[:, [0, 2]] - cx)
     scaled[:, [1, 3]] = cy + sy * (scaled[:, [1, 3]] - cy)
-    return image, scaled
+    if masks is not None and len(masks):
+        masks = warp_scale_nearest(masks, sx, sy, cx, cy)
+    return image, scaled, masks
 
 
 def _filter_and_clip(boxes_xyxy, classes, h, w, max_outside_fraction=0.7):
-    """Drop boxes mostly outside the image; clip the rest."""
+    """Drop boxes mostly outside the image; clip the rest. Returns the keep
+    mask too, which drops the same instances' masks."""
     if len(boxes_xyxy) == 0:
-        return boxes_xyxy, classes
+        return boxes_xyxy, classes, np.zeros((0,), bool)
     area = np.maximum(boxes_xyxy[:, 2] - boxes_xyxy[:, 0], 0) * np.maximum(
         boxes_xyxy[:, 3] - boxes_xyxy[:, 1], 0)
     clipped = boxes_xyxy.copy()
@@ -292,49 +346,62 @@ def _filter_and_clip(boxes_xyxy, classes, h, w, max_outside_fraction=0.7):
         clipped[:, 3] - clipped[:, 1], 0)
     visible = np.where(area > 0, inside / np.maximum(area, 1e-9), 0.0)
     keep = (visible > (1.0 - max_outside_fraction)) & (inside > 0)
-    return clipped[keep], np.asarray(classes)[keep]
+    return clipped[keep], np.asarray(classes)[keep], keep
 
 
-def shortest_side_resize(image: np.ndarray, min_side: int = 800, max_side: int = 1333):
+def shortest_side_resize(image: np.ndarray, min_side: int = 800, max_side: int = 1333,
+                         masks: Optional[np.ndarray] = None):
     """DETR-paper evaluation resize: the shortest side to ``min_side``,
-    capped so the longest stays within ``max_side`` (bilinear)."""
+    capped so the longest stays within ``max_side`` (bilinear). With
+    ``masks`` ((n, H, W), resized nearest) returns (image, masks)."""
     h, w = image.shape[:2]
     scale = min(min_side / min(h, w), max_side / max(h, w))
-    return resize(image, int(round(h * scale)), int(round(w * scale)), LINEAR)
+    nh, nw = int(round(h * scale)), int(round(w * scale))
+    image = resize(image, nh, nw, LINEAR)
+    if masks is None:
+        return image
+    return image, resize_masks(masks, nh, nw)
 
 
 def detr_transform(image: np.ndarray, bbox: np.ndarray, t_class: np.ndarray, config,
                    augmentation: bool, rng: Optional[np.random.Generator] = None,
+                   masks: Optional[np.ndarray] = None,
                    image_size: Optional[Tuple[int, int]] = None) -> Tuple[np.ndarray, ...]:
     """Augment (or only resize) one image and its normalized xcycwh boxes.
 
     Returns (image, boxes normalized xcycwh, classes) at ``image_size``, or
-    ``config.image_size`` when it is None.
+    ``config.image_size`` when it is None; with ``masks`` ((n, H, W) uint8)
+    a fourth element, the transformed masks of the kept instances.
     """
     if rng is None:
         rng = np.random.default_rng()
     out_h, out_w = image_size if image_size is not None else config.image_size
     h, w = image.shape[:2]
     t_class = np.asarray(t_class).reshape(-1)
+    with_masks = masks is not None
     boxes_xyxy = bbox_ops.np_xcycwh_to_xyxy(np.asarray(bbox, np.float64)) * np.array(
         [w, h, w, h])
     if augmentation:
         if rng.random() < 0.5:
-            image, boxes_xyxy = _hflip(image, boxes_xyxy)
+            image, boxes_xyxy, masks = _hflip(image, boxes_xyxy, masks)
         if rng.random() < 0.5:
             op = rng.integers(0, 3)
             if op == 0:
-                image, boxes_xyxy = _resize(image, boxes_xyxy, out_h, out_w, rng)
+                image, boxes_xyxy, masks = _resize(image, boxes_xyxy, out_h, out_w, rng, masks)
             elif op == 1:
-                image, boxes_xyxy = _crop_to_fixed_size(image, boxes_xyxy, out_h, out_w, rng)
+                image, boxes_xyxy, masks = _crop_to_fixed_size(image, boxes_xyxy, out_h, out_w,
+                                                               rng, masks)
             else:
-                image, boxes_xyxy = _affine_scale(image, boxes_xyxy, rng)
-        image, boxes_xyxy = _resize(image, boxes_xyxy, out_h, out_w, rng)
+                image, boxes_xyxy, masks = _affine_scale(image, boxes_xyxy, rng, masks)
+        image, boxes_xyxy, masks = _resize(image, boxes_xyxy, out_h, out_w, rng, masks)
     else:
-        image, boxes_xyxy = _resize(image, boxes_xyxy, out_h, out_w)
-    boxes_xyxy, t_class = _filter_and_clip(boxes_xyxy, t_class, image.shape[0], image.shape[1])
+        image, boxes_xyxy, masks = _resize(image, boxes_xyxy, out_h, out_w, masks=masks)
+    boxes_xyxy, t_class, keep = _filter_and_clip(boxes_xyxy, t_class, image.shape[0],
+                                                 image.shape[1])
     hh, ww = image.shape[:2]
     norm = boxes_xyxy / np.array([ww, hh, ww, hh])
     out_boxes = (bbox_ops.np_xyxy_to_xcycwh(norm).astype(np.float32) if len(norm)
                  else np.zeros((0, 4), np.float32))
+    if with_masks:
+        return image, out_boxes, t_class, masks[keep] if len(keep) else masks[:0]
     return image, out_boxes, t_class

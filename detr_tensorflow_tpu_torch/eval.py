@@ -1,17 +1,25 @@
-"""Evaluate DETR on a COCO-format set with the port: box AP (twin of the
-repository's ``eval.py``).
+"""Evaluate DETR on a COCO-format set with the port: box AP, and with
+``--masks`` mask AP (twin of the repository's ``eval.py``).
 
   python -m detr_tensorflow_tpu_torch.eval --data_dir /path/coco \\
       --img_dir val2017 --ann_file annotations/instances_val2017.json \\
-      --weights detr_r50.npz [--batch 4] [--protocol cocoeval] [--device cpu]
+      --weights detr_r50.npz [--batch 4] [--protocol cocoeval] [--device cpu] \\
+      [--masks [--mask_lattice full|stride4]]
 
 Each image is evaluated at its original size, zero-padded to a multiple of
 128 with a pixel mask; the masked forward is padding-invariant, so
 ``--batch N`` (images grouped by padded shape, the last batch of each
 shape padded and masked out by ``batch_valid``) scores as batch 1 does.
-``--weights`` is the model as a JAX-format ``.npz``; without it the model
-starts from its seeded initialization. Masks and panoptic quality are not
-ported yet: ``--masks`` and ``--pq`` raise.
+``--weights`` is any local checkpoint ``models.weights.load_weights``
+reads; without it the model starts from its seeded initialization.
+
+``--masks`` builds the segmentation model and scores its masks too. With
+``--mask_lattice full`` (the default, COCO's protocol) each image's kept
+queries' mask probabilities are cropped to the valid stride-4 cells,
+resized bilinearly to the image on the model's device and thresholded at
+0.5, against the ground truth at full resolution (batch 1); ``stride4``
+scores both on the padded stride-4 lattice. Panoptic quality (``--pq``) is
+not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -34,10 +42,20 @@ def build_model(config, **model_kwargs):
     return get_detr_model(config, include_top=True, weights=config.weights, **model_kwargs)
 
 
-def eval_model(model, config, class_names, valid_dt, protocol: str = "reference"):
-    """Box AP of ``model`` (a ``DetrModel``) over ``valid_dt``: prints the
-    table and returns it; ``protocol="cocoeval"`` adds the COCOeval
-    protocol's box AP under ``table["box_cocoeval"]``."""
+def eval_model(model, config, class_names, valid_dt, protocol: str = "reference",
+               mask_lattice: str = "full"):
+    """Box AP of ``model`` (a ``DetrModel``) over ``valid_dt``, and mask AP
+    when the model has the segmentation head and the batches carry
+    ``t_masks``: prints the table and returns it. ``protocol="cocoeval"``
+    adds the COCOeval protocol's box AP under ``table["box_cocoeval"]``.
+
+    mask_lattice:
+      * "full" (COCO's protocol, where the batches carry ``t_masks_full``):
+        the kept queries' probabilities, cropped to the valid stride-4
+        cells, resized bilinearly to the image on the device and
+        thresholded, against the ground truth at the image's size;
+      * "stride4": both sides on the padded stride-4 lattice.
+    """
     background = int(config.background_class)
     device = model.device
     evaluator = MeanAPEvaluator(num_classes=len(class_names), class_names=class_names)
@@ -51,13 +69,29 @@ def eval_model(model, config, class_names, valid_dt, protocol: str = "reference"
         boxes_, labels_, scores_, keep_ = (t.float().cpu().numpy() if t.is_floating_point()
                                            else t.cpu().numpy() for t in inference.postprocess(
                                                outputs, background, "yxyx"))
+        probs = (inference.mask_probs(outputs["pred_masks"], pixel_mask)
+                 if "pred_masks" in outputs and "t_masks" in batch else None)
+        use_full = mask_lattice == "full" and "t_masks_full" in batch
         bvalid = batch.get("batch_valid", np.ones(batch["images"].shape[0], bool))
         for bi in np.nonzero(bvalid)[0]:
             keep0 = keep_[bi]
             p_bbox, p_labels, p_scores = boxes_[bi][keep0], labels_[bi][keep0], scores_[bi][keep0]
             n = int(batch["mask"][bi].sum())
             t_yxyx = bbox_ops.np_yxyx_to_xyxy(bbox_ops.np_xcycwh_to_xyxy(batch["boxes"][bi][:n]))
-            evaluator.add_image(p_bbox, p_labels, p_scores, t_yxyx, batch["classes"][bi][:n])
+            p_masks = t_masks = None
+            if probs is not None and use_full:
+                if "pixel_mask" in batch:
+                    pm0 = np.asarray(batch["pixel_mask"][bi])
+                    h, w = int(pm0[:, 0].sum()), int(pm0[0, :].sum())
+                else:
+                    h, w = batch["images"].shape[1:3]
+                p_masks = inference.kept_masks(probs[bi], keep0, h, w).transpose(1, 2, 0)
+                t_masks = (batch["t_masks_full"][bi][:n, :h, :w] > 0).transpose(1, 2, 0)
+            elif probs is not None:
+                p_masks = (probs[bi].cpu().numpy()[keep0] > 0.5).transpose(1, 2, 0)
+                t_masks = batch["t_masks"][bi][:n].transpose(1, 2, 0)
+            evaluator.add_image(p_bbox, p_labels, p_scores, t_yxyx, batch["classes"][bi][:n],
+                                p_masks=p_masks, t_masks=t_masks)
             if coco_ev is not None:
                 coco_ev.add_image(p_bbox, p_labels, p_scores, t_yxyx, batch["classes"][bi][:n])
         print(f"Computing map.....{it}", end="\r")
@@ -85,8 +119,12 @@ def parser():
     p.add_argument("--paper_protocol", action="store_true",
                    help="the DETR paper's resize: shortest side 800, longest at most 1333")
     p.add_argument("--num_workers", type=int, default=8, help="data loading threads")
-    for flag in ("--masks", "--pq"):
-        p.add_argument(flag, action="store_true", help="not ported yet (raises)")
+    p.add_argument("--masks", action="store_true",
+                   help="run the instance-segmentation model and score mask AP too")
+    p.add_argument("--mask_lattice", choices=["full", "stride4"], default="full",
+                   help="'full': masks scored at each image's own size (COCO's protocol, "
+                        "batch 1); 'stride4': on the padded stride-4 lattice")
+    p.add_argument("--pq", action="store_true", help="panoptic quality: not ported yet (raises)")
     return p
 
 
@@ -95,19 +133,25 @@ def main(argv=None, **model_kwargs) -> dict:
     go to ``get_detr_model`` (a smaller model for tests)."""
     p = parser()
     args = p.parse_args(argv)
-    if args.masks or args.pq:
-        raise NotImplementedError("mask AP and panoptic quality are not ported yet")
+    if args.pq:
+        raise NotImplementedError("panoptic quality is not ported yet")
     if args.batch > 1 and args.exact_shapes:
         p.error("--batch N>1 requires bucket padding; drop --exact_shapes")
+    full_res = args.masks and args.mask_lattice == "full"
+    if full_res and args.batch > 1:
+        p.error("--mask_lattice full scores ragged full-size masks: batch 1, or stride4")
     config = TrainingConfig().update_from_args(args)
     model_kwargs.setdefault("device", args.device)
+    if args.masks:
+        model_kwargs.setdefault("masks", True)
     model = build_model(config, **model_kwargs)
     valid_dt, class_names = load_coco_dataset(
         config, args.batch, augmentation=None, bucket_divisor=1 if args.exact_shapes else 128,
         paper_protocol=(800, 1333) if args.paper_protocol else None,
-        num_workers=args.num_workers)
+        num_workers=args.num_workers, include_masks=args.masks, full_res_masks=full_res)
     config = config.replace(background_class=valid_dt.background_class)
-    return eval_model(model, config, class_names, valid_dt, protocol=args.protocol)
+    return eval_model(model, config, class_names, valid_dt, protocol=args.protocol,
+                      mask_lattice=args.mask_lattice)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,59 @@
+"""Train the instance-segmentation head on COCO with the detector frozen,
+with the port (twin of the repository's ``finetune_coco_masks.py``): the
+DETR paper's recipe, the detector trained first, then the mask head alone
+on top of its frozen weights. The mask head and the attention-map
+projections are the "nlayers" optimizer group, so training that group
+alone is frozen-detector mask training: the backbone and the transformer
+take no gradient and no Adam step.
+
+  python -m detr_tensorflow_tpu_torch.finetune_coco_masks --data_dir /path/coco \\
+      --img_dir train2017 --ann_file annotations/instances_train2017.json \\
+      --batch_size 8 --weights detr-r50.pth [--device cpu]
+
+``--weights`` is the detector (or a segmentation checkpoint to continue
+from): a JAX-format ``.npz``, a facebook or HuggingFace torch checkpoint,
+or a short name under ``weights/detr`` or ``$DETR_TPU_WEIGHTS``; a
+detection checkpoint leaves the mask head at its seeded initialization.
+Training on panoptic segments (``--panoptic_ann``) is not ported yet and
+raises.
+"""
+
+from __future__ import annotations
+
+import sys
+
+from .data import load_coco_dataset
+from .models import get_detr_model
+from .train import Trainer, TrainingConfig
+from .train.workflow import entry_parser, run_epochs
+
+
+def main(argv=None, **model_kwargs) -> Trainer:
+    """Parse ``argv`` and train the mask head; returns the trainer.
+    ``model_kwargs`` go to ``get_detr_model``."""
+    p = entry_parser("Train DETR's mask head on COCO, the detector frozen (PyTorch port)",
+                     epochs=25)
+    p.add_argument("--panoptic_ann", default=None,
+                   help="COCO panoptic json: not ported yet (raises)")
+    args = p.parse_args(argv)
+    if args.panoptic_ann:
+        raise NotImplementedError("training on panoptic segments is not ported yet")
+    config = TrainingConfig(train_backbone=False, train_transformers=False, train_nlayers=True,
+                            batch_size=8, target_batch=32).update_from_args(args)
+    train_dt, class_names = load_coco_dataset(config, config.batch_size, augmentation=True,
+                                              include_masks=True, num_workers=args.num_workers,
+                                              seed=args.seed)
+    valid_dt, _ = load_coco_dataset(config, config.batch_size, augmentation=False,
+                                    shuffle=False, include_masks=True,
+                                    num_workers=args.num_workers)
+    config = config.replace(background_class=train_dt.background_class)
+    model_kwargs.setdefault("device", args.device)
+    model = get_detr_model(config, include_top=True, weights=config.weights, masks=True,
+                           **model_kwargs)
+    trainer = Trainer(model.module, config, seed=args.seed)
+    run_epochs(trainer, train_dt, valid_dt, config, args, evaluation_step=200)
+    return trainer
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

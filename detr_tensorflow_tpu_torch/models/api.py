@@ -22,6 +22,7 @@ from .detr import DETR
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _DETR_HEAD_PREFIXES = ("class_embed.", "bbox_embed.")
+_MASK_PREFIXES = ("mask_head.", "bbox_attention.")
 
 
 class DetrModel:
@@ -84,17 +85,22 @@ def _load_weights(module: DETR, name: str, heads: str) -> None:
     """Load ``name`` (``weights.load_weights``) into ``module``. ``heads``:
     "all" loads every tensor and needs each of them; "trunk" keeps fresh
     heads and loads the rest (the JAX ``build_detr``'s rule for a head
-    other than "detr")."""
+    other than "detr"). As in the JAX ``build_detr``, a segmentation head
+    the checkpoint lacks (every detection checkpoint) keeps its values, and
+    one the model lacks is not read."""
     tree = weights_lib.load_weights(
         name, backbone_depth=module.backbone_depth,
         num_encoder_layers=module.transformer.num_encoder_layers,
         num_decoder_layers=module.transformer.num_decoder_layers, model_dim=module.model_dim)
     quant = tree.pop("quant", None)
     state = weights_lib.from_jax_variables(tree)
-    if heads == "trunk":
-        state = {k: v for k, v in state.items() if not k.startswith(_DETR_HEAD_PREFIXES)}
+    skip = _DETR_HEAD_PREFIXES + _MASK_PREFIXES if heads == "trunk" else ()
+    if not module.masks:
+        skip += _MASK_PREFIXES
+    state = {k: v for k, v in state.items() if not k.startswith(skip)}
     missing, unexpected = module.load_state_dict(state, strict=False)
-    missing = [k for k in missing if not k.startswith("backbone_quant.")]  # from "quant"
+    # "quant" fills backbone_quant below.
+    missing = [k for k in missing if not k.startswith(("backbone_quant.",) + _MASK_PREFIXES)]
     if unexpected or any(heads == "all" or not k.startswith(("cls_layer.", "pos_layer."))
                          for k in missing):
         raise ValueError(f"{name}: missing {missing}, unexpected {unexpected}")
@@ -144,8 +150,14 @@ def build_detr(num_classes: int = 92, num_queries: int = 100, head: str = "detr"
     ``backbone_weights`` is a local torchvision ResNet checkpoint loaded
     into the backbone after ``weights`` (ImageNet initialization). Extra
     keyword args (model_dim, num_heads, dim_feedforward, dropout,
-    backbone_quant, fuse_residual, fuse_bottleneck, remat, backbone_remat)
-    go to ``DETR``.
+    backbone_quant, fuse_residual, fuse_bottleneck, remat, backbone_remat,
+    masks) go to ``DETR``.
+
+    ``masks=True`` builds the instance-segmentation model (``pred_masks``
+    beside the boxes); its head loads from a segmentation checkpoint
+    (facebook DETRsegm, HF ``DetrForSegmentation``, or the JAX package's
+    ``.npz`` of a ``masks=True`` model) and keeps its seeded values under a
+    detection checkpoint.
 
     ``fuse_residual=True, fuse_bottleneck=True`` is the JAX package's
     fused-backbone serving configuration (kernels D and E, inference

@@ -1,8 +1,9 @@
 """DETR assembly (port of ``detr_tensorflow_tpu/models/detr.py``):
 backbone -> exact feature mask -> sine positions -> 1x1 projection ->
-transformer -> heads. Detection heads only: no segmentation head and no
-pipeline stages. ``backbone_quant=True`` runs the int8 post-training-quantized
-backbone of ``models/quantized.py`` instead of the fp32 one;
+transformer -> heads, and with ``masks=True`` the instance-segmentation head
+(``models/segmentation.py``). No pipeline stages. ``backbone_quant=True``
+runs the int8 post-training-quantized backbone of ``models/quantized.py``
+instead of the fp32 one;
 ``fuse_residual`` and ``fuse_bottleneck`` run the fused backbone kernels
 (inference only); ``dilation`` builds the DC5 family; ``remat`` and
 ``backbone_remat`` trade recomputation for activation memory in training."""
@@ -18,6 +19,7 @@ from .layers import MLP, Conv2d, Linear, feature_valid_mask
 from .position import sine_position_embedding
 from .quantized import QuantizedBackbone
 from .resnet import ResNetBackbone
+from .segmentation import MaskHead, MHAttentionMap
 from .transformer import Transformer
 
 HEADS = ("detr", "finetune", "none")
@@ -52,6 +54,14 @@ class DETR(nn.Module):
     block gets a validity map and stays off E). The parameter tree does
     not change with either flag.
 
+    ``masks=True`` adds the segmentation head: ``bbox_attention`` (an
+    ``MHAttentionMap`` over the last decoder layer's output and the encoder
+    memory) and ``mask_head`` (a ``MaskHead`` over ``input_proj``'s output,
+    the attention maps and the backbone's c4/c3/c2 stages, fp32 or int8).
+    Every head, ``"none"`` included, then returns ``pred_masks`` (B, Q,
+    H/4, W/4) float32 logits. Its dropout on the attention maps draws from
+    ``generator``; ``remat`` leaves it alone.
+
     ``dilation=True`` (DC5) dilates the backbone's last stage, fp32 and int8
     alike: C5 at stride 16, four times the encoder's keys. ``remat=True``
     recomputes each encoder and decoder layer in the backward, replaying its
@@ -68,7 +78,8 @@ class DETR(nn.Module):
                  dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
                  dropout: float = 0.1, backbone_quant: bool = False,
                  fuse_residual: bool = False, fuse_bottleneck: bool = False,
-                 dilation: bool = False, remat: bool = False, backbone_remat: int = 0):
+                 dilation: bool = False, remat: bool = False, backbone_remat: int = 0,
+                 masks: bool = False):
         super().__init__()
         if head not in HEADS:
             raise ValueError(f"unknown head: {head}")
@@ -77,9 +88,11 @@ class DETR(nn.Module):
         self.model_dim, self.head, self.dtype = model_dim, head, dtype
         self.backbone_depth, self.dilation = backbone_depth, dilation
         self.fuse_residual, self.fuse_bottleneck = fuse_residual, fuse_bottleneck
+        self.masks = masks
         stage_sizes = backbone_stage_sizes or STAGE_SIZES[backbone_depth]
         self.backbone = ResNetBackbone(stage_sizes, fuse_residual, fuse_bottleneck,
-                                       (False, False, dilation), backbone_remat)
+                                       (False, False, dilation), backbone_remat,
+                                       return_interm=masks)
         self.backbone_quant = (QuantizedBackbone(stage_sizes, dilation) if backbone_quant
                                else None)
         self.input_proj = Conv2d(2048, model_dim, 1)
@@ -93,6 +106,9 @@ class DETR(nn.Module):
         elif head == "finetune":
             self.cls_layer = Linear(model_dim, nb_class)
             self.pos_layer = MLP(model_dim, model_dim, 4)
+        if masks:
+            self.bbox_attention = MHAttentionMap(model_dim, num_heads, dropout)
+            self.mask_head = MaskHead(model_dim, num_heads)
 
     def forward(self, images: torch.Tensor, pixel_mask: Optional[torch.Tensor] = None,
                 train: bool = False, generator: Optional[torch.Generator] = None):
@@ -100,10 +116,18 @@ class DETR(nn.Module):
         (B, H, W) bool, True = valid; omitted means all valid. ``train``
         turns on the transformer's dropout, drawn from ``generator`` (a
         generator on the model's device)."""
+        fpn = None
         if self.backbone_quant is not None:
-            feats = self.backbone_quant(images, pixel_mask, self.dtype).permute(0, 3, 1, 2)
+            feats = self.backbone_quant(images, pixel_mask, self.dtype,
+                                        return_interm=self.masks)
+            if self.masks:
+                feats, fpn = feats  # NHWC stage outputs
+            feats = feats.permute(0, 3, 1, 2)
         else:
             feats = self.backbone(images.to(self.dtype), pixel_mask)  # (B, C, h, w)
+            if self.masks:
+                feats, interm = feats
+                fpn = {k: v.permute(0, 2, 3, 1) for k, v in interm.items()}  # NHWC views
         b, _, fh, fw = feats.shape
         if pixel_mask is None:
             valid = torch.ones((b, fh, fw), device=feats.device)
@@ -113,12 +137,18 @@ class DETR(nn.Module):
             key_padding_mask = (valid < 0.5).reshape(b, fh * fw)
         pos = sine_position_embedding(valid, self.model_dim // 2, dtype=self.dtype)
         pos = pos.reshape(b, fh * fw, self.model_dim)
-        src = self.input_proj(feats).flatten(2).transpose(1, 2)  # (B, S, D)
+        proj = self.input_proj(feats).permute(0, 2, 3, 1)  # (B, h, w, D)
+        src = proj.reshape(b, fh * fw, self.model_dim)
 
         hs, memory = self.transformer(src, pos, self.query_embed, key_padding_mask,
                                       train, generator)
+        memory = memory.reshape(b, fh, fw, self.model_dim)
+        extra = {}
+        if self.masks:
+            attn_maps = self.bbox_attention(hs[-1], memory, key_padding_mask, train, generator)
+            extra["pred_masks"] = self.mask_head(proj, attn_maps, fpn, pixel_mask)
         if self.head == "none":
-            return {"hs": hs, "memory": memory.reshape(b, fh, fw, self.model_dim)}
+            return {"hs": hs, "memory": memory, **extra}
         if self.head == "detr":
             logits, boxes = self.class_embed(hs), self.bbox_embed(hs)
         else:
@@ -129,6 +159,7 @@ class DETR(nn.Module):
             "pred_boxes": boxes[-1],
             "aux_logits": logits[:-1],
             "aux_boxes": boxes[:-1],
+            **extra,
         }
 
 

@@ -26,7 +26,9 @@ per-output-channel weight scales. Layouts: activations NHWC flattened to
 ``QuantizedBackbone`` holds a qtree as buffers for ``DETR(backbone_quant=
 True)``; ``quantize_model`` fills it from the model's own fp32 backbone.
 
-Not ported: ``return_interm`` (feeds the segmentation head, not ported).
+``return_interm=True`` also returns the first three stages' outputs
+(``{"c2", "c3", "c4"}``, NHWC), dequantized to the compute dtype, for the
+segmentation head.
 """
 
 from __future__ import annotations
@@ -226,12 +228,15 @@ def quant_backbone_forward(qtree: Mapping[str, torch.Tensor], images: torch.Tens
                            stage_sizes: Sequence[int] = (3, 4, 6, 3),
                            pixel_mask: Optional[torch.Tensor] = None,
                            compute_dtype: torch.dtype = torch.bfloat16,
-                           use_kernels: bool = True, dilation: bool = False) -> torch.Tensor:
+                           use_kernels: bool = True, dilation: bool = False,
+                           return_interm: bool = False):
     """int8 backbone forward: NHWC images -> (B, H/32, W/32, 2048) NHWC
     (H/16, W/16 with ``dilation``) in ``compute_dtype``, with the precise
     (fp32) epilogues, as the JAX package's DETR runs it. ``use_kernels=False``
     takes the plain versions on any device (the JAX package's
-    ``use_pallas=False`` route)."""
+    ``use_pallas=False`` route). ``return_interm=True`` returns ``(c5,
+    {"c2", "c3", "c4"})``, each stage output dequantized to
+    ``compute_dtype``."""
     mm, mm_res, mm_res2, conv, dilated_conv = _KERNELS if use_kernels else _PLAIN
     q = qtree
     stem_bn = {k: q[f"stem.bn.{k}"] for k in _BN_KEYS}
@@ -239,7 +244,8 @@ def quant_backbone_forward(qtree: Mapping[str, torch.Tensor], images: torch.Tens
     # Enter the int8 domain, NHWC.
     x = _requant(x.permute(0, 2, 3, 1).float() / q["stem.out_scale"])
     out_scale = q["stem.out_scale"]
-    for name, n_blocks, _, _, stride, dil in _stage_plan(stage_sizes, dilation):
+    interm = {}
+    for si, (name, n_blocks, _, _, stride, dil) in enumerate(_stage_plan(stage_sizes, dilation)):
         for b in range(n_blocks):
             p = f"{name}.block_{b}."
             st = stride if b == 0 else 1
@@ -267,7 +273,10 @@ def quant_backbone_forward(qtree: Mapping[str, torch.Tensor], images: torch.Tens
                 x = mm_res(a2, q[p + "w3"], q[p + "m3"] / so, q[p + "b3"] / so,
                            identity, q[p + "in_scale"] / so, relu=True)
             out_scale = so
-    return x.to(compute_dtype) * out_scale.to(compute_dtype)
+        if return_interm and si < 3:
+            interm[f"c{si + 2}"] = x.to(compute_dtype) * out_scale.to(compute_dtype)
+    c5 = x.to(compute_dtype) * out_scale.to(compute_dtype)
+    return (c5, interm) if return_interm else c5
 
 
 class QuantizedBackbone(nn.Module):
@@ -299,13 +308,15 @@ class QuantizedBackbone(nn.Module):
             module.register_buffer(leaf, t.detach().contiguous())
         self.loaded = True
 
-    def forward(self, images, pixel_mask=None, compute_dtype=torch.bfloat16, use_kernels=True):
+    def forward(self, images, pixel_mask=None, compute_dtype=torch.bfloat16, use_kernels=True,
+                return_interm=False):
         if not self.loaded:
             raise ValueError("backbone_quant=True needs the quantized backbone: run "
                              "models.quantized.quantize_model, or load an .npz that carries "
                              "the 'quant' collection")
         return quant_backbone_forward(dict(self.named_buffers()), images, self.stage_sizes,
-                                      pixel_mask, compute_dtype, use_kernels, self.dilation)
+                                      pixel_mask, compute_dtype, use_kernels, self.dilation,
+                                      return_interm)
 
 
 def quantize_model(model, calibration_images: torch.Tensor,

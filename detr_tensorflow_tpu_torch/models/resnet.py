@@ -146,14 +146,18 @@ class ResNetStage(nn.Module):
 class ResNetBackbone(nn.Module):
     """ResNet feature extractor: (B, H, W, 3) NHWC in, NCHW
     (B, 2048, H/32, W/32) out (H/16, W/16 with the last stage dilated) in
-    channels_last memory (sizes rounded up at each halving)."""
+    channels_last memory (sizes rounded up at each halving).
+
+    ``return_interm=True`` returns ``(c5, {"c2": .., "c3": .., "c4": ..})``:
+    the outputs of the first three stages (strides 4, 8 and 16; with DC5
+    c4 and c5 share stride 16), which the segmentation head fuses."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), fuse_residual: bool = False,
                  fuse_bottleneck: bool = False,
                  replace_stride_with_dilation: Sequence[bool] = (False, False, False),
-                 remat_stages: int = 0):
+                 remat_stages: int = 0, return_interm: bool = False):
         super().__init__()
-        self.remat_stages = remat_stages
+        self.remat_stages, self.return_interm = remat_stages, return_interm
         dilate = (False,) + tuple(replace_stride_with_dilation)
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = FrozenBatchNorm(64)
@@ -178,6 +182,7 @@ class ResNetBackbone(nn.Module):
             # extent make the maxpool equal to the unpadded one (-inf pad).
             x = x * feature_valid_mask(pixel_mask, *x.shape[2:], dtype=x.dtype)[:, None]
         x = max_pool_3x3_s2(x, nonneg=True)  # post-ReLU: kernel C on the card
+        interm = {}
         for s in range(1, 5):
             stage = getattr(self, f"layer{s}")
             if s <= self.remat_stages and torch.is_grad_enabled():
@@ -185,4 +190,6 @@ class ResNetBackbone(nn.Module):
                                preserve_rng_state=False)  # the backbone draws nothing
             else:
                 x = stage(x, pixel_mask)
-        return x
+            if self.return_interm and s < 4:
+                interm[f"c{s + 1}"] = x
+        return (x, interm) if self.return_interm else x

@@ -21,8 +21,9 @@ LayerNorm ``scale`` and the FrozenBN statistics under ``frozen``.
 
 A segmentation checkpoint (facebook DETRsegm, HF DetrForSegmentation:
 ``detr.``-prefixed detector beside ``mask_head.*`` and
-``bbox_attention.*``) converts to its detector; the mask head waits for
-the port of the segmentation model. Nothing is downloaded.
+``bbox_attention.*``) converts whole: the detector, and the mask head in
+the split form of ``models/segmentation.py`` (``lay1`` cut into
+``lay1_feats`` and the bias-free ``lay1_attn``). Nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -191,16 +192,49 @@ def _convert_transformer(sd: Mapping, scheme: str, num_encoder_layers: int,
     return tr
 
 
+def _convert_segmentation_head(sd: Mapping, model_dim: int = 256) -> Tree:
+    """The mask head and the attention-map projections (facebook DETRsegm
+    and HF DetrForSegmentation share the ``mask_head.*`` /
+    ``bbox_attention.*`` naming). torch's ``lay1`` convolves
+    concat(features, attention maps): its first ``model_dim`` input
+    channels become ``lay1_feats`` (with the bias), the rest the bias-free
+    ``lay1_attn``."""
+
+    def conv(name):
+        out = {"kernel": _t(sd[f"mask_head.{name}.weight"]).transpose(2, 3, 1, 0)}
+        if f"mask_head.{name}.bias" in sd:
+            out["bias"] = _t(sd[f"mask_head.{name}.bias"])
+        return out
+
+    lay1 = _t(sd["mask_head.lay1.weight"]).transpose(2, 3, 1, 0)  # HWIO
+    mask_head = {
+        "lay1_feats": {"kernel": lay1[:, :, :model_dim, :], "bias": _t(sd["mask_head.lay1.bias"])},
+        "lay1_attn": {"kernel": lay1[:, :, model_dim:, :]},
+        "out_lay": conv("out_lay"),
+    }
+    for j in range(2, 6):
+        mask_head[f"lay{j}"] = conv(f"lay{j}")
+    for j in range(1, 6):
+        mask_head[f"gn{j}"] = _layernorm(sd, f"mask_head.gn{j}")
+    for j in range(1, 4):
+        mask_head[f"adapter{j}"] = conv(f"adapter{j}")
+    bbox_attention = {"q_proj": _linear(sd, "bbox_attention.q_linear"),
+                      "k_proj": _linear(sd, "bbox_attention.k_linear")}
+    return {"mask_head": mask_head, "bbox_attention": bbox_attention}
+
+
 def convert_torch_detr(state_dict: Mapping, scheme: str = "auto", backbone_depth: int = 50,
                        num_encoder_layers: int = 6, num_decoder_layers: int = 6,
                        model_dim: int = 256) -> Tree:
     """Torch DETR state_dict -> ``{"params", "frozen"}`` numpy tree.
 
     ``scheme="auto"`` tells facebook from HF naming by HF's ``model.`` root.
-    A segmentation checkpoint's detector lives under ``detr.``: it is
-    unwrapped and converted, and its ``mask_head.*`` / ``bbox_attention.*``
-    tensors are left out (the segmentation model is not ported yet).
+    A segmentation checkpoint (``mask_head.*`` keys) converts its mask head
+    and attention-map projections too; its detector lives under ``detr.``
+    and is unwrapped.
     """
+    seg_tree = (_convert_segmentation_head(state_dict, model_dim)
+                if any(k.startswith("mask_head.") for k in state_dict) else None)
     if any(k.startswith("detr.") for k in state_dict):
         state_dict = {k[len("detr."):]: v for k, v in state_dict.items()
                       if k.startswith("detr.")}
@@ -225,6 +259,8 @@ def convert_torch_detr(state_dict: Mapping, scheme: str = "auto", backbone_depth
         "class_embed": _linear(state_dict, cls),
         "bbox_embed": {f"layer_{j}": _linear(state_dict, f"{bbox}.{j}") for j in range(3)},
     }
+    if seg_tree is not None:
+        params.update(seg_tree)
     return {"params": params, "frozen": {"backbone": bb_frozen}}
 
 

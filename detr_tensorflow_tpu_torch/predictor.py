@@ -1,11 +1,17 @@
-"""Serving path: raw images in, detections out (port of
-``detr_tensorflow_tpu/predictor.py``, boxes only).
+"""Serving path: raw images in, detections and instance masks out (port
+of ``detr_tensorflow_tpu/predictor.py``).
 
 Images of any size are zero-padded up to shape buckets (multiples of
 ``bucket_divisor``) with a pixel mask, and images of one bucket run as one
 batch. Normalization happens on the model's device, and padded pixels are
 zeroed after it; with that and the model's masking, a padded image gives
 the same detections as the image alone.
+
+With ``masks=True`` (a model built with ``masks=True``) each detection
+carries a bool mask at its image's size: the stride-4 mask probabilities,
+zeroed outside the valid stride-4 cells, cropped to them, resized
+bilinearly to the image and thresholded, all on the model's device; only
+the bool masks come back (``inference.mask_probs``, ``kept_masks``).
 """
 
 from __future__ import annotations
@@ -28,7 +34,9 @@ class Detection:
         self.boxes = boxes  # (n, 4), normalized to the image's own frame
         self.labels = labels  # (n,)
         self.scores = scores  # (n,)
-        self.masks = masks  # instance masks: not served by this port yet
+        # (n, H, W) bool instance masks at the image's own size, or None when
+        # the predictor serves boxes only.
+        self.masks = masks
 
 
 class Predictor:
@@ -40,17 +48,24 @@ class Predictor:
       bucket_divisor: H and W are padded up to multiples of this.
       score_threshold: detections scoring below it are dropped.
       bbox_format: 'xy_center' | 'xyxy' | 'yxyx'.
+      masks: serve each detection's instance mask (a model built with
+        ``masks=True``), thresholded at ``mask_threshold``.
 
     ``buckets`` records every (height, width) bucket served or warmed.
     """
 
     def __init__(self, model, background_class: int, bucket_divisor: int = 128,
-                 score_threshold: float = 0.0, bbox_format: str = "xy_center"):
+                 score_threshold: float = 0.0, bbox_format: str = "xy_center",
+                 masks: bool = False, mask_threshold: float = 0.5):
+        if masks and not model.module.masks:
+            raise ValueError("masks=True needs a model built with masks=True")
         self.model = model
         self.background_class = int(background_class)
         self.bucket_divisor = int(bucket_divisor)
         self.score_threshold = float(score_threshold)
         self.bbox_format = bbox_format
+        self.masks = bool(masks)
+        self.mask_threshold = float(mask_threshold)
         self.buckets: set = set()
         device = model.device
         if model.normalized_method == "torch_resnet":
@@ -83,7 +98,10 @@ class Predictor:
                 # implicit padding of an unpadded SAME convolution.
                 x = x * pixel_mask[..., None]
             outputs = self.model(x, pixel_mask)
-            return inference.postprocess(outputs, self.background_class, self.bbox_format)
+            post = inference.postprocess(outputs, self.background_class, self.bbox_format)
+            if not self.masks:
+                return post, None
+            return post, inference.mask_probs(outputs["pred_masks"], pixel_mask)
 
     def warmup(self, shapes: Sequence[Tuple[int, int]]) -> None:
         """Run each (height, width) bucket once on zeros, so the first
@@ -92,11 +110,15 @@ class Predictor:
         cached until the weights change, ``models/layers.py``). A model
         with ``fuse_bottleneck`` also runs it without a pixel mask: a batch
         that fills its bucket runs unmasked, the only route of kernel E;
-        every other model runs the same kernels either way."""
+        every other model runs the same kernels either way. With ``masks``
+        the warm-up also resizes one image's masks to the bucket."""
         for h, w in shapes:
             ph, pw = self._bucket(h, w)
             frames = np.zeros((1, ph, pw, 3), np.uint8)
-            self._run(frames, np.ones((1, ph, pw), bool))
+            _, probs = self._run(frames, np.ones((1, ph, pw), bool))
+            if probs is not None:
+                inference.kept_masks(probs[0], np.ones(probs.shape[1], bool), h, w,
+                                     self.mask_threshold)
             if self.model.module.fuse_bottleneck:
                 self._run(frames, None)
             self.buckets.add((ph, pw))
@@ -121,14 +143,18 @@ class Predictor:
                 frames[row, :h, :w] = images[i]
                 masks[row, :h, :w] = True
             exact = bool(masks.all())
-            boxes, labels, scores, keep = (
-                t.cpu().numpy() for t in self._run(frames, None if exact else masks)
-            )
+            post, probs = self._run(frames, None if exact else masks)
+            boxes, labels, scores, keep = (t.cpu().numpy() for t in post)
             self.buckets.add((ph, pw))
             keep = keep & (scores >= self.score_threshold)
             for row, i in enumerate(idxs):
                 k = keep[row]
+                det_masks = None
+                if probs is not None:
+                    det_masks = inference.kept_masks(probs[row], k, *images[i].shape[:2],
+                                                     self.mask_threshold)
                 # No rescale: boxes are already normalized to the valid
                 # frame, because the model is padding invariant.
-                results[i] = Detection(boxes[row][k], labels[row][k], scores[row][k])
+                results[i] = Detection(boxes[row][k], labels[row][k], scores[row][k],
+                                       masks=det_masks)
         return results  # type: ignore[return-value]

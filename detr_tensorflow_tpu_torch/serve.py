@@ -3,16 +3,22 @@ repository's ``serve.py``), stdlib ``http.server`` only.
 
   POST /detect   body: a .npy (H, W, 3) uint8 array, or JPEG/PNG bytes
                  (these need cv2) -> {"detections": [{"box": [xc, yc, w, h],
-                 "label": i, "class": "...", "score": s}, ...]}
+                 "label": i, "class": "...", "score": s, "mask_rle": {...}?},
+                 ...]}
   GET  /healthz  -> {"ok": true, "buckets": [[h, w], ...]}
 
 Usage:
   python -m detr_tensorflow_tpu_torch.serve --port 8000 [--weights detr.npz]
-      [--dtype bfloat16] [--warmup 480x640,800x1333]
+      [--dtype bfloat16] [--warmup 480x640,800x1333] [--masks]
 
-``--weights`` takes a JAX-format ``.npz`` (``DetrModel.save`` of the JAX
-package). Without it the model runs seeded random weights at full
-DETR-R50 width, which serves the path but detects nothing real.
+``--weights`` takes any local checkpoint ``models.weights.load_weights``
+reads: a JAX-format ``.npz`` (``DetrModel.save``), or a facebook or
+HuggingFace torch checkpoint (with ``--masks``, a DETRsegm or
+``DetrForSegmentation`` one). Without it the model runs seeded random
+weights at full DETR-R50 width, which serves the path but detects nothing
+real. ``--masks`` serves the segmentation model: each detection carries its
+instance mask at the image's size as COCO's uncompressed RLE
+(``mask_rle``, column-major counts starting with a background run).
 """
 
 from __future__ import annotations
@@ -152,7 +158,10 @@ def main(argv=None):
     parser.add_argument("--score_threshold", type=float, default=0.5)
     parser.add_argument("--bucket_divisor", type=int, default=128)
     parser.add_argument("--weights", default=None,
-                        help="JAX-format .npz; default: seeded random weights")
+                        help="a local checkpoint (.npz, .pth, .pt, .bin); default: seeded "
+                             "random weights")
+    parser.add_argument("--masks", action="store_true",
+                        help="serve instance masks (the segmentation model) as mask_rle")
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
     parser.add_argument("--device", default="cuda")
@@ -161,10 +170,11 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     model = get_detr_model(None, include_top=True, weights=args.weights,
-                           dtype=args.dtype, seed=args.seed, device=args.device)
+                           dtype=args.dtype, seed=args.seed, device=args.device,
+                           masks=args.masks)
     predictor = Predictor(model, background_class=91,
                           bucket_divisor=args.bucket_divisor,
-                          score_threshold=args.score_threshold)
+                          score_threshold=args.score_threshold, masks=args.masks)
     service = DetrService(predictor, COCO_CLASS_NAME)
     if args.warmup:
         shapes = [tuple(map(int, s.split("x"))) for s in args.warmup.split(",")]

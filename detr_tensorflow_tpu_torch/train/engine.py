@@ -43,13 +43,14 @@ import torch
 from ..ops.losses import detr_loss
 from . import optimizers as opt_lib
 
-_TARGET_KEYS = ("images", "boxes", "classes", "mask", "pixel_mask")
+_TARGET_KEYS = ("images", "boxes", "classes", "mask", "pixel_mask", "t_masks")
 
 
 def batch_to_device(batch, device) -> Dict[str, torch.Tensor]:
     """A native batch ('images' (B, H, W, 3), 'boxes' (B, T, 4), 'classes'
-    (B, T), 'mask' (B, T), optional 'pixel_mask' (B, H, W)) of numpy
-    arrays or tensors, as tensors on ``device``."""
+    (B, T), 'mask' (B, T), optional 'pixel_mask' (B, H, W) and instance
+    masks 't_masks' (B, T, H/4, W/4)) of numpy arrays or tensors, as
+    tensors on ``device``."""
     return {k: torch.as_tensor(batch[k]).to(device) for k in _TARGET_KEYS if k in batch}
 
 
@@ -59,7 +60,7 @@ def forward_loss(model, batch, config, train: bool, generator=None, match=None):
     out = model(batch["images"], batch.get("pixel_mask"), train=train, generator=generator)
     total, log = detr_loss(out, batch["boxes"], batch["classes"], batch["mask"],
                            int(config.background_class), lap_impl=config.lap_impl,
-                           match=match)
+                           match=match, t_masks=batch.get("t_masks"))
     return total, log, out
 
 

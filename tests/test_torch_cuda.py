@@ -1417,3 +1417,111 @@ def test_save_and_load_on_the_card(cuda_device, tmp_path):
         assert all(torch.equal(state[k], want[k]) for k in want)
         out = other(x)
         assert all(torch.equal(out[k], ref[k]) for k in ref)
+
+
+# The segmentation model: DETR-R50's widths, reduced depth.
+SEGM_CFG = dict(backbone_stage_sizes=(1, 1, 1, 1), num_encoder_layers=2, num_decoder_layers=2,
+                masks=True)
+
+
+def _segm_input(device, h=256, w=384, vh=230, vw=301, seed=8):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(1, h, w, 3)).astype(np.float32))
+    mask = torch.zeros((1, h, w), dtype=torch.bool)
+    mask[:, :vh, :vw] = True
+    return (x * mask[..., None]).to(device), mask.to(device)
+
+
+def test_segm_forward_on_the_card_matches_the_cpu(cuda_device):
+    """A reduced-depth segmentation DETR with a pixel mask on the card
+    (fp32, TF32 off: A-tf32 6 launches, C 1) against the same model on the
+    CPU: boxes 5e-4, logits 5e-3, pred_masks 1e-3 (the CPU parity tests'
+    bounds)."""
+    cpu = api.build_detr(device="cpu", **SEGM_CFG)
+    card = api.build_detr(device=cuda_device, **SEGM_CFG)
+    x, mask = _segm_input(cuda_device)
+    before, pool = _forward_counts(), maxpool.max_pool_3x3_s2.launches
+    out = card(x, mask)
+    torch.cuda.synchronize()
+    assert _forward_counts(before) == (0, 0, 6)
+    assert maxpool.max_pool_3x3_s2.launches - pool == 1
+    ref = cpu(x.cpu(), mask.cpu())
+    assert out["pred_masks"].shape == (1, 100, 64, 96) and out["pred_masks"].dtype == torch.float32
+    for key, atol in (("pred_boxes", 5e-4), ("pred_logits", 5e-3), ("pred_masks", 1e-3)):
+        assert float((out[key].cpu() - ref[key]).abs().max()) <= atol, key
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_segm_kernel_route_matches_plain_route(cuda_device, dtype):
+    """The segmentation model's kernel route (A-tf32 or A-mma) against its
+    plain-attention route on the card, from the same weights: fp32 within
+    the golden tolerances and 1e-3 on pred_masks; bf16 within
+    tests/test_torch_bf16.py's direct bounds, pred_masks float32 within
+    5e-2."""
+    models = [api.build_detr(attn_impl=impl, dtype=dtype, device=cuda_device, **SEGM_CFG)
+              for impl in ("auto", "plain")]
+    x, mask = _segm_input(cuda_device)
+    out, ref = (m(x, mask) for m in models)
+    assert out["pred_masks"].dtype == torch.float32
+    tol = ({"pred_boxes": 1.5e-2, "pred_logits": 7.5e-2, "pred_masks": 5e-2}
+           if dtype == "bfloat16" else
+           {"pred_boxes": 5e-4, "pred_logits": 5e-3, "pred_masks": 1e-3})
+    for key, atol in tol.items():
+        assert float((out[key] - ref[key]).abs().max()) <= atol, key
+
+
+def test_predictor_masks_on_the_card(cuda_device):
+    """``Predictor(masks=True)`` on the card against the same weights on the
+    CPU, a padded and a bucket-exact image: labels equal, boxes within 1e-3,
+    each mask bool at its image's size, equal wherever the CPU's
+    probability is further than 1e-3 from the threshold."""
+    from detr_tensorflow_tpu_torch import inference
+    from detr_tensorflow_tpu_torch.predictor import Predictor
+
+    rng = np.random.default_rng(9)
+    images = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in ((200, 300), (256, 256))]
+    preds = [Predictor(api.build_detr(device=d, **SEGM_CFG), background_class=91, masks=True)
+             for d in (cuda_device, "cpu")]
+    preds[0].warmup([(200, 300)])
+    for img, a, b in zip(images, *(p(images) for p in preds)):
+        np.testing.assert_array_equal(a.labels, b.labels)
+        np.testing.assert_allclose(a.boxes, b.boxes, atol=1e-3, rtol=0)
+        assert a.masks.dtype == bool and a.masks.shape == (len(a.labels),) + img.shape[:2]
+        h, w = img.shape[:2]
+        frames = np.zeros((1, 256, 384 if w > 256 else 256, 3), np.uint8)
+        frames[0, :h, :w] = img
+        pm = np.zeros(frames.shape[:3], bool)
+        pm[0, :h, :w] = True
+        (_, _, _, keep), probs = preds[1]._run(frames, None if pm.all() else pm)
+        p = inference.upsample_mask_probs(probs[0].numpy()[keep[0].numpy()],
+                                          (h, w)).transpose(2, 0, 1)
+        far = np.abs(p - 0.5) > 1e-3
+        assert np.array_equal(a.masks[far], b.masks[far])
+
+
+def test_frozen_detector_mask_step_on_the_card(cuda_device):
+    """The mask-head training step of the frozen-detector recipe on the card
+    at dropout 0.1: A-tf32 6 a step (2 + 2 layers), the attention backward
+    never (the transformer takes no gradient), B 1, C 1; the loss is finite
+    with mask_loss and dice_loss logged; only the mask head and the
+    attention-map projections move."""
+    from detr_tensorflow_tpu_torch.train import Trainer, TrainingConfig
+
+    batch = _train_batch(cuda_device, b=2)
+    batch["t_masks"] = (torch.rand((2, 100, 32, 48), device=cuda_device) < 0.3).to(torch.uint8)
+    model = api.build_detr(device=cuda_device, dropout=0.1, **SEGM_CFG).module
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    config = TrainingConfig(train_backbone=False, train_transformers=False, train_nlayers=True,
+                            target_batch=None, background_class=91)
+    trainer = Trainer(model, config, seed=0)
+    counts = lambda: (fa.mha.tf32_launches, fa.mha.backward_mma_launches,  # noqa: E731
+                      fa.mha.backward_launches, lap.solve_lap_masked.launches,
+                      maxpool.max_pool_3x3_s2.launches)
+    start = counts()
+    log = trainer.step(batch)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), start)) == (6, 0, 0, 1, 1)
+    assert bool(torch.isfinite(log["total_loss"])) and {"mask_loss", "dice_loss"} <= set(log)
+    for name, value in model.state_dict().items():
+        moved = not torch.equal(value, before[name])
+        assert moved == name.startswith(("mask_head.", "bbox_attention.")), name

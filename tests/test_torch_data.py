@@ -87,7 +87,9 @@ def coco_root(tmp_path_factory):
 
 def test_coco_index_and_labels_equal_jax(coco_root):
     """``CocoIndex`` and ``get_coco_labels`` equal the JAX package's on a
-    file with crowd, empty and sparse category ids (boxes bit-equal)."""
+    file with crowd, empty and sparse category ids (boxes bit-equal); with
+    ``include_masks`` the instance masks too (empty where an annotation has
+    no segmentation)."""
     ann = str(coco_root / "ann.json")
     ours, ref = coco_api.CocoIndex(ann), jax_coco_api.CocoIndex(ann)
     assert ours.getImgIds() == ref.getImgIds() and ours.getCatIds() == ref.getCatIds()
@@ -100,8 +102,11 @@ def test_coco_index_and_labels_equal_jax(coco_root):
             ref, img["id"], shape)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
-    with pytest.raises(NotImplementedError):
-        coco.get_coco_labels(ours, 0, (70, 90, 3), include_masks=True)
+        got, want = (fn(index, img["id"], shape, include_masks=True) for fn, index in (
+            (coco.get_coco_labels, ours), (jax_coco.get_coco_labels, ref)))
+        assert len(got) == len(want) == 4
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
 
 
 def _png(path, rows, width, channels, depth, color, filters):
@@ -474,8 +479,11 @@ def test_coco_loader_equals_jax(coco_root, augmentation, batch):
     assert names == ref_names and ours.background_class == ref.background_class == 8
     for _ in range(2):
         _compare_batches(ours, ref, NORMALIZED_LEVEL if augmentation else 0)
-    with pytest.raises(NotImplementedError):
-        coco.load_coco_dataset(ours_cfg, 1, include_masks=True)
+    # With instance masks (empty here: no annotation has a segmentation),
+    # the same batches and t_masks.
+    _compare_batches(coco.load_coco_dataset(ours_cfg, batch, include_masks=True, **kw)[0],
+                     jax_coco.load_coco_dataset(ref_cfg, batch, include_masks=True, **kw)[0],
+                     NORMALIZED_LEVEL if augmentation else 0)
 
 
 def test_coco_loader_multi_scale_and_paper_protocol(coco_root):

@@ -151,9 +151,9 @@ def narrow():
 @pytest.mark.parametrize("case", ["facebook", "hf", "r101", "segmentation"])
 def test_convert_torch_detr_matches_jax(narrow, case):
     """``convert_torch_detr`` of the port equals the JAX package's leaf for
-    leaf, with identical keys; of a segmentation checkpoint the port keeps
-    the detector, the JAX tree less its ``mask_head`` and
-    ``bbox_attention``."""
+    leaf, with identical keys; of a segmentation checkpoint too, its
+    ``mask_head`` (lay1 split into lay1_feats / lay1_attn) and
+    ``bbox_attention`` included."""
     depth = 101 if case == "r101" else 50
     sd = narrow[depth]
     if case == "hf":
@@ -165,8 +165,6 @@ def test_convert_torch_detr_matches_jax(narrow, case):
     ref = jax_weights.convert_torch_detr(sd, **kw)
     if case == "segmentation":
         assert {"mask_head", "bbox_attention"} <= set(ref["params"])
-        ref["params"] = {k: v for k, v in ref["params"].items()
-                         if k not in ("mask_head", "bbox_attention")}
     assert_trees_equal(weights.convert_torch_detr(sd, **kw), ref)
 
 
