@@ -154,7 +154,28 @@ Phases, one status line each; any failure raises and exits non-zero:
      mask_loss and dice_loss logged), its busy time and memory;
      ``finetune_coco_masks`` for 2 steps, then ``eval --masks`` over 4
      synthetic PNG images with polygon masks (A-tf32 18 and C 1 an image),
-     whose AP table has a mask row.
+     whose AP table has a mask row;
+ 14. panoptic: kernel B's 256-column instance on 48 problems of 250 x 250
+     (the panoptic recipe's 250 target slots and queries, scattered n_real
+     0-60, one problem of 250 real rows, past the rows its shared memory
+     stages) against its plain version and scipy, with tied costs too, timed
+     from CUDA graphs beside the bound and the serial chain, and 256 columns
+     refused; a synthetic COCO panoptic set (8 PNG images at COCO-like sizes
+     up to 800x1333, COCO panoptic's 80 things and 53 stuff classes, thing,
+     stuff and crowd segments and VOID in segment-id PNGs) evaluated by
+     ``eval.main --masks --pq --panoptic_ann`` on a seeded DETR-R50 DETRsegm
+     .pth with 202 logits at fp32 (TF32 off) and bf16 (A-tf32 or A-mma 18
+     and C 1 an image, B 0), images/s and peak memory; the device merge
+     (``inference.kept_probs`` + ``merge_full_res``) against the host's
+     ``np_merge_full_res`` on the same probabilities (equal away from ties)
+     and the PQ table from the host maps against eval's, the merge's time;
+     ``finetune_coco_masks.main --panoptic_ann`` for 2 frozen-detector steps
+     at b8 376x672 (A-tf32 18, B 1 at 100 columns, C 1 a step); the JAX
+     package's panoptic recipe at full width: the panoptic train loader, 250
+     queries and target slots, every group training, 3 b8 376x672 fp32 steps
+     (A-tf32 18, A'-mma 18, B 1 at 250 columns, C 1 a step; halved to b4,
+     logged, if b8 does not fit), busy and wall time and peak memory, the
+     train state round-tripped through ``train/checkpoint.py``.
 Kernel C runs in every ``ResNetBackbone`` forward: serving, training and
 fused serving count it (1 per forward or step); the int8 model's stem is
 not a ``ResNetBackbone`` and launches none.
@@ -213,6 +234,7 @@ REPLACES = {
     "flash_attention_bwd_mma": "detr_tensorflow_tpu/ops/pallas/flash_attention.py:115",
     "flash_attention_bwd_bf16": "detr_tensorflow_tpu/ops/pallas/flash_attention.py:115",
     "lap": "detr_tensorflow_tpu/ops/pallas/lap.py:77",
+    "lap_wide": "detr_tensorflow_tpu/ops/pallas/lap.py:77",
     "int8_matmul": "detr_tensorflow_tpu/ops/pallas/int8_matmul.py:96",
     "int8_conv": "detr_tensorflow_tpu/ops/pallas/int8_conv.py:64",
     "maxpool": "detr_tensorflow_tpu/ops/pallas/maxpool.py:99",
@@ -1353,6 +1375,7 @@ ENTRY_RATE_IMAGES = 256
 
 def reset_counts(fa, lap, mp):
     fa.mha.tf32_launches = fa.mha.backward_launches = lap.solve_lap_masked.launches = 0
+    lap.solve_lap_masked.wide_launches = 0
     mp.max_pool_3x3_s2.launches = fa.mha.mma_launches = fa.mha.backward_mma_launches = 0
     fa.mha.launches = fa.mha.backward_bf16_launches = 0
 
@@ -2831,6 +2854,429 @@ def phase_segmentation(torch, fa, lap, mp, fr, fb, mm, conv, api, quantized, tra
     return out
 
 
+# Panoptic segmentation: DETR-R50 with its DETRsegm mask head on COCO
+# panoptic's category layout (80 things with COCO's ids in 1-90, 53 stuff with
+# panoptic's ids in 92-200: 202 logits, background 201), over a synthetic
+# COCO panoptic set at COCO-like sizes; and kernel B at the panoptic recipe's
+# 250 queries and 250 target slots.
+PAN_STUFF = (92, 93, 95, 100, 107, 109, 112, 118, 119, 122, 125, 128, 130, 133, 138, 141, 144,
+             145, 147, 148, 149, 151, 154, 155, 156, 159, 161, 166, 168, 171, 175, 176, 177, 178,
+             180, 181, 184, 185, 186, 187, 188, 189, 190, 191, 192, 193, 194, 195, 196, 197,
+             198, 199, 200)
+PAN_CLASSES, PAN_BACKGROUND = 202, 201
+PAN_SIZES = [(800, 1333), (640, 480), (427, 640), (480, 640), (612, 612), (375, 500),
+             (800, 1066), (512, 683)]
+PAN_STEPS, PAN_RECIPE_STEPS, PAN_QUERIES = 2, 3, 250
+PAN_LAP_SLOTS, PAN_LAP_MAX_REAL = 250, 60
+# The device merge against the host's: equal away from pixels whose two best
+# weighted scores, or whose winner's probability and the threshold, lie
+# within PAN_MERGE_BAND (the card's bilinear resize rounds as numpy's only
+# to float32's last bits); the PQ table from the host maps within
+# PAN_PQ_ATOL of eval's, its counts equal.
+PAN_MERGE_BAND, PAN_PQ_ATOL = 1e-5, 1e-4
+
+
+def write_panoptic_set(root, sizes, seed, things, stuff):
+    """A COCO panoptic set as its files, from a numpy seed: per (h, w) a
+    random RGB PNG and a segment-id PNG (id = R + 256 G + 65536 B, ids drawn
+    from all 24 bits) of 2-5 stuff bands across the image, 4-30 thing
+    rectangles over them, one crowd thing and a VOID rectangle (id 0);
+    ``panoptic.json`` with the images, each segment's category, iscrowd,
+    area and bbox (none on the first stuff band, whose box the loaders take
+    from its mask) and the categories. Returns the json's path."""
+    import os
+
+    from detr_tensorflow_tpu_torch.data.image_io import write_png
+
+    rng = np.random.default_rng(seed)
+    for d in ("images", "panoptic"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    images, annotations = [], []
+    for i, (h, w) in enumerate(sizes):
+        write_png(os.path.join(root, "images", f"{i}.png"),
+                  rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        ids = rng.choice(2 ** 24 - 1, size=48, replace=False) + 1
+        id_map = np.zeros((h, w), np.int64)
+        cuts = [0] + sorted(rng.choice(np.arange(1, h), rng.integers(1, 5), replace=False)) + [h]
+        segs = []
+        for y0, y1 in zip(cuts[:-1], cuts[1:]):
+            id_map[y0:y1] = ids[len(segs)]
+            segs.append((ids[len(segs)], int(rng.choice(stuff)), 0))
+        n_things = int(rng.integers(4, 31))
+        for t in range(n_things + 1):  # the last one is a crowd
+            bh, bw = int(rng.integers(h // 20, h // 3)), int(rng.integers(w // 20, w // 3))
+            y0, x0 = int(rng.integers(0, h - bh)), int(rng.integers(0, w - bw))
+            id_map[y0:y0 + bh, x0:x0 + bw] = ids[len(segs)]
+            segs.append((ids[len(segs)], int(rng.choice(things)), int(t == n_things)))
+        vh, vw = int(rng.integers(h // 20, h // 6)), int(rng.integers(w // 20, w // 6))
+        vy, vx = int(rng.integers(0, h - vh)), int(rng.integers(0, w - vw))
+        id_map[vy:vy + vh, vx:vx + vw] = 0
+        info = []
+        for k, (sid, cat, crowd) in enumerate(segs):
+            ys, xs = np.nonzero(id_map == sid)
+            if len(ys) == 0:  # covered by later segments
+                continue
+            seg = {"id": int(sid), "category_id": cat, "iscrowd": crowd, "area": int(len(ys))}
+            if k:
+                seg["bbox"] = [int(xs.min()), int(ys.min()), int(xs.max() - xs.min() + 1),
+                               int(ys.max() - ys.min() + 1)]
+            info.append(seg)
+        write_png(os.path.join(root, "panoptic", f"{i}.png"), np.stack(
+            [id_map % 256, (id_map // 256) % 256, id_map // 65536], -1).astype(np.uint8))
+        images.append({"id": i, "file_name": f"{i}.png", "height": h, "width": w})
+        annotations.append({"image_id": i, "file_name": f"{i}.png", "segments_info": info})
+    categories = ([{"id": c, "name": f"thing{c}", "isthing": 1} for c in things]
+                  + [{"id": c, "name": f"stuff{c}", "isthing": 0} for c in stuff])
+    path = os.path.join(root, "panoptic.json")
+    with open(path, "w") as f:
+        json.dump({"images": images, "annotations": annotations, "categories": categories}, f)
+    return path
+
+
+def panoptic_lap_problems(seed, ties=False, wide_problem=True):
+    """48 problems of 250 x 250 costs with 0-60 real rows each, scattered
+    over the 250 slots, and (``wide_problem``) problem 1 with all 250 rows
+    real: more than the kernel's shared memory stages."""
+    rng = np.random.default_rng(seed)
+    shape = (LAP_PROBLEMS, PAN_LAP_SLOTS, PAN_LAP_SLOTS)
+    cost = rng.integers(0, 4, size=shape) if ties else rng.normal(size=shape)
+    cost = cost.astype(np.float32)
+    n_real = rng.integers(0, PAN_LAP_MAX_REAL + 1, size=LAP_PROBLEMS)
+    n_real[0] = 0
+    if wide_problem:
+        n_real[1] = PAN_LAP_SLOTS
+    mask = np.stack([rng.permutation(np.arange(PAN_LAP_SLOTS) < n) for n in n_real])
+    return cost, mask, n_real
+
+
+def phase_panoptic_lap(torch, lap):
+    """B's 256-column instance at 48 x 250 x 250 against its plain version
+    and scipy: assignments equal on continuous costs, the optimal cost on
+    tied ones; its time from CUDA graphs beside the plain version's, scipy's,
+    the bound and the serial chain, with and without the 250-row problem."""
+    from scipy.optimize import linear_sum_assignment
+
+    worst, times = 0.0, {}
+    for ties, wide_problem in ((False, True), (True, True), (False, False)):
+        cost, mask, n_real = panoptic_lap_problems(71 + ties + 2 * wide_problem, ties,
+                                                   wide_problem)
+        ct, mt = torch.from_numpy(cost).to(DEVICE), torch.from_numpy(mask).to(DEVICE)
+        wide0 = lap.solve_lap_masked.wide_launches
+        got = lap.solve_lap_masked(ct, mt).cpu().numpy()
+        if lap.solve_lap_masked.wide_launches != wide0 + 1:
+            raise AssertionError("B at 250 columns did not launch its 256-column instance")
+        t0 = time.perf_counter()
+        plain = lap.reference_solve_lap_masked(ct, mt).cpu().numpy()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        scipy_cols = [linear_sum_assignment(c[m])[1] for c, m in zip(cost, mask)]
+        scipy_ms = 1e3 * (time.perf_counter() - t0)
+        for i, (m, n) in enumerate(zip(mask, n_real)):
+            if (got[i, ~m] != -1).any() or len(set(got[i, m].tolist())) != n:
+                raise AssertionError(f"problem {i}: not an assignment of its {n} real rows")
+            best = float(cost[i, m][np.arange(n), scipy_cols[i]].sum())
+            err = abs(float(cost[i, m][np.arange(n), got[i, m]].sum()) - best)
+            worst = max(worst, err)
+            if not err <= 1e-4 * max(1.0, abs(best)):
+                raise AssertionError(f"problem {i} of 250 columns: cost {err} above the optimum")
+            if not ties and ((got[i, m] != scipy_cols[i]).any() or (got[i] != plain[i]).any()):
+                raise AssertionError(f"problem {i} of 250 columns: assignment differs from "
+                                     "plain/scipy")
+        if ties:
+            log("  lap 48x250x250 tied costs (one problem of 250 real rows): optimal cost equal "
+                "to scipy's on every problem")
+            continue
+        call = lambda: lap.solve_lap_masked(ct, mt)  # noqa: E731
+        ms = graph_ms(torch, call)
+        chain = max(lap.augmenting_steps(ct.cpu(), mt.cpu()))
+        bound = bound_ms(4 * PAN_LAP_SLOTS * int(n_real.sum()) + 5 * mask.size, {})
+        times[wide_problem] = (ms, plain_ms, scipy_ms, bound, chain)
+        log(f"  lap {LAP_PROBLEMS}x{PAN_LAP_SLOTS}x{PAN_LAP_SLOTS} (256-column instance), "
+            f"scattered n_real 0..{PAN_LAP_MAX_REAL}"
+            + (f" and one problem of {PAN_LAP_SLOTS} real rows" if wide_problem else "")
+            + f": kernel {ms:.4f} ms from CUDA graphs, plain (on the card's tensors) "
+            f"{plain_ms:.2f} ms, scipy host loop {scipy_ms:.2f} ms, bound {bound[0]:.5f} ms "
+            f"({bound[1]}); serial chain of the longest problem {chain} Dijkstra steps; "
+            f"assignments equal to plain and scipy")
+    try:
+        lap.solve_lap_masked(torch.zeros((2, 4, 256), device=DEVICE),
+                             torch.ones((2, 4), dtype=torch.bool, device=DEVICE))
+    except ValueError as e:
+        log(f"  lap at 256 columns refused: {e}")
+    else:
+        raise AssertionError("B took 256 columns")
+    return worst, times
+
+
+def _pq_gaps(got, want):
+    """(counts equal, the largest |difference| of pq/sq/rq) between two
+    ``panoptic_quality`` tables."""
+    same, gap = set(got["per_class"]) == set(want["per_class"]), 0.0
+    for c, w in want["per_class"].items():
+        g = got["per_class"].get(c, {})
+        same &= all(g.get(k) == w[k] for k in ("tp", "fp", "fn"))
+        gap = max([gap] + [abs(g.get(k, 0.0) - w[k]) for k in ("pq", "sq", "rq")])
+    for part in ("things", "stuff"):
+        gap = max([gap] + [abs(got[part][k] - want[part][k]) for k in ("pq", "sq", "rq")])
+    return same, max(gap, abs(got["pq"] - want["pq"]))
+
+
+def phase_panoptic(torch, fa, lap, mp, api, train):
+    """Panoptic segmentation: B at 250 columns; a seeded DETR-R50 DETRsegm
+    checkpoint over COCO panoptic's 202 classes evaluated by
+    ``eval --masks --pq --panoptic_ann`` at fp32 and bf16 on a synthetic COCO
+    panoptic set, the device merge against the host's; its frozen detector
+    finetuned by ``finetune_coco_masks --panoptic_ann``; and the JAX
+    package's panoptic training recipe at full width (250 queries and target
+    slots, every group training) through the panoptic train loader, its
+    train state round-tripped. Counts reset just before each main-path run
+    and read just after."""
+    import os
+    import tempfile
+
+    from detr_tensorflow_tpu_torch import eval as eval_main
+    from detr_tensorflow_tpu_torch import finetune_coco_masks, inference
+    from detr_tensorflow_tpu_torch.data import COCO_CLASS_NAME, load_coco_panoptic
+    from detr_tensorflow_tpu_torch.metrics import panoptic_quality
+
+    launches = collections.Counter()
+    out = {"launches": launches}
+    out["lap_err"], out["lap"] = phase_panoptic_lap(torch, lap)
+
+    things = [i for i, name in enumerate(COCO_CLASS_NAME[:91]) if name != "N/A"]
+    if len(things) != 80 or len(PAN_STUFF) != 53:
+        raise AssertionError(f"{len(things)} things and {len(PAN_STUFF)} stuff classes")
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_panoptic_")
+    root = os.path.join(tmp.name, "coco_panoptic")
+    t0 = time.perf_counter()
+    ann = write_panoptic_set(root, PAN_SIZES, 61, things, PAN_STUFF)
+    png_dir = os.path.join(root, "panoptic")
+    path = os.path.join(tmp.name, "detr-r50-panoptic.pth")
+    torch.save({"model": segmentation_state_dict(seed=62, num_classes=PAN_CLASSES)}, path)
+    log(f"  synthetic COCO panoptic set: {len(PAN_SIZES)} PNG images at {PAN_SIZES}, 80 things "
+        f"and 53 stuff classes ({PAN_CLASSES} logits, background {PAN_BACKGROUND}), and a "
+        f"seeded facebook-named DETR-R50 DETRsegm .pth written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    data = ["--data_dir", root, "--img_dir", "images", "--ann_file", "panoptic.json",
+            "--device", DEVICE, "--weights", path, "--panoptic_ann", ann,
+            "--panoptic_png_dir", png_dir]
+    n_images = len(PAN_SIZES)
+
+    # eval --masks --pq --panoptic_ann, fp32 (TF32 off) and bf16.
+    out["eval"] = {}
+    for dtype in ("float32", "bfloat16"):
+        route = "A-tf32" if dtype == "float32" else "A-mma"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts(fa, lap, mp)  # main path
+        t0 = time.perf_counter()
+        table = eval_main.main(data + ["--masks", "--pq", "--compute_dtype", dtype],
+                               num_classes=PAN_CLASSES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(fa, lap, mp)
+        want = {k: 0 for k in counts}
+        want.update({route: n_images * LAUNCHES_PER_FORWARD, "C": n_images})
+        pq = table.get("pq", {})
+        if counts != want or set(table) != {"box", "mask", "pq"} or not {
+                "things", "stuff"} <= set(pq) or not 0.0 <= pq["pq"] <= 1.0:
+            raise AssertionError(f"eval --pq {dtype}: launches {counts} (expected {want}), "
+                                 f"table keys {set(table)}")
+        launches["flash_attention_fwd_tf32" if dtype == "float32" else
+                 "flash_attention_fwd_mma"] += counts[route]
+        launches["maxpool"] += counts["C"]
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        out["eval"][dtype] = dict(images_s=n_images / wall, peak=peak, pq=pq)
+        tp = sum(c["tp"] for c in pq["per_class"].values())
+        fp = sum(c["fp"] for c in pq["per_class"].values())
+        fn = sum(c["fn"] for c in pq["per_class"].values())
+        log(f"  eval.main --masks --pq --panoptic_ann {dtype}, {n_images} images at batch 1: "
+            f"{n_images / wall:.2f} images/s ({wall:.2f} s, the model's build from the .pth and "
+            f"the loader's start included); launches {counts}; peak memory above the memory "
+            f"held before it {peak:.2f} GiB; PQ {100 * pq['pq']:.2f} over {pq['n_classes']} "
+            f"classes (things {pq['things']['n_classes']}, stuff {pq['stuff']['n_classes']}; "
+            f"tp {tp}, fp {fp}, fn {fn}: random weights)")
+    torch.cuda.empty_cache()
+
+    # The device merge against the host's on the same probabilities, and the
+    # PQ table from the host maps against eval's (fp32).
+    model = api.build_detr(weights=path, device=DEVICE, masks=True, num_classes=PAN_CLASSES)
+    config = train.TrainingConfig(background_class=PAN_BACKGROUND)
+    valid_dt, _ = load_coco_panoptic(config, 1, ann_file=ann, png_dir=png_dir,
+                                     img_dir=os.path.join(root, "images"))
+    args = collections.defaultdict(list)
+    differing, band, pixels, host_s = 0, 0, 0, 0.0
+    merge_ms = None
+    for batch in valid_dt:
+        x = torch.from_numpy(batch["images"]).to(DEVICE)
+        pm = torch.from_numpy(batch["pixel_mask"]).to(DEVICE)
+        outputs = model(x, pm)
+        _, labels, scores, keep = (t[0].cpu().numpy() for t in inference.postprocess(
+            outputs, PAN_BACKGROUND, "yxyx"))
+        probs = inference.mask_probs(outputs["pred_masks"], pm)[0]
+        h, w = int(batch["pixel_mask"][0][:, 0].sum()), int(batch["pixel_mask"][0][0].sum())
+        dev = inference.merge_full_res(inference.kept_probs(probs, keep, h, w), scores[keep])
+        if merge_ms is None and (h, w) == PAN_SIZES[0]:
+            merge_ms = time_ms(torch, lambda: inference.merge_full_res(
+                inference.kept_probs(probs, keep, h, w), scores[keep]), iters=5, warmup=1)
+        t0 = time.perf_counter()
+        up = inference.upsample_mask_probs(probs.cpu().numpy()[keep], (h, w))
+        host = (inference.np_merge_full_res(up, scores[keep], np.ones(int(keep.sum()), bool))
+                if keep.any() else np.full((h, w), -1, np.int32))
+        host_s += time.perf_counter() - t0
+        if keep.sum() >= 2:
+            weighted = up * scores[keep]
+            top2 = np.partition(weighted, -2, axis=-1)[..., -2:]
+            best = np.take_along_axis(up, weighted.argmax(-1)[..., None], -1)[..., 0]
+            near = ((np.abs(top2[..., 1] - top2[..., 0]) <= PAN_MERGE_BAND)
+                    | (np.abs(best - 0.5) <= PAN_MERGE_BAND))
+        else:
+            near = np.zeros((h, w), bool)
+        off = dev != host
+        if (off & ~near).any():
+            raise AssertionError(f"device merge differs from np_merge_full_res at "
+                                 f"{int((off & ~near).sum())} pixels away from ties")
+        differing, band = differing + int(off.sum()), band + int(near.sum())
+        pixels += h * w
+        n = int(batch["mask"][0].sum())
+        args["pred_seg_maps"].append(host)
+        args["pred_labels"].append(labels[keep])
+        args["gt_masks"].append(batch["t_masks_full"][0][:n, :h, :w] > 0)
+        args["gt_classes"].append(batch["classes"][0][:n])
+        args["gt_iscrowd"].append(batch["gt_is_crowd"][0][:n])
+        args["void_masks"].append(batch["void_mask"][0][:h, :w])
+    host_table = panoptic_quality(**args, stuff_classes=valid_dt.stuff_classes)
+    same, gap = _pq_gaps(out["eval"]["float32"]["pq"], host_table)
+    if not same or gap > PAN_PQ_ATOL:
+        raise AssertionError(f"eval's PQ table against the host maps': counts equal {same}, "
+                             f"largest gap {gap}")
+    out["merge_ms"] = merge_ms
+    log(f"  device merge (kept_probs + merge_full_res) against np_merge_full_res on the same "
+        f"probabilities, {n_images} images: {differing} of {pixels} pixels differ, all within "
+        f"the {PAN_MERGE_BAND} band of a tie or of the threshold ({band} pixels there); PQ "
+        f"table "
+        f"from the host maps: counts equal, largest |gap| {gap:.2e}; the merge at "
+        f"{PAN_SIZES[0][0]}x{PAN_SIZES[0][1]} with 100 kept queries {merge_ms:.3f} ms (CUDA "
+        f"events, its (h, w) map copied to the host), the host's upsample_mask_probs + "
+        f"np_merge_full_res {1e3 * host_s / n_images:.1f} ms an image")
+    del model, valid_dt
+    torch.cuda.empty_cache()
+
+    # finetune_coco_masks --panoptic_ann: the frozen detector, 100 queries.
+    reset_counts(fa, lap, mp)  # main path
+    t0 = time.perf_counter()
+    trainer = finetune_coco_masks.main(data + [
+        "--batch_size", str(TRAIN_BATCH), "--target_batch", str(TRAIN_BATCH), "--image_size",
+        *map(str, TRAIN_HW), "--epochs", str(PAN_STEPS), "--steps_per_epoch", "1"],
+        num_classes=PAN_CLASSES)
+    torch.cuda.synchronize()
+    counts = read_counts(fa, lap, mp)
+    want = {k: 0 for k in counts}
+    want.update({"A-tf32": PAN_STEPS * LAUNCHES_PER_FORWARD, "B": PAN_STEPS, "C": PAN_STEPS})
+    if counts != want or trainer.steps != PAN_STEPS or lap.solve_lap_masked.wide_launches:
+        raise AssertionError(f"finetune_coco_masks --panoptic_ann: {trainer.steps} steps, "
+                             f"launches {counts}")
+    for name, key in (("flash_attention_fwd_tf32", "A-tf32"), ("lap", "B"), ("maxpool", "C")):
+        launches[name] += counts[key]
+    log(f"  finetune_coco_masks.main --panoptic_ann: {trainer.steps} frozen-detector steps at "
+        f"b{TRAIN_BATCH} {TRAIN_HW[0]}x{TRAIN_HW[1]}, 100 queries, in "
+        f"{time.perf_counter() - t0:.2f} s (model build included), launches {counts} (B at 100 "
+        f"columns)")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # The JAX package's panoptic recipe at full width: 250 queries and target
+    # slots, every group training, fp32 (TF32 off), dropout 0.1.
+    for batch_size in (TRAIN_BATCH, TRAIN_BATCH // 2):
+        try:
+            out["recipe"] = _panoptic_recipe(torch, fa, lap, mp, api, train, batch_size, root,
+                                             tmp.name, launches)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            if batch_size < TRAIN_BATCH:
+                raise
+            reason = str(e).splitlines()[0]
+        log(f"  the 250-query step at b{batch_size} does not fit in the card's memory "
+            f"({reason}): halving the batch")
+        torch.cuda.empty_cache()
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _panoptic_recipe(torch, fa, lap, mp, api, train, batch_size, root, tmp, launches):
+    """PAN_RECIPE_STEPS steps of the 250-query recipe at ``batch_size``
+    376x672 on one batch of the panoptic train loader over ``root``: their
+    launches, busy time, wall time and peak memory, and a round trip of the
+    train state through ``train/checkpoint.py``."""
+    import math
+    import os
+
+    from detr_tensorflow_tpu_torch.data import load_coco_panoptic_train
+    from detr_tensorflow_tpu_torch.train.checkpoint import restore_latest, save_checkpoint
+    from detr_tensorflow_tpu_torch.train.engine import batch_to_device
+
+    config = train.TrainingConfig(
+        data=train.DataConfig(data_dir=root, img_dir="images", ann_file="panoptic.json"),
+        image_size=TRAIN_HW, num_queries=PAN_QUERIES, batch_size=batch_size, target_batch=None,
+        train_backbone=True, train_transformers=True, train_nlayers=True,
+        background_class=PAN_BACKGROUND)
+    dataset, _ = load_coco_panoptic_train(config, batch_size)
+    batch = next(iter(dataset))
+    if batch["boxes"].shape[1] != PAN_QUERIES or batch["t_masks"].shape[1] != PAN_QUERIES:
+        raise AssertionError(f"target slots {batch['boxes'].shape[1]}, expected {PAN_QUERIES}")
+    real = batch["mask"].sum(1)
+    batch = batch_to_device(batch, DEVICE)
+    build = functools.partial(api.build_detr, device=DEVICE, masks=True,
+                              num_classes=PAN_CLASSES, num_queries=PAN_QUERIES)
+    trainer = train.Trainer(build().module, config, seed=0)
+    trainer.step(batch)  # cuDNN plans, kernel loads
+    reset_counts(fa, lap, mp)  # main path
+    logs = [trainer.step(batch) for _ in range(PAN_RECIPE_STEPS)]
+    torch.cuda.synchronize()
+    counts = read_counts(fa, lap, mp)
+    wide = lap.solve_lap_masked.wide_launches
+    want = {k: 0 for k in counts}
+    want.update({"A-tf32": PAN_RECIPE_STEPS * LAUNCHES_PER_FORWARD, "C": PAN_RECIPE_STEPS,
+                 "A'-mma": PAN_RECIPE_STEPS * LAUNCHES_PER_FORWARD, "B": PAN_RECIPE_STEPS})
+    losses_ = [float(lg["total_loss"]) for lg in logs]
+    if counts != want or wide != PAN_RECIPE_STEPS or not all(math.isfinite(v) for v in losses_):
+        raise AssertionError(f"250-query step: launches {counts} (expected {want}), B at 250 "
+                             f"columns {wide}, losses {losses_}")
+    for name, key in (("flash_attention_fwd_tf32", "A-tf32"),
+                      ("flash_attention_bwd_mma", "A'-mma"), ("maxpool", "C")):
+        launches[name] += counts[key]
+    launches["lap_wide"] += wide
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    trainer.step(batch)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    wall, busy, events = device_busy_ms(torch, lambda: trainer.step(batch), calls=2)
+    ckpt = os.path.join(tmp, "ckpt")
+    save_checkpoint(trainer, ckpt)
+    restored = restore_latest(train.Trainer(build().module, config, seed=9), ckpt)
+    if restored is None or restored.steps != trainer.steps or not all(
+            torch.equal(a, b) for a, b in zip(trainer.model.state_dict().values(),
+                                             restored.model.state_dict().values())):
+        raise AssertionError("the 250-query train state did not round-trip")
+    nxt = (float(trainer.step(batch)["total_loss"]), float(restored.step(batch)["total_loss"]))
+    if not math.isfinite(nxt[0]) or abs(nxt[0] - nxt[1]) > 1e-6 * abs(nxt[0]):
+        raise AssertionError(f"the step after the round trip: losses {nxt}")
+    log(f"  250-query panoptic recipe (every group training, fp32, dropout {DROPOUT}) "
+        f"b{batch_size} {TRAIN_HW[0]}x{TRAIN_HW[1]}, {PAN_QUERIES} target slots "
+        f"({real.tolist()} real), {PAN_RECIPE_STEPS} steps: launches {counts}, B at 250 "
+        f"columns {wide}; losses "
+        f"{[round(v, 4) for v in losses_]}; under torch.profiler wall {wall:.2f} ms, device "
+        f"busy {busy:.2f} ms, {events:.0f} kernels and copies; peak memory of a step above the "
+        f"memory held before it {peak:.2f} GiB; train state round-tripped through "
+        f"train/checkpoint.py (step {restored.steps}), the next step's loss {nxt[0]:.6f} / "
+        f"{nxt[1]:.6f} restored")
+    return dict(batch=batch_size, wall=wall, busy=busy, peak=peak, losses=losses_)
+
+
 def sass_counts(nvcc_build, path, op="HMMA") -> dict:
     """``op`` instructions (HMMA: bf16 and TF32 tensor cores, IMMA: int8) in
     the SASS of each kernel of a built library, by mangled name."""
@@ -2998,6 +3444,14 @@ def main() -> int:
                                f"ms" for dt in ("float32", "bfloat16"))
         + f"; launches on its main paths {dict(seg['launches'])}")
 
+    t = time.perf_counter()
+    pan = phase_panoptic(torch, fa, lap, maxpool, api, train)
+    ev, rec = pan["eval"], pan["recipe"]
+    log(f"[panoptic] ok in {time.perf_counter() - t:.1f} s; eval --pq images/s fp32 / bf16 "
+        f"{ev['float32']['images_s']:.2f} / {ev['bfloat16']['images_s']:.2f}; the 250-query "
+        f"step b{rec['batch']}: wall {rec['wall']:.2f} ms, busy {rec['busy']:.2f} ms, peak "
+        f"{rec['peak']:.2f} GiB; launches on its main paths {dict(pan['launches'])}")
+
     a32, a16 = times[(2, 1232, 1232, "float32")], times[(2, 1232, 1232, "bfloat16")]
     # The training shapes' times: fp32 under (Lq, Lk), bf16 under (Lq, Lk, "bfloat16").
     bwd_times16 = {k[:2]: v for k, v in bwd_times.items() if len(k) == 3}
@@ -3035,13 +3489,15 @@ def main() -> int:
     mma_err = max([worst["bfloat16"]] + [e for t in fwd_train16.values()
                                          for w, e in t["errs"].items() if w != "simt"])
     lap_ms, lap_plain_ms, _, (lap_bound, lap_by), lap_loop_ms, lap_chain = lap_times
+    pan_lap = pan["lap"][True]
 
     # "measured_at": the shape and dtype of the times, which differ between
     # kernels and have changed between versions of this script.
     def entry(name, source, launches_, err, ms_, plain_, bound, by, library, at):
         return {"name": name, "route": "cuda", "source": CSRC + source,
                 "replaces": REPLACES[name],
-                "launches": launches_ + dc5["launches"][name] + seg["launches"][name],
+                "launches": (launches_ + dc5["launches"][name] + seg["launches"][name]
+                             + pan["launches"][name]),
                 "max_abs_err": err,
                 "ms": ms_, "plain_ms": plain_, "bound_ms": bound, "bound_by": by,
                 "library_ms": library, "measured_at": at}
@@ -3079,6 +3535,10 @@ def main() -> int:
               lap_plain_ms,
               lap_bound, lap_by, None, f"{LAP_PROBLEMS} problems of {LAP_SLOTS}x{LAP_SLOTS} "
               "float32, one call"),
+        entry("lap_wide", SOURCES[2], 0, pan["lap_err"], *pan_lap[:2], *pan_lap[3], None,
+              f"{LAP_PROBLEMS} problems of {PAN_LAP_SLOTS}x{PAN_LAP_SLOTS} float32 (the "
+              f"256-column instance), scattered n_real 0..{PAN_LAP_MAX_REAL} and one problem of "
+              f"{PAN_LAP_SLOTS}, one call"),
         entry("int8_matmul", SOURCES[3], sum(f_counts.values()), int8_worst["int8_matmul"],
               *int8_times["int8_matmul"][[0, 1, 3]], int8_by["int8_matmul"],
               int8_times["int8_matmul"][2], int8_at(F_PER_FORWARD)),
@@ -3151,7 +3611,12 @@ def main() -> int:
         f"backward less forward); lap: optimal-cost max_abs_err "
         f"{lap_err:.3e}, ms kernel from CUDA graphs ({lap_loop_ms:.4f} ms a call in a loop, host "
         f"included) / plain_ms plain version on 48 problems, no library call, bound on bytes "
-        f"with a serial chain of {lap_chain} Dijkstra steps; "
+        f"with a serial chain of {lap_chain} Dijkstra steps, launches at 100 columns; "
+        f"lap_wide (the same kernel's 256-column instance): optimal-cost max_abs_err "
+        f"{pan['lap_err']:.3e}, ms/plain_ms at 48x250x250 with one problem of 250 real rows "
+        f"(serial chain {pan_lap[4]} Dijkstra steps; without that problem "
+        f"{pan['lap'][False][0]:.4f} ms, chain {pan['lap'][False][4]}), launches at 250 "
+        f"columns in the 250-query steps; "
         f"int8_matmul and int8_conv: max |kernel - plain| in LSB, ms/plain_ms/bound_ms/"
         f"library_ms summed over one b1 896x1408 forward's launches (library: torch._int_mm "
         f"and the bf16 cuDNN conv, not the same functions), launches in 3 int8 forwards; "

@@ -8,9 +8,11 @@ lattice. COCO scores masks at each image's own size: the valid stride-4
 cells are cropped, resized bilinearly with half-pixel centres (torch's
 ``F.interpolate(align_corners=False)``, cv2's INTER_LINEAR) to the image and
 thresholded. ``bilinear_resize`` computes that resize on any device (the
-``Predictor`` runs it on the card); ``np_bilinear_resize`` is its numpy
-twin for the host (the JAX package takes cv2 there, which the card's
-machine lacks; the two agree to float32 rounding).
+``Predictor`` and ``eval`` run it on the card); ``np_bilinear_resize`` is
+its numpy twin for the host (the JAX package takes cv2 there, which the
+card's machine lacks; the two agree to float32 rounding). The panoptic
+merge at full resolution, ``merge_full_res``, runs on the device too, twin
+of the host's ``np_merge_full_res``.
 """
 
 from __future__ import annotations
@@ -72,23 +74,52 @@ def mask_probs(pred_masks: torch.Tensor,
     return probs
 
 
-def kept_masks(probs: torch.Tensor, keep: np.ndarray, h: int, w: int, threshold: float = 0.5,
-               stride: int = 4) -> np.ndarray:
-    """One image's masks at its own size: its kept queries' (Q, Hs, Ws)
-    probabilities cropped to the valid ceil(h / s) x ceil(w / s) cells,
-    resized bilinearly to (h, w) and thresholded on their device, then
-    (n, h, w) bool on the host. From the card they land in pinned memory
-    (PyTorch's caching host allocator): a copy into pageable memory of 100
-    masks at 800x1333 took 44-49 ms on an H100, against the forward's
-    17.5."""
+def kept_probs(probs: torch.Tensor, keep: np.ndarray, h: int, w: int,
+               stride: int = 4) -> torch.Tensor:
+    """One image's kept queries' probabilities at its own size, on their
+    device: the (Q, Hs, Ws) probabilities of the queries ``keep`` marks,
+    cropped to the valid ceil(h / s) x ceil(w / s) cells and resized
+    bilinearly to (n, h, w) (``upsample_mask_probs`` on the device)."""
     with torch.inference_mode():
         sel = torch.from_numpy(np.nonzero(keep)[0]).to(probs.device)
         crop = probs.index_select(0, sel)[:, :-(-h // stride), :-(-w // stride)]
-        masks = bilinear_resize(crop, h, w) > threshold
-        if not masks.is_cuda:
-            return masks.numpy()
-        host = torch.empty(masks.shape, dtype=torch.bool, pin_memory=True)
-        return host.copy_(masks).numpy()
+        return bilinear_resize(crop, h, w)
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; from the card through pinned memory (PyTorch's
+    caching host allocator): a copy into pageable memory of 100 masks at
+    800x1333 took 44-49 ms on an H100, against the forward's 17.5."""
+    if not t.is_cuda:
+        return t.numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return host.copy_(t).numpy()
+
+
+def kept_masks(probs: torch.Tensor, keep: np.ndarray, h: int, w: int, threshold: float = 0.5,
+               stride: int = 4) -> np.ndarray:
+    """One image's masks at its own size: ``kept_probs`` thresholded on
+    their device, then (n, h, w) bool on the host."""
+    with torch.inference_mode():
+        return to_host(kept_probs(probs, keep, h, w, stride) > threshold)
+
+
+def merge_full_res(up_probs: torch.Tensor, scores, threshold: float = 0.5) -> np.ndarray:
+    """``np_merge_full_res`` of one image's kept queries on their device:
+    up_probs (n, h, w) (``kept_probs``) weighted by the kept queries'
+    ``scores`` (n,), the argmax over queries (ties to the first), -1 where
+    the winner's probability is at most ``threshold``; only the (h, w)
+    int32 map is copied to the host. Spares the host the (h, w, n) float
+    array the JAX package builds there (427 MB for 100 queries at
+    800x1333)."""
+    n, h, w = up_probs.shape
+    if n == 0:
+        return np.full((h, w), -1, np.int32)
+    with torch.inference_mode():
+        scores = torch.as_tensor(scores, dtype=up_probs.dtype).to(up_probs.device)
+        best = (up_probs * scores[:, None, None]).argmax(dim=0)
+        best_prob = torch.gather(up_probs, 0, best[None])[0]
+        return to_host(torch.where(best_prob > threshold, best, -1).to(torch.int32))
 
 
 def postprocess_masks(m_outputs: Dict[str, torch.Tensor],

@@ -9,7 +9,10 @@ gets a distinct column at minimal total cost, masked rows get -1. The CUDA
 source is ``csrc/lap.cu``: one CTA of sixteen warps per problem, the real rows
 staged compacted, the auction pre-pass of ``matcher.py`` with the bids
 spread over the warps, and its shortest augmenting paths on one warp with
-the column state in registers; its header note says what bounds it.
+the column state in registers, compiled at 128 and 256 columns and picked
+per launch (up to 127 columns, DETR's 100 queries, and up to 255, the
+panoptic recipe's 250); its header note says what bounds it and how a
+problem with more real rows than shared memory holds is read.
 
 ``solve_lap_masked`` takes CUDA tensors to the kernel and CPU tensors to
 ``reference_solve_lap_masked``; there is no fallback from one to the
@@ -24,7 +27,8 @@ import ctypes
 import torch
 
 _SOURCE = "lap.cu"
-_MAX_COLS = 127  # the kernel's 128 columns hold the virtual column 0 too
+_MAX_COLS = 255  # the kernel's widest instance, 256 columns, holds the virtual column 0 too
+_NARROW_COLS = 127  # the most columns the 128-column instance takes
 _INF = 1e9  # matcher.py's _INF
 _AUCTION_ROUNDS = 5
 
@@ -151,9 +155,11 @@ def solve_lap_masked(cost: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor
     (P, R) bool row masks -> (P, R) int32 assigned column per row, -1 for
     masked rows.
 
-    A CUDA tensor launches the kernel (C <= 127; ``solve_lap_masked.launches``
-    counts launches); a CPU tensor goes to ``reference_solve_lap_masked``;
-    any other device raises.
+    A CUDA tensor launches the kernel (C <= 255: its 128-column instance up
+    to 127 columns, its 256-column one above; ``solve_lap_masked.launches``
+    counts launches, ``solve_lap_masked.wide_launches`` those of the
+    256-column instance); a CPU tensor goes to
+    ``reference_solve_lap_masked``; any other device raises.
     """
     _check(cost, row_mask)
     if cost.device.type == "cpu":
@@ -174,7 +180,9 @@ def solve_lap_masked(cost: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor
     if err != 0:
         raise RuntimeError(f"lap_solve launch failed: cudaError {err}")
     solve_lap_masked.launches += 1
+    solve_lap_masked.wide_launches += c > _NARROW_COLS
     return out
 
 
 solve_lap_masked.launches = 0
+solve_lap_masked.wide_launches = 0

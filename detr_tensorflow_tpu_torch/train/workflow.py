@@ -35,14 +35,15 @@ def run_epochs(trainer: Trainer, train_dt, valid_dt, config, args, evaluation_st
                before_epoch: Optional[Callable[[int], None]] = None) -> bool:
     """``args.epochs`` times: a validation pass over at most
     ``evaluation_step`` batches (``--evaluation_steps`` overrides it), then
-    one training epoch (at most ``--steps_per_epoch`` steps). Returns False
-    when an epoch was preempted."""
+    one training epoch (at most ``--steps_per_epoch`` steps). A
+    ``valid_dt`` of None skips the validation pass. Returns False when an
+    epoch was preempted."""
     if args.evaluation_steps is not None:
         evaluation_step = args.evaluation_steps
     for epoch in range(args.epochs):
         if before_epoch is not None:
             before_epoch(epoch)
-        if evaluation_step > 0:
+        if evaluation_step > 0 and valid_dt is not None:
             eval_loop(trainer, valid_dt, config, evaluation_step=evaluation_step)
         data = (train_dt if args.steps_per_epoch is None
                 else itertools.islice(train_dt, args.steps_per_epoch))

@@ -512,13 +512,23 @@ def _lap_problems(seed, p=48, r=100, c=100, max_real=30, ties=False, scattered=F
 
 # (problems, rows, columns, most real rows, scattered masks, costs at an
 # address 4 bytes past a 16-byte boundary): the path's 48 x 100 x 100, masks
-# that are no prefix, the widest problems (R = C = 127, 4-byte staging), a
-# single column, and misaligned costs.
+# that are no prefix, the widest problems of the 128-column instance (R = C =
+# 127, 4-byte staging), a single column, and misaligned costs; then the
+# 256-column instance: the panoptic recipe's 48 x 250 x 250 (250 target
+# slots, 250 queries) with prefix and scattered masks, problems of 250 real
+# rows (past the rows shared memory holds: the rest read from device
+# memory), its widest (R = C = 255, 4-byte staging) and its narrowest (128
+# columns).
 LAP_LAYOUTS = {"path": (48, 100, 100, 30, False, False),
                "scattered": (48, 100, 100, 30, True, False),
                "square127": (6, 127, 127, 127, True, False),
                "one column": (5, 1, 1, 1, False, False),
-               "misaligned": (6, 20, 40, 20, True, True)}
+               "misaligned": (6, 20, 40, 20, True, True),
+               "panoptic": (48, 250, 250, 60, False, False),
+               "panoptic scattered": (48, 250, 250, 60, True, False),
+               "square250 past the staged rows": (4, 250, 250, 250, True, False),
+               "square255": (3, 255, 255, 255, True, True),  # misaligned too
+               "128 columns": (6, 100, 128, 100, True, False)}
 
 
 @pytest.mark.parametrize("layout", list(LAP_LAYOUTS))
@@ -534,9 +544,10 @@ def test_lap_kernel_matches_plain_and_scipy(cuda_device, ties, layout):
     if misaligned:
         cost_d = torch.empty(cost.size + 1, device=cuda_device)[1:].view(cost.shape).copy_(cost_d)
         assert cost_d.data_ptr() % 16 == 4
-    before = lap.solve_lap_masked.launches
+    before = lap.solve_lap_masked.launches, lap.solve_lap_masked.wide_launches
     got = lap.solve_lap_masked(cost_d, torch.from_numpy(mask).to(cuda_device)).cpu().numpy()
-    assert lap.solve_lap_masked.launches == before + 1
+    assert (lap.solve_lap_masked.launches, lap.solve_lap_masked.wide_launches) == (
+        before[0] + 1, before[1] + (c > 127))
     plain = lap.reference_solve_lap_masked(torch.from_numpy(cost), torch.from_numpy(mask)).numpy()
     for i, m in enumerate(mask):
         n = int(m.sum())
@@ -547,6 +558,15 @@ def test_lap_kernel_matches_plain_and_scipy(cuda_device, ties, layout):
         assert abs(ours - cost[i, m][rows, cols].sum()) <= 1e-4 * max(1.0, abs(ours))
         if not ties:
             assert (got[i, m] == cols).all() and (plain[i] == got[i]).all()
+
+
+def test_lap_kernel_refuses_more_than_255_columns(cuda_device):
+    """B takes up to 255 columns; the wrapper names the limit above it."""
+    cost = torch.zeros((2, 10, 256), device=cuda_device)
+    mask = torch.ones((2, 10), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="at most 255 columns"):
+        lap.solve_lap_masked(cost, mask)
+    assert (lap.solve_lap_masked(cost[..., :255], mask) >= 0).all()
 
 
 def test_train_step_kernel_route_matches_plain(cuda_device):
@@ -1525,3 +1545,35 @@ def test_frozen_detector_mask_step_on_the_card(cuda_device):
     for name, value in model.state_dict().items():
         moved = not torch.equal(value, before[name])
         assert moved == name.startswith(("mask_head.", "bbox_attention.")), name
+
+
+@pytest.mark.parametrize("hw,kept", [((800, 1333), 100), ((427, 640), 7), ((61, 77), 0)])
+def test_device_merge_matches_np_merge_full_res(cuda_device, hw, kept):
+    """The panoptic merge at full resolution on the card
+    (``inference.kept_probs`` then ``merge_full_res``) against the host's
+    ``np_merge_full_res(upsample_mask_probs(...))`` on the same
+    probabilities: the winning query equal at every pixel whose two best
+    weighted scores lie further apart than 1e-5 and whose winner's
+    probability lies further than 1e-5 from the threshold (-1 there)."""
+    from detr_tensorflow_tpu_torch import inference
+
+    h, w = hw
+    rng = np.random.default_rng(h + kept)
+    q, hs, ws = 100, -(-h // 128) * 32, -(-w // 128) * 32  # the 128-bucket's stride-4 lattice
+    probs = rng.random((q, hs, ws)).astype(np.float32)
+    keep = np.zeros(q, bool)
+    keep[rng.permutation(q)[:kept]] = True
+    scores = rng.random(q).astype(np.float32)[keep]
+    up = inference.kept_probs(torch.from_numpy(probs).to(cuda_device), keep, h, w)
+    got = inference.merge_full_res(up, scores)
+    assert got.dtype == np.int32 and got.shape == (h, w)
+    if not kept:  # no query kept: -1 everywhere, as the eval's merge gives
+        assert (got == -1).all()
+        return
+    host_up = inference.upsample_mask_probs(probs[keep], (h, w))
+    want = inference.np_merge_full_res(host_up, scores, np.ones(kept, bool))
+    top2 = np.sort(host_up * scores, axis=-1)[..., -2:]
+    best_prob = np.take_along_axis(host_up, (host_up * scores).argmax(-1)[..., None], -1)[..., 0]
+    far = (top2[..., 1] - top2[..., 0] > 1e-5) & (np.abs(best_prob - 0.5) > 1e-5)
+    assert far.mean() > 0.9
+    np.testing.assert_array_equal(got[far], want[far])

@@ -125,8 +125,9 @@ def test_eval_main_equals_jax_eval_model(coco_root, jax_weights):
                                         "--protocol", "cocoeval"),
                              num_classes=4, dropout=0.0, **TINY)
         assert got == want, batch
-    with pytest.raises(NotImplementedError):  # panoptic quality is not ported yet
-        port_eval.main(_data_argv(coco_root, "--masks", "--pq"), num_classes=4, **TINY)
+    with pytest.raises(SystemExit):  # panoptic eval is batch 1, as JAX's eval.py:299-300
+        port_eval.main(_data_argv(coco_root, "--masks", "--pq", "--panoptic_ann", "p.json",
+                                  "--batch", "2"), num_classes=4, **TINY)
 
 
 def test_python_m_eval_runs_detr_r50(coco_root):
@@ -317,7 +318,8 @@ def test_package_imports_no_jax_cv2_or_pil():
     names = [m.name for m in pkgutil.walk_packages(detr_tensorflow_tpu_torch.__path__,
                                                    "detr_tensorflow_tpu_torch.")]
     assert {"detr_tensorflow_tpu_torch.eval", "detr_tensorflow_tpu_torch.data.image_io",
-            "detr_tensorflow_tpu_torch.metrics.ap"} <= set(names)
+            "detr_tensorflow_tpu_torch.metrics.ap", "detr_tensorflow_tpu_torch.data.panoptic",
+            "detr_tensorflow_tpu_torch.metrics.pq"} <= set(names)
     code = ("import importlib, sys\n"
             f"for name in {names + ['chip_smoke']!r}:\n"
             "    importlib.import_module(name)\n"

@@ -249,8 +249,8 @@ def test_eval_masks_equals_jax_eval_model(mask_coco, lattice, tmp_path):
 def test_finetune_coco_masks_trains_the_mask_head(mask_coco):
     """``finetune_coco_masks`` for two steps on the synthetic set: the mask
     head and the attention-map projections move, the detector does not,
-    and the step logs mask_loss and dice_loss; ``--panoptic_ann`` raises
-    until panoptic is ported."""
+    and the step logs mask_loss and dice_loss; ``--panoptic_ann`` reads its
+    json (tests/test_torch_panoptic.py trains on one)."""
     argv = _data_argv(mask_coco, "--epochs", "1", "--steps_per_epoch", "2",
                       "--evaluation_steps", "1", "--batch_size", "2", "--target_batch", "2",
                       "--image_size", "64", "64")
@@ -264,7 +264,7 @@ def test_finetune_coco_masks_trains_the_mask_head(mask_coco):
     batch = next(iter(trainer.prefetch(_train_batches(trainer))))
     log = trainer.step(batch)
     assert {"mask_loss", "dice_loss"} <= set(log)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):
         finetune_coco_masks.main(argv + ["--panoptic_ann", "x.json"], **kw)
 
 
