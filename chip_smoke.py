@@ -159,8 +159,8 @@ Phases, one status line each; any failure raises and exits non-zero:
      (the panoptic recipe's 250 target slots and queries, scattered n_real
      0-60, one problem of 250 real rows, past the rows its shared memory
      stages) against its plain version and scipy, with tied costs too, timed
-     from CUDA graphs beside the bound and the serial chain, and 256 columns
-     refused; a synthetic COCO panoptic set (8 PNG images at COCO-like sizes
+     from CUDA graphs beside the bound and the serial chain; a synthetic COCO
+     panoptic set (8 PNG images at COCO-like sizes
      up to 800x1333, COCO panoptic's 80 things and 53 stuff classes, thing,
      stuff and crowd segments and VOID in segment-id PNGs) evaluated by
      ``eval.main --masks --pq --panoptic_ann`` on a seeded DETR-R50 DETRsegm
@@ -175,7 +175,26 @@ Phases, one status line each; any failure raises and exits non-zero:
      queries and target slots, every group training, 3 b8 376x672 fp32 steps
      (A-tf32 18, A'-mma 18, B 1 at 250 columns, C 1 a step; halved to b4,
      logged, if b8 does not fit), busy and wall time and peak memory, the
-     train state round-tripped through ``train/checkpoint.py``.
+     train state round-tripped through ``train/checkpoint.py``;
+ 15. JPEG: ``data/jpeg.py`` (g++) decodes every committed fixture of
+     tests/data/jpeg to the SHA-256 imageio gave (``expected.json``), and
+     one thread's decode time at 640x480 and 1333x800 with the host CPU's
+     model; from copies of the fixtures, a COCO set of 256 JPEGs with 1-20
+     boxes each: the loader's images/s, ``train_coco.main`` for 3 b8 376x672
+     fp32 steps (A-tf32 18, A'-mma 18, B 1, C 1 a step), a loader-fed
+     epoch's steps beside in-memory ones, ``eval.main`` at b1 over 8 (A-tf32
+     18, C 1 an image); ``finetune_voc.main`` and ``finetune_hardhat.main``
+     (a CSV set, "person" excluded) for 2 heads-only steps each (A-tf32 18,
+     B 1, C 1); kernel B's generic instance (above 255 columns) at 6x300x300,
+     12x900x900 with one problem of 900 real rows, 2x2000x2000, 1x4097x4097
+     with 3900 real rows (one staged, the rest read from L2) and 1x5000x5000
+     with 4800 (its state in device memory) against its plain version
+     and scipy, tied costs too, timed from CUDA graphs beside the bound and
+     the serial chain; one b8 376x672 fp32 step of DETR-R50 at 300 queries
+     and target slots (A-tf32 18, A'-mma 18, B 1 on the generic instance,
+     C 1), its busy time, B's share and peak memory; ``eval.main --masks
+     --pq --panoptic_ann`` over 4 JPEG images with PNG segment maps on a
+     seeded DETRsegm .pth (A-tf32 18, C 1 an image).
 Kernel C runs in every ``ResNetBackbone`` forward: serving, training and
 fused serving count it (1 per forward or step); the int8 model's stem is
 not a ``ResNetBackbone`` and launches none.
@@ -193,8 +212,10 @@ from __future__ import annotations
 
 import collections
 import functools
+import importlib.util
 import io
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -205,6 +226,16 @@ import urllib.request
 from pathlib import Path
 
 import numpy as np
+
+# The seeded inputs the card tests share: B's wide problems and the JPEG sets.
+_spec = importlib.util.spec_from_file_location(
+    "smoke_inputs", Path(__file__).resolve().parent / "scripts" / "smoke_inputs.py")
+smoke_inputs = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke_inputs)
+JPEG_DIR, HARDHAT_CLASSES, LAP_GENERIC = (smoke_inputs.JPEG_DIR, smoke_inputs.HARDHAT_CLASSES,
+                                          smoke_inputs.LAP_GENERIC)
+generic_lap_problems, jpeg_sources, write_jpeg_sets = (
+    smoke_inputs.generic_lap_problems, smoke_inputs.jpeg_sources, smoke_inputs.write_jpeg_sets)
 
 # (Lq, Lk) of every attention call on the served path: encoder self and
 # decoder cross at the 896x1408 and 800x1344 buckets, decoder self, and
@@ -235,6 +266,7 @@ REPLACES = {
     "flash_attention_bwd_bf16": "detr_tensorflow_tpu/ops/pallas/flash_attention.py:115",
     "lap": "detr_tensorflow_tpu/ops/pallas/lap.py:77",
     "lap_wide": "detr_tensorflow_tpu/ops/pallas/lap.py:77",
+    "lap_generic": "detr_tensorflow_tpu/ops/pallas/lap.py:77",
     "int8_matmul": "detr_tensorflow_tpu/ops/pallas/int8_matmul.py:96",
     "int8_conv": "detr_tensorflow_tpu/ops/pallas/int8_conv.py:64",
     "maxpool": "detr_tensorflow_tpu/ops/pallas/maxpool.py:99",
@@ -1224,16 +1256,17 @@ def phase_http(predictor, serve, class_names):
         raise AssertionError("server thread did not stop")
 
 
-def train_batch(seed):
+def train_batch(seed, slots=None):
     """A native b8 376x672 batch built in memory: normalized-scale images and
-    1-20 boxes per image, padded with ``pad_targets``."""
+    1-20 boxes per image, padded with ``pad_targets`` to ``slots`` target
+    slots (default MAX_TARGETS, DETR's 100 queries)."""
     from detr_tensorflow_tpu_torch.data import MAX_TARGETS, pad_targets
 
     rng = np.random.default_rng(seed)
     boxes, classes, mask = zip(*(
         pad_targets(np.concatenate([rng.uniform(0.1, 0.9, (n, 2)),
                                     rng.uniform(0.05, 0.5, (n, 2))], -1),
-                    rng.integers(0, BACKGROUND, size=n), MAX_TARGETS)
+                    rng.integers(0, BACKGROUND, size=n), slots or MAX_TARGETS)
         for n in rng.integers(1, 21, size=TRAIN_BATCH)))
     images = rng.normal(size=(TRAIN_BATCH,) + TRAIN_HW + (3,)).astype(np.float32)
     return {"images": images, "boxes": np.stack(boxes), "classes": np.stack(classes),
@@ -1375,7 +1408,7 @@ ENTRY_RATE_IMAGES = 256
 
 def reset_counts(fa, lap, mp):
     fa.mha.tf32_launches = fa.mha.backward_launches = lap.solve_lap_masked.launches = 0
-    lap.solve_lap_masked.wide_launches = 0
+    lap.solve_lap_masked.wide_launches = lap.solve_lap_masked.generic_launches = 0
     mp.max_pool_3x3_s2.launches = fa.mha.mma_launches = fa.mha.backward_mma_launches = 0
     fa.mha.launches = fa.mha.backward_bf16_launches = 0
 
@@ -2876,15 +2909,17 @@ PAN_LAP_SLOTS, PAN_LAP_MAX_REAL = 250, 60
 PAN_MERGE_BAND, PAN_PQ_ATOL = 1e-5, 1e-4
 
 
-def write_panoptic_set(root, sizes, seed, things, stuff):
+def write_panoptic_set(root, sizes, seed, things, stuff, jpegs=None):
     """A COCO panoptic set as its files, from a numpy seed: per (h, w) a
-    random RGB PNG and a segment-id PNG (id = R + 256 G + 65536 B, ids drawn
+    random RGB PNG (or, given ``jpegs``, a copy of ``jpegs[i]``, a JPEG file
+    of that size) and a segment-id PNG (id = R + 256 G + 65536 B, ids drawn
     from all 24 bits) of 2-5 stuff bands across the image, 4-30 thing
     rectangles over them, one crowd thing and a VOID rectangle (id 0);
     ``panoptic.json`` with the images, each segment's category, iscrowd,
     area and bbox (none on the first stuff band, whose box the loaders take
     from its mask) and the categories. Returns the json's path."""
     import os
+    import shutil
 
     from detr_tensorflow_tpu_torch.data.image_io import write_png
 
@@ -2893,8 +2928,12 @@ def write_panoptic_set(root, sizes, seed, things, stuff):
         os.makedirs(os.path.join(root, d), exist_ok=True)
     images, annotations = [], []
     for i, (h, w) in enumerate(sizes):
-        write_png(os.path.join(root, "images", f"{i}.png"),
-                  rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        image_name = f"{i}.jpg" if jpegs else f"{i}.png"
+        if jpegs:
+            shutil.copy(jpegs[i], os.path.join(root, "images", image_name))
+        else:
+            write_png(os.path.join(root, "images", image_name),
+                      rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
         ids = rng.choice(2 ** 24 - 1, size=48, replace=False) + 1
         id_map = np.zeros((h, w), np.int64)
         cuts = [0] + sorted(rng.choice(np.arange(1, h), rng.integers(1, 5), replace=False)) + [h]
@@ -2923,7 +2962,7 @@ def write_panoptic_set(root, sizes, seed, things, stuff):
             info.append(seg)
         write_png(os.path.join(root, "panoptic", f"{i}.png"), np.stack(
             [id_map % 256, (id_map // 256) % 256, id_map // 65536], -1).astype(np.uint8))
-        images.append({"id": i, "file_name": f"{i}.png", "height": h, "width": w})
+        images.append({"id": i, "file_name": image_name, "height": h, "width": w})
         annotations.append({"image_id": i, "file_name": f"{i}.png", "segments_info": info})
     categories = ([{"id": c, "name": f"thing{c}", "isthing": 1} for c in things]
                   + [{"id": c, "name": f"stuff{c}", "isthing": 0} for c in stuff])
@@ -2998,13 +3037,6 @@ def phase_panoptic_lap(torch, lap):
             f"{plain_ms:.2f} ms, scipy host loop {scipy_ms:.2f} ms, bound {bound[0]:.5f} ms "
             f"({bound[1]}); serial chain of the longest problem {chain} Dijkstra steps; "
             f"assignments equal to plain and scipy")
-    try:
-        lap.solve_lap_masked(torch.zeros((2, 4, 256), device=DEVICE),
-                             torch.ones((2, 4), dtype=torch.bool, device=DEVICE))
-    except ValueError as e:
-        log(f"  lap at 256 columns refused: {e}")
-    else:
-        raise AssertionError("B took 256 columns")
     return worst, times
 
 
@@ -3277,6 +3309,317 @@ def _panoptic_recipe(torch, fa, lap, mp, api, train, batch_size, root, tmp, laun
     return dict(batch=batch_size, wall=wall, busy=busy, peak=peak, losses=losses_)
 
 
+# JPEG files on the card (phase 15): the committed fixtures of
+# tests/data/jpeg (written by scripts/make_jpeg_fixtures.py where Pillow and
+# OpenCV are installed; the card's machine has neither), decoded by the
+# port's data/jpeg.py and held to the SHA-256 imageio gave for each; COCO,
+# VOC, CSV (hard-hat) and COCO panoptic sets built from copies of them
+# (scripts/smoke_inputs.py) drive the entry points; kernel B's generic
+# instance at the widths of wider query sets, and a 300-query training step.
+JPEG_TIMED = ("q75_420_640x480.jpg", "q85_420_1333x800.jpg")
+JPEG_RATE_IMAGES, JPEG_STEPS, JPEG_EVAL_IMAGES = 256, 3, 8
+JPEG_FT_IMAGES, JPEG_FT_STEPS, JPEG_PAN_IMAGES = 16, 2, 4
+WIDE_QUERIES = 300
+
+
+def phase_generic_lap(torch, lap):
+    """B's generic instance at every LAP_GENERIC width against its plain
+    version and scipy: assignments equal on continuous costs, the optimal
+    cost on tied ones (two widths); its time from CUDA graphs beside the
+    plain version's (on the card's tensors), scipy's, the bound and the
+    serial chain. Returns ({label: times}, the worst cost gap)."""
+    from scipy.optimize import linear_sum_assignment
+
+    times, worst = {}, 0.0
+    cases = [(case, False) for case in LAP_GENERIC] + [(LAP_GENERIC[0], True),
+                                                        (LAP_GENERIC[1], True)]
+    for k, ((label, p, c, real, many), ties) in enumerate(cases):
+        cost, mask, n_real = generic_lap_problems(90 + k, p, c, real, many, ties)
+        ct, mt = torch.from_numpy(cost).to(DEVICE), torch.from_numpy(mask).to(DEVICE)
+        before = lap.solve_lap_masked.generic_launches
+        got = lap.solve_lap_masked(ct, mt).cpu().numpy()
+        if lap.solve_lap_masked.generic_launches != before + 1:
+            raise AssertionError(f"B at {c} columns did not launch its generic instance")
+        t0 = time.perf_counter()
+        plain = None if ties else lap.reference_solve_lap_masked(ct, mt).cpu().numpy()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        scipy_cols = [linear_sum_assignment(cm[m])[1] for cm, m in zip(cost, mask)]
+        scipy_ms = 1e3 * (time.perf_counter() - t0)
+        for i, (m, n) in enumerate(zip(mask, n_real)):
+            if (got[i, ~m] != -1).any() or len(set(got[i, m].tolist())) != n:
+                raise AssertionError(f"{c} columns, problem {i}: not an assignment")
+            best = float(cost[i, m][np.arange(n), scipy_cols[i]].sum())
+            err = abs(float(cost[i, m][np.arange(n), got[i, m]].sum()) - best)
+            worst = max(worst, err)
+            if not err <= 1e-4 * max(1.0, abs(best)):
+                raise AssertionError(f"{c} columns, problem {i}: cost {err} above the optimum")
+            if not ties and ((got[i, m] != scipy_cols[i]).any() or (got[i] != plain[i]).any()):
+                raise AssertionError(f"{c} columns, problem {i}: assignment differs from "
+                                     "plain/scipy")
+        if ties:
+            log(f"  lap {p}x{c}x{c} tied costs: optimal cost equal to scipy's on every problem")
+            continue
+        ms = graph_ms(torch, lambda: lap.solve_lap_masked(ct, mt), iters=5)
+        chain = max(lap.augmenting_steps(ct.cpu(), mt.cpu()))
+        bound = bound_ms(4 * c * int(n_real.sum()) + 5 * mask.size, {})
+        scratch = lap.generic_scratch_bytes(p, c, c)
+        times[label] = dict(ms=ms, plain_ms=plain_ms, scipy_ms=scipy_ms, bound=bound,
+                            chain=chain, shape=(p, c, c))
+        log(f"  lap {p}x{c}x{c} ({label}; generic instance, state "
+            f"{'in device memory, ' + str(scratch) + ' B' if scratch else 'in shared memory'}), "
+            f"n_real {n_real.min()}..{n_real.max()}: kernel {ms:.4f} ms from CUDA graphs, plain "
+            f"(on the card's tensors) {plain_ms:.2f} ms, scipy host loop {scipy_ms:.2f} ms, "
+            f"bound {bound[0]:.5f} ms ({bound[1]}); serial chain of the longest problem {chain} "
+            f"Dijkstra steps ({1e3 * ms / chain if chain else 0:.2f} us a step at most); "
+            f"assignments equal to plain and scipy")
+    return times, worst
+
+
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it: model name, vendor, family
+    and model number (a virtual machine may report the name as unknown)."""
+    fields = {}
+    for line in Path("/proc/cpuinfo").read_text().splitlines():
+        key, _, value = line.partition(":")
+        fields.setdefault(key.strip(), value.strip())
+    return (f"{fields.get('model name', 'no model name')} ({fields.get('vendor_id', '?')} family "
+            f"{fields.get('cpu family', '?')} model {fields.get('model', '?')})")
+
+
+def phase_jpeg_decode():
+    """data/jpeg.py on every committed fixture: the SHA-256 of each array
+    against expected.json; one thread's decode time at 640x480 4:2:0 and
+    1333x800 4:2:0; the host CPU's model name."""
+    import hashlib
+
+    from detr_tensorflow_tpu_torch.data import jpeg
+
+    expected = json.loads((JPEG_DIR / "expected.json").read_text())
+    t0 = time.perf_counter()
+    jpeg.get_lib()
+    build_s = time.perf_counter() - t0
+    for name, want in expected.items():
+        image = jpeg.read_jpeg(str(JPEG_DIR / name))
+        digest = hashlib.sha256(np.ascontiguousarray(image).tobytes()).hexdigest()
+        if list(image.shape) != want["shape"] or digest != want["sha256"]:
+            raise AssertionError(f"{name} ({want['encoded']}): decoded {image.shape} "
+                                 f"{digest[:12]}, imageio gave {want['shape']} "
+                                 f"{want['sha256'][:12]}")
+    decode_ms = {}
+    for name in JPEG_TIMED:
+        data = (JPEG_DIR / name).read_bytes()
+        jpeg.decode_jpeg(data)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            jpeg.decode_jpeg(data)
+        decode_ms[name] = 1e3 * (time.perf_counter() - t0) / 20
+    cpu = host_cpu()
+    log(f"  data/jpeg.py (g++ build {build_s:.2f} s): {len(expected)} fixtures decoded, every "
+        f"SHA-256 equal to imageio's in expected.json ("
+        + ", ".join(f"{n}: {v['encoded']}" for n, v in expected.items())
+        + f"); one thread's decode "
+        + ", ".join(f"{n} {ms:.2f} ms" for n, ms in decode_ms.items())
+        + f" (host CPU: {cpu}, {len(os.sched_getaffinity(0))} cores usable)")
+    return decode_ms, cpu
+
+
+def phase_jpeg(torch, fa, lap, mp, api, train):
+    """The path from JPEG files at DETR-R50's full width, fp32: (a) the
+    decoder on the fixtures; (b) a COCO set of JPEG_RATE_IMAGES JPEGs: the
+    loader's images/s, ``train_coco.main`` for JPEG_STEPS steps, a
+    loader-fed epoch's steps beside in-memory ones, ``eval.main`` at b1 over
+    JPEG_EVAL_IMAGES; (c) ``finetune_voc.main`` and (d)
+    ``finetune_hardhat.main`` for JPEG_FT_STEPS steps each; (e) B's generic
+    instance at the LAP_GENERIC widths and a WIDE_QUERIES-query b8 step; (f)
+    ``eval.main --masks --pq --panoptic_ann`` over JPEG_PAN_IMAGES JPEGs on
+    a seeded DETR-R50 DETRsegm .pth. Counts reset just before each run and
+    read just after."""
+    import itertools
+    import math
+    import tempfile
+
+    from detr_tensorflow_tpu_torch import eval as eval_main
+    from detr_tensorflow_tpu_torch import finetune_hardhat, finetune_voc, train_coco
+    from detr_tensorflow_tpu_torch.data import COCO_CLASS_NAME, load_coco_dataset
+    from detr_tensorflow_tpu_torch.train.engine import batch_to_device
+
+    launches = collections.Counter()
+    out = {"launches": launches}
+    names = {"A-tf32": "flash_attention_fwd_tf32", "A'-mma": "flash_attention_bwd_mma",
+             "B": "lap", "C": "maxpool"}
+
+    def main_path_counts(label, **runs):
+        counts = read_counts(fa, lap, mp)
+        expect_counts(label, counts, **runs)
+        for key, name in names.items():
+            launches[name] += counts[key]
+        return counts
+
+    out["decode_ms"], out["cpu"] = phase_jpeg_decode()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_jpeg_")
+    root = tmp.name
+    t0 = time.perf_counter()
+    write_jpeg_sets(root, 23, JPEG_RATE_IMAGES, JPEG_EVAL_IMAGES, JPEG_FT_IMAGES)
+    log(f"  JPEG sets from copies of {len(jpeg_sources())} fixtures: COCO {JPEG_RATE_IMAGES} "
+        f"images with 1-20 boxes, VOC and hard-hat CSV {JPEG_FT_IMAGES} each, in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # (b) COCO from JPEG files.
+    coco = os.path.join(root, "coco")
+    data = ["--data_dir", coco, "--img_dir", "images", "--device", DEVICE]
+    fit_args = ["--batch_size", str(TRAIN_BATCH), "--target_batch", str(TRAIN_BATCH),
+                "--image_size", *map(str, TRAIN_HW), "--evaluation_steps", "0"]
+    reset_counts(fa, lap, mp)  # main path: training from JPEG files
+    t0 = time.perf_counter()
+    trainer = train_coco.main(data + ["--ann_file", "ann.json", "--epochs", str(JPEG_STEPS),
+                                      "--steps_per_epoch", "1"] + fit_args)
+    torch.cuda.synchronize()
+    log(f"  train_coco.main on JPEG files: {trainer.steps} steps in "
+        f"{time.perf_counter() - t0:.2f} s (model build included)")
+    main_path_counts("train_coco.main (JPEG)", steps=JPEG_STEPS)
+    config = trainer.config
+    loader, _ = load_coco_dataset(config, TRAIN_BATCH, augmentation=True, seed=1)
+    t0, n = time.perf_counter(), 0
+    for batch in loader:
+        n += len(batch["images"])
+    rate = n / (time.perf_counter() - t0)
+    log(f"  loader alone ({loader.num_workers} threads, JPEG decode, augmentation, "
+        f"normalization, b{TRAIN_BATCH} {TRAIN_HW[0]}x{TRAIN_HW[1]}): {n} images in one epoch, "
+        f"{rate:.1f} images/s")
+
+    def step_times(batches):
+        marks = [time.perf_counter()]
+        train.fit(trainer, batches, config, epoch_nb=0, log_every=1,
+                  log_fn=lambda host_log, step: marks.append(time.perf_counter()))
+        return [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+
+    ahead = loader.prefetch + 1 + 2  # the HostDataset queue, its producer's, prefetch's two
+    reset_counts(fa, lap, mp)  # main path: a loader-fed epoch, then in-memory steps
+    fed = step_times(loader)
+    in_memory = step_times([next(iter(loader))] * len(fed))
+    torch.cuda.synchronize()
+    main_path_counts("fit over the JPEG loader and in memory", steps=2 * len(fed))
+    out["rate"], out["fed_ms"] = rate, statistics.median(fed)
+    out["steady_ms"], out["memory_ms"] = statistics.median(fed[ahead:]), statistics.median(in_memory)
+    log(f"  fp32 step fed by the JPEG loader over one epoch of {len(fed)} steps: "
+        f"{[round(x, 2) for x in fed]} ms, median {out['fed_ms']:.2f}, {out['steady_ms']:.2f} "
+        f"over steps {ahead}-{len(fed) - 1}; fed one in-memory batch: median "
+        f"{out['memory_ms']:.2f} over {len(in_memory)} steps")
+    del trainer, loader
+    torch.cuda.empty_cache()
+    reset_counts(fa, lap, mp)  # main path: evaluation from JPEG files
+    t0 = time.perf_counter()
+    table = eval_main.main(data + ["--ann_file", "ann_eval.json", "--batch", "1"])
+    torch.cuda.synchronize()
+    out["eval_images_s"] = JPEG_EVAL_IMAGES / (time.perf_counter() - t0)
+    main_path_counts("eval.main --batch 1 (JPEG)", forwards=JPEG_EVAL_IMAGES)
+    if "box" not in table:
+        raise AssertionError(f"eval on JPEG files: no box AP in {set(table)}")
+    log(f"  eval.main --batch 1 over {JPEG_EVAL_IMAGES} JPEG images: "
+        f"{out['eval_images_s']:.2f} images/s (model build included), box AP "
+        f"{dict(table['box'])}")
+    torch.cuda.empty_cache()
+
+    # (c) VOC and (d) hard-hat CSV: JPEG_FT_STEPS steps of each finetuning
+    # recipe's epoch 0 (heads only: A' not launched), no validation pass.
+    ft_args = fit_args + ["--epochs", "1", "--steps_per_epoch", str(JPEG_FT_STEPS)]
+    for label, entry, argv in (
+            ("finetune_voc.main", finetune_voc, [
+                "--data_dir", os.path.join(root, "voc"), "--img_dir", "JPEGImages",
+                "--ann_dir", "Annotations"]),
+            ("finetune_hardhat.main", finetune_hardhat, [
+                "--data_dir", os.path.join(root, "hardhat"), "--img_dir", "train",
+                "--ann_file", "train/_annotations.csv"])):
+        reset_counts(fa, lap, mp)  # main path: a finetuning recipe on JPEG files
+        t0 = time.perf_counter()
+        trainer = entry.main(argv + ["--device", DEVICE] + ft_args)
+        torch.cuda.synchronize()
+        counts = read_counts(fa, lap, mp)
+        want = {k: 0 for k in counts}
+        want.update({"A-tf32": JPEG_FT_STEPS * LAUNCHES_PER_FORWARD, "B": JPEG_FT_STEPS,
+                     "C": JPEG_FT_STEPS})
+        classes = trainer.model.cls_layer.weight.shape[0]
+        if counts != want or trainer.steps != JPEG_FT_STEPS or (
+                entry is finetune_hardhat and classes != len(HARDHAT_CLASSES)):
+            raise AssertionError(f"{label}: {trainer.steps} steps, {classes} classes, "
+                                 f"launches {counts} (expected {want})")
+        for key, name in names.items():
+            launches[name] += counts[key]
+        log(f"  {label} on JPEG files: {trainer.steps} heads-only steps at b{TRAIN_BATCH} "
+            f"{TRAIN_HW[0]}x{TRAIN_HW[1]} in {time.perf_counter() - t0:.2f} s (model build "
+            f"included), {classes} classes, launches {counts}")
+        del trainer
+        torch.cuda.empty_cache()
+
+    # (e) B's generic instance, and a WIDE_QUERIES-query step of DETR-R50.
+    out["lap"], out["lap_err"] = phase_generic_lap(torch, lap)
+    config = train.TrainingConfig(image_size=TRAIN_HW, num_queries=WIDE_QUERIES,
+                                  batch_size=TRAIN_BATCH, target_batch=None, train_backbone=True,
+                                  train_transformers=True, train_nlayers=True,
+                                  background_class=BACKGROUND)
+    batch = batch_to_device(train_batch(31, slots=WIDE_QUERIES), DEVICE)
+    trainer = train.Trainer(api.build_detr(device=DEVICE, num_queries=WIDE_QUERIES).module,
+                            config, seed=0)
+    trainer.step(batch)  # cuDNN plans
+    reset_counts(fa, lap, mp)  # main path: the 300-query step
+    loss = float(trainer.step(batch)["total_loss"])
+    torch.cuda.synchronize()
+    generic = lap.solve_lap_masked.generic_launches
+    main_path_counts(f"the {WIDE_QUERIES}-query step", steps=1)
+    launches["lap"] -= generic  # B's launch in that step was its generic instance's
+    launches["lap_generic"] += generic
+    if generic != 1 or not math.isfinite(loss):
+        raise AssertionError(f"{WIDE_QUERIES}-query step: B's generic instance {generic}, "
+                             f"loss {loss}")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    trainer.step(batch)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    wall, busy, events = device_busy_ms(torch, lambda: trainer.step(batch), calls=2)
+    _, lap_ms = kernel_ms(torch, lambda: trainer.step(batch), ["lap_kernel_generic"])
+    out["wide_step"] = dict(wall=wall, busy=busy, peak=peak, lap_ms=lap_ms["lap_kernel_generic"])
+    log(f"  {WIDE_QUERIES}-query DETR-R50 step (every group training, fp32, dropout {DROPOUT}) "
+        f"b{TRAIN_BATCH} {TRAIN_HW[0]}x{TRAIN_HW[1]}, {WIDE_QUERIES} target slots: loss "
+        f"{loss:.4f}, B on its generic instance once; under torch.profiler wall {wall:.2f} ms, "
+        f"device busy {busy:.2f} ms, {events:.0f} kernels and copies; B's kernel "
+        f"{lap_ms['lap_kernel_generic']:.4f} ms of it; peak memory of a step above the memory "
+        f"held before it {peak:.2f} GiB")
+    del trainer, batch
+    torch.cuda.empty_cache()
+
+    # (f) eval --masks --pq --panoptic_ann over JPEG images.
+    things = [i for i, name in enumerate(COCO_CLASS_NAME[:91]) if name != "N/A"]
+    sources = jpeg_sources()[:JPEG_PAN_IMAGES]
+    pan = os.path.join(root, "panoptic")
+    ann = write_panoptic_set(pan, [hw for _, hw in sources], 64, things, PAN_STUFF,
+                             jpegs=[str(src) for src, _ in sources])
+    path = os.path.join(root, "detr-r50-panoptic.pth")
+    torch.save({"model": segmentation_state_dict(seed=62, num_classes=PAN_CLASSES)}, path)
+    reset_counts(fa, lap, mp)  # main path: panoptic evaluation from JPEG files
+    t0 = time.perf_counter()
+    table = eval_main.main(["--data_dir", pan, "--img_dir", "images", "--ann_file",
+                            "panoptic.json", "--device", DEVICE, "--weights", path,
+                            "--panoptic_ann", ann, "--panoptic_png_dir",
+                            os.path.join(pan, "panoptic"), "--masks", "--pq"],
+                           num_classes=PAN_CLASSES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    main_path_counts("eval.main --masks --pq --panoptic_ann (JPEG)", forwards=JPEG_PAN_IMAGES)
+    pq = table.get("pq", {})
+    if set(table) != {"box", "mask", "pq"} or not 0.0 <= pq.get("pq", -1.0) <= 1.0:
+        raise AssertionError(f"eval --pq on JPEG files: table keys {set(table)}")
+    out["pan_images_s"] = JPEG_PAN_IMAGES / wall
+    log(f"  eval.main --masks --pq --panoptic_ann over {JPEG_PAN_IMAGES} JPEG images "
+        f"({[hw for _, hw in sources]}) with PNG segment maps: {out['pan_images_s']:.2f} "
+        f"images/s (the model's build from the .pth included), PQ {100 * pq['pq']:.2f} over "
+        f"{pq['n_classes']} classes (random weights)")
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return out
+
+
 def sass_counts(nvcc_build, path, op="HMMA") -> dict:
     """``op`` instructions (HMMA: bf16 and TF32 tensor cores, IMMA: int8) in
     the SASS of each kernel of a built library, by mangled name."""
@@ -3452,6 +3795,20 @@ def main() -> int:
         f"step b{rec['batch']}: wall {rec['wall']:.2f} ms, busy {rec['busy']:.2f} ms, peak "
         f"{rec['peak']:.2f} GiB; launches on its main paths {dict(pan['launches'])}")
 
+    t = time.perf_counter()
+    jp = phase_jpeg(torch, fa, lap, maxpool, api, train)
+    ws = jp["wide_step"]
+    log(f"[jpeg] ok in {time.perf_counter() - t:.1f} s; decode "
+        + ", ".join(f"{n} {ms:.2f} ms" for n, ms in jp["decode_ms"].items())
+        + f" (one thread, {jp['cpu']}); JPEG loader {jp['rate']:.1f} images/s; b{TRAIN_BATCH} "
+        f"fp32 step fed by it / in memory, median {jp['fed_ms']:.2f} ({jp['steady_ms']:.2f}) / "
+        f"{jp['memory_ms']:.2f} ms; eval b1 {jp['eval_images_s']:.2f} images/s; B's generic "
+        f"instance " + ", ".join(f"{v['shape'][0]}x{v['shape'][1]}x{v['shape'][2]} "
+                                 f"{v['ms']:.4f} ms (chain {v['chain']})"
+                                 for v in jp["lap"].values())
+        + f"; the {WIDE_QUERIES}-query step: wall {ws['wall']:.2f} ms, busy {ws['busy']:.2f} ms, "
+        f"peak {ws['peak']:.2f} GiB; launches on its main paths {dict(jp['launches'])}")
+
     a32, a16 = times[(2, 1232, 1232, "float32")], times[(2, 1232, 1232, "bfloat16")]
     # The training shapes' times: fp32 under (Lq, Lk), bf16 under (Lq, Lk, "bfloat16").
     bwd_times16 = {k[:2]: v for k, v in bwd_times.items() if len(k) == 3}
@@ -3490,6 +3847,7 @@ def main() -> int:
                                          for w, e in t["errs"].items() if w != "simt"])
     lap_ms, lap_plain_ms, _, (lap_bound, lap_by), lap_loop_ms, lap_chain = lap_times
     pan_lap = pan["lap"][True]
+    gen = jp["lap"][LAP_GENERIC[0][0]]
 
     # "measured_at": the shape and dtype of the times, which differ between
     # kernels and have changed between versions of this script.
@@ -3497,7 +3855,7 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": CSRC + source,
                 "replaces": REPLACES[name],
                 "launches": (launches_ + dc5["launches"][name] + seg["launches"][name]
-                             + pan["launches"][name]),
+                             + pan["launches"][name] + jp["launches"][name]),
                 "max_abs_err": err,
                 "ms": ms_, "plain_ms": plain_, "bound_ms": bound, "bound_by": by,
                 "library_ms": library, "measured_at": at}
@@ -3539,6 +3897,10 @@ def main() -> int:
               f"{LAP_PROBLEMS} problems of {PAN_LAP_SLOTS}x{PAN_LAP_SLOTS} float32 (the "
               f"256-column instance), scattered n_real 0..{PAN_LAP_MAX_REAL} and one problem of "
               f"{PAN_LAP_SLOTS}, one call"),
+        entry("lap_generic", SOURCES[2], 0, jp["lap_err"], gen["ms"], gen["plain_ms"],
+              *gen["bound"], None, f"{gen['shape'][0]} problems of {gen['shape'][1]}x"
+              f"{gen['shape'][2]} float32 (the generic instance), scattered n_real "
+              f"{LAP_GENERIC[0][3][0]}..{LAP_GENERIC[0][3][1]}, one call"),
         entry("int8_matmul", SOURCES[3], sum(f_counts.values()), int8_worst["int8_matmul"],
               *int8_times["int8_matmul"][[0, 1, 3]], int8_by["int8_matmul"],
               int8_times["int8_matmul"][2], int8_at(F_PER_FORWARD)),
@@ -3616,7 +3978,14 @@ def main() -> int:
         f"{pan['lap_err']:.3e}, ms/plain_ms at 48x250x250 with one problem of 250 real rows "
         f"(serial chain {pan_lap[4]} Dijkstra steps; without that problem "
         f"{pan['lap'][False][0]:.4f} ms, chain {pan['lap'][False][4]}), launches at 250 "
-        f"columns in the 250-query steps; "
+        f"columns in the 250-query steps; lap_generic (the same kernel's generic instance, "
+        f"above 255 columns): optimal-cost max_abs_err {jp['lap_err']:.3e} over the "
+        f"{len(LAP_GENERIC)} widths, ms/plain_ms at {gen['shape'][0]}x{gen['shape'][1]}x"
+        f"{gen['shape'][2]} (serial chain {gen['chain']}; "
+        + ", ".join(f"{v['shape'][0]}x{v['shape'][1]}x{v['shape'][2]} {v['ms']:.4f} ms, plain "
+                    f"{v['plain_ms']:.2f}, bound {v['bound'][0]:.5f}, chain {v['chain']}"
+                    for v in jp["lap"].values())
+        + f"), launches in the {WIDE_QUERIES}-query step; "
         f"int8_matmul and int8_conv: max |kernel - plain| in LSB, ms/plain_ms/bound_ms/"
         f"library_ms summed over one b1 896x1408 forward's launches (library: torch._int_mm "
         f"and the bf16 cuDNN conv, not the same functions), launches in 3 int8 forwards; "

@@ -5,7 +5,7 @@
 // solves the same problems as `solve_lap_masked` in
 // detr_tensorflow_tpu/ops/matcher.py: for each of P independent problems,
 // a cost matrix (R rows = padded target slots, C columns = queries,
-// R <= C <= 255) and a row mask; every real row gets a distinct column so
+// R <= C) and a row mask; every real row gets a distinct column so
 // that the summed cost over real rows is minimal. Masked rows are skipped
 // and come back as -1.
 //
@@ -22,7 +22,8 @@
 //
 // What bounds it: nothing of the card's throughput. The bytes are the real
 // rows' costs (48 problems of <= 30 real rows of 100 columns: ~0.3 MB; at
-// the panoptic recipe's 250 queries, 48 of <= 60 rows of 250: ~2.9 MB), and
+// the panoptic recipe's 250 queries, 48 of <= 60 rows of 250: ~2.9 MB; at
+// Deformable-DETR's 300 or DINO's 900 queries, a few MB), and
 // the work is latency: staging those rows, five rounds of bids, and the
 // augmenting paths, a serial chain of dependent warp reductions and
 // shared-memory reads. The point is to keep matching on the device: no
@@ -31,8 +32,9 @@
 // Design: one CTA of sixteen warps per problem (grid = P), compiled at two
 // column widths, picked per launch from C: 128 (the virtual column 0 and up
 // to 127 real ones, 4 a lane: DETR's 100 queries) and 256 (up to 255, 8 a
-// lane: the panoptic recipe's 250). The width bounds the columns a warp's
-// registers hold, and the rows (R <= C) the static arrays hold: 255.
+// lane: the panoptic recipe's 250), and a generic kernel above (the last
+// item below). The width bounds the columns a warp's registers hold, and
+// the rows (R <= C) the static arrays hold: 255.
 // - Staging: the CTA counts the real rows itself (a ballot a warp, ranks by
 //   popcount), so any row mask is legal and the caller needs no host sync,
 //   and copies the first `cap` of those rows, compacted, into shared memory
@@ -56,6 +58,19 @@
 //   value's order-preserving 32-bit key (-0 keyed as +0, so equal values
 //   tie), then one over the column among the lanes at that minimum, so the
 //   lowest column wins a tie (a shuffle reduction takes 10 shuffles).
+// - Any width above 255 (300-query Deformable-DETR, DINO's 900, wider):
+//   `lap_kernel_generic`, the same CTA of sixteen warps with the column
+//   state (v, minv, way, used, p and the auction's winners) and the row
+//   state (u, the bids, the compacted rows) in arrays instead of registers:
+//   in dynamic shared memory, after the staged rows, where they fit (up to
+//   ~4,100 columns at R = C), else in a device-memory scratch the wrapper
+//   allocates (lap_scratch_bytes), which stays in L2. Every warp takes
+//   part in each Dijkstra step: a thread a column, strided, then the argmin
+//   over the CTA as a `redux.sync` pair a warp and one pass over the 16
+//   warps' results in shared memory (double-buffered by step parity, so a
+//   step costs one barrier), with the same lowest-column tie rule; the
+//   auction's claims are settled by a strided loop over the columns; the
+//   relinking of an augmenting path runs on one thread.
 //
 // Entry point: a plain C function, built with nvcc into a shared library
 // and called through ctypes. It launches on the given stream, allocates
@@ -378,12 +393,287 @@ int launch(const float* cost, const unsigned char* row_mask, int* col_of_row, in
   return static_cast<int>(cudaGetLastError());
 }
 
+// Words of state a problem needs: the column arrays (v, minv, way, used, p
+// and two rounds of auction winners) over cols + 1 columns, and the row
+// arrays (u over rows + 1, owned, the bid's column and two minima, the
+// compacted rows' origins) over rows, padded to 16 bytes.
+__host__ __device__ inline int64_t state_words(int rows, int cols) {
+  return (7 * static_cast<int64_t>(cols + 1) + 6 * static_cast<int64_t>(rows) + 1 + 3) & ~int64_t{3};
+}
+
+// Any number of columns. cap: the real rows staged in shared memory (the
+// rest read from device memory); state: this problem's state, in shared
+// memory after the staged rows or in the caller's scratch.
+__global__ void __launch_bounds__(kThreads)
+lap_kernel_generic(const float* __restrict__ cost, const unsigned char* __restrict__ row_mask,
+                   int* __restrict__ col_of_row, int rows, int cols, int ld, int cap,
+                   int state_in_smem, unsigned* __restrict__ scratch) {
+  extern __shared__ __align__(16) float cost_s[];
+  __shared__ int warp_real[kWarps];
+  __shared__ unsigned part_key[2][kWarps];  // each warp's argmin, by step parity
+  __shared__ int part_col[2][kWarps];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int problem = blockIdx.x;
+  const int c1 = cols + 1;
+  unsigned* st = state_in_smem ? reinterpret_cast<unsigned*>(cost_s + static_cast<int64_t>(cap) * ld)
+                               : scratch + problem * state_words(rows, cols);
+  float* v = reinterpret_cast<float*>(st);
+  float* minv = v + c1;
+  int* way = reinterpret_cast<int*>(minv + c1);
+  int* used = way + c1;
+  int* p = used + c1;
+  int* win_even = p + c1;
+  int* win_odd = win_even + c1;
+  float* u = reinterpret_cast<float*>(win_odd + c1);  // 1-indexed rows, u[0] virtual
+  int* owned = reinterpret_cast<int*>(u + rows + 1);
+  int* bid_col = owned + rows;
+  float* bid_min1 = reinterpret_cast<float*>(bid_col + rows);
+  float* bid_min2 = bid_min1 + rows;
+  int* orig = reinterpret_cast<int*>(bid_min2 + rows);
+
+  const float* c = cost + static_cast<int64_t>(problem) * rows * cols;
+  auto row_of = [&](int k) -> const float* {
+    return k < cap ? cost_s + static_cast<int64_t>(k) * ld : c + static_cast<int64_t>(orig[k]) * cols;
+  };
+
+  // ---- count and rank the real rows, kThreads at a time ----
+  int n = 0;
+  for (int base = 0; base < rows; base += kThreads) {
+    const int r = base + tid;
+    const bool real = r < rows && row_mask[static_cast<int64_t>(problem) * rows + r] != 0;
+    const unsigned ballot = __ballot_sync(kFull, real);
+    if (lane == 0) warp_real[warp] = __popc(ballot);
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      before += w < warp ? warp_real[w] : 0;
+      total += warp_real[w];
+    }
+    if (real) orig[n + before + __popc(ballot & ((1u << lane) - 1))] = r;
+    n += total;
+    __syncthreads();
+  }
+
+  // ---- stage the first cap real rows, every copy in flight at once ----
+  const int staged = min(n, cap);
+  if ((cols & 3) == 0 && (reinterpret_cast<uintptr_t>(cost) & 15) == 0) {
+    const int quads = cols >> 2;
+    for (int e = tid; e < staged * quads; e += kThreads) {
+      const int k = e / quads, q = e - k * quads;
+      cpa::cp_async16(cost_s + static_cast<int64_t>(k) * ld + 4 * q,
+                      c + static_cast<int64_t>(orig[k]) * cols + 4 * q, 16);
+    }
+  } else {
+    for (int e = tid; e < staged * cols; e += kThreads) {
+      const int k = e / cols, q = e - k * cols;
+      cpa::cp_async4(cost_s + static_cast<int64_t>(k) * ld + q,
+                     c + static_cast<int64_t>(orig[k]) * cols + q, 4);
+    }
+  }
+  cpa::cp_async_commit();
+  for (int j = tid; j < c1; j += kThreads) {
+    v[j] = 0.f;
+    p[j] = 0;
+    win_even[j] = INT_MAX;
+  }
+  for (int k = tid; k < n; k += kThreads) {
+    owned[k] = -1;
+    u[k + 1] = 0.f;
+  }
+  if (tid == 0) u[0] = 0.f;
+  cpa::cp_async_wait<0>();
+  __syncthreads();
+
+  // ---- auction pre-pass: rounds of simultaneous bids against the round's v ----
+  for (int round = 0; round < kAuctionRounds; ++round) {
+    int* win = round & 1 ? win_odd : win_even;
+    int* win_next = round & 1 ? win_even : win_odd;
+    for (int k = warp; k < n; k += kWarps) {  // warp-uniform
+      if (owned[k] >= 0) {
+        if (lane == 0) bid_col[k] = -1;
+        continue;
+      }
+      const float* row = row_of(k);
+      unsigned best = key(INFINITY);
+      int best_j = INT_MAX;
+      for (int j = 1 + lane; j <= cols; j += 32) {  // ascending j: strict < keeps the lowest
+        const unsigned kj = key(row[j - 1] - v[j]);
+        if (kj < best) {
+          best = kj;
+          best_j = j;
+        }
+      }
+      warp_argmin(best, best_j);
+      unsigned second = key(INFINITY);
+      for (int j = 1 + lane; j <= cols; j += 32)
+        second = min(second, key(j == best_j ? kInf : row[j - 1] - v[j]));
+      second = __reduce_min_sync(kFull, second);
+      if (lane == 0) {
+        const float min1 = from_key(best), min2 = from_key(second);
+        const bool bids = best_j <= cols;  // a row of infinite costs bids on nothing
+        bid_col[k] = bids ? best_j : -1;
+        bid_min1[k] = min1;
+        bid_min2[k] = min2 < 0.5f * kInf ? min2 : min1;
+        if (bids) atomicMin(&win[best_j], k);
+      }
+    }
+    __syncthreads();
+    // The columns, strided: the lowest bidder claims a column at v = cost -
+    // its second minimum (its new u) and evicts the owner; the next round's
+    // winners start empty.
+    for (int j = tid; j < c1; j += kThreads) {
+      const int w = win[j];
+      if (w != INT_MAX) {
+        v[j] = row_of(w)[j - 1] - bid_min2[w];
+        if (p[j] > 0) owned[p[j] - 1] = -1;
+        owned[w] = j;
+        p[j] = w + 1;
+      }
+      win_next[j] = INT_MAX;
+    }
+    // The rows, strided: winners take the second minimum, losing bidders the first.
+    for (int k = tid; k < n; k += kThreads)
+      if (bid_col[k] >= 0) u[k + 1] = win[bid_col[k]] == k ? bid_min2[k] : bid_min1[k];
+    __syncthreads();
+  }
+
+  // ---- shortest augmenting paths for the rows the auction left free ----
+  // Thread t owns columns t, t + kThreads, ...: it alone touches their v,
+  // minv, way and used during a search, so a step needs one barrier, for
+  // the argmin. u[p[j]] of a used column j is written by j's owner after
+  // the barrier; the next step reads u[p[j1]] of a column j1 that was not
+  // used, a different row.
+  int parity = 0;
+  for (int k = 0; k < n; ++k) {
+    if (owned[k] >= 0) continue;  // uniform: the auction is over
+    for (int j = tid; j < c1; j += kThreads) {
+      minv[j] = kInf;
+      way[j] = 0;
+      used[j] = 0;
+    }
+    if (tid == 0) p[0] = k + 1;  // the virtual column carries the inserted row
+    __syncthreads();
+    int j0 = 0, i0 = k + 1;
+    bool alive = true;
+    for (;;) {
+      if (tid == j0 % kThreads) used[j0] = 1;
+      const float u0 = u[i0];
+      const float* crow = row_of(i0 - 1);
+      unsigned best = key(INFINITY);
+      int best_j = INT_MAX;
+      for (int j = tid; j < c1; j += kThreads) {
+        const bool cand = j >= 1 && !used[j];
+        if (cand) {
+          const float cur = crow[j - 1] - u0 - v[j];
+          if (cur < minv[j]) {
+            minv[j] = cur;
+            way[j] = j0;
+          }
+        }
+        const unsigned masked = key(cand ? minv[j] : kInf);
+        if (masked < best) {
+          best = masked;
+          best_j = j;
+        }
+      }
+      warp_argmin(best, best_j);
+      if (lane == 0) {
+        part_key[parity][warp] = best;
+        part_col[parity][warp] = best_j;
+      }
+      __syncthreads();
+      best = part_key[parity][0];
+      best_j = part_col[parity][0];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) {
+        const unsigned kw = part_key[parity][w];
+        const int jw = part_col[parity][w];
+        if (kw < best || (kw == best && jw < best_j)) {
+          best = kw;
+          best_j = jw;
+        }
+      }
+      parity ^= 1;
+      const float delta = from_key(best);
+      for (int j = tid; j < c1; j += kThreads) {
+        if (used[j]) {
+          u[p[j]] += delta;  // the rows of used columns are distinct
+          v[j] -= delta;
+        } else {
+          minv[j] -= delta;
+        }
+      }
+      j0 = best_j;
+      alive = delta < 0.5f * kInf;
+      if (!alive) break;
+      i0 = p[j0];
+      if (i0 == 0) break;  // a free column: the path ends
+    }
+    __syncthreads();  // every column's way, u and v in place
+    if (tid == 0) {  // augment: relink p back along the predecessor chain to column 0
+      while (alive && j0 != 0) {
+        const int j1 = way[j0];
+        p[j0] = p[j1];
+        j0 = j1;
+      }
+    }
+    __syncthreads();
+  }
+
+  int* out = col_of_row + static_cast<int64_t>(problem) * rows;
+  for (int i = tid; i < rows; i += kThreads) out[i] = -1;
+  __syncthreads();
+  for (int j = 1 + tid; j <= cols; j += kThreads)
+    if (p[j] > 0) out[orig[p[j] - 1]] = j - 1;
+}
+
+// The generic kernel's plan for (rows, cols): bytes of dynamic shared
+// memory, staged rows, and whether the state fits beside them. room is the
+// block's opt-in limit less the static arrays, read and set up once.
+struct GenericPlan {
+  int err = 0;  // a cudaError_t
+  int ld = 0, cap = 0;
+  bool state_in_smem = false;
+  size_t smem = 0;
+};
+
+GenericPlan generic_plan(int rows, int cols) {
+  static const int room = [] {  // bytes, or -cudaError_t
+    cudaFuncAttributes attr;
+    int device = 0, optin = 0;
+    cudaError_t err = cudaFuncGetAttributes(&attr, lap_kernel_generic);
+    if (err == cudaSuccess) err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    const int bytes = optin - static_cast<int>(attr.sharedSizeBytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(lap_kernel_generic, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 bytes);
+    return err == cudaSuccess ? bytes : -static_cast<int>(err);
+  }();
+  GenericPlan plan;
+  if (room < 0) {
+    plan.err = -room;
+    return plan;
+  }
+  plan.ld = (cols + 3) & ~3;
+  const int64_t state = 4 * state_words(rows, cols);
+  plan.state_in_smem = state <= room;
+  const int64_t left = plan.state_in_smem ? room - state : room;
+  plan.cap = static_cast<int>(std::min<int64_t>(rows, left / (plan.ld * 4)));
+  plan.smem = static_cast<size_t>(plan.cap) * plan.ld * 4 + (plan.state_in_smem ? state : 0);
+  return plan;
+}
+
 }  // namespace
 
 // cost: (problems, rows, cols) float32; row_mask: (problems, rows) bytes,
 // nonzero = real row; col_of_row: (problems, rows) int32 out, the column
 // of each real row and -1 for masked rows. rows <= cols <= 255: width 128
-// up to 127 columns, 256 above. Returns a cudaError_t as int (0 = launched).
+// up to 127 columns, 256 above (wider problems: lap_solve_generic). Returns
+// a cudaError_t as int (0 = launched).
 extern "C" int lap_solve(const void* cost, const void* row_mask, void* col_of_row,
                          int problems, int rows, int cols, void* stream) {
   if (problems <= 0 || rows <= 0 || cols <= 0 || rows > cols || cols > kWide - 1)
@@ -394,4 +684,29 @@ extern "C" int lap_solve(const void* cost, const void* row_mask, void* col_of_ro
   const auto s = static_cast<cudaStream_t>(stream);
   return cols <= kNarrow - 1 ? launch<kNarrow>(c, m, out, problems, rows, cols, s)
                              : launch<kWide>(c, m, out, problems, rows, cols, s);
+}
+
+// Bytes of device scratch lap_solve_generic needs for these problems: 0
+// where each problem's state fits in shared memory. A negative value is
+// -cudaError_t.
+extern "C" int64_t lap_scratch_bytes(int problems, int rows, int cols) {
+  const GenericPlan plan = generic_plan(rows, cols);
+  if (plan.err) return -static_cast<int64_t>(plan.err);
+  return plan.state_in_smem ? 0 : 4 * state_words(rows, cols) * problems;
+}
+
+// As lap_solve at any rows <= cols, on the generic kernel; scratch holds
+// lap_scratch_bytes(problems, rows, cols) bytes (may be null where that is 0).
+extern "C" int lap_solve_generic(const void* cost, const void* row_mask, void* col_of_row,
+                                 void* scratch, int problems, int rows, int cols, void* stream) {
+  if (problems <= 0 || rows <= 0 || cols <= 0 || rows > cols)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const GenericPlan plan = generic_plan(rows, cols);
+  if (plan.err) return plan.err;
+  if (!plan.state_in_smem && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  lap_kernel_generic<<<problems, kThreads, plan.smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(cost), static_cast<const unsigned char*>(row_mask),
+      static_cast<int*>(col_of_row), rows, cols, plan.ld, plan.cap, plan.state_in_smem,
+      static_cast<unsigned*>(scratch));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -3,6 +3,7 @@
 The class-name table with N/A gaps and a trailing "back" background class
 at max category id + 1, relative xcycwh boxes, crowd and empty images
 dropped, shuffled fixed-slot batches; images read by ``data/image_io.py``
+(COCO's JPEGs by ``data/jpeg.py``, bit-equal to the JAX loader's imageio)
 and transformed by ``data/transforms.py``. ``include_masks`` rasterizes each
 annotation's segmentation (``data/masks.py``) and carries the instance masks
 through the transforms as ``t_masks`` (T, H/4, W/4); ``full_res_masks`` adds

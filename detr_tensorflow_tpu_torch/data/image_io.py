@@ -1,11 +1,12 @@
-"""Image files without OpenCV or Pillow.
+"""Image files without OpenCV, Pillow or imageio.
 
 The JAX package reads images with ``imageio`` (``data/coco.py:46``). The
-card's machine has neither imageio, OpenCV nor Pillow, so PNG is decoded
-here with ``zlib`` and numpy: 8- and 16-bit gray, gray+alpha, RGB and RGBA,
-all five row filters, non-interlaced. ``.npy`` files hold an
-array as it is. Any other format (JPEG) goes through ``imageio`` where it
-is installed. ``write_png`` writes 8-bit PNGs (the synthetic datasets).
+card's machine has neither imageio, OpenCV nor Pillow, so the port decodes
+its images itself, on every machine: JPEG with ``data/jpeg.py`` (a C++
+decoder bit-equal to imageio's libjpeg-turbo), PNG here with ``zlib`` and
+numpy (8- and 16-bit gray, gray+alpha, RGB and RGBA, all five row filters,
+non-interlaced). ``.npy`` files hold an array as it is. Other formats raise.
+``write_png`` writes 8-bit PNGs (the synthetic datasets).
 """
 
 from __future__ import annotations
@@ -16,7 +17,10 @@ import zlib
 
 import numpy as np
 
+from .jpeg import JPEG_SIGNATURE, read_jpeg
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JPEG_EXTENSIONS = (".jpg", ".jpeg", ".jpe", ".jfif")
 # Color type -> samples per pixel (gray, RGB, gray+alpha, RGBA).
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 
@@ -136,19 +140,19 @@ def write_png(path: str, image: np.ndarray) -> None:
 
 
 def imread(path: str) -> np.ndarray:
-    """An image file as an array: PNG and ``.npy`` here, any other format
-    through ``imageio``."""
+    """An image file as an array, as ``imageio.v2.imread`` gives it: JPEG
+    (found by its first bytes, then by extension) through ``data/jpeg.py``,
+    PNG and ``.npy`` here; any other format raises."""
     ext = os.path.splitext(path)[1].lower()
+    with open(path, "rb") as f:
+        head = f.read(len(JPEG_SIGNATURE))
+    if head == JPEG_SIGNATURE or ext in JPEG_EXTENSIONS:
+        return read_jpeg(path)
     if ext == ".png":
         return read_png(path)
     if ext == ".npy":
         return np.load(path)
-    try:
-        import imageio.v2 as imageio
-    except ImportError as e:
-        raise ImportError(f"{path}: decoding {ext or 'this format'} needs imageio, which is not "
-                          "installed (PNG and .npy are decoded without it)") from e
-    return imageio.imread(path)
+    raise ValueError(f"{path}: {ext or 'this format'} is not decoded (JPEG, PNG and .npy are)")
 
 
 def read_image(path: str) -> np.ndarray:

@@ -33,17 +33,19 @@ _lock = threading.Lock()
 _lib = None
 
 
-def _build() -> Path:
-    content = SOURCE.read_bytes()
-    digest = hashlib.sha256(content + " ".join(GXX_FLAGS).encode()).hexdigest()[:12]
-    path = BUILD_DIR / f"libimage_ops_{digest}.so"
+def build_library(source: Path, flags=GXX_FLAGS) -> Path:
+    """``source`` compiled by g++ with ``flags`` into ``build/native/`` under
+    a name carrying a hash of both; built once, raising if g++ fails."""
+    content = source.read_bytes()
+    digest = hashlib.sha256(content + " ".join(flags).encode()).hexdigest()[:12]
+    path = BUILD_DIR / f"lib{source.stem}_{digest}.so"
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(["g++", *GXX_FLAGS, str(SOURCE), "-o", str(tmp)],
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+        proc = subprocess.run(["g++", *flags, str(source), "-o", str(tmp)],
                               capture_output=True, text=True, timeout=300)
         if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed on {SOURCE}:\n{proc.stdout}{proc.stderr}")
+            raise RuntimeError(f"g++ failed on {source}:\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, path)
     return path
 
@@ -53,7 +55,7 @@ def get_lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(_build()))
+            lib = ctypes.CDLL(str(build_library(SOURCE)))
             f32p = ctypes.POINTER(ctypes.c_float)
             u8p = ctypes.POINTER(ctypes.c_uint8)
             lib.normalize_torch_u8.argtypes = [u8p, f32p, ctypes.c_int64, f32p, f32p]

@@ -7,8 +7,10 @@ pixels. The training loader makes every non-crowd segment, stuff included,
 a (box, class, mask) target; the evaluation loader yields bucket-padded
 examples with the full-resolution segments, their crowd flags and the VOID
 region for ``metrics.panoptic_quality``. Images and segment PNGs are read by
-``data/image_io.py`` (the JAX package reads them with cv2, which the card's
-machine lacks).
+``data/image_io.py`` (JPEG by ``data/jpeg.py``). The JAX package reads them
+with cv2, which the card's machine lacks: on JPEG the two agree to the bit,
+except that cv2 turns a file with an EXIF orientation tag upright (and not
+its segment PNG), where this loader, like the detection loaders, does not.
 """
 
 from __future__ import annotations

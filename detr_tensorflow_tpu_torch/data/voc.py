@@ -2,8 +2,8 @@
 
 XML annotations with the 1-pixel origin offset, class names discovered by
 scanning every annotation file, background class 0, empty images dropped.
-VOC's ``.jpg`` images decode through ``imageio`` where it is installed
-(``data/image_io.py``).
+VOC's ``.jpg`` images decode through ``data/jpeg.py`` (``data/image_io.py``),
+bit-equal to the JAX loader's imageio.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ heads only at 1e-3, from epoch 1 the transformer joins at 1e-4.
 
 ``--weights`` takes a JAX-format ``.npz``, a facebook or HuggingFace torch
 checkpoint or a short name (its trunk loads, the heads start fresh). VOC's
-JPEG images decode through ``imageio`` where it is installed.
+JPEG images decode through ``data/jpeg.py``.
 """
 
 from __future__ import annotations

@@ -5,14 +5,18 @@ Replaces the TPU kernel ``_lap_kernel`` / ``solve_lap_masked_pallas`` of
 ``detr_tensorflow_tpu/ops/pallas/lap.py`` and solves what
 ``detr_tensorflow_tpu/ops/matcher.py:solve_lap_masked`` solves: per
 problem, a (R, C) cost matrix with R <= C and a row mask; each real row
-gets a distinct column at minimal total cost, masked rows get -1. The CUDA
-source is ``csrc/lap.cu``: one CTA of sixteen warps per problem, the real rows
-staged compacted, the auction pre-pass of ``matcher.py`` with the bids
-spread over the warps, and its shortest augmenting paths on one warp with
-the column state in registers, compiled at 128 and 256 columns and picked
-per launch (up to 127 columns, DETR's 100 queries, and up to 255, the
-panoptic recipe's 250); its header note says what bounds it and how a
-problem with more real rows than shared memory holds is read.
+gets a distinct column at minimal total cost, masked rows get -1, at any
+number of columns, as the JAX package's ``lax.while_loop`` solver takes. The
+CUDA source is ``csrc/lap.cu``: one CTA of sixteen warps per problem, the
+real rows staged compacted, the auction pre-pass of ``matcher.py`` with the
+bids spread over the warps, then its shortest augmenting paths. Three
+instances, picked per launch from the width: up to 127 columns (DETR's 100
+queries) and up to 255 (the panoptic recipe's 250), the paths on one warp
+with the column state in registers; above 255 (Deformable-DETR's 300,
+DINO's 900, wider) the generic kernel, the state in shared memory or, past
+what that holds, in a device scratch this wrapper allocates, every warp on
+each Dijkstra step. Its header note says what bounds it and how a problem
+with more real rows than shared memory holds is read.
 
 ``solve_lap_masked`` takes CUDA tensors to the kernel and CPU tensors to
 ``reference_solve_lap_masked``; there is no fallback from one to the
@@ -27,7 +31,7 @@ import ctypes
 import torch
 
 _SOURCE = "lap.cu"
-_MAX_COLS = 255  # the kernel's widest instance, 256 columns, holds the virtual column 0 too
+_WIDE_COLS = 255  # the most columns the 256-column instance takes (the virtual column 0 too)
 _NARROW_COLS = 127  # the most columns the 128-column instance takes
 _INF = 1e9  # matcher.py's _INF
 _AUCTION_ROUNDS = 5
@@ -147,7 +151,21 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.lap_solve_generic.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        lib.lap_solve_generic.restype = ctypes.c_int
+        lib.lap_scratch_bytes.argtypes = [ctypes.c_int] * 3
+        lib.lap_scratch_bytes.restype = ctypes.c_int64
     return lib
+
+
+def generic_scratch_bytes(problems: int, rows: int, cols: int) -> int:
+    """Bytes of device scratch the generic instance needs for these
+    problems: 0 where each problem's state fits in shared memory."""
+    nbytes = _library().lap_scratch_bytes(problems, rows, cols)
+    if nbytes < 0:
+        raise RuntimeError(f"lap_scratch_bytes failed: cudaError {-nbytes}")
+    return nbytes
 
 
 def solve_lap_masked(cost: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
@@ -155,11 +173,12 @@ def solve_lap_masked(cost: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor
     (P, R) bool row masks -> (P, R) int32 assigned column per row, -1 for
     masked rows.
 
-    A CUDA tensor launches the kernel (C <= 255: its 128-column instance up
-    to 127 columns, its 256-column one above; ``solve_lap_masked.launches``
-    counts launches, ``solve_lap_masked.wide_launches`` those of the
-    256-column instance); a CPU tensor goes to
-    ``reference_solve_lap_masked``; any other device raises.
+    A CUDA tensor launches the kernel: its 128-column instance up to 127
+    columns, its 256-column one up to 255, the generic one above
+    (``solve_lap_masked.launches`` counts every launch,
+    ``solve_lap_masked.wide_launches`` those of the 256-column instance,
+    ``solve_lap_masked.generic_launches`` those of the generic one); a CPU
+    tensor goes to ``reference_solve_lap_masked``; any other device raises.
     """
     _check(cost, row_mask)
     if cost.device.type == "cpu":
@@ -167,22 +186,29 @@ def solve_lap_masked(cost: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor
     if cost.device.type != "cuda":
         raise ValueError(f"no LAP kernel for device {cost.device}")
     p, r, c = cost.shape
-    if c > _MAX_COLS:
-        raise ValueError(f"the LAP kernel takes at most {_MAX_COLS} columns, got {c}")
     cost = cost.detach().float().contiguous()
     row_mask = row_mask.contiguous()
     out = torch.empty((p, r), device=cost.device, dtype=torch.int32)
     with torch.cuda.device(cost.device):
-        err = _library().lap_solve(
-            cost.data_ptr(), row_mask.data_ptr(), out.data_ptr(), p, r, c,
-            torch.cuda.current_stream(cost.device).cuda_stream,
-        )
+        lib = _library()
+        stream = torch.cuda.current_stream(cost.device).cuda_stream
+        if c <= _WIDE_COLS:
+            err = lib.lap_solve(cost.data_ptr(), row_mask.data_ptr(), out.data_ptr(), p, r, c,
+                                stream)
+        else:
+            nbytes = generic_scratch_bytes(p, r, c)
+            scratch = (torch.empty(nbytes // 4, device=cost.device, dtype=torch.int32)
+                       if nbytes else None)  # 0: the state fits in shared memory
+            err = lib.lap_solve_generic(cost.data_ptr(), row_mask.data_ptr(), out.data_ptr(),
+                                        scratch.data_ptr() if nbytes else None, p, r, c, stream)
     if err != 0:
         raise RuntimeError(f"lap_solve launch failed: cudaError {err}")
     solve_lap_masked.launches += 1
-    solve_lap_masked.wide_launches += c > _NARROW_COLS
+    solve_lap_masked.wide_launches += _NARROW_COLS < c <= _WIDE_COLS
+    solve_lap_masked.generic_launches += c > _WIDE_COLS
     return out
 
 
 solve_lap_masked.launches = 0
 solve_lap_masked.wide_launches = 0
+solve_lap_masked.generic_launches = 0

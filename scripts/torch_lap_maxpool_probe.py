@@ -2,7 +2,8 @@
 """Kernels B (``csrc/lap.cu``, the batched LAP of matching) and C
 (``csrc/maxpool.cu``, the stem's 3x3/s2 max pool) on one NVIDIA GPU.
 
-  python3 scripts/torch_lap_maxpool_probe.py [--root DIR] [--variants] [--train-profile]
+  python3 scripts/torch_lap_maxpool_probe.py [--root DIR] [--variants] [--generic]
+                                             [--train-profile]
 
 Builds B and C of this checkout and, with ``--root``, those of the package
 under DIR (a ``git archive`` of another commit), and calls each through its
@@ -23,6 +24,11 @@ CUDA graphs beside ``F.max_pool2d`` and the bound.
 ``--variants``: B and C as built beside variants of their sources
 (``VARIANTS``: text edits that must occur in the source), each checked and
 timed at the same shapes in turns: the designs measured and dropped.
+``--generic``: B's generic instance (above 255 columns) at the widths of
+``chip_smoke.LAP_GENERIC`` beside the same source with its column and row
+state always in the device scratch (the plan's other side; more rows are
+then staged), both held to scipy's assignment and timed in turns, with the
+serial chain and the microseconds a Dijkstra step.
 ``--train-profile``: one full-width DETR-R50 training step (b8 376x672,
 fp32) under ``torch.profiler``: B's and C's device time and share of the
 step's kernel time, and the serial chain of the step's own LAP problems.
@@ -72,6 +78,8 @@ _RUN = """  const int run = one_wave<U, V, 4>(batch, h, w, c)   ? 4
                                                       : 16;
 """
 _STAGED = "  cpa::cp_async_wait<0>();\n  __syncthreads();\n"
+# The generic instance's plan, its state forced into the device scratch.
+_SMEM_STATE = ("  plan.state_in_smem = state <= room;\n", "  plan.state_in_smem = false;\n")
 # (kernel source, variant name, [(text in the source, replacement)]). A name
 # that starts with "ablate" drops work, so its output is timed, not checked.
 VARIANTS = [
@@ -117,6 +125,53 @@ def lap_entry(handle):
             raise RuntimeError("lap_solve failed to launch")
         return out
     return call
+
+
+def generic_entry(handle):
+    """``lap_solve_generic`` of one build, its scratch sized by that build's
+    ``lap_scratch_bytes``."""
+    handle.lap_solve_generic.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    handle.lap_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    handle.lap_scratch_bytes.restype = ctypes.c_int64
+
+    def call(cost, mask):
+        p, r, c = cost.shape
+        out = torch.empty((p, r), dtype=torch.int32, device=cost.device)
+        nbytes = handle.lap_scratch_bytes(p, r, c)
+        scratch = torch.empty(max(nbytes, 4) // 4, dtype=torch.int32, device=cost.device)
+        if nbytes < 0 or handle.lap_solve_generic(
+                cost.data_ptr(), mask.data_ptr(), out.data_ptr(), scratch.data_ptr(), p, r, c,
+                torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("lap_solve_generic failed to launch")
+        return out
+    call.scratch_bytes = handle.lap_scratch_bytes
+    return call
+
+
+def generic(lap, calls) -> list:
+    """Each generic build at every LAP_GENERIC width (``chip_smoke``'s
+    seeds): equal to scipy's assignment, timed in turns; the failures."""
+    from scipy.optimize import linear_sum_assignment
+
+    failed = []
+    for k, (label, p, c, real, many) in enumerate(chip_smoke.LAP_GENERIC):
+        cost, mask, n_real = chip_smoke.generic_lap_problems(90 + k, p, c, real, many)
+        ct, mt = torch.from_numpy(cost).cuda(), torch.from_numpy(mask).cuda()
+        want = [linear_sum_assignment(cm[m])[1] for cm, m in zip(cost, mask)]
+        for name, call in calls.items():
+            got = call(ct, mt).cpu().numpy()
+            for i, m in enumerate(mask):
+                if (got[i, ~m] != -1).any() or (got[i, m] != want[i]).any():
+                    failed.append(f"{name}: {p}x{c}x{c} problem {i}")
+        times = in_turns(calls, lambda call: lambda: call(ct, mt))
+        chain = max(lap.augmenting_steps(ct.cpu(), mt.cpu()))
+        print(f"B generic {p}x{c}x{c} ({label}), n_real {n_real.min()}..{n_real.max()}, serial "
+              f"chain {chain} Dijkstra steps (CUDA graphs, ms; us a step at most): "
+              + ", ".join(f"{n} (scratch {call.scratch_bytes(p, c, c)} B) {times[n]:.4f}"
+                          f"{f' ({1e3 * times[n] / chain:.2f})' if chain else ''}"
+                          for n, call in calls.items()), flush=True)
+    return failed
 
 
 def pool_entry(handle):
@@ -226,6 +281,8 @@ def main() -> int:
                         help="another checkout whose B and C to time beside this one's")
     parser.add_argument("--variants", action="store_true",
                         help="then time B and C beside variants of their sources")
+    parser.add_argument("--generic", action="store_true",
+                        help="then time B's generic instance beside its state always in scratch")
     parser.add_argument("--train-profile", action="store_true",
                         help="then profile one full-width training step")
     args = parser.parse_args()
@@ -246,6 +303,10 @@ def main() -> int:
         for kernel, name, edits in VARIANTS:
             text = edited((csrc / kernel).read_text(), edits, f"{kernel} {name}")
             jobs.append((name, kernel, csrc / kernel, text))
+    if args.generic:
+        text = edited((csrc / "lap.cu").read_text(), [_SMEM_STATE], "lap.cu state in scratch",
+                      once=True)
+        jobs.append(("state in scratch", "lap.cu", csrc / "lap.cu", text))
     with ThreadPoolExecutor(len(jobs)) as pool:
         handles = list(pool.map(lambda j: build(nvcc_build, j[2], j[3]), jobs))
     laps = {name: lap_entry(h) for (name, kernel, *_), h in zip(jobs, handles)
@@ -287,6 +348,11 @@ def main() -> int:
                   + ", ".join(f"{n} {t:.4f}" for n, t in times.items())
                   + f"; bound {bound[0]:.4f} ({bound[1]}), this checkout at "
                   f"{bound[0] / times['this']:.1%} of it", flush=True)
+    if args.generic:
+        builds = {name: h for (name, kernel, *_), h in zip(jobs, handles) if kernel == "lap.cu"}
+        failed += generic(lap, {"this (state in shared memory where it fits)":
+                                generic_entry(builds["this"]),
+                                "state in scratch": generic_entry(builds["state in scratch"])})
     if args.train_profile:
         train_profile(lap)
     if failed:

@@ -6,6 +6,9 @@ imports no JAX, so it also runs where only PyTorch is installed:
   python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +19,12 @@ from detr_tensorflow_tpu_torch.ops import fused_bottleneck, fused_residual, int8
 from detr_tensorflow_tpu_torch.ops import lap, maxpool
 from test_torch_int8_conv_plan import G_PATH_SHAPES
 from test_torch_int8_plan import F_PATH_SHAPES
+
+# B's wide problems and the JPEG sets, shared with chip_smoke.py.
+_spec = importlib.util.spec_from_file_location(
+    "smoke_inputs", Path(__file__).resolve().parents[1] / "scripts" / "smoke_inputs.py")
+smoke_inputs = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -518,7 +527,8 @@ def _lap_problems(seed, p=48, r=100, c=100, max_real=30, ties=False, scattered=F
 # slots, 250 queries) with prefix and scattered masks, problems of 250 real
 # rows (past the rows shared memory holds: the rest read from device
 # memory), its widest (R = C = 255, 4-byte staging) and its narrowest (128
-# columns).
+# columns); then the generic instance, past 255 columns: 300 queries against
+# 100 target slots, and 257 columns (4-byte staging) at a misaligned address.
 LAP_LAYOUTS = {"path": (48, 100, 100, 30, False, False),
                "scattered": (48, 100, 100, 30, True, False),
                "square127": (6, 127, 127, 127, True, False),
@@ -528,7 +538,9 @@ LAP_LAYOUTS = {"path": (48, 100, 100, 30, False, False),
                "panoptic scattered": (48, 250, 250, 60, True, False),
                "square250 past the staged rows": (4, 250, 250, 250, True, False),
                "square255": (3, 255, 255, 255, True, True),  # misaligned too
-               "128 columns": (6, 100, 128, 100, True, False)}
+               "128 columns": (6, 100, 128, 100, True, False),
+               "300 queries 100 slots": (6, 100, 300, 100, True, False),
+               "257 columns misaligned": (3, 60, 257, 60, True, True)}
 
 
 @pytest.mark.parametrize("layout", list(LAP_LAYOUTS))
@@ -544,10 +556,9 @@ def test_lap_kernel_matches_plain_and_scipy(cuda_device, ties, layout):
     if misaligned:
         cost_d = torch.empty(cost.size + 1, device=cuda_device)[1:].view(cost.shape).copy_(cost_d)
         assert cost_d.data_ptr() % 16 == 4
-    before = lap.solve_lap_masked.launches, lap.solve_lap_masked.wide_launches
+    before = _lap_counts()
     got = lap.solve_lap_masked(cost_d, torch.from_numpy(mask).to(cuda_device)).cpu().numpy()
-    assert (lap.solve_lap_masked.launches, lap.solve_lap_masked.wide_launches) == (
-        before[0] + 1, before[1] + (c > 127))
+    assert _lap_counts(before) == (1, 127 < c <= 255, c > 255)
     plain = lap.reference_solve_lap_masked(torch.from_numpy(cost), torch.from_numpy(mask)).numpy()
     for i, m in enumerate(mask):
         n = int(m.sum())
@@ -560,13 +571,84 @@ def test_lap_kernel_matches_plain_and_scipy(cuda_device, ties, layout):
             assert (got[i, m] == cols).all() and (plain[i] == got[i]).all()
 
 
-def test_lap_kernel_refuses_more_than_255_columns(cuda_device):
-    """B takes up to 255 columns; the wrapper names the limit above it."""
-    cost = torch.zeros((2, 10, 256), device=cuda_device)
-    mask = torch.ones((2, 10), dtype=torch.bool, device=cuda_device)
-    with pytest.raises(ValueError, match="at most 255 columns"):
-        lap.solve_lap_masked(cost, mask)
-    assert (lap.solve_lap_masked(cost[..., :255], mask) >= 0).all()
+def _lap_counts(before=(0, 0, 0)):
+    """B's launches (all, the 256-column instance, the generic one), less
+    ``before``."""
+    now = (lap.solve_lap_masked.launches, lap.solve_lap_masked.wide_launches,
+           lap.solve_lap_masked.generic_launches)
+    return tuple(a - b for a, b in zip(now, before))
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("width", [w[0] for w in smoke_inputs.LAP_GENERIC])
+def test_lap_kernel_at_any_width(cuda_device, width, ties):
+    """B's generic instance at the widths of wider query sets
+    (``smoke_inputs.LAP_GENERIC``: Deformable-DETR's 300, DINO's 900 with one
+    problem of 900 real rows, H-DETR's 1800 rounded up to 2000, 4097 with
+    3900 real rows, one staged and the rest read from L2, 5000 with 4800
+    and its state in device memory), real rows scattered: assignments equal
+    to the plain version's and scipy's on continuous costs, the optimal cost
+    (within 1e-4 relative) on tied ones."""
+    from scipy.optimize import linear_sum_assignment
+
+    k = [w[0] for w in smoke_inputs.LAP_GENERIC].index(width)
+    _, p, c, real, many = smoke_inputs.LAP_GENERIC[k]
+    cost, mask, n_real = smoke_inputs.generic_lap_problems(40 + k + ties, p, c, real, many, ties)
+    before = _lap_counts()
+    got = lap.solve_lap_masked(torch.from_numpy(cost).to(cuda_device),
+                               torch.from_numpy(mask).to(cuda_device)).cpu().numpy()
+    assert _lap_counts(before) == (1, 0, 1)
+    plain = None if ties else lap.reference_solve_lap_masked(torch.from_numpy(cost),
+                                                             torch.from_numpy(mask)).numpy()
+    for i, (m, n) in enumerate(zip(mask, n_real)):
+        assert (got[i, ~m] == -1).all() and len(set(got[i, m].tolist())) == n
+        rows, cols = linear_sum_assignment(cost[i, m])
+        best = float(cost[i, m][rows, cols].sum())
+        ours = float(cost[i, m][np.arange(n), got[i, m]].sum())
+        assert abs(ours - best) <= 1e-4 * max(1.0, abs(best))
+        if not ties:
+            assert (got[i, m] == cols).all() and (plain[i] == got[i]).all()
+
+
+def test_jpeg_decoder_on_the_fixtures_gives_imageios_hashes(cuda_device):
+    """On the card's machine, which has no imageio: ``data/jpeg.py`` built
+    there decodes every committed fixture to the shape and SHA-256 imageio
+    gave where the fixtures were written (``tests/data/jpeg/expected.json``)."""
+    import hashlib
+    import json
+    from pathlib import Path
+
+    from detr_tensorflow_tpu_torch.data import jpeg
+
+    root = Path(__file__).parent / "data" / "jpeg"
+    for name, want in json.loads((root / "expected.json").read_text()).items():
+        image = jpeg.read_jpeg(str(root / name))
+        assert list(image.shape) == want["shape"], name
+        assert hashlib.sha256(image.tobytes()).hexdigest() == want["sha256"], name
+
+
+def test_finetune_hardhat_on_jpeg_files(cuda_device, tmp_path):
+    """``finetune_hardhat.main`` on the card for 2 steps on a CSV set of JPEG
+    copies of the fixtures (``smoke_inputs.write_jpeg_sets``), at reduced depth:
+    "person" excluded (4 logits), the heads alone training at epoch 0 (A-tf32
+    3 a step for one encoder and one decoder layer, A' none, B and C once a
+    step)."""
+    from detr_tensorflow_tpu_torch import finetune_hardhat
+
+    smoke_inputs.write_jpeg_sets(str(tmp_path), 5, images=16, eval_images=8, ft_images=16)
+    before = (fa.mha.tf32_launches, fa.mha.backward_mma_launches) + _lap_counts() + (
+        maxpool.max_pool_3x3_s2.launches,)
+    trainer = finetune_hardhat.main(
+        ["--data_dir", str(tmp_path / "hardhat"), "--img_dir", "train", "--ann_file",
+         "train/_annotations.csv", "--device", "cuda", "--batch_size", "2", "--target_batch",
+         "2", "--image_size", "128", "192", "--epochs", "1", "--steps_per_epoch", "2",
+         "--evaluation_steps", "0"],
+        backbone_stage_sizes=(1, 1, 1, 1), num_encoder_layers=1, num_decoder_layers=1)
+    torch.cuda.synchronize()
+    after = (fa.mha.tf32_launches, fa.mha.backward_mma_launches) + _lap_counts() + (
+        maxpool.max_pool_3x3_s2.launches,)
+    assert tuple(a - b for a, b in zip(after, before)) == (6, 0, 2, 0, 0, 2)
+    assert trainer.steps == 2 and trainer.model.cls_layer.weight.shape[0] == 4
 
 
 def test_train_step_kernel_route_matches_plain(cuda_device):

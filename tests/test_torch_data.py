@@ -179,7 +179,8 @@ def test_png_reader_equals_imageio(tmp_path, depth, channels):
 
 def test_read_image_formats(tmp_path):
     """``read_image``: gray to three channels, alpha dropped, ``.npy`` as
-    stored, JPEG through imageio (equal to the JAX package's reading)."""
+    stored, JPEG through ``data/jpeg.py`` (equal to the JAX package's reading
+    with imageio)."""
     rng = np.random.default_rng(0)
     img = rng.integers(0, 256, (9, 7, 4)).astype(np.uint8)
     cv2.imwrite(str(tmp_path / "a.png"), img)

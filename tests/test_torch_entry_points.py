@@ -141,7 +141,7 @@ def test_python_m_eval_runs_detr_r50(coco_root):
                          capture_output=True, text=True, timeout=600)
     assert run.returncode == 0, run.stderr[-2000:]
     assert "box |" in run.stdout and "mask |" in run.stdout
-    for name in ("train_coco", "finetune_coco", "finetune_voc", "quickstart"):
+    for name in ("train_coco", "finetune_coco", "finetune_voc", "finetune_hardhat", "quickstart"):
         run = subprocess.run([sys.executable, "-m", f"detr_tensorflow_tpu_torch.{name}",
                               "--help"], cwd=REPO, env=env, capture_output=True, text=True,
                              timeout=300)
@@ -314,17 +314,19 @@ def test_preemption_guard_checkpoints_and_resumes(tmp_path):
 def test_package_imports_no_jax_cv2_or_pil():
     """Every module of ``detr_tensorflow_tpu_torch`` and ``chip_smoke.py``
     imported in a fresh process: none of jax, flax, ml_dtypes, cv2, PIL,
-    imageio or ``detr_tensorflow_tpu`` is loaded."""
+    imageio, pandas or ``detr_tensorflow_tpu`` is loaded."""
     names = [m.name for m in pkgutil.walk_packages(detr_tensorflow_tpu_torch.__path__,
                                                    "detr_tensorflow_tpu_torch.")]
     assert {"detr_tensorflow_tpu_torch.eval", "detr_tensorflow_tpu_torch.data.image_io",
             "detr_tensorflow_tpu_torch.metrics.ap", "detr_tensorflow_tpu_torch.data.panoptic",
-            "detr_tensorflow_tpu_torch.metrics.pq"} <= set(names)
+            "detr_tensorflow_tpu_torch.metrics.pq", "detr_tensorflow_tpu_torch.data.jpeg",
+            "detr_tensorflow_tpu_torch.data.tfcsv",
+            "detr_tensorflow_tpu_torch.finetune_hardhat"} <= set(names)
     code = ("import importlib, sys\n"
             f"for name in {names + ['chip_smoke']!r}:\n"
             "    importlib.import_module(name)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'ml_dtypes', 'cv2', 'PIL', 'imageio', "
+            "('jax', 'jaxlib', 'flax', 'ml_dtypes', 'cv2', 'PIL', 'imageio', 'pandas', "
             "'detr_tensorflow_tpu'))\n"
             "print(bad)\n")
     run = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,

@@ -298,3 +298,132 @@ def test_lap_key_orders_floats_and_ties_zeros():
     assert redux_argmin(values, np.ones(_COLS, bool))[1] == 1
     values[1] = np.float32(-1e-30)
     assert redux_argmin(values, np.ones(_COLS, bool))[1] == 1
+
+
+# ---- B's generic instance (above 255 columns) --------------------------------
+
+
+def cta_argmin(values, consider, threads, warps, lowest_column_wins=True):
+    """(value, column) of the generic instance's argmin over columns 0..n-1:
+    thread t keeps its lowest key over columns t, t + threads, ... (lowest
+    column first), each warp a redux.sync pair, then one pass over the
+    warps' results, ties to the lowest column (or, broken, to the highest)."""
+    n = len(values)
+    keys = np.where(consider, key(values), key(np.inf)).astype(np.uint64)
+    slots = -(-n // threads)
+    grid = np.full(slots * threads, key(np.inf), np.uint64)
+    grid[:n] = keys
+    grid = grid.reshape(slots, threads)
+    col = np.arange(slots * threads).reshape(slots, threads)
+    t_key = grid.min(0)
+    t_col = np.where(grid == t_key, col, 2**40).min(0)  # ascending columns: the first minimum
+    w_key = t_key.reshape(warps, 32).min(1)
+    w_col = np.where(t_key.reshape(warps, 32) == w_key[:, None], t_col.reshape(warps, 32),
+                     2**40).min(1)
+    best, best_col = w_key[0], w_col[0]
+    for k, c in zip(w_key[1:], w_col[1:]):
+        if k < best or (k == best and (c < best_col if lowest_column_wins else c > best_col)):
+            best, best_col = k, c
+    b = np.uint32(best)
+    value = (b & 0x7FFFFFFF if b & 0x80000000 else ~b).astype(np.uint32).view(np.float32)
+    return np.float32(value), int(best_col)
+
+
+def generic_lap_model(cost, mask, warps, lowest_column_wins=True):
+    """The generic instance on one (R, C) problem in float32: the real rows
+    ranked kThreads at a time, the auction's bids a warp a row (lanes
+    strided over the columns), the augmenting paths with every warp's
+    threads owning strided columns and the CTA argmin."""
+    r, c = cost.shape
+    threads = 32 * warps
+    orig = []
+    for base in range(0, r, threads):  # a ballot a warp, chunk by chunk
+        chunk = np.zeros(threads, bool)
+        chunk[:min(threads, r - base)] = mask[base:base + threads]
+        orig += [base + t for t in np.flatnonzero(chunk)]
+    orig = np.asarray(orig, int)
+    n, staged = len(orig), cost[orig]
+    cols = np.arange(c + 1)
+    col_real = cols >= 1
+    v = np.zeros(c + 1, np.float32)
+    p = np.zeros(c + 1, int)
+    owned = np.full(n, -1)
+    u = np.zeros(n + 1, np.float32)
+    for _ in range(5):
+        bids = {}
+        for k in range(n):
+            if owned[k] >= 0:
+                continue
+            red = np.full(c + 1, np.inf, np.float32)
+            red[1:] = staged[k] - v[1:]
+            best, best_j = cta_argmin(red, col_real, 32, 1)  # one warp, lanes strided
+            second, _ = cta_argmin(np.where(cols == best_j, _INF, red), col_real, 32, 1)
+            bids[k] = (best_j, best, second if second < _INF / 2 else best)
+        winner = {}
+        for k, (j, *_) in bids.items():
+            winner[j] = min(winner.get(j, k), k)
+        for j, w in winner.items():
+            v[j] = staged[w, j - 1] - bids[w][2]
+            if p[j] > 0:
+                owned[p[j] - 1] = -1
+            owned[w], p[j] = j, w + 1
+        for k, (j, min1, min2) in bids.items():
+            u[k + 1] = min2 if winner[j] == k else min1
+    for k in range(n):
+        if owned[k] >= 0:
+            continue
+        minv = np.full(c + 1, _INF, np.float32)
+        way = np.zeros(c + 1, int)
+        used = np.zeros(c + 1, bool)
+        p[0], j0, i0, alive = k + 1, 0, k + 1, True
+        while True:
+            used[j0] = True
+            cand = col_real & ~used
+            cur = np.full(c + 1, np.inf, np.float32)
+            cur[1:] = staged[i0 - 1] - u[i0] - v[1:]
+            better = cand & (cur < minv)
+            minv = np.where(better, cur, minv)
+            way = np.where(better, j0, way)
+            delta, j1 = cta_argmin(np.where(cand, minv, _INF), np.ones(c + 1, bool), threads,
+                                   warps, lowest_column_wins)
+            u[p[used]] += delta
+            v = np.where(used, v - delta, v)
+            minv = np.where(used, minv, minv - delta)
+            j0, alive = j1, delta < _INF / 2
+            if not alive or p[j0] == 0:
+                break
+            i0 = p[j0]
+        while alive and j0 != 0:
+            j1 = way[j0]
+            p[j0] = p[j1]
+            j0 = j1
+    out = np.full(r, -1, np.int32)
+    for j in np.flatnonzero(col_real & (p > 0)):
+        out[orig[p[j] - 1]] = j - 1
+    return out
+
+
+def generic_cases():
+    rng = np.random.default_rng(2)
+    cases = []
+    for name, r, c, share in (("300x300 scattered", 300, 300, 0.15),
+                              ("100 slots x 300 queries", 100, 300, 0.3),
+                              ("600x600, rows past one chunk", 600, 600, 0.08),
+                              ("257x257 all real", 257, 257, 1.0)):
+        cases.append((name, rng.normal(size=(r, c)).astype(np.float32), rng.random(r) < share))
+    cases.append(("tied 300x300", rng.integers(0, 3, size=(300, 300)).astype(np.float32),
+                  rng.random(300) < 0.5))
+    return cases
+
+
+@pytest.mark.parametrize("name,cost,mask", generic_cases(), ids=[c[0] for c in generic_cases()])
+def test_generic_lap_model_equals_plain(name, cost, mask):
+    """The generic instance's work split equals the plain version exactly,
+    ties included; on the tied case, a CTA argmin that breaks ties to the
+    highest column instead differs (the test sees the tie rule)."""
+    ref = lap.reference_solve_lap_masked(torch.from_numpy(cost)[None],
+                                         torch.from_numpy(mask)[None])[0].numpy()
+    warps = constant("lap.cu", "kWarps")
+    np.testing.assert_array_equal(generic_lap_model(cost, mask, warps), ref)
+    if name.startswith("tied"):
+        assert (generic_lap_model(cost, mask, warps, lowest_column_wins=False) != ref).any()

@@ -225,3 +225,31 @@ def test_single_layer_loss_takes_a_precomputed_match():
     shifted = {k: torch.roll(v, 1, dims=-1) for k, v in match.items()}
     other = losses.single_layer_loss(lg, bx, tb, tc, tm, 0, match=shifted)
     assert not torch.equal(other["l1_loss"], own["l1_loss"])
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_plain_lap_matches_jax_at_300_columns(ties):
+    """Past the 255 columns of the LAP kernel's register instances, where
+    the card runs its generic instance: the plain LAP at 2 x 300 x 300
+    (Deformable-DETR's 300 queries and target slots) with a few real rows
+    scattered over the slots, against the JAX package's default solver
+    (matcher.solve_lap_masked_batch) and scipy: assignments equal on
+    continuous costs, the optimal cost (within 1e-4) on tied ones."""
+    rng = np.random.default_rng(300 + ties)
+    shape = (2, 300, 300)
+    cost = (rng.integers(0, 4, size=shape) if ties else rng.normal(size=shape)).astype(np.float32)
+    mask = np.zeros((2, 300), bool)
+    for i, n in enumerate((7, 23)):
+        mask[i, rng.permutation(300)[:n]] = True
+    ours = lap.solve_lap_masked(torch.from_numpy(cost), torch.from_numpy(mask)).numpy()
+    xla = np.asarray(jax_matcher.solve_lap_masked_batch(jnp.asarray(cost), jnp.asarray(mask)))
+    for i, m in enumerate(mask):
+        n = int(m.sum())
+        assert (ours[i, ~m] == -1).all() and len(set(ours[i, m].tolist())) == n
+        rows, cols = linear_sum_assignment(cost[i, m])
+        best = float(cost[i, m][rows, cols].sum())
+        for other in (ours, xla):
+            assert abs(float(cost[i, m][np.arange(n), other[i, m]].sum()) - best) <= 1e-4
+        if not ties:
+            np.testing.assert_array_equal(ours[i, m], cols)
+            np.testing.assert_array_equal(ours[i], xla[i])
