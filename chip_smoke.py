@@ -195,6 +195,25 @@ Phases, one status line each; any failure raises and exits non-zero:
      C 1), its busy time, B's share and peak memory; ``eval.main --masks
      --pq --panoptic_ann`` over 4 JPEG images with PNG segment maps on a
      seeded DETRsegm .pth (A-tf32 18, C 1 an image).
+ 16. serving artifacts: full-width DETR-R50 from a seeded facebook-named
+     .pth at fp32 (TF32 off), bf16, int8 (bf16 compute, quantized on two
+     seeded 800x1333 images), fused fp32 and fused bf16 (nonzero FrozenBN
+     buffers) and the DETRsegm model with masks at fp32, each in a process
+     of its own (the fused models' two buckets apart): exported by
+     ``export.export_predictor`` (at 800x1333; the fused models at 768x1280
+     too, both buckets with a masked and an unmasked program), loaded by
+     ``export.load_predictor`` and served beside the live Predictor: the
+     same detections within the golden tolerances (masks within 1e-4 of
+     their pixels), the same launches per request with the counters reset
+     just before (fp32 A-tf32 18, C 1; bf16 A-mma 18, C 1; int8 A-mma 18, F
+     32, G 16; fused exact A 18, C 1, D 4, E 12; fused masked A 18, C 1, D
+     16; masks A-tf32 18, C 1), the fp32 program traced at b2 serving b1 and
+     b8; export and load seconds, artifact MB, and, the processes taking the
+     card in turns once all are ready, p50 (p10-p90) of 30 b1 requests
+     interleaved with the live Predictor's, and the device-busy time of one,
+     beside the live Predictor's; a reduced model exported on the
+     CPU and loaded onto the card (A-tf32 3, C 1; detections within the
+     golden tolerances of the live CPU Predictor's).
 Kernel C runs in every ``ResNetBackbone`` forward: serving, training and
 fused serving count it (1 per forward or step); the int8 model's stem is
 not a ``ResNetBackbone`` and launches none.
@@ -3620,6 +3639,282 @@ def phase_jpeg(torch, fa, lap, mp, api, train):
     return out
 
 
+# Phase 16, serving artifacts: each model's artifact (export.export_predictor)
+# against the live Predictor on the same requests. ART_SERVE's bucket is
+# 896x1408 at divisor 128; the fused models also serve ART_EXACT, which fills
+# its bucket (the unmasked program, kernel E's route). One process a model
+# (and a fused model's two buckets apart): tracing a program is host work
+# of ~10 s, so the models export and load at once, on the host's cores; then
+# they take turns to time a request on a quiet card.
+ART_SERVE, ART_EXACT = (800, 1333), (768, 1280)
+ART_BATCHES = (1, 8)  # the programs are traced at batch 2
+_FUSED = dict(fuse_residual=True, fuse_bottleneck=True)
+# name: the checkpoint ("detector", "segm"; None: seeded weights), the build
+# flags, the request size and its launches per request (one forward at any
+# batch; PERF.md section 6, Launches), and whether the artifact is exported
+# on the CPU.
+def _art(weights, flags, size, launches, cpu=False):
+    return {"weights": weights, "flags": flags, "size": size, "launches": launches, "cpu": cpu}
+
+
+ART_VARIANTS = {
+    "fp32": _art("detector", {}, ART_SERVE, {"A-tf32": 18, "C": 1}),
+    "bf16": _art("detector", dict(dtype="bfloat16"), ART_SERVE, {"A-mma": 18, "C": 1}),
+    "int8": _art("detector", dict(dtype="bfloat16", backbone_quant=True), ART_SERVE,
+                 {"A-mma": 18, "F": 32, "G": 16}),
+    "fused fp32 exact": _art("detector", _FUSED, ART_EXACT,
+                             {"A-tf32": 18, "C": 1, "D-tf32": 4, "E-tf32": 12}),
+    "fused fp32 masked": _art("detector", _FUSED, ART_SERVE, {"A-tf32": 18, "C": 1, "D-tf32": 16}),
+    "fused bf16 exact": _art("detector", dict(dtype="bfloat16", **_FUSED), ART_EXACT,
+                             {"A-mma": 18, "C": 1, "D-mma": 4, "E-mma": 12}),
+    "fused bf16 masked": _art("detector", dict(dtype="bfloat16", **_FUSED), ART_SERVE,
+                              {"A-mma": 18, "C": 1, "D-mma": 16}),
+    "masks fp32": _art("segm", dict(masks=True), ART_SERVE, {"A-tf32": 18, "C": 1}),
+    # A reduced model (one encoder and one decoder layer: 3 attention calls)
+    # exported on the CPU, loaded onto the card.
+    "reduced, CPU export": _art(None, dict(backbone_stage_sizes=(1, 1, 1, 1), num_encoder_layers=1,
+                                           num_decoder_layers=1), (480, 640),
+                                {"A-tf32": 3, "C": 1}, cpu=True),
+}
+ART_SCORE_ATOL = 1e-3  # the golden tolerance of scores (tests/test_torch_serving.py)
+ART_MASK_TOL = 1e-4  # share of mask pixels that may differ from the live Predictor's
+ART_TIMEOUT_S = 900
+# b1 requests a side, the artifact's and the live Predictor's interleaved,
+# for the printed p50: a smoke reading. scripts/torch_dtype_cost_probe.py
+# compares the two over hundreds of requests.
+ART_REQUESTS = 30
+# The kernel records these counters add to.
+ART_RECORDS = {"A-tf32": "flash_attention_fwd_tf32", "A-mma": "flash_attention_fwd_mma",
+               "C": "maxpool", "D-tf32": "fused_residual_tf32", "D-mma": "fused_residual_mma",
+               "E-tf32": "fused_bottleneck_tf32", "E-mma": "fused_bottleneck_mma",
+               "F": "int8_matmul", "G": "int8_conv"}
+
+
+def serving_counts(fa, mp, fr, fb, mm, conv) -> dict:
+    """Every serving kernel's launch counter, the SIMT ones on no path too."""
+    d, e = fr.conv1x1_bn_residual_relu, fb.fused_bottleneck
+    return {"A-tf32": fa.mha.tf32_launches, "A-mma": fa.mha.mma_launches,
+            "A SIMT": fa.mha.launches, "C": mp.max_pool_3x3_s2.launches,
+            "D-tf32": d.tf32_launches, "D-mma": d.mma_launches, "D SIMT": d.launches,
+            "E-tf32": e.tf32_launches, "E-mma": e.mma_launches, "E SIMT": e.launches,
+            "F": mm.qmatmul.launches + mm.qmatmul_residual.launches
+            + mm.qmatmul_residual2.launches, "G": sum(conv.conv3x3_int8.launches.values())}
+
+
+def reset_serving_counts(fa, mp, fr, fb, mm, conv) -> None:
+    d, e = fr.conv1x1_bn_residual_relu, fb.fused_bottleneck
+    fa.mha.tf32_launches = fa.mha.mma_launches = fa.mha.launches = 0
+    mp.max_pool_3x3_s2.launches = d.tf32_launches = d.mma_launches = d.launches = 0
+    e.tf32_launches = e.mma_launches = e.launches = 0
+    mm.qmatmul.launches = mm.qmatmul_residual.launches = mm.qmatmul_residual2.launches = 0
+    conv.conv3x3_int8.launches = {s: 0 for s in conv.conv3x3_int8.launches}
+
+
+def detection_gaps(ours, ref) -> dict:
+    """Largest gaps of one request's detections from another's: boxes and
+    scores (inf where the kept detections differ in number or label), and
+    the share of mask pixels that differ."""
+    gaps = {"boxes": 0.0, "scores": 0.0, "masks": 0.0}
+    for a, b in zip(ours, ref, strict=True):
+        if len(a.labels) != len(b.labels) or (a.labels != b.labels).any():
+            return {k: float("inf") for k in gaps}
+        if len(a.labels):
+            gaps["boxes"] = max(gaps["boxes"], float(np.abs(a.boxes - b.boxes).max()))
+            gaps["scores"] = max(gaps["scores"], float(np.abs(a.scores - b.scores).max()))
+        if a.masks is not None and a.masks.size:
+            gaps["masks"] = max(gaps["masks"], float((a.masks != b.masks).mean()))
+    return gaps
+
+
+def check_gaps(say, label, gaps) -> None:
+    say(f"  {label}: artifact against the live Predictor, largest gaps boxes "
+        f"{gaps['boxes']:.3e} (tol {BOX_ATOL}), scores {gaps['scores']:.3e} (tol "
+        f"{ART_SCORE_ATOL}), mask pixels {gaps['masks']:.2e} (tol {ART_MASK_TOL})")
+    if not (gaps["boxes"] <= BOX_ATOL and gaps["scores"] <= ART_SCORE_ATOL
+            and gaps["masks"] <= ART_MASK_TOL):
+        raise AssertionError(f"{label}: the artifact's detections differ from the live "
+                             f"Predictor's: {gaps}")
+
+
+def artifact_variant(name, spec, files, turn) -> dict:
+    """One model of phase 16, in a process of its own: built, warmed,
+    exported, loaded and served beside its live Predictor, every request
+    with the counters reset just before it and read just after; then, in
+    ``turn`` (a context that holds the card for this process alone), the
+    p50 (and p10-p90) of ART_REQUESTS b1 requests and the device-busy time
+    of a b1 request, from the artifact and from the live Predictor. Returns
+    the log lines, the launches and the readings."""
+    import tempfile
+
+    import torch
+
+    from detr_tensorflow_tpu_torch import export
+    from detr_tensorflow_tpu_torch.models import api, quantized
+    from detr_tensorflow_tpu_torch.ops import flash_attention as fa
+    from detr_tensorflow_tpu_torch.ops import fused_bottleneck as fb
+    from detr_tensorflow_tpu_torch.ops import fused_residual as fr
+    from detr_tensorflow_tpu_torch.ops import int8_conv as conv
+    from detr_tensorflow_tpu_torch.ops import int8_matmul as mm
+    from detr_tensorflow_tpu_torch.ops import maxpool as mp
+    from detr_tensorflow_tpu_torch.predictor import Predictor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    flags, size, cpu_export = spec["flags"], spec["size"], spec["cpu"]
+    lines, launches, counters = [], collections.Counter(), (fa, mp, fr, fb, mm, conv)
+    say = lines.append
+    t0 = time.perf_counter()
+    model = api.build_detr(weights=files.get(spec["weights"]), seed=66,
+                           device="cpu" if cpu_export else DEVICE, **flags)
+    if "fuse_bottleneck" in flags:
+        seeded_frozen_bn(torch, model.module, seed=64)
+    live = Predictor(model, background_class=BACKGROUND, masks=bool(flags.get("masks")))
+    if flags.get("backbone_quant"):
+        with torch.inference_mode():
+            calib = live.normalize(torch.from_numpy(
+                np.stack(random_images([size] * 2, seed=11))).to(DEVICE))
+        quantized.quantize_model(model, calib)
+    live.warmup([size])
+    build_s = time.perf_counter() - t0
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_artifact_", dir=files["dir"])
+    t0 = time.perf_counter()
+    export.export_predictor(live, tmp.name, [size])
+    export_s = time.perf_counter() - t0
+    programs = sum(f.endswith(".pt2") for f in os.listdir(tmp.name))
+    mb = sum(os.path.getsize(os.path.join(tmp.name, f)) for f in os.listdir(tmp.name)) / 2**20
+    weights_mb = os.path.getsize(os.path.join(tmp.name, "weights.pt")) / 2**20
+    t0 = time.perf_counter()
+    loaded = export.load_predictor(tmp.name, device=DEVICE)
+    load_s = time.perf_counter() - t0
+    loaded.warmup([size])
+
+    def request(pred, images):
+        reset_serving_counts(*counters)
+        dets = pred(images)
+        got = {k: v for k, v in serving_counts(*counters).items() if v}
+        launches.update({ART_RECORDS[k]: v for k, v in got.items()})
+        check_detections(dets)
+        return dets, got
+
+    want = spec["launches"]
+    for b in ART_BATCHES if name == "fp32" else ART_BATCHES[:1]:
+        images = random_images([size] * b, seed=63 + b)
+        art_dets, art_n = request(loaded, images)
+        if cpu_export:  # the live Predictor runs on the CPU, whose plain versions count nothing
+            live_dets, live_n = live(images), art_n
+        else:
+            live_dets, live_n = request(live, images)
+        # One request of a bucket is one forward, whatever its batch.
+        label = f"{name} {size[0]}x{size[1]} b{b}" + (" (traced at b2)" if b > 1 else "")
+        say(f"  {label} launches: live {live_n}, artifact {art_n} (expected {want})")
+        if not live_n == art_n == want:
+            raise AssertionError(f"{label}: launches live {live_n}, artifact {art_n}, "
+                                 f"expected {want}")
+        check_gaps(say, label, detection_gaps(art_dets, live_dets))
+    rec = {"export_s": export_s, "programs": programs, "load_s": load_s, "mb": mb,
+           "weights_mb": weights_mb}
+    img = random_images([size], seed=70)
+    preds = {"artifact": loaded} if cpu_export else {"live": live, "artifact": loaded}
+    with turn:
+        lat = {k: [] for k in preds}
+        for i in range(ART_REQUESTS):  # interleaved, each first in turn
+            for key in (list(preds) if i % 2 == 0 else list(preds)[::-1]):
+                t0 = time.perf_counter()
+                preds[key](img)
+                lat[key].append(1e3 * (time.perf_counter() - t0))
+        for key, pred in preds.items():
+            deciles = statistics.quantiles(lat[key], n=10)
+            rec[key + "_p50"], rec[key + "_p10"], rec[key + "_p90"] = \
+                statistics.median(lat[key]), deciles[0], deciles[-1]
+            rec[key + "_wall"], rec[key + "_busy"], _ = device_busy_ms(torch, lambda: pred(img))
+    reading = {k: f"p50 {rec[k + '_p50']:.2f} ms (p10-p90 {rec[k + '_p10']:.2f}-"
+                  f"{rec[k + '_p90']:.2f}), device busy under torch.profiler "
+                  + ("not measured" if rec[k + "_busy"] is None else f"{rec[k + '_busy']:.2f} ms")
+               for k in preds}
+    say(f"  {name}: built and warmed in {build_s:.2f} s; {programs} program(s) exported in "
+        f"{export_s:.2f} s ({export_s / programs:.2f} s each), artifact {mb:.1f} MB "
+        f"({weights_mb:.1f} MB of weights, once), loaded in {load_s:.2f} s; {size[0]}x"
+        f"{size[1]} b1 over {ART_REQUESTS} requests a side: artifact {reading['artifact']}; "
+        f"live {reading.get('live', 'not run (a CPU model)')}")
+    tmp.cleanup()
+    return {"log": lines, "launches": dict(launches), "rec": rec}
+
+
+def _artifact_worker(name, spec, files, barrier, lock, results):
+    """Process target: ``artifact_variant`` with the card held in turns
+    once every process is ready (``barrier``), its result or its
+    traceback on ``results``."""
+    import contextlib
+    import traceback
+
+    @contextlib.contextmanager
+    def turn():
+        barrier.wait(timeout=ART_TIMEOUT_S)
+        with lock:
+            yield
+
+    try:
+        results.put((name, artifact_variant(name, spec, files, turn())))
+    except Exception:  # the process's boundary: reported to the parent, which raises
+        barrier.abort()
+        results.put((name, {"error": traceback.format_exc()}))
+
+
+def phase_artifacts(torch) -> dict:
+    """Serving artifacts: full-width DETR-R50 from a seeded facebook-named
+    .pth (fp32, bf16, int8, fused fp32 and bf16, with masks at fp32) and a
+    reduced model exported on the CPU, each in a process of its own
+    (``artifact_variant``); raises if any of them fails."""
+    import multiprocessing
+    import queue
+    import tempfile
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_artifacts_")
+    files = {"dir": tmp.name}
+    checkpoints = {spec["weights"] for spec in ART_VARIANTS.values()}
+    for key, state in (("detector", lambda: facebook_state_dict(seed=61)),
+                       ("segm", lambda: segmentation_state_dict(seed=62))):
+        if key in checkpoints:
+            files[key] = os.path.join(tmp.name, key + ".pth")
+            torch.save({"model": state()}, files[key])
+    ctx = multiprocessing.get_context("spawn")
+    barrier, lock, results = ctx.Barrier(len(ART_VARIANTS)), ctx.Lock(), ctx.Queue()
+    procs = [ctx.Process(target=_artifact_worker, daemon=True, args=(
+        name, spec, files, barrier, lock, results)) for name, spec in ART_VARIANTS.items()]
+    for proc in procs:
+        proc.start()
+    out, errors = {}, {}
+    try:
+        deadline = time.perf_counter() + ART_TIMEOUT_S
+        while len(out) + len(errors) < len(procs):
+            try:
+                name, res = results.get(timeout=5)
+            except queue.Empty:
+                dead = [p for p in procs if p.exitcode not in (None, 0)]
+                if dead or time.perf_counter() > deadline:
+                    barrier.abort()
+                    raise AssertionError(f"phase 16: {len(dead)} process(es) died, "
+                                         f"{len(out)} of {len(procs)} reported")
+                continue
+            (errors if "error" in res else out)[name] = res
+    finally:
+        for proc in procs:
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
+        tmp.cleanup()
+    if errors:
+        raise AssertionError("phase 16 failed:\n" + "\n".join(
+            f"[{name}]\n{res['error']}" for name, res in errors.items()))
+    launches = collections.Counter()
+    for name in ART_VARIANTS:
+        for line in out[name]["log"]:
+            log(line)
+        launches.update(out[name]["launches"])
+    return {"launches": launches, "models": {n: out[n]["rec"] for n in ART_VARIANTS}}
+
+
 def sass_counts(nvcc_build, path, op="HMMA") -> dict:
     """``op`` instructions (HMMA: bf16 and TF32 tensor cores, IMMA: int8) in
     the SASS of each kernel of a built library, by mangled name."""
@@ -3809,6 +4104,17 @@ def main() -> int:
         + f"; the {WIDE_QUERIES}-query step: wall {ws['wall']:.2f} ms, busy {ws['busy']:.2f} ms, "
         f"peak {ws['peak']:.2f} GiB; launches on its main paths {dict(jp['launches'])}")
 
+    t = time.perf_counter()
+    art = phase_artifacts(torch)
+    log(f"[artifacts] ok in {time.perf_counter() - t:.1f} s; b1 p50 of {ART_REQUESTS} requests, "
+        "artifact / live: " + ", ".join(
+            f"{n} {r['artifact_p50']:.2f} / {r.get('live_p50', float('nan')):.2f} ms"
+            for n, r in art["models"].items())
+        + "; export s per program, load s: " + ", ".join(
+            f"{n} {r['export_s'] / r['programs']:.2f}, {r['load_s']:.2f}"
+            for n, r in art["models"].items())
+        + f"; launches on its main paths {dict(art['launches'])}")
+
     a32, a16 = times[(2, 1232, 1232, "float32")], times[(2, 1232, 1232, "bfloat16")]
     # The training shapes' times: fp32 under (Lq, Lk), bf16 under (Lq, Lk, "bfloat16").
     bwd_times16 = {k[:2]: v for k, v in bwd_times.items() if len(k) == 3}
@@ -3855,7 +4161,8 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": CSRC + source,
                 "replaces": REPLACES[name],
                 "launches": (launches_ + dc5["launches"][name] + seg["launches"][name]
-                             + pan["launches"][name] + jp["launches"][name]),
+                             + pan["launches"][name] + jp["launches"][name]
+                             + art["launches"][name]),
                 "max_abs_err": err,
                 "ms": ms_, "plain_ms": plain_, "bound_ms": bound, "bound_by": by,
                 "library_ms": library, "measured_at": at}

@@ -13,9 +13,17 @@ in the float32 ``.grad``; otherwise it reads a copy cast once and cached
 (``CachedOperands.cast``), so a served request casts nothing after its
 first call. With float64 parameters and input (``model.double()``, for
 diagnosis on the CPU) every cast is a no-op.
+
+A program exported with ``torch.export`` (``export.py``) cannot key a
+cache by data pointer: it traces fake tensors. ``operands_as_buffers``
+makes every cached cast and fold a buffer of its module for the time of
+the export, so the program holds each one once, as its own state, and
+reads it on every call without deriving it again.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -29,6 +37,7 @@ class CachedOperands(nn.Module):
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self._cache = {}
+        self._pinned = None  # name -> buffer names, inside ``operands_as_buffers``
 
     def _apply(self, fn, *args, **kwargs):
         self._cache = {}  # .to(), .cuda(), .double(): new tensors, derive again
@@ -47,7 +56,14 @@ class CachedOperands(nn.Module):
         so its data pointer alone keys it: outside inference mode it cannot
         be written in place, and inside it a ``load_state_dict`` of this
         module or a parent drops the cache (a write by other means is not
-        seen)."""
+        seen). Inside ``operands_as_buffers`` it returns the buffers that
+        hold the cached value, whatever the tensors."""
+        if self._pinned is not None:
+            if name not in self._pinned:
+                raise RuntimeError(f"{type(self).__name__} has no cached operand {name}: run the "
+                                   "forward once before operands_as_buffers")
+            value = tuple(getattr(self, b) for b in self._pinned[name])
+            return value if isinstance(self._cache[name][1], tuple) else value[0]
         key = tuple((t.data_ptr(), None if t.is_inference() else t._version) for t in tensors)
         hit = self._cache.get(name)
         if hit is None or hit[0] != key:
@@ -66,6 +82,33 @@ class CachedOperands(nn.Module):
         if torch.is_grad_enabled() and t.requires_grad:
             return t.to(dtype)
         return self._folded(("cast", name, dtype), [t], lambda: t.to(dtype))
+
+
+@contextlib.contextmanager
+def operands_as_buffers(module: nn.Module):
+    """Within the block, the cached operands of every ``CachedOperands``
+    in ``module`` are buffers of their module (``_operand_<i>_<j>``, the
+    j-th tensor of the i-th cached value), and ``_folded`` returns them as
+    they are: a program traced inside (``torch.export``) holds each cast
+    and fold once, as its state, and never recomputes it. The caches must
+    already hold what the traced forward reads (run it once before); a
+    miss raises. On exit the buffers go and the caches work as before."""
+    owners = [m for m in module.modules() if isinstance(m, CachedOperands)]
+    try:
+        for m in owners:
+            m._pinned = {}
+            for i, (name, (_, value)) in enumerate(m._cache.items()):
+                tensors = value if isinstance(value, tuple) else (value,)
+                m._pinned[name] = [f"_operand_{i}_{j}" for j in range(len(tensors))]
+                for buffer, t in zip(m._pinned[name], tensors):
+                    m.register_buffer(buffer, t)
+        yield
+    finally:
+        for m in owners:
+            for buffers in (m._pinned or {}).values():
+                for buffer in buffers:
+                    m._buffers.pop(buffer, None)
+            m._pinned = None
 
 
 class Linear(CachedOperands, nn.Linear):

@@ -5,7 +5,10 @@ stages).
 ``attn_impl`` picks the attention of every ``MultiHeadAttention``:
   * ``"auto"``: the CUDA kernels (``ops.flash_attention.mha``) for every
     call on a CUDA tensor, whether or not autograd is recording, and the
-    plain version for CPU tensors;
+    plain version for CPU tensors, except while ``torch.export`` traces:
+    then ``mha`` on every device, so that an exported program calls the
+    op ``detr_torch::mha_forward`` wherever it was traced and launches the
+    kernel wherever it runs on the card;
   * ``"kernel"``: always ``ops.flash_attention.mha``, which itself takes a
     CPU tensor to its plain reference;
   * ``"plain"``: materialised scores and softmax in PyTorch.
@@ -101,7 +104,7 @@ class MultiHeadAttention(nn.Module):
             seed = torch.randint(0, 2**62, (1,), generator=generator, device=q.device)
         impl = self.attn_impl
         if impl == "auto":
-            impl = "kernel" if q.is_cuda else "plain"
+            impl = "kernel" if q.is_cuda or torch.compiler.is_exporting() else "plain"
         if impl == "kernel" and not return_weights:
             out, attn = flash_attention.mha(q, k, v, key_padding_mask, rate, seed), None
         else:

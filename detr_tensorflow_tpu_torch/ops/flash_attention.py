@@ -32,10 +32,14 @@ replays the forward's mask without storing it. ``keep_mask`` is the same
 generator in PyTorch: the plain version draws its mask from it, so both
 give the same result for the same seed.
 
-``mha`` takes CUDA tensors to the kernels and CPU tensors to
-``reference_mha``; there is no fallback from one to the other. On a CUDA
-tensor under autograd it is a ``torch.autograd.Function`` whose backward is
-the backward kernel; without autograd it launches the forward alone.
+The forward is the custom op ``detr_torch::mha_forward``
+(``ops/library.py``): on CUDA tensors it launches the kernel
+``forward_route`` picks, on CPU tensors it runs ``reference_mha``, and an
+exported program calls it on either. ``mha`` calls it; there is no
+fallback from one device's implementation to the other. On a CUDA tensor
+under autograd, ``_FlashAttention`` wraps the op and its backward is the
+backward kernel; on a CPU tensor under autograd ``mha`` differentiates
+``reference_mha`` itself.
 """
 
 from __future__ import annotations
@@ -44,6 +48,8 @@ import ctypes
 import math
 
 import torch
+
+from . import library
 
 _NEG_INF = -1e30
 _FWD_SOURCE = "flash_attention_fwd.cu"
@@ -146,6 +152,7 @@ def _check(q, k, v, key_padding_mask, dropout_rate, dropout_seed):
         )
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k, v lie on different devices")
+    library.check_device(q, "attention")
     if key_padding_mask is not None:
         if key_padding_mask.dtype != torch.bool:
             raise TypeError("key_padding_mask must be bool (True = padded)")
@@ -425,13 +432,62 @@ def launch_backward_simt(q, k, v, out, dout, lse, key_padding_mask, dropout_seed
     return grads
 
 
+def _cpu_keep(q, k, dropout_seed, dropout_rate):
+    if dropout_rate <= 0.0:
+        return None
+    b, lq, h, _ = q.shape
+    return keep_mask(dropout_seed, b * h, lq, k.shape[1], dropout_rate).view(b, h, lq, k.shape[1])
+
+
+def reference_lse(q, k, key_padding_mask=None):
+    """The row log-sum-exp the forward kernels write, (B * H, Lq) float32:
+    max_j s_ij + log sum_j exp(s_ij - max), -1e30 on padded keys."""
+    b, lq, h, _ = q.shape
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    if key_padding_mask is not None:
+        logits = logits.masked_fill(key_padding_mask[:, None, None, :], _NEG_INF)
+    return torch.logsumexp(logits, dim=-1).reshape(b * h, lq)
+
+
+def _no_lse(q):
+    return q.new_empty((0,), dtype=torch.float32)
+
+
+def _forward_cpu(q, k, v, key_padding_mask, dropout_seed, dropout_rate, with_lse):
+    out = torch.empty_like(q)
+    out.copy_(reference_mha(q, k, v, key_padding_mask, _cpu_keep(q, k, dropout_seed, dropout_rate),
+                            dropout_rate))
+    return out, reference_lse(q, k, key_padding_mask) if with_lse else _no_lse(q)
+
+
+def _forward_cuda(q, k, v, key_padding_mask, dropout_seed, dropout_rate, with_lse):
+    out, lse = launch_forward(q, k, v, key_padding_mask, dropout_seed, dropout_rate, with_lse)
+    return out, _no_lse(q) if lse is None else lse
+
+
+def _forward_fake(q, k, v, key_padding_mask, dropout_seed, dropout_rate, with_lse):
+    b, lq, h, _ = q.shape
+    lse = q.new_empty((b * h, lq), dtype=torch.float32) if with_lse else _no_lse(q)
+    return torch.empty_like(q), lse
+
+
+forward_op = library.define(
+    "mha_forward",
+    "(Tensor q, Tensor k, Tensor v, Tensor? key_padding_mask, Tensor? dropout_seed, "
+    "float dropout_rate, bool with_lse) -> (Tensor, Tensor)",
+    cpu=_forward_cpu, cuda=_forward_cuda, fake=_forward_fake)
+"""``detr_torch::mha_forward``: kernel A's forward, (out, lse); lse is
+(B * H, Lq) float32 with ``with_lse``, else empty."""
+
+
 class _FlashAttention(torch.autograd.Function):
-    """The kernels under autograd: the forward saves its row log-sum-exp,
-    the backward kernel recomputes the softmax and replays the dropout."""
+    """The kernels under autograd: the forward op saves its row
+    log-sum-exp, the backward kernel recomputes the softmax and replays the
+    dropout."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_padding_mask, dropout_seed, dropout_rate):
-        out, lse = launch_forward(q, k, v, key_padding_mask, dropout_seed, dropout_rate, True)
+        out, lse = forward_op(q, k, v, key_padding_mask, dropout_seed, dropout_rate, True)
         ctx.save_for_backward(q, k, v, out, lse, key_padding_mask, dropout_seed)
         ctx.dropout_rate = dropout_rate
         return out
@@ -461,22 +517,18 @@ def mha(q, k, v, key_padding_mask=None, dropout_rate: float = 0.0, dropout_seed=
     autograd the backward on the route ``backward_route`` picks
     (``mha.backward_mma_launches`` for the 3xTF32 tensor-core kernel,
     ``mha.backward_bf16_launches`` for the bf16 tensor-core kernel,
-    ``mha.backward_launches`` for the SIMT kernel). A CPU tensor goes to
-    ``reference_mha``; any other device raises.
+    ``mha.backward_launches`` for the SIMT kernel). Without autograd every
+    device goes through the op ``detr_torch::mha_forward``, which runs
+    ``reference_mha`` on a CPU tensor and raises on any other device.
     """
     _check(q, k, v, key_padding_mask, dropout_rate, dropout_seed)
-    if q.device.type == "cpu":
-        keep = None
-        if dropout_rate > 0.0:
-            b, lq, h, _ = q.shape
-            keep = keep_mask(dropout_seed, b * h, lq, k.shape[1], dropout_rate)
-            keep = keep.view(b, h, lq, k.shape[1])
-        return reference_mha(q, k, v, key_padding_mask, keep, dropout_rate)
-    if q.device.type != "cuda":
-        raise ValueError(f"no attention kernel for device {q.device}")
+    rate = float(dropout_rate)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, key_padding_mask, dropout_seed, float(dropout_rate))
-    return launch_forward(q, k, v, key_padding_mask, dropout_seed, dropout_rate, False)[0]
+        if q.device.type == "cpu":
+            return reference_mha(q, k, v, key_padding_mask,
+                                 _cpu_keep(q, k, dropout_seed, rate), rate)
+        return _FlashAttention.apply(q, k, v, key_padding_mask, dropout_seed, rate)
+    return forward_op(q, k, v, key_padding_mask, dropout_seed, rate, False)[0]
 
 
 mha.launches = 0

@@ -33,9 +33,11 @@ runs on no path; ``launch_simt`` calls it at either dtype, for timing.
 ``fused_bottleneck.launches`` count their launches.
 
 Inference only, as in the JAX package (no VJP): the function raises when
-autograd would record it. A CUDA tensor launches a kernel and a CPU
-tensor takes the plain version; there is no fallback from one to the
-other, and a failed build or launch raises.
+autograd would record it. It calls the custom op
+``detr_torch::fused_bottleneck`` (``ops/library.py``): a CUDA tensor
+launches the kernel ``route`` picks and a CPU tensor takes the plain
+version; there is no fallback from one to the other, and a failed build or
+launch raises.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from . import library
 from .fused_residual import DTYPES, check_inference
 
 _SOURCE, _MMA_SOURCE = "fused_bottleneck.cu", "fused_bottleneck_mma.cu"
@@ -201,6 +204,7 @@ def _check(x, w1t, b1, w2t, b2, w3t, b3):
             raise ValueError(f"{name} must be float32 ({k},), got {v.dtype} {tuple(v.shape)}")
     if len({t.device for t in operands}) != 1:
         raise ValueError("operands lie on different devices")
+    library.check_device(x, "fused bottleneck")
 
 
 def _check_kernel_inputs(x, *weights):
@@ -221,13 +225,29 @@ def fused_bottleneck(x, w1t, b1, w2t, b2, w3t, b3):
     W) in x's dtype and memory format. A CPU tensor takes the plain
     version, a CUDA tensor the kernel ``route`` picks.
     """
-    operands = (x, w1t, b1, w2t, b2, w3t, b3)
-    if x.device.type == "cpu":
-        _check(*operands)
-        return reference_fused_bottleneck(*operands)
-    if route(x.dtype) == "mma":
+    _check(x, w1t, b1, w2t, b2, w3t, b3)
+    return bottleneck_op(x, w1t, b1, w2t, b2, w3t, b3)
+
+
+def _output(x, *weights):
+    return torch.empty_like(x)
+
+
+def _bottleneck_cpu(*operands):
+    return _output(*operands).copy_(reference_fused_bottleneck(*operands))
+
+
+def _bottleneck_cuda(*operands):
+    if route(operands[0].dtype) == "mma":
         return launch_mma(*operands)
     return launch_tf32(*operands)
+
+
+bottleneck_op = library.define(
+    "fused_bottleneck",
+    "(Tensor x, Tensor w1t, Tensor b1, Tensor w2t, Tensor b2, Tensor w3t, Tensor b3) -> Tensor",
+    cpu=_bottleneck_cpu, cuda=_bottleneck_cuda, fake=_output)
+"""``detr_torch::fused_bottleneck``: kernel E, out in x's memory format."""
 
 
 def launch_simt(x, w1t, b1, w2t, b2, w3t, b3):

@@ -24,9 +24,11 @@ either dtype, for timing. ``conv1x1_bn_residual_relu.tf32_launches``,
 ``.mma_launches`` and ``.launches`` count their launches.
 
 Inference only, as in the JAX package (no VJP): the function raises when
-autograd would record it. A CUDA tensor launches a kernel and a CPU tensor
-takes the plain version; there is no fallback from one to the other, and a
-failed build or launch raises.
+autograd would record it. It calls the custom op
+``detr_torch::conv1x1_bn_residual_relu`` (``ops/library.py``): a CUDA
+tensor launches the kernel ``route`` picks and a CPU tensor takes the plain
+version; there is no fallback from one to the other, and a failed build or
+launch raises.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+
+from . import library
 
 _SOURCE, _MMA_SOURCE, _TF32_SOURCE = ("fused_residual.cu", "fused_residual_mma.cu",
                                       "fused_residual_tf32.cu")
@@ -113,6 +117,7 @@ def _check(x, weight, scale, shift, identity):
             raise ValueError(f"{name} must be float32 ({cout},), got {v.dtype} {tuple(v.shape)}")
     if len({t.device for t in (x, weight, scale, shift, identity)}) != 1:
         raise ValueError("operands lie on different devices")
+    library.check_device(x, "fused residual")
 
 
 def _check_kernel_inputs(x, weight, scale, shift, identity):
@@ -131,8 +136,7 @@ def _launch(source, operands, *args):
     x, weight, scale, shift, identity = operands
     b, cin, h, w = x.shape
     cout = weight.shape[0]
-    out = torch.empty((b, cout, h, w), device=x.device, dtype=x.dtype,
-                      memory_format=torch.channels_last)
+    out = _output(*operands)
     name = _ENTRIES[source]
     with torch.cuda.device(x.device):
         err = _entry(source, name, 2 + len(args))(
@@ -155,13 +159,31 @@ def conv1x1_bn_residual_relu(x, weight, scale, shift, identity):
     channels_last. A CPU tensor takes the plain version, a CUDA tensor the
     kernel ``route`` picks.
     """
-    operands = (x, weight, scale, shift, identity)
-    _check(*operands)
-    if x.device.type == "cpu":
-        return reference_conv1x1_bn_residual_relu(*operands)
-    if route(x.dtype) == "mma":
+    _check(x, weight, scale, shift, identity)
+    return residual_op(x, weight, scale, shift, identity)
+
+
+def _output(x, weight, scale, shift, identity):
+    b, _, h, w = x.shape
+    return torch.empty((b, weight.shape[0], h, w), device=x.device, dtype=x.dtype,
+                       memory_format=torch.channels_last)
+
+
+def _residual_cpu(*operands):
+    return _output(*operands).copy_(reference_conv1x1_bn_residual_relu(*operands))
+
+
+def _residual_cuda(*operands):
+    if route(operands[0].dtype) == "mma":
         return launch_mma(*operands)
     return launch_tf32(*operands)
+
+
+residual_op = library.define(
+    "conv1x1_bn_residual_relu",
+    "(Tensor x, Tensor weight, Tensor scale, Tensor shift, Tensor identity) -> Tensor",
+    cpu=_residual_cpu, cuda=_residual_cuda, fake=_output)
+"""``detr_torch::conv1x1_bn_residual_relu``: kernel D, channels_last out."""
 
 
 def launch_simt(x, weight, scale, shift, identity):

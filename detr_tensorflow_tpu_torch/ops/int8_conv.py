@@ -11,11 +11,12 @@ pad 1 read as zeros, int32 accumulation over the nine taps, then the
 epilogue of ``ops/int8_matmul.py``. The CUDA source is
 ``csrc/int8_conv.cu``.
 
-A CUDA tensor launches the kernel (C a multiple of 64, K of 8) and a CPU
-tensor takes the plain version; there is no fallback from one to the
-other. ``plan`` picks the kernel's configuration (output patch, cluster)
-from the shape alone. ``conv3x3_int8.launches`` counts kernel launches per
-stride.
+``conv3x3_int8`` calls the custom op ``detr_torch::int8_conv3x3``
+(``ops/library.py``): a CUDA tensor launches the kernel (C a multiple of 64,
+K of 8) and a CPU tensor takes the plain version; there is no fallback from
+one to the other. ``plan`` picks the kernel's configuration (output patch,
+cluster) from the shape alone, inside the op. ``conv3x3_int8.launches``
+counts kernel launches per stride.
 
 DC5's dilated 3x3s (dilation 2, stride 1) do not go through the kernel,
 as in the JAX package, which gives them to XLA's int8 convolution
@@ -33,6 +34,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from . import library
 from .int8_matmul import OUT_DTYPES, check_kernel_operands, epilogue
 
 _SOURCE = "int8_conv.cu"
@@ -167,15 +169,28 @@ def conv3x3_int8(x, w, scale, bias=None, *, stride=1, relu=False, out_dtype=torc
         raise TypeError(f"out_dtype must be one of {OUT_DTYPES}, got {out_dtype}")
     if len({t.device for t in (x, w, scale, bias)}) != 1:
         raise ValueError("operands lie on different devices")
-    kw = dict(stride=stride, relu=relu, out_dtype=out_dtype, precise=precise)
-    if x.device.type == "cpu":
-        return reference_conv3x3_int8(x, w, scale, bias, **kw)
-    if x.device.type != "cuda":
-        raise ValueError(f"no int8 conv kernel for device {x.device}")
+    library.check_device(x, "int8 conv")
+    return conv_op(x, w, scale, bias, stride, relu, out_dtype, precise)
+
+
+def _output(x, w, stride, out_dtype):
+    n, h, width, _ = x.shape
+    return x.new_empty((n, (h - 1) // stride + 1, (width - 1) // stride + 1, w.shape[0]),
+                       dtype=out_dtype)
+
+
+def _conv_cpu(x, w, scale, bias, stride, relu, out_dtype, precise):
+    out = reference_conv3x3_int8(x, w, scale, bias, stride=stride, relu=relu, out_dtype=out_dtype,
+                                 precise=precise)
+    return _output(x, w, stride, out_dtype).copy_(out)
+
+
+def _conv_cuda(x, w, scale, bias, stride, relu, out_dtype, precise):
+    n, h, width, c = x.shape
+    k = w.shape[0]
     p = plan(n, h, width, c, k, stride)
     check_kernel_operands(x, w, scale, bias)
-    out = torch.empty((n, (h - 1) // stride + 1, (width - 1) // stride + 1, k), device=x.device,
-                      dtype=out_dtype)
+    out = _output(x, w, stride, out_dtype)
     with torch.cuda.device(x.device):
         err = _library().int8_conv3x3(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
@@ -187,6 +202,18 @@ def conv3x3_int8(x, w, scale, bias=None, *, stride=1, relu=False, out_dtype=torc
         raise RuntimeError(f"int8_conv3x3 launch failed: cudaError {err}")
     conv3x3_int8.launches[stride] += 1
     return out
+
+
+def _conv_fake(x, w, scale, bias, stride, relu, out_dtype, precise):
+    return _output(x, w, stride, out_dtype)
+
+
+conv_op = library.define(
+    "int8_conv3x3",
+    "(Tensor x, Tensor w, Tensor scale, Tensor bias, int stride, bool relu, ScalarType out_dtype, "
+    "bool precise) -> Tensor",
+    cpu=_conv_cpu, cuda=_conv_cuda, fake=_conv_fake)
+"""``detr_torch::int8_conv3x3``: kernel G, NHWC out."""
 
 
 conv3x3_int8.launches = {s: 0 for s in STRIDES}

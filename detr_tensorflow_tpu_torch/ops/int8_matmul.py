@@ -16,10 +16,13 @@ row k holds output channel k (``models/weights.py:from_jax_quant`` converts
 the JAX package's HWIO kernels once). The CUDA source is
 ``csrc/int8_matmul.cu``, the epilogue ``csrc/int8_common.cuh``.
 
-A CUDA tensor launches the kernel (C and Cd multiples of 64, K of 8) and a
-CPU tensor takes the plain version; there is no fallback from one to the
-other. ``plan`` picks the kernel's configuration from the shape alone.
-``<fn>.launches`` counts each entry point's kernel launches.
+The three entry points call one custom op, ``detr_torch::int8_matmul``
+(``ops/library.py``), on the flattened (M, C) rows; which optional
+operands it gets picks the epilogue. A CUDA tensor launches the kernel (C
+and Cd multiples of 64, K of 8) and a CPU tensor takes the plain version;
+there is no fallback from one to the other. ``plan`` picks the kernel's
+configuration from the shape alone, inside the op. ``<fn>.launches`` counts
+each entry point's kernel launches.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ import ctypes
 from typing import NamedTuple
 
 import torch
+
+from . import library
 
 _SOURCE = "int8_matmul.cu"
 _CHUNK = 64  # the kernel's contraction granule (C % 64 == 0)
@@ -144,6 +149,7 @@ def _check(x, w, scale, bias, out_dtype, what="x"):
     devices = {t.device for t in (x, w, scale, bias)}
     if len(devices) != 1:
         raise ValueError(f"operands lie on different devices: {devices}")
+    library.check_device(x, "int8 matmul")
 
 
 def check_kernel_operands(*tensors):
@@ -180,7 +186,7 @@ def _launch(variant, x, w, scale, bias, res, res_scale, xd, wd, scale_d, bias_d,
     cd = 0 if xd is None else xd.shape[1]
     cluster = plan(m, c, k, cd).cluster
     check_kernel_operands(x, w, scale, bias, res, res_scale, xd, wd, scale_d, bias_d)
-    out = torch.empty((m, k), device=x.device, dtype=out_dtype)
+    out = _matmul_output(x, w, out_dtype)
     with torch.cuda.device(x.device):
         err = _library().int8_matmul(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), _ptr(res),
@@ -193,10 +199,46 @@ def _launch(variant, x, w, scale, bias, res, res_scale, xd, wd, scale_d, bias_d,
     return out
 
 
-def _route(x):
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no int8 matmul kernel for device {x.device}")
-    return x.device.type == "cuda"
+def _matmul_cpu(x, w, scale, bias, res, res_scale, xd, wd, scale_d, bias_d, relu, out_dtype,
+                precise):
+    kw = dict(relu=relu, out_dtype=out_dtype, precise=precise)
+    if xd is not None:
+        out = reference_qmatmul_residual2(x, w, scale, bias, xd, wd, scale_d, bias_d, **kw)
+    elif res is not None:
+        out = reference_qmatmul_residual(x, w, scale, bias, res, res_scale, **kw)
+    else:
+        out = reference_qmatmul(x, w, scale, bias, **kw)
+    return _matmul_output(x, w, out_dtype).copy_(out)
+
+
+def _matmul_cuda(x, w, scale, bias, res, res_scale, xd, wd, scale_d, bias_d, relu, out_dtype,
+                 precise):
+    variant, entry = ((_RESIDUAL2, qmatmul_residual2) if xd is not None else
+                      (_RESIDUAL, qmatmul_residual) if res is not None else (_PLAIN, qmatmul))
+    out = _launch(variant, x, w, scale, bias, res, res_scale, xd, wd, scale_d, bias_d, relu=relu,
+                  out_dtype=out_dtype, precise=precise)
+    entry.launches += 1
+    return out
+
+
+def _matmul_output(x, w, out_dtype):
+    return x.new_empty((x.shape[0], w.shape[0]), dtype=out_dtype)
+
+
+def _matmul_fake(x, w, scale, bias, res, res_scale, xd, wd, scale_d, bias_d, relu, out_dtype,
+                 precise):
+    return _matmul_output(x, w, out_dtype)
+
+
+matmul_op = library.define(
+    "int8_matmul",
+    "(Tensor x, Tensor w, Tensor scale, Tensor bias, Tensor? res, Tensor? res_scale, Tensor? xd, "
+    "Tensor? wd, Tensor? scale_d, Tensor? bias_d, bool relu, ScalarType out_dtype, bool precise)"
+    " -> Tensor",
+    cpu=_matmul_cpu, cuda=_matmul_cuda, fake=_matmul_fake)
+"""``detr_torch::int8_matmul``: kernel F on (M, C) rows, (M, K) out; ``xd``
+given is ``qmatmul_residual2``'s epilogue, else ``res`` given is
+``qmatmul_residual``'s, else ``qmatmul``'s."""
 
 
 def reference_qmatmul(x, w, scale, bias, *, relu=True, out_dtype=torch.int8, precise=True):
@@ -227,11 +269,8 @@ def reference_qmatmul_residual2(x, w, scale, bias, xd, wd, scale_d, bias_d, *, r
 def qmatmul(x, w, scale, bias, *, relu=True, out_dtype=torch.int8, precise=True):
     """q(relu(x @ w^T * scale + bias)): int8 (..., C) x (K, C) -> (..., K)."""
     _check(x, w, scale, bias, out_dtype)
-    kw = dict(relu=relu, out_dtype=out_dtype, precise=precise)
-    if not _route(x):
-        return reference_qmatmul(x, w, scale, bias, **kw)
-    out = _launch(_PLAIN, _flat(x), w, scale, bias, None, None, None, None, None, None, **kw)
-    qmatmul.launches += 1
+    out = matmul_op(_flat(x), w, scale, bias, None, None, None, None, None, None, relu,
+                    out_dtype, precise)
     return out.reshape(*x.shape[:-1], -1)
 
 
@@ -247,12 +286,8 @@ def qmatmul_residual(x, w, scale, bias, res, res_scale, *, relu=True, out_dtype=
                          f"{tuple(res.shape)}")
     if res_scale.dtype != torch.float32 or res_scale.numel() != 1:
         raise ValueError("res_scale must be one float32 element")
-    kw = dict(relu=relu, out_dtype=out_dtype, precise=precise)
-    if not _route(x):
-        return reference_qmatmul_residual(x, w, scale, bias, res, res_scale, **kw)
-    out = _launch(_RESIDUAL, _flat(x), w, scale, bias, _flat(res), res_scale.reshape(()),
-                  None, None, None, None, **kw)
-    qmatmul_residual.launches += 1
+    out = matmul_op(_flat(x), w, scale, bias, _flat(res), res_scale.reshape(()), None, None,
+                    None, None, relu, out_dtype, precise)
     return out.reshape(*x.shape[:-1], -1)
 
 
@@ -266,12 +301,8 @@ def qmatmul_residual2(x, w, scale, bias, xd, wd, scale_d, bias_d, *, relu=True,
     if xd.shape[:-1] != x.shape[:-1] or wd.shape[0] != w.shape[0]:
         raise ValueError(f"xd {tuple(xd.shape)} / wd {tuple(wd.shape)} do not match x "
                          f"{tuple(x.shape)} / w {tuple(w.shape)}")
-    kw = dict(relu=relu, out_dtype=out_dtype, precise=precise)
-    if not _route(x):
-        return reference_qmatmul_residual2(x, w, scale, bias, xd, wd, scale_d, bias_d, **kw)
-    out = _launch(_RESIDUAL2, _flat(x), w, scale, bias, None, None, _flat(xd), wd, scale_d,
-                  bias_d, **kw)
-    qmatmul_residual2.launches += 1
+    out = matmul_op(_flat(x), w, scale, bias, None, None, _flat(xd), wd, scale_d, bias_d, relu,
+                    out_dtype, precise)
     return out.reshape(*x.shape[:-1], -1)
 
 

@@ -9,10 +9,12 @@ in memory, the TPU kernel's layout). The CUDA source is
 ``csrc/maxpool.cu``.
 
 ``max_pool_3x3_s2(x, nonneg=True)`` is the stem's call: its input is
-post-ReLU, so x >= 0, the TPU kernel's contract. A CUDA tensor launches
-kernel C (which equals ``F.max_pool2d(x, 3, 2, 1)`` bit for bit at any H
-and W; float32 or bfloat16, any other dtype raises); a CPU tensor takes the
-plain version; there is no fallback from one to the other. ``nonneg=False`` is the general pool, ``F.max_pool2d``
+post-ReLU, so x >= 0, the TPU kernel's contract. It calls the custom op
+``detr_torch::max_pool_3x3_s2`` (``ops/library.py``), whose output is
+channels_last on every device: a CUDA tensor launches kernel C (which
+equals ``F.max_pool2d(x, 3, 2, 1)`` bit for bit at any H and W; float32 or
+bfloat16, any other dtype raises); a CPU tensor takes the plain version;
+there is no fallback from one to the other. ``nonneg=False`` is the general pool, ``F.max_pool2d``
 on any device, as the JAX package keeps XLA's ``reduce_window`` there.
 Both give the gradient of the JAX custom VJP: the first maximum in
 row-major window order takes the whole gradient. ``max_pool_3x3_s2.
@@ -25,6 +27,8 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+
+from . import library
 
 _SOURCE = "maxpool.cu"
 DTYPES = (torch.float32, torch.bfloat16)
@@ -46,21 +50,31 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _forward(x: torch.Tensor) -> torch.Tensor:
+def _check(x: torch.Tensor) -> None:
     if x.dim() != 4 or not x.is_floating_point():
         raise TypeError(f"x must be a floating (B, C, H, W) tensor, got {x.dtype} "
                         f"{tuple(x.shape)}")
-    if x.device.type == "cpu":
-        return reference_max_pool_3x3_s2(x)  # any float dtype: float64 for diagnosis
-    if x.device.type != "cuda":
-        raise ValueError(f"no max pool kernel for device {x.device}")
+    library.check_device(x, "max pool")
+
+
+def _output(x: torch.Tensor) -> torch.Tensor:
+    b, c, h, w = x.shape
+    return torch.empty((b, c, (h - 1) // 2 + 1, (w - 1) // 2 + 1), device=x.device,
+                       dtype=x.dtype, memory_format=torch.channels_last)
+
+
+def _pool_cpu(x: torch.Tensor) -> torch.Tensor:
+    # any float dtype: float64 for diagnosis
+    return _output(x).copy_(reference_max_pool_3x3_s2(x))
+
+
+def _pool_cuda(x: torch.Tensor) -> torch.Tensor:
     if x.dtype not in DTYPES:
         raise TypeError(f"the max pool kernel takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("the max pool kernel takes a channels_last tensor")
     b, c, h, w = x.shape
-    out = torch.empty((b, c, (h - 1) // 2 + 1, (w - 1) // 2 + 1), device=x.device, dtype=x.dtype,
-                      memory_format=torch.channels_last)
+    out = _output(x)
     if out.numel() == 0:
         return out
     with torch.cuda.device(x.device):
@@ -71,6 +85,11 @@ def _forward(x: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"max_pool_3x3_s2 launch failed: cudaError {err}")
     max_pool_3x3_s2.launches += 1
     return out
+
+
+pool_op = library.define("max_pool_3x3_s2", "(Tensor x) -> Tensor", cpu=_pool_cpu,
+                         cuda=_pool_cuda, fake=_output)
+"""``detr_torch::max_pool_3x3_s2``: kernel C, channels_last out."""
 
 
 def _first_max_backward(x: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
@@ -87,7 +106,7 @@ class _NonnegMaxPool(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         ctx.save_for_backward(x)
-        return _forward(x)
+        return pool_op(x)
 
     @staticmethod
     def backward(ctx, grad):
@@ -105,7 +124,10 @@ def max_pool_3x3_s2(x: torch.Tensor, nonneg: bool = False) -> torch.Tensor:
     """
     if not nonneg:
         return reference_max_pool_3x3_s2(x)
-    return _NonnegMaxPool.apply(x)
+    _check(x)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _NonnegMaxPool.apply(x)
+    return pool_op(x)
 
 
 max_pool_3x3_s2.launches = 0

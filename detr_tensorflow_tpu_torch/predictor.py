@@ -12,6 +12,12 @@ carries a bool mask at its image's size: the stride-4 mask probabilities,
 zeroed outside the valid stride-4 cells, cropped to them, resized
 bilinearly to the image and thresholded, all on the model's device; only
 the bool masks come back (``inference.mask_probs``, ``kept_masks``).
+
+Each bucket's device work is one program, ``_get_program(shape, masked)``:
+frames (and a pixel mask) in, the postprocessed detections (and mask
+probabilities) out. The live Predictor's program is ``serve_forward``, the
+model's forward at any shape; ``export.ExportedPredictor`` overrides
+``_get_program`` with the programs of an artifact, and shares the rest.
 """
 
 from __future__ import annotations
@@ -75,6 +81,13 @@ class Predictor:
             self._shift = torch.as_tensor(CAFFE_MEAN, device=device)
             self._scale = None
 
+    @property
+    def unmasked_route(self) -> bool:
+        """Whether a batch that fills its bucket (run without a pixel mask)
+        takes other kernels than a masked one: kernel E runs only
+        unmasked, so a ``fuse_bottleneck`` model does."""
+        return bool(self.model.module.fuse_bottleneck)
+
     def normalize(self, frames: torch.Tensor) -> torch.Tensor:
         """uint8 (B, H, W, 3) frames on the device -> normalized float32."""
         x = frames.float()
@@ -86,22 +99,38 @@ class Predictor:
         d = self.bucket_divisor
         return ((h + d - 1) // d) * d, ((w + d - 1) // d) * d
 
+    def serve_forward(self, frames: torch.Tensor, pixel_mask: Optional[torch.Tensor] = None):
+        """The device work of one batch: uint8 (B, H, W, 3) ``frames`` and an
+        optional bool (B, H, W) ``pixel_mask`` on the model's device ->
+        (``inference.postprocess``'s (boxes, labels, scores, keep), mask
+        probabilities or None). Call it without autograd (``_run`` holds
+        inference mode; ``export.export_predictor`` traces it under no_grad)."""
+        x = self.normalize(frames)
+        if pixel_mask is not None:
+            # Zero padded pixels after normalization: the model's
+            # padding invariance assumes zeros there, like the
+            # implicit padding of an unpadded SAME convolution.
+            x = x * pixel_mask[..., None]
+        outputs = self.model.module(x, pixel_mask)
+        post = inference.postprocess(outputs, self.background_class, self.bbox_format)
+        if not self.masks:
+            return post, None
+        return post, inference.mask_probs(outputs["pred_masks"], pixel_mask)
+
+    def _get_program(self, shape: Tuple[int, int], masked: bool):
+        """The program that serves bucket ``shape``: called with the frames,
+        and with the pixel mask when ``masked``, as ``serve_forward`` is.
+        The live model serves every bucket with ``serve_forward``."""
+        return self.serve_forward
+
     def _run(self, frames: np.ndarray, masks: Optional[np.ndarray]):
         device = self.model.device
         with torch.inference_mode():
-            x = self.normalize(torch.from_numpy(frames).to(device))
-            pixel_mask = None
+            program = self._get_program(frames.shape[1:3], masks is not None)
+            inputs = [torch.from_numpy(frames).to(device)]
             if masks is not None:
-                pixel_mask = torch.from_numpy(masks).to(device)
-                # Zero padded pixels after normalization: the model's
-                # padding invariance assumes zeros there, like the
-                # implicit padding of an unpadded SAME convolution.
-                x = x * pixel_mask[..., None]
-            outputs = self.model(x, pixel_mask)
-            post = inference.postprocess(outputs, self.background_class, self.bbox_format)
-            if not self.masks:
-                return post, None
-            return post, inference.mask_probs(outputs["pred_masks"], pixel_mask)
+                inputs.append(torch.from_numpy(masks).to(device))
+            return program(*inputs)
 
     def warmup(self, shapes: Sequence[Tuple[int, int]]) -> None:
         """Run each (height, width) bucket once on zeros, so the first
@@ -119,7 +148,7 @@ class Predictor:
             if probs is not None:
                 inference.kept_masks(probs[0], np.ones(probs.shape[1], bool), h, w,
                                      self.mask_threshold)
-            if self.model.module.fuse_bottleneck:
+            if self.unmasked_route:
                 self._run(frames, None)
             self.buckets.add((ph, pw))
 

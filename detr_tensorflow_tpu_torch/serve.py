@@ -10,6 +10,7 @@ repository's ``serve.py``), stdlib ``http.server`` only.
 Usage:
   python -m detr_tensorflow_tpu_torch.serve --port 8000 [--weights detr.npz]
       [--dtype bfloat16] [--warmup 480x640,800x1333] [--masks]
+  python -m detr_tensorflow_tpu_torch.serve --artifact DIR [--device cuda]
 
 ``--weights`` takes any local checkpoint ``models.weights.load_weights``
 reads: a JAX-format ``.npz`` (``DetrModel.save``), or a facebook or
@@ -19,6 +20,12 @@ weights at full DETR-R50 width, which serves the path but detects nothing
 real. ``--masks`` serves the segmentation model: each detection carries its
 instance mask at the image's size as COCO's uncompressed RLE
 (``mask_rle``, column-major counts starting with a background run).
+
+``--artifact DIR`` serves a directory ``export.export_predictor`` wrote,
+loaded onto ``--device`` by ``export.load_predictor``: no model is built
+and no weights are converted, and the model's flags (dtype, masks, bucket
+divisor) are the artifact's. Without ``--score_threshold`` the artifact's
+threshold applies (0.5 otherwise).
 """
 
 from __future__ import annotations
@@ -149,13 +156,12 @@ def make_server(service: DetrService, host: str = "0.0.0.0",
 
 def main(argv=None):
     from .data import COCO_CLASS_NAME
-    from .models import get_detr_model
-    from .predictor import Predictor
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8000)
-    parser.add_argument("--score_threshold", type=float, default=0.5)
+    parser.add_argument("--score_threshold", type=float, default=None,
+                        help="default 0.5; with --artifact, unset keeps the artifact's threshold")
     parser.add_argument("--bucket_divisor", type=int, default=128)
     parser.add_argument("--weights", default=None,
                         help="a local checkpoint (.npz, .pth, .pt, .bin); default: seeded "
@@ -167,14 +173,28 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--warmup", default="",
                         help="comma-separated HxW sizes to run once, e.g. 480x640,800x1333")
+    parser.add_argument("--artifact", default="",
+                        help="serve an export_predictor directory instead of building the "
+                             "model: no model code, no weight conversion at start-up")
     args = parser.parse_args(argv)
 
-    model = get_detr_model(None, include_top=True, weights=args.weights,
-                           dtype=args.dtype, seed=args.seed, device=args.device,
-                           masks=args.masks)
-    predictor = Predictor(model, background_class=91,
-                          bucket_divisor=args.bucket_divisor,
-                          score_threshold=args.score_threshold, masks=args.masks)
+    if args.artifact:
+        from .export import load_predictor
+
+        predictor = load_predictor(args.artifact, device=args.device)
+        if args.score_threshold is not None:
+            predictor.score_threshold = args.score_threshold
+    else:
+        from .models import get_detr_model
+        from .predictor import Predictor
+
+        model = get_detr_model(None, include_top=True, weights=args.weights,
+                               dtype=args.dtype, seed=args.seed, device=args.device,
+                               masks=args.masks)
+        predictor = Predictor(
+            model, background_class=91, bucket_divisor=args.bucket_divisor,
+            score_threshold=0.5 if args.score_threshold is None else args.score_threshold,
+            masks=args.masks)
     service = DetrService(predictor, COCO_CLASS_NAME)
     if args.warmup:
         shapes = [tuple(map(int, s.split("x"))) for s in args.warmup.split(",")]

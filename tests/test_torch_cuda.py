@@ -1659,3 +1659,156 @@ def test_device_merge_matches_np_merge_full_res(cuda_device, hw, kept):
     far = (top2[..., 1] - top2[..., 0] > 1e-5) & (np.abs(best_prob - 0.5) > 1e-5)
     assert far.mean() > 0.9
     np.testing.assert_array_equal(got[far], want[far])
+
+
+# Serving artifacts: the kernels on the serving paths are torch.library ops.
+def _opcheck_cases(device):
+    g = torch.Generator(device=device).manual_seed(0)
+
+    def r(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g, device=device).to(dtype)
+
+    def i8(*shape, low=-128):
+        return torch.randint(low, 128, shape, generator=g, dtype=torch.int8, device=device)
+
+    q, k, v = r(2, 100, 8, 32), r(2, 160, 8, 32), r(2, 160, 8, 32)
+    kpm = torch.zeros(2, 160, dtype=torch.bool, device=device)
+    kpm[1, 120:] = True
+    cl = torch.channels_last
+    seed = torch.tensor([11], device=device)
+    m, c = 256, 128
+    scale, bias = (r(c).abs() + 0.5) * 1e-3, r(c)
+    cases = {
+        "mha_forward": [(q, k, v, kpm, None, 0.0, False), (q, k, v, None, None, 0.0, True),
+                        (q, k, v, kpm, seed, 0.1, True)]
+        + [(q.bfloat16(), k.bfloat16(), v.bfloat16(), kpm, s, p, lse)
+           for s, p, lse in ((None, 0.0, False), (seed, 0.1, True))],
+        "max_pool_3x3_s2": [(r(1, 64, 37, 50).relu().contiguous(memory_format=cl).to(dt),)
+                            for dt in (torch.float32, torch.bfloat16)],
+        "conv1x1_bn_residual_relu": [
+            (r(1, 128, 12, 20).contiguous(memory_format=cl).to(dt), (r(256, 128) * 0.1).to(dt),
+             r(256), r(256), r(1, 256, 12, 20).contiguous(memory_format=cl).to(dt))
+            for dt in (torch.float32, torch.bfloat16)],
+        "fused_bottleneck": [
+            (r(1, 256, 16, 24).contiguous(memory_format=cl).to(dt), (r(256, 64) * 0.05).to(dt),
+             r(64), (r(9, 64, 64) * 0.05).to(dt), r(64), (r(64, 256) * 0.05).to(dt), r(256))
+            for dt in (torch.float32, torch.bfloat16)],
+        "int8_matmul": [
+            (i8(m, c, low=0), i8(c, c), scale, bias, None, None, None, None, None, None, True,
+             torch.int8, True),
+            (i8(m, c, low=0), i8(c, c), scale, bias, i8(m, c, low=0), torch.tensor(0.02).to(device),
+             None, None, None, None, True, torch.bfloat16, False),
+            (i8(m, c, low=0), i8(c, c), scale, bias, None, None, i8(m, c), i8(c, c), scale, bias,
+             True, torch.int8, True)],
+        "int8_conv3x3": [(i8(1, 16, 24, c, low=0), i8(64, 3, 3, c), scale[:64], bias[:64], s,
+                          True, torch.int8, True) for s in (1, 2)],
+    }
+    return cases
+
+
+@pytest.mark.parametrize("name", ["mha_forward", "max_pool_3x3_s2", "conv1x1_bn_residual_relu",
+                                  "fused_bottleneck", "int8_matmul", "int8_conv3x3"])
+def test_op_fake_agrees_with_the_kernel(cuda_device, name):
+    """``torch.library.opcheck`` on CUDA tensors: the fake implementation
+    gives the kernel's output shapes, dtypes and strides (channels_last for
+    C, D and E), and the op's schema, autograd registration and traced
+    dispatch hold."""
+    op = getattr(torch.ops.detr_torch, name).default
+    for args in _opcheck_cases(cuda_device)[name]:
+        torch.library.opcheck(op, args)
+        out = op(*args)
+        fake = op(*(a.to("meta") if isinstance(a, torch.Tensor) else a for a in args))
+        for o, f in zip(out if isinstance(out, tuple) else (out,),
+                        fake if isinstance(fake, tuple) else (fake,)):
+            assert (o.shape, o.dtype, o.stride()) == (f.shape, f.dtype, f.stride())
+
+
+def _artifact_counts():
+    d, e = fused_residual.conv1x1_bn_residual_relu, fused_bottleneck.fused_bottleneck
+    return {"A-tf32": fa.mha.tf32_launches, "A-mma": fa.mha.mma_launches, "A": fa.mha.launches,
+            "C": maxpool.max_pool_3x3_s2.launches, "D-tf32": d.tf32_launches,
+            "D-mma": d.mma_launches, "E-tf32": e.tf32_launches, "E-mma": e.mma_launches}
+
+
+def _request_counts(pred, images):
+    before = _artifact_counts()
+    dets = pred(images)
+    torch.cuda.synchronize()
+    return dets, {k: v - before[k] for k, v in _artifact_counts().items() if v != before[k]}
+
+
+@pytest.mark.parametrize("dtype,flags", [
+    ("float32", {}), ("bfloat16", dict(fuse_residual=True, fuse_bottleneck=True))])
+def test_artifact_on_the_card_equals_the_live_predictor(cuda_device, tmp_path, dtype, flags):
+    """A reduced-depth model's artifact exported, loaded and served on the
+    card: the live Predictor's detections, bit for bit, and its launches
+    per request (fused: a bucket-exact request runs the unmasked program,
+    kernel E, a padded one the masked program, kernel D only)."""
+    from detr_tensorflow_tpu_torch.export import export_predictor, load_predictor
+    from detr_tensorflow_tpu_torch.predictor import Predictor
+
+    model = api.build_detr(backbone_stage_sizes=(2, 1, 1, 1), num_encoder_layers=2,
+                           num_decoder_layers=2, dtype=dtype, device=cuda_device, **flags)
+    live = Predictor(model, background_class=91)
+    shapes = [(128, 256), (100, 230)]
+    live.warmup(shapes)
+    export_predictor(live, str(tmp_path), shapes)
+    loaded = load_predictor(str(tmp_path))
+    loaded.warmup(shapes)
+    rng = np.random.default_rng(0)
+    for size in shapes + [(120, 250)] * 2:
+        images = [rng.integers(0, 256, size=size + (3,), dtype=np.uint8)]
+        ours, live_n = _request_counts(loaded, images)
+        ref, art_n = _request_counts(live, images)
+        # 2 encoder self, 2 decoder self and 2 decoder cross attentions
+        assert live_n == art_n and live_n[("A-tf32" if dtype == "float32" else "A-mma")] == 6
+        if flags:
+            exact = size == (128, 256)
+            tail = "D-mma" if dtype == "bfloat16" else "D-tf32"
+            assert live_n[tail] == (4 if exact else 5)
+            assert live_n.get("E-mma" if dtype == "bfloat16" else "E-tf32", 0) == exact
+        for a, b in zip(ours, ref):
+            for field in ("boxes", "labels", "scores"):
+                np.testing.assert_array_equal(getattr(a, field), getattr(b, field))
+
+
+def test_cpu_exported_artifact_launches_the_kernels_on_the_card(cuda_device, tmp_path):
+    """An artifact traced on the CPU names the ops, so loaded onto the card
+    it launches A-tf32 and C, moved there by ``move_to_device_pass``."""
+    from detr_tensorflow_tpu_torch.export import export_predictor, load_predictor
+    from detr_tensorflow_tpu_torch.predictor import Predictor
+
+    cpu = Predictor(api.build_detr(backbone_stage_sizes=(1, 1, 1, 1), num_encoder_layers=1,
+                                   num_decoder_layers=1, device="cpu"), background_class=91)
+    export_predictor(cpu, str(tmp_path), [(100, 150)])
+    loaded = load_predictor(str(tmp_path), device=cuda_device)
+    images = [np.random.default_rng(1).integers(0, 256, size=(100, 150, 3), dtype=np.uint8)]
+    ours, counts = _request_counts(loaded, images)
+    assert counts == {"A-tf32": 3, "C": 1}
+    for a, b in zip(ours, cpu(images)):
+        np.testing.assert_array_equal(a.labels, b.labels)
+        np.testing.assert_allclose(a.boxes, b.boxes, atol=5e-4, rtol=0)
+        np.testing.assert_allclose(a.scores, b.scores, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_trainer_step_through_the_attention_op(cuda_device, dtype):
+    """A ``Trainer`` step (6 + 6 transformer, reduced backbone) since the
+    attention forward became the op ``detr_torch::mha_forward``: autograd
+    still runs its backward kernel, A'-mma at fp32 and A'-bf16 at bf16, 18
+    times, beside 18 forwards, one LAP and one max pool launch."""
+    from detr_tensorflow_tpu_torch.train import Trainer, TrainingConfig
+
+    config = TrainingConfig(background_class=91, train_backbone=True, train_transformers=True,
+                            batch_size=1)
+    model = api.build_detr(backbone_stage_sizes=(1, 1, 1, 1), dtype=dtype,
+                           device=cuda_device).module
+    trainer = Trainer(model, config, seed=0)
+    batch, logs = _train_batch(cuda_device), []
+    fwd = fa.mha.mma_launches if dtype == "bfloat16" else fa.mha.tf32_launches
+    pool = maxpool.max_pool_3x3_s2.launches
+    counts = _counts(lambda: logs.append(trainer.step(batch)))
+    assert counts == ((18, 0, 0, 18, 0, 1) if dtype == "float32" else (0, 0, 0, 0, 18, 1))
+    now = fa.mha.mma_launches if dtype == "bfloat16" else fa.mha.tf32_launches
+    assert now - fwd == 18 and maxpool.max_pool_3x3_s2.launches == pool + 1
+    assert bool(torch.isfinite(logs[0]["total_loss"]))
