@@ -214,6 +214,23 @@ Phases, one status line each; any failure raises and exits non-zero:
      beside the live Predictor's; a reduced model exported on the
      CPU and loaded onto the card (A-tf32 3, C 1; detections within the
      golden tolerances of the live CPU Predictor's).
+ 17. parallel: (b) ``multihost.initialize`` with NCCL at world size 1 and
+     one ``Trainer(mesh=make_mesh(1))`` step (DDP over the one-rank NCCL
+     group) against the plain Trainer's; then two rank processes sharing
+     the card over Gloo (NCCL refuses two ranks on one device): (a) DDP,
+     full-width DETR-R50 fp32 at b8 376x672 as 2 x b4 with uneven box
+     counts, 2 steps at dropout 0 with the counters reset just before
+     (per rank and step A-tf32 18, A'-mma 18, B 1, C 1), the losses, the
+     first step's gradients and the parameters after both steps against
+     the one-process b8 Trainer's, then 4 steps at dropout 0.1 with the
+     parameters bit-equal across the ranks after each; (c) Megatron tensor
+     parallelism, the transformer split 4 + 4 heads, b2 376x672 at dropout
+     0: the forward (A-tf32 18 a rank at H = 4, C 1; with the loss and the
+     backward, A'-mma 18 and B 1 more) and every gradient, gathered whole,
+     against the unsplit model. Readings, labelled as two
+     ranks sharing one card: each rank's step wall, the gradient
+     all-reduce under ``torch.profiler`` and alone, beside the one-process
+     b8 step of phase 9.
 Kernel C runs in every ``ResNetBackbone`` forward: serving, training and
 fused serving count it (1 per forward or step); the int8 model's stem is
 not a ``ResNetBackbone`` and launches none.
@@ -3915,6 +3932,353 @@ def phase_artifacts(torch) -> dict:
     return {"launches": launches, "models": {n: out[n]["rec"] for n in ART_VARIANTS}}
 
 
+# Phase 17, parallelism across processes: two ranks sharing the one card over
+# Gloo (NCCL refuses two ranks on one device; Gloo all-reduces CUDA tensors
+# through host memory), DETR-R50 at full width, fp32 with TF32 off. (a) DDP:
+# b8 376x672 as 2 x b4, the loss and the parameters after PAR_STEPS steps at
+# dropout 0 against the one-process b8 Trainer, then PAR_DROPOUT_STEPS steps at
+# dropout 0.1 with the parameters bit-equal across the ranks after each; (b)
+# NCCL at world size 1 in this process; (c) Megatron tensor parallelism, the
+# transformer split 4 + 4 heads, b2, the forward and every gradient at dropout
+# 0 against the unsplit model. Every wait on a rank is bounded by
+# PAR_TIMEOUT_S; a failure in a rank raises here.
+PAR_WORLD, PAR_STEPS, PAR_DROPOUT_STEPS, PAR_TP_BATCH = 2, 2, 4, 2
+PAR_TIMEOUT_S = 300
+PAR_TRAIN_SEED, PAR_TP_SEED = 5, 7
+
+
+def _par_config(train):
+    return train.TrainingConfig(background_class=BACKGROUND, train_backbone=True,
+                                train_transformers=True, batch_size=TRAIN_BATCH)
+
+
+def _cpu_state(tensors):
+    return {n: t.detach().float().cpu().clone() for n, t in tensors}
+
+
+def _first_grads(trainer, into: dict) -> None:
+    """Copy the gradients of ``trainer``'s next step into ``into`` as the
+    optimizer finds them (the global batch's, before the per-tensor clip)."""
+    step = trainer.optimizer.step
+
+    def snapshot(lrs):
+        if not into:
+            into.update(_cpu_state((n, p.grad) for n, p in trainer.model.named_parameters()))
+        return step(lrs)
+
+    trainer.optimizer.step = snapshot
+
+
+def parallel_rank(rank, tmp, results):
+    """Process target: one of PAR_WORLD ranks on the card (phase 17). Puts
+    its numbers on ``results`` (or its traceback); rank 0 writes its
+    gradients and parameters to ``tmp``."""
+    import traceback
+
+    import torch
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        import torch.distributed as dist
+
+        from detr_tensorflow_tpu_torch import train
+        from detr_tensorflow_tpu_torch.models import api
+        from detr_tensorflow_tpu_torch.ops import flash_attention as fa, lap, losses, maxpool
+        from detr_tensorflow_tpu_torch.parallel import make_mesh, multihost, shard_batch, tp
+        from detr_tensorflow_tpu_torch.train.engine import batch_to_device
+
+        multihost.initialize(init_method=f"file://{tmp}/rendezvous", num_processes=PAR_WORLD,
+                             process_id=rank, backend="gloo", device=DEVICE,
+                             timeout_s=PAR_TIMEOUT_S)
+        out = {"rank": rank}
+        config = _par_config(train)
+        batch = train_batch(PAR_TRAIN_SEED)
+        mesh = make_mesh(PAR_WORLD)
+        local = batch_to_device(shard_batch(batch, mesh), DEVICE)
+        out["boxes"] = int(local["mask"].sum())
+
+        # (a) DDP at dropout 0: the main path, its launches counted.
+        model = api.build_detr(seed=0, device=DEVICE, dropout=0.0).module
+        trainer = train.Trainer(model, config, seed=0, mesh=mesh)
+        first = {}
+        _first_grads(trainer, first)
+        reset_counts(fa, lap, maxpool)
+        losses_seen = [float(trainer.step(local)["total_loss"]) for _ in range(PAR_STEPS)]
+        torch.cuda.synchronize()
+        if rank == 0:
+            torch.save(first, os.path.join(tmp, "grads.pt"))
+        out["counts"] = read_counts(fa, lap, maxpool)
+        out["losses"] = losses_seen
+        if rank == 0:
+            torch.save(_cpu_state(model.named_parameters()), os.path.join(tmp, "params.pt"))
+        grad_bytes = sum(4 * p.numel() for p in trainer.optimizer.params)
+        del trainer, model
+        torch.cuda.empty_cache()
+
+        # (a) at dropout 0.1: bit-equal parameters across the ranks after
+        # each step; each rank's step wall; the all-reduce under the profiler.
+        model = api.build_detr(seed=0, device=DEVICE).module
+        trainer = train.Trainer(model, config, seed=0, mesh=mesh)
+        params = list(model.parameters())
+        walls, equal = [], []
+        for _ in range(PAR_DROPOUT_STEPS):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.step(local)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+            mine = torch.cat([p.detach().reshape(-1) for p in params])
+            theirs = mine.clone()
+            dist.broadcast(theirs, src=0)
+            same = torch.tensor([int(torch.equal(mine, theirs))], device=DEVICE)
+            dist.all_reduce(same, op=dist.ReduceOp.MIN)
+            equal.append(bool(same.item()))
+        out["walls"], out["equal"] = walls, equal
+        from torch.profiler import ProfilerActivity, profile
+
+        dist.barrier()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trainer.step(local)
+            torch.cuda.synchronize()
+        # Gloo runs the all-reduce on its own threads, which the profiler
+        # does not time: it sees DDP's calls (their host time) and Gloo's
+        # copies of the CUDA buckets through host memory (device time).
+        events = prof.key_averages()
+        out["allreduce_calls_ms"] = sum(e.cpu_time_total for e in events
+                                        if "allreduce" in e.key) / 1e3
+        out["memcpy_ms"] = sum(getattr(e, "device_time_total", 0.0) for e in events
+                               if e.key.startswith("Memcpy")) / 1e3
+        flat = torch.zeros(grad_bytes // 4, device=DEVICE)
+        alone = []
+        for _ in range(3):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.all_reduce(flat)
+            torch.cuda.synchronize()
+            alone.append(1e3 * (time.perf_counter() - t0))
+        out["allreduce_alone_ms"], out["grad_bytes"] = statistics.median(alone), grad_bytes
+        del trainer, model, params, flat, mine, theirs
+        torch.cuda.empty_cache()
+
+        # (c) tensor parallelism: the unsplit model's forward and gradients,
+        # then the split one's (H = 4 a rank), gathered whole.
+        tmesh = make_mesh(PAR_WORLD, ("data", "model"), (1, PAR_WORLD))
+        tbatch = batch_to_device({k: v[:PAR_TP_BATCH] for k, v in
+                                  train_batch(PAR_TP_SEED).items()}, DEVICE)
+        targets = [tbatch[k] for k in ("boxes", "classes", "mask")]
+        results_tp = []
+        for split in (False, True):
+            model = api.build_detr(seed=0, device=DEVICE, dropout=0.0).module
+            if split:
+                trainer = train.Trainer(model, config, seed=0, mesh=tmesh)
+                heads = {m.num_heads // m.tp.size for m in model.modules() if hasattr(m, "tp")
+                         and hasattr(m, "q_proj")}
+                reset_counts(fa, lap, maxpool)
+            outputs = model(tbatch["images"], train=True)
+            if split:
+                torch.cuda.synchronize()
+                out["tp_counts"], out["tp_heads"] = read_counts(fa, lap, maxpool), sorted(heads)
+            total, _ = losses.detr_loss(outputs, *targets, BACKGROUND)
+            total.backward()
+            if split:
+                torch.cuda.synchronize()
+                out["tp_step_counts"] = read_counts(fa, lap, maxpool)
+            mg = trainer.model_group if split else None
+            grads = {n: p.grad if mg is None or tp.split_dim(n, p.dim()) is None
+                     else tp.gather_tensor(p.grad, tp.split_dim(n, p.dim()), mg)
+                     for n, p in model.named_parameters()}
+            results_tp.append((float(total.detach()), {k: v.detach() for k, v in outputs.items()},
+                               {n: g.detach().float().cpu() for n, g in grads.items()}))
+            del model, outputs, total, grads
+            if split:
+                del trainer
+            torch.cuda.empty_cache()
+        (loss_ref, out_ref, grads_ref), (loss_tp, out_tp, grads_tp) = results_tp
+        out["tp_loss"] = (loss_tp, loss_ref)
+        out["tp_out_err"] = {k: float((out_tp[k] - out_ref[k]).abs().max()) for k in out_ref
+                             if out_ref[k].numel()}
+        out["tp_grads"] = gradient_agreement(grads_tp, grads_ref)
+        multihost.shutdown()
+        results.put(out)
+    except Exception:  # the process's boundary: reported to the parent, which raises
+        results.put({"rank": rank, "error": traceback.format_exc()})
+
+
+def phase_parallel(torch, fa, lap, mp, api, train, losses):
+    """Phase 17: (b) NCCL at world size 1 here, the one-process reference
+    steps and step walls, then (a) and (c) in PAR_WORLD rank processes on
+    the card. Returns the numbers it printed and the ranks' launches."""
+    import multiprocessing
+    import queue
+    import tempfile
+
+    from detr_tensorflow_tpu_torch.parallel import make_mesh, multihost
+    from detr_tensorflow_tpu_torch.train.engine import batch_to_device
+
+    config = _par_config(train)
+    batch = batch_to_device(train_batch(PAR_TRAIN_SEED), DEVICE)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_")
+    res = {}
+
+    # (b) NCCL at world size 1: DDP over a one-rank NCCL group, one step.
+    steps = []
+    for nccl in (False, True):
+        mesh = None
+        if nccl:
+            multihost.initialize(init_method=f"file://{tmp.name}/nccl", num_processes=1,
+                                 process_id=0, backend="nccl", timeout_s=PAR_TIMEOUT_S)
+            mesh = make_mesh(1)
+        model = api.build_detr(seed=0, device=DEVICE, dropout=0.0).module
+        trainer = train.Trainer(model, config, seed=0, mesh=mesh)
+        loss = float(trainer.step(batch)["total_loss"])
+        steps.append((loss, trainer.ddp is not None,
+                      [p.detach().clone() for p in model.parameters()]))
+        del trainer, model
+        if nccl:
+            multihost.shutdown()
+    (loss_p, _, params_p), (loss_n, wrapped, params_n) = steps
+    res["nccl_err"] = max(float((a - b).abs().max()) for a, b in zip(params_n, params_p))
+    log(f"  (b) NCCL at world size 1: Trainer(mesh=make_mesh(1)) wraps DDP over the NCCL group: "
+        f"{wrapped}; its step against the plain Trainer's: loss {loss_n:.6f} / {loss_p:.6f}, "
+        f"largest parameter difference after the step {res['nccl_err']:.3e}")
+    if not wrapped or abs(loss_n - loss_p) > LOSS_RTOL * abs(loss_p):
+        raise AssertionError("NCCL world-1 step: no DDP wrapper, or its loss disagrees")
+    del steps, params_p, params_n
+    torch.cuda.empty_cache()
+
+    # The one-process b8 reference of (a): PAR_STEPS steps at dropout 0.
+    model = api.build_detr(seed=0, device=DEVICE, dropout=0.0).module
+    start = _cpu_state(model.named_parameters())
+    trainer = train.Trainer(model, config, seed=0)
+    ref_grads = {}
+    _first_grads(trainer, ref_grads)
+    ref_losses = [float(trainer.step(batch)["total_loss"]) for _ in range(PAR_STEPS)]
+    ref_params = _cpu_state(model.named_parameters())
+    lrs = {n: trainer._lrs[g] for n, g in train.optimizers.param_labels(model).items()}
+    del trainer, model
+    # One process's step walls at dropout 0.1, b8 and b4, beside the ranks'.
+    trainer = train.Trainer(api.build_detr(seed=0, device=DEVICE).module, config, seed=0)
+    single = {}
+    for b in (TRAIN_BATCH, TRAIN_BATCH // PAR_WORLD):
+        part, walls = {k: v[:b] for k, v in batch.items()}, []
+        for _ in range(PAR_DROPOUT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.step(part)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        single[b] = statistics.median(walls[1:])
+    del trainer, batch
+    torch.cuda.empty_cache()
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=parallel_rank, daemon=True, args=(r, tmp.name, results))
+             for r in range(PAR_WORLD)]
+    t0 = time.perf_counter()
+    for proc in procs:
+        proc.start()
+    ranks = {}
+    try:
+        deadline = time.perf_counter() + PAR_TIMEOUT_S
+        while len(ranks) < PAR_WORLD:
+            try:
+                got = results.get(timeout=5)
+            except queue.Empty:
+                dead = [p for p in procs if p.exitcode not in (None, 0)]
+                if dead or time.perf_counter() > deadline:
+                    raise AssertionError(f"phase 17: {len(dead)} rank(s) died, {len(ranks)} of "
+                                         f"{PAR_WORLD} reported in {time.perf_counter() - t0:.0f} s")
+                continue
+            if "error" in got:
+                raise AssertionError(f"phase 17, rank {got['rank']}:\n{got['error']}")
+            ranks[got["rank"]] = got
+    finally:
+        for proc in procs:
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
+    res["ranks_s"] = time.perf_counter() - t0
+    r0, r1 = ranks[0], ranks[1]
+
+    # (a) against the one-process reference.
+    grads = torch.load(os.path.join(tmp.name, "grads.pt"))
+    params = torch.load(os.path.join(tmp.name, "params.pt"))
+    tmp.cleanup()
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], ref_losses))
+    worst, noise = gradient_agreement(grads, ref_grads)
+    envelope = max(float((params[n] - ref_params[n]).abs().max()) / (2 * PAR_STEPS * lrs[n])
+                   for n in ref_params)
+    moved = {n: _rel_norm(params[n] - start[n], ref_params[n] - start[n]) for n in ref_params
+             if n not in noise}
+    log(f"  (a) DDP, 2 ranks on one card over Gloo, b{TRAIN_BATCH} as 2 x b{TRAIN_BATCH // 2} "
+        f"({r0['boxes']} and {r1['boxes']} real boxes): losses {r0['losses']} (rank 1 "
+        f"{r1['losses']}) against one process's {ref_losses}, worst rel {loss_err:.2e} (tol "
+        f"{LOSS_RTOL}); first step's gradients: worst rel err {worst[0]:.2e} ({worst[1]}, tol "
+        f"{TENSOR_GRAD_RTOL}), {len(noise)} tensors within the noise floor; parameters after "
+        f"{PAR_STEPS} Adam steps: largest difference {envelope:.3f} of 2 x {PAR_STEPS} x lr "
+        f"(Adam moves an element at most ~lr a step), update rel err median "
+        f"{statistics.median(moved.values()):.2e}, worst {max(moved.values()):.2e}")
+    if r0["boxes"] == r1["boxes"]:
+        raise AssertionError("phase 17 wants uneven box counts across the ranks")
+    if r0["losses"] != r1["losses"] or not loss_err <= LOSS_RTOL or not envelope <= 1.0:
+        raise AssertionError("DDP steps disagree with the one-process steps")
+    per_step = {"A-tf32": LAUNCHES_PER_FORWARD, "A'-mma": LAUNCHES_PER_FORWARD, "B": 1, "C": 1}
+    for r in (r0, r1):
+        expect_counts(f"rank {r['rank']}, {PAR_STEPS} DDP steps", r["counts"], steps=PAR_STEPS)
+    log(f"  (a) dropout {DROPOUT}: parameters bit-equal across the ranks after each of "
+        f"{PAR_DROPOUT_STEPS} steps: {r0['equal']}")
+    if not all(r0["equal"]) or r0["equal"] != r1["equal"]:
+        raise AssertionError("the ranks' parameters drifted apart at dropout 0.1")
+
+    # (c) tensor parallelism against the unsplit model.
+    for r in (r0, r1):
+        loss_tp, loss_ref = r["tp_loss"]
+        (tp_worst, tp_name), tp_noise = r["tp_grads"]
+        log(f"  (c) TP rank {r['rank']}: heads a rank {r['tp_heads']}, forward launches "
+            f"{r['tp_counts']}; loss {loss_tp:.6f} / unsplit {loss_ref:.6f}; outputs max abs "
+            f"diff { {k: f'{v:.2e}' for k, v in r['tp_out_err'].items()} }; gradients worst rel "
+            f"err {tp_worst:.2e} ({tp_name}), {len(tp_noise)} within the noise floor")
+        expect_counts(f"rank {r['rank']}, one TP forward", r["tp_counts"], forwards=1)
+        expect_counts(f"rank {r['rank']}, that forward, its loss and backward",
+                      r["tp_step_counts"], steps=1)
+        if (r["tp_heads"] != [4] or abs(loss_tp - loss_ref) > LOSS_RTOL * abs(loss_ref)
+                or r["tp_out_err"]["pred_boxes"] > BOX_ATOL
+                or r["tp_out_err"]["pred_logits"] > LOGIT_ATOL):
+            raise AssertionError("the split transformer disagrees with the unsplit one")
+
+    res.update(
+        walls=(statistics.median(r0["walls"][1:]), statistics.median(r1["walls"][1:])),
+        allreduce_calls=(r0["allreduce_calls_ms"], r1["allreduce_calls_ms"]),
+        memcpy=(r0["memcpy_ms"], r1["memcpy_ms"]),
+        allreduce_alone=(r0["allreduce_alone_ms"], r1["allreduce_alone_ms"]),
+        grad_bytes=r0["grad_bytes"], single=single,
+        launches={k: r0["counts"][k] + r1["counts"][k] + r0["tp_step_counts"][k]
+                  + r1["tp_step_counts"][k] for k in per_step})
+    half = TRAIN_BATCH // PAR_WORLD
+    log(f"  readings, two ranks sharing one card (not a multi-GPU rate), dropout {DROPOUT}, medians "
+        f"of steps 2-{PAR_DROPOUT_STEPS}: b{half} step wall a rank {res['walls'][0]:.2f} / "
+        f"{res['walls'][1]:.2f} ms (each step {[round(w, 2) for w in r0['walls']]} / "
+        f"{[round(w, 2) for w in r1['walls']]}); one process alone b{half} {single[half]:.2f} ms, "
+        f"b{TRAIN_BATCH} {single[TRAIN_BATCH]:.2f} ms; the gradients, "
+        f"{res['grad_bytes'] / 1e6:.1f} MB fp32, all-reduced through Gloo: one step under "
+        f"torch.profiler, DDP's all-reduce calls {res['allreduce_calls'][0]:.2f} / "
+        f"{res['allreduce_calls'][1]:.2f} ms of host time and Gloo's copies through host memory "
+        f"{res['memcpy'][0]:.2f} / {res['memcpy'][1]:.2f} ms of device time (Gloo's own threads "
+        f"are not timed by the profiler); one all_reduce of those bytes alone "
+        f"{res['allreduce_alone'][0]:.2f} / {res['allreduce_alone'][1]:.2f} ms (host clock)")
+    return res
+
+
+def _rel_norm(a, b) -> float:
+    return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+
 def sass_counts(nvcc_build, path, op="HMMA") -> dict:
     """``op`` instructions (HMMA: bf16 and TF32 tensor cores, IMMA: int8) in
     the SASS of each kernel of a built library, by mangled name."""
@@ -4115,6 +4479,20 @@ def main() -> int:
             for n, r in art["models"].items())
         + f"; launches on its main paths {dict(art['launches'])}")
 
+    t = time.perf_counter()
+    par = phase_parallel(torch, fa, lap, maxpool, api, train, losses)
+    par_launches = collections.Counter({
+        "flash_attention_fwd_tf32": par["launches"]["A-tf32"],
+        "flash_attention_bwd_mma": par["launches"]["A'-mma"], "lap": par["launches"]["B"],
+        "maxpool": par["launches"]["C"]})
+    log(f"[parallel] ok in {time.perf_counter() - t:.1f} s ({par['ranks_s']:.1f} s in the rank "
+        f"processes); two ranks sharing one card: b{TRAIN_BATCH // 2} step wall a rank "
+        f"{par['walls'][0]:.2f} / {par['walls'][1]:.2f} ms, gradient all-reduce alone "
+        f"{par['allreduce_alone'][0]:.2f} ms, one process b{TRAIN_BATCH // 2} / b{TRAIN_BATCH} "
+        f"{par['single'][TRAIN_BATCH // 2]:.2f} / {par['single'][TRAIN_BATCH]:.2f} ms; NCCL "
+        f"world-1 largest difference {par['nccl_err']:.3e}; launches on its main paths "
+        f"{dict(par_launches)}")
+
     a32, a16 = times[(2, 1232, 1232, "float32")], times[(2, 1232, 1232, "bfloat16")]
     # The training shapes' times: fp32 under (Lq, Lk), bf16 under (Lq, Lk, "bfloat16").
     bwd_times16 = {k[:2]: v for k, v in bwd_times.items() if len(k) == 3}
@@ -4162,7 +4540,7 @@ def main() -> int:
                 "replaces": REPLACES[name],
                 "launches": (launches_ + dc5["launches"][name] + seg["launches"][name]
                              + pan["launches"][name] + jp["launches"][name]
-                             + art["launches"][name]),
+                             + art["launches"][name] + par_launches[name]),
                 "max_abs_err": err,
                 "ms": ms_, "plain_ms": plain_, "bound_ms": bound, "bound_by": by,
                 "library_ms": library, "measured_at": at}

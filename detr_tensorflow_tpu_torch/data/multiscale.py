@@ -1,7 +1,6 @@
 """Multi-scale rung selection, deterministic and multi-host safe (port of
 ``detr_tensorflow_tpu/data/multiscale.py``; resampling by ``data/transforms.py``
-in place of cv2, and ``sync=None`` means single host until the port
-trains across processes).
+in place of cv2; ``sync=None`` means sync across processes, as there).
 
 1. **Reproducible per-example draws.** The rung an example trains at is
    a pure function of ``(seed, epoch, example id)``, not of the worker
@@ -90,7 +89,8 @@ class MultiScalePlan:
     the same shape sequence. bucket_key is None (no bucketing needed:
     all worker outputs share the top-rung shape).
 
-    sync=None: False (the port does not train across processes yet).
+    sync=None: auto, True iff the run spans processes
+    (``parallel.multihost.world_size() > 1``).
     """
 
     def __init__(
@@ -103,7 +103,11 @@ class MultiScalePlan:
         if not self.scales:
             raise ValueError("multi_scale ladder is empty")
         self.seed = int(seed)
-        self.sync = bool(sync)  # None: one process (the port trains on one)
+        if sync is None:
+            from ..parallel import multihost
+
+            sync = multihost.world_size() > 1
+        self.sync = bool(sync)
         self.top = max(self.scales, key=lambda s: s[0] * s[1])
         self._epoch = 0
 

@@ -84,9 +84,22 @@ class HostDataset:
         self.batch_transform = batch_transform
         self.on_epoch_start = on_epoch_start
         self.pad_remainder = pad_remainder
+        self.shard = None  # (index, count): set_shard
         self._emitted = 0  # lifetime batch counter for batch_transform
         self._epoch = 0
         self._rng = np.random.default_rng(seed)
+
+    def set_shard(self, index: int, count: int) -> None:
+        """From now on yield only rank ``index`` of ``count``'s rows
+        (``multihost.process_shard``) of each global batch of
+        ``batch_size``. Every rank loads the same examples in the same
+        shuffle (the seed is shared) and keeps its slice, so the union of
+        the ranks' batches at step t is the one-process batch at step t; the
+        ``batch_transform`` (the multi-scale rung) sees the global batch
+        index on every rank."""
+        if self.batch_size % count:
+            raise ValueError(f"batch_size {self.batch_size} does not split over {count} ranks")
+        self.shard = (int(index), int(count))
 
     def __len__(self) -> int:
         """Upper bound on batches per epoch (``load_fn`` may drop examples)."""
@@ -117,10 +130,14 @@ class HostDataset:
             return False
 
         def emit(examples, valid=None) -> bool:
-            batch = self.collate_fn(examples)
+            rows = slice(None)
+            if self.shard is not None:
+                per = self.batch_size // self.shard[1]
+                rows = slice(self.shard[0] * per, (self.shard[0] + 1) * per)
+            batch = self.collate_fn(examples[rows])
             if self.pad_remainder:
                 batch["batch_valid"] = (np.ones(self.batch_size, bool) if valid is None
-                                        else np.arange(self.batch_size) < valid)
+                                        else np.arange(self.batch_size) < valid)[rows]
             if self.batch_transform is not None:
                 batch = self.batch_transform(batch, self._emitted)
                 self._emitted += 1

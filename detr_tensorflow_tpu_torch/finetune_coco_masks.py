@@ -31,11 +31,14 @@ import sys
 from .data import load_coco_dataset, load_coco_panoptic_train
 from .models import get_detr_model
 from .train import Trainer, TrainingConfig
-from .train.workflow import entry_parser, run_epochs
+from .train.workflow import (
+    SPAWNED, data_parallel_mesh, entry_parser, run_epochs, shard_loaders,
+)
 
 
 def main(argv=None, **model_kwargs) -> Trainer:
-    """Parse ``argv`` and train the mask head; returns the trainer.
+    """Parse ``argv`` and train the mask head; returns the trainer (None in a
+    process that spawned ``--data_parallel`` ranks).
     ``model_kwargs`` go to ``get_detr_model``."""
     p = entry_parser("Train DETR's mask head on COCO, the detector frozen (PyTorch port)",
                      epochs=25)
@@ -48,6 +51,9 @@ def main(argv=None, **model_kwargs) -> Trainer:
     args = p.parse_args(argv)
     config = TrainingConfig(train_backbone=False, train_transformers=False, train_nlayers=True,
                             batch_size=8, target_batch=32).update_from_args(args)
+    mesh = data_parallel_mesh(main, argv, model_kwargs, config, args)
+    if mesh is SPAWNED:
+        return None
     if args.panoptic_ann:
         train_dt, class_names = load_coco_panoptic_train(
             config, config.batch_size, ann_file=args.panoptic_ann,
@@ -64,7 +70,8 @@ def main(argv=None, **model_kwargs) -> Trainer:
     model_kwargs.setdefault("device", args.device)
     model = get_detr_model(config, include_top=True, weights=config.weights, masks=True,
                            **model_kwargs)
-    trainer = Trainer(model.module, config, seed=args.seed)
+    shard_loaders(mesh, train_dt, valid_dt)
+    trainer = Trainer(model.module, config, seed=args.seed, mesh=mesh)
     run_epochs(trainer, train_dt, valid_dt, config, args, evaluation_step=200)
     return trainer
 

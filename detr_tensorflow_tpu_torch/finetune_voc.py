@@ -18,16 +18,22 @@ import sys
 from .data import load_voc_dataset
 from .models import get_detr_model
 from .train import Trainer, TrainingConfig
-from .train.workflow import entry_parser, run_epochs
+from .train.workflow import (
+    SPAWNED, data_parallel_mesh, entry_parser, run_epochs, shard_loaders,
+)
 
 
 def main(argv=None, **model_kwargs) -> Trainer:
-    """Parse ``argv`` and finetune; returns the trainer. ``model_kwargs``
+    """Parse ``argv`` and finetune; returns the trainer (None in a process
+    that spawned ``--data_parallel`` ranks). ``model_kwargs``
     go to ``get_detr_model``."""
     args = entry_parser("Finetune DETR on Pascal VOC (PyTorch port)").parse_args(argv)
     config = TrainingConfig(background_class=0, train_nlayers=True, nlayers_lr=1e-3,
                             batch_size=8, target_batch=32,
                             image_size=(480, 720)).update_from_args(args)
+    mesh = data_parallel_mesh(main, argv, model_kwargs, config, args)
+    if mesh is SPAWNED:
+        return None
     train_dt, class_names = load_voc_dataset(config, config.batch_size, augmentation=True,
                                              num_workers=args.num_workers, seed=args.seed)
     valid_dt, _ = load_voc_dataset(config, config.batch_size, augmentation=False,
@@ -35,7 +41,8 @@ def main(argv=None, **model_kwargs) -> Trainer:
     model_kwargs.setdefault("device", args.device)
     model = get_detr_model(config, include_top=False, nb_class=len(class_names),
                            weights=config.weights, **model_kwargs)
-    trainer = Trainer(model.module, config, seed=args.seed)
+    shard_loaders(mesh, train_dt, valid_dt)
+    trainer = Trainer(model.module, config, seed=args.seed, mesh=mesh)
 
     def unfreeze(epoch: int) -> None:
         if epoch == 1:

@@ -26,6 +26,12 @@ after the FFN's ReLU. Every draw comes from the ``generator`` the caller
 passes (the trainer owns it), never from the global RNG; the attention
 takes one 64-bit seed per call from it, on the device.
 
+Under Megatron tensor parallelism (``parallel/tp.py``) an attention and
+a layer hold a ``tp`` (``ModelGroup``): the attention runs its local
+``num_heads / m`` heads, its inputs pass through ``f`` and ``out_proj``'s
+partial sum through ``g``; the FFN alike. Without it (``tp = None``) every
+forward is the unsplit one.
+
 ``remat=True`` checkpoints every encoder and decoder layer while autograd
 records (``torch.utils.checkpoint``, the JAX package's ``nn.remat``): the
 backward recomputes the layer. ``torch.utils.checkpoint`` restores only
@@ -44,6 +50,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import flash_attention
+from ..parallel import tp as tp_lib
 from .layers import LayerNorm, Linear
 
 _NEG_INF = -1e9
@@ -71,6 +78,18 @@ def dropout(x: torch.Tensor, rate: float, train: bool, generator) -> torch.Tenso
     return x * keep * (1.0 / (1.0 - rate))
 
 
+def split_dropout(x: torch.Tensor, rate: float, train: bool, generator, mg) -> torch.Tensor:
+    """``dropout`` of a tensor whose last dim is split over a model group:
+    the whole mask is drawn (every rank's generator advances alike) and the
+    rank's columns kept, the unsplit model's mask."""
+    if mg is None or not _check_generator(rate, train, generator):
+        return dropout(x, rate, train, generator)
+    n = x.shape[-1]
+    keep = torch.empty(x.shape[:-1] + (n * mg.size,), dtype=x.dtype, device=x.device)
+    keep = keep.bernoulli_(1.0 - rate, generator=generator)[..., mg.rank * n:(mg.rank + 1) * n]
+    return x * keep * (1.0 / (1.0 - rate))
+
+
 class MultiHeadAttention(nn.Module):
     """Multi-head attention with separate Q/K/V inputs and projections
     ``q_proj``, ``k_proj``, ``v_proj``, ``out_proj``."""
@@ -82,6 +101,7 @@ class MultiHeadAttention(nn.Module):
             raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
         self.model_dim, self.num_heads, self.attn_impl = model_dim, num_heads, attn_impl
         self.dropout = dropout
+        self.tp = None  # a tp_lib.ModelGroup under tensor parallelism
         self.q_proj = Linear(model_dim, model_dim)
         self.k_proj = Linear(model_dim, model_dim)
         self.v_proj = Linear(model_dim, model_dim)
@@ -89,9 +109,17 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, query, key, value, key_padding_mask: Optional[torch.Tensor] = None,
                 return_weights: bool = False, train: bool = False, generator=None):
-        d, h = self.model_dim, self.num_heads
+        mg = self.tp
+        parts = 1 if mg is None else mg.size
+        d, h = self.model_dim // parts, self.num_heads // parts  # this rank's share
         dh = d // h
         b, lq, lk = query.shape[0], query.shape[1], key.shape[1]
+        if mg is not None:  # f once per distinct input: one all-reduce of its gradient
+            copies = {}
+            for x in (query, key, value):
+                if id(x) not in copies:
+                    copies[id(x)] = tp_lib.copy_to(x, mg)
+            query, key, value = copies[id(query)], copies[id(key)], copies[id(value)]
         q = self.q_proj(query).view(b, lq, h, dh)
         # The scale is rounded to the model dtype first, as in the JAX model.
         q = q * torch.tensor(dh**-0.5, dtype=q.dtype).item()
@@ -101,7 +129,9 @@ class MultiHeadAttention(nn.Module):
         rate, seed = 0.0, None
         if _check_generator(self.dropout, train, generator):
             rate = self.dropout
-            seed = torch.randint(0, 2**62, (1,), generator=generator, device=q.device)
+            # One seed per model rank, this rank's taken: its heads draw apart.
+            seed = torch.randint(0, 2**62, (parts,), generator=generator, device=q.device)
+            seed = seed[mg.rank:mg.rank + 1] if mg is not None else seed
         impl = self.attn_impl
         if impl == "auto":
             impl = "kernel" if q.is_cuda or torch.compiler.is_exporting() else "plain"
@@ -121,10 +151,19 @@ class MultiHeadAttention(nn.Module):
                 attn = attn * (keep * (1.0 / (1.0 - rate)))
             attn = attn.to(q.dtype)
             out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
-        out = self.out_proj(out.reshape(b, lq, d))
+        out = tp_lib.row_parallel(self.out_proj, out.reshape(b, lq, d), mg)
         if return_weights:
             return out, attn.mean(dim=1)  # head-averaged weights
         return out
+
+
+def _ffn(layer, x, train, generator):
+    """linear2(dropout(relu(linear1(x)))), split over the layer's model
+    group when it has one."""
+    mg = layer.tp
+    hidden = F.relu(layer.linear1(tp_lib.copy_to(x, mg)))
+    hidden = split_dropout(hidden, layer.dropout, train, generator, mg)
+    return tp_lib.row_parallel(layer.linear2, hidden, mg)
 
 
 class EncoderLayer(nn.Module):
@@ -134,6 +173,7 @@ class EncoderLayer(nn.Module):
                  attn_impl: str = "auto", dropout: float = 0.0):
         super().__init__()
         self.dropout = dropout
+        self.tp = None  # a tp_lib.ModelGroup under tensor parallelism
         self.self_attn = MultiHeadAttention(model_dim, num_heads, attn_impl, dropout)
         self.norm1 = _layer_norm(model_dim)
         self.linear1 = Linear(model_dim, dim_feedforward)
@@ -145,8 +185,7 @@ class EncoderLayer(nn.Module):
         qk = src + pos
         attn = self.self_attn(qk, qk, src, key_padding_mask, train=train, generator=generator)
         src = self.norm1(src + drop(attn))
-        x = self.linear2(drop(F.relu(self.linear1(src))))
-        return self.norm2(src + drop(x))
+        return self.norm2(src + drop(_ffn(self, src, train, generator)))
 
 
 class DecoderLayer(nn.Module):
@@ -157,6 +196,7 @@ class DecoderLayer(nn.Module):
                  attn_impl: str = "auto", dropout: float = 0.0):
         super().__init__()
         self.dropout = dropout
+        self.tp = None  # a tp_lib.ModelGroup under tensor parallelism
         self.self_attn = MultiHeadAttention(model_dim, num_heads, attn_impl, dropout)
         self.norm1 = _layer_norm(model_dim)
         self.cross_attn = MultiHeadAttention(model_dim, num_heads, attn_impl, dropout)
@@ -174,8 +214,7 @@ class DecoderLayer(nn.Module):
         attn = self.cross_attn(tgt + query_pos, memory + pos, memory,
                                memory_key_padding_mask, train=train, generator=generator)
         tgt = self.norm2(tgt + drop(attn))
-        x = self.linear2(drop(F.relu(self.linear1(tgt))))
-        return self.norm3(tgt + drop(x))
+        return self.norm3(tgt + drop(_ffn(self, tgt, train, generator)))
 
 
 def _recomputed(layer: nn.Module, generator, *args):

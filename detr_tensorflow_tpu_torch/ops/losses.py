@@ -95,11 +95,23 @@ def mask_losses(p_masks: torch.Tensor, t_masks: torch.Tensor, t_of_p: torch.Tens
 
 
 def global_loss_normalizers(t_mask: torch.Tensor, num_queries: int,
-                            eos_weight: float = 0.1) -> Dict[str, torch.Tensor]:
+                            eos_weight: float = 0.1, group=None) -> Dict[str, torch.Tensor]:
     """Batch-global normalizers from the targets alone (every real target is
-    matched, so the matched count is known before matching)."""
+    matched, so the matched count is known before matching).
+
+    With a data-parallel process ``group`` the counts are summed over its
+    ranks (one all-reduce), so each rank's ``detr_loss(..., norm=)`` is its
+    share of the global batch's loss: the shares add up to the loss of the
+    whole batch, whatever number of boxes each rank holds. Normalizing each
+    rank by its own counts would run as well and give another gradient."""
     n = t_mask.sum()
     bq = t_mask.shape[0] * num_queries
+    if group is not None:
+        import torch.distributed as dist
+
+        counts = torch.stack([n.to(torch.int64), torch.tensor(bq, device=n.device)])
+        dist.all_reduce(counts, group=group)
+        n, bq = counts[0], counts[1]
     return {"n_matched": n, "n_unmatched": bq - n, "sum_weights": n + eos_weight * (bq - n)}
 
 

@@ -4,6 +4,15 @@
 A checkpoint is ``<ckpt_dir>/<step>.pt`` holding ``Trainer.state_dict()``:
 parameters, FrozenBN buffers, the Adam moments of all three groups,
 accumulation buffers, the step count and the dropout generator's state.
+
+Across processes the state is logical and unsharded, as the JAX package's
+Orbax state is: tensors split over a model group are gathered whole before
+the write (so every rank calls ``save_checkpoint``), data rank 0 writes,
+and every rank waits at a barrier until the file is there. Every rank
+restores from the same file on a filesystem they share, at any world size:
+``Trainer.load_state_dict`` slices the split tensors for its rank, and a
+data rank r > 0 derives its dropout generator from the saved one (data
+rank 0's) and r (``engine.rank_generator_state``).
 """
 
 from __future__ import annotations
@@ -19,13 +28,22 @@ def _abs(path: str) -> str:
 
 
 def save_checkpoint(trainer, ckpt_dir: str, step: Optional[int] = None) -> str:
-    """Write the trainer's full state as ``ckpt_dir/<step>.pt``."""
+    """Write the trainer's full state as ``ckpt_dir/<step>.pt``: on the
+    primary rank, then a barrier, when the run spans processes."""
+    from ..parallel import multihost
+
     step = trainer.steps if step is None else int(step)
-    os.makedirs(_abs(ckpt_dir), exist_ok=True)
     path = os.path.join(_abs(ckpt_dir), f"{step}.pt")
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(trainer.state_dict(), tmp)
-    os.replace(tmp, path)
+    state = trainer.state_dict()
+    if multihost.is_primary():
+        os.makedirs(_abs(ckpt_dir), exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(state, tmp)
+        os.replace(tmp, path)
+    if multihost.world_size() > 1:
+        import torch.distributed as dist
+
+        dist.barrier()
     return path
 
 

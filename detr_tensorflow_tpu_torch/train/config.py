@@ -4,8 +4,10 @@ A frozen dataclass: what a component discovers (the dataset's background
 class) is returned and folded into a new config with ``replace``.
 Learning rates are runtime values: the trainer reads them at every step,
 so a change (``Trainer.set_learning_rates``) takes effect at once. The
-TPU-only knob of the JAX config (``auto_input_layout``) and the option not
-ported yet (``data_parallel``) have no field here. ``weights`` (a JAX-format
+TPU-only knob of the JAX config (``auto_input_layout``) has no field here.
+``data_parallel`` is the number of DDP ranks the entry points train on
+(``train/workflow.py``: torchrun's ranks, or as many local ranks spawned).
+``weights`` (a JAX-format
 ``.npz``, a torch DETR checkpoint or a short name) feeds
 ``build_detr(weights=)``; ``dilation`` (DC5) and ``backbone_weights`` (a
 local torchvision ResNet) feed ``get_detr_model``.
@@ -82,6 +84,8 @@ class TrainingConfig:
     lap_impl: str = "auto"  # "auto" | "kernel" | "plain" (ops/matcher.py)
     num_queries: int = 100
     checkpoint_dir: Optional[str] = None
+    # DDP ranks; batch_size is the global batch and must divide by it.
+    data_parallel: int = 1
     weights: Optional[str] = None  # build_detr(weights=): .npz, torch checkpoint or name
     # Local torchvision resnet checkpoint for ImageNet backbone init.
     backbone_weights: Optional[str] = None
@@ -159,6 +163,10 @@ def training_config_parser() -> argparse.ArgumentParser:
     p.add_argument("--dilation", action="store_true", default=None,
                    help="DC5 variant: dilated stride-16 final stage")
     p.add_argument("--checkpoint_dir", type=str, default=None)
+    p.add_argument("--data_parallel", type=int, default=None,
+                   help="train on N DDP ranks: under torchrun its ranks, otherwise N local "
+                        "ranks spawned (one per card; Gloo ranks with --device cpu); "
+                        "--batch_size is the global batch and must divide by N")
     p.add_argument("--backbone_weights", type=str, default=None,
                    help="local torchvision resnet50/101 .pth for ImageNet "
                         "backbone initialization")

@@ -17,7 +17,7 @@ gradient accumulation (port of ``detr_tensorflow_tpu/train/optimizers.py``).
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -39,12 +39,23 @@ def param_labels(model: torch.nn.Module) -> Dict[str, str]:
     return {name: label_for(name.split(".")[0]) for name, _ in model.named_parameters()}
 
 
-def clip_by_leaf_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
+def clip_by_leaf_norm_(grads: List[torch.Tensor], max_norm: float,
+                       split: Optional[List[bool]] = None, group=None) -> None:
     """Scale each tensor in place to an L2 norm of at most ``max_norm``,
-    without reading anything back to the host."""
+    without reading anything back to the host. A tensor flagged in
+    ``split`` is one rank's slice of a tensor split over the model
+    ``group`` (``parallel/tp.py``): its norm is the whole tensor's, the
+    squares summed over the group (one all-reduce for all of them)."""
     if not grads:
         return
     norms = torch.stack(torch._foreach_norm(grads))
+    if group is not None and split is not None and any(split):
+        import torch.distributed as dist
+
+        is_split = torch.tensor(split, device=norms.device)
+        squares = torch.where(is_split, norms.double() ** 2, 0.0)
+        dist.all_reduce(squares, group=group)
+        norms = torch.where(is_split, squares.sqrt().to(norms.dtype), norms)
     scales = torch.clamp(max_norm / torch.clamp(norms, min=1e-12), max=1.0)
     torch._foreach_mul_(grads, list(scales.unbind()))
 
@@ -57,21 +68,34 @@ def lr_dict(config) -> Dict[str, float]:
 
 class GroupOptimizer:
     """The composite optimizer of one model: ``step(lrs)`` after each
-    backward pass; it returns whether an update was applied."""
+    backward pass; it returns whether an update was applied. ``names``
+    lists the state_dict name of each of ``params``. Under tensor
+    parallelism (``model_group``, a ``parallel.tp.ModelGroup``) the clip
+    reads the norm of each split tensor's whole."""
 
-    def __init__(self, model: torch.nn.Module, config):
+    def __init__(self, model: torch.nn.Module, config, model_group=None):
         enabled = {"backbone": config.train_backbone,
                    "transformers": config.train_transformers,
                    "nlayers": config.train_nlayers}
         labels = param_labels(model)
         self.groups: Dict[str, List[torch.nn.Parameter]] = {g: [] for g in GROUPS}
+        named: Dict[str, List[str]] = {g: [] for g in GROUPS}
         for name, p in model.named_parameters():
             p.requires_grad_(bool(enabled[labels[name]]))
             if p.requires_grad:
                 self.groups[labels[name]].append(p)
+                named[labels[name]].append(name)
         self.max_norm = float(config.gradient_norm_clipping)
         self.k = config.gradient_aggregate
         self.params = [p for g in GROUPS for p in self.groups[g]]
+        self.names = [n for g in GROUPS for n in named[g]]
+        self.model_group = model_group
+        self.split = None
+        if model_group is not None:
+            from ..parallel.tp import split_dim
+
+            self.split = [split_dim(n, p.dim()) is not None
+                          for n, p in zip(self.names, self.params)]
         self.adam = None
         if self.params:
             self.adam = torch.optim.Adam(
@@ -99,7 +123,8 @@ class GroupOptimizer:
                 return False
             self.mini_step = 0
             grads, self.acc = self.acc, [torch.zeros_like(p) for p in self.params]
-        clip_by_leaf_norm_(grads, self.max_norm)
+        clip_by_leaf_norm_(grads, self.max_norm, self.split,
+                           None if self.model_group is None else self.model_group.group)
         for p, g in zip(self.params, grads):
             p.grad = g
         for group in self.adam.param_groups:
@@ -118,5 +143,5 @@ class GroupOptimizer:
         self.acc = [a.to(p.device) for a, p in zip(state["acc"], self.params)]
 
 
-def make_optimizer(config, model: torch.nn.Module) -> GroupOptimizer:
-    return GroupOptimizer(model, config)
+def make_optimizer(config, model: torch.nn.Module, model_group=None) -> GroupOptimizer:
+    return GroupOptimizer(model, config, model_group)

@@ -1,17 +1,36 @@
 """What the training entry points share (``train_coco``, ``finetune_coco``,
-``finetune_voc``): their flags beyond the training config's, and the outer
+``finetune_voc``, ``finetune_hardhat``, ``finetune_coco_masks``): their
+flags beyond the training config's, the ranks they train on, and the outer
 loop of one validation pass then one training epoch, checkpointed after
-each epoch when ``--checkpoint_dir`` is set."""
+each epoch when ``--checkpoint_dir`` is set.
+
+``--data_parallel N`` (``data_parallel_mesh``): under torchrun's
+environment each process is a rank of the process group it names; without
+it, N > 1 spawns N local ranks, each running the entry point itself: one
+per card (NCCL), or Gloo ranks with ``--device cpu`` (one thread each:
+CPU ranks are for tests). ``--batch_size`` is the global batch: each rank
+loads the same examples and keeps its rows of every batch
+(``HostDataset.set_shard``), and only rank 0 prints and writes checkpoints.
+"""
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
+import os
+import tempfile
 from typing import Callable, Optional
 
+import torch
+
+from ..parallel import mesh as mesh_lib
+from ..parallel import multihost
 from .checkpoint import save_checkpoint
 from .config import training_config_parser
 from .engine import Trainer, eval_loop, fit
+
+SPAWNED = "spawned"  # data_parallel_mesh: the ranks ran in processes of their own
 
 
 def entry_parser(description: str, epochs: int = 100) -> argparse.ArgumentParser:
@@ -52,3 +71,77 @@ def run_epochs(trainer: Trainer, train_dt, valid_dt, config, args, evaluation_st
         if config.checkpoint_dir:
             save_checkpoint(trainer, config.checkpoint_dir)
     return True
+
+
+@contextlib.contextmanager
+def _environ(**kw):
+    old = {k: os.environ.get(k) for k in kw}
+    os.environ.update(kw)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _rank_main(rank, entry, argv, model_kwargs, world, device, init_method):
+    """A spawned rank: join the process group, run the entry point."""
+    if torch.device(device).type == "cpu":
+        torch.set_num_threads(1)
+    multihost.initialize(init_method=init_method, num_processes=world, process_id=rank,
+                         device=device)
+    try:
+        entry(argv, **model_kwargs)
+    finally:
+        multihost.shutdown()
+
+
+def spawn_ranks(entry: Callable, argv, model_kwargs: dict, world: int, device: str) -> None:
+    """Run ``entry(argv, **model_kwargs)`` in ``world`` spawned local ranks
+    joined by a file rendezvous in a temporary directory: NCCL ranks one
+    per card, or single-threaded Gloo ranks on the CPU. Raises if a rank
+    fails (the others are stopped)."""
+    import torch.multiprocessing as mp
+
+    if torch.device(device).type == "cuda" and torch.cuda.device_count() < world:
+        raise ValueError(f"{world} ranks need {world} cards, {torch.cuda.device_count()} "
+                         "present (torchrun places ranks on other hosts)")
+    threads = {"OMP_NUM_THREADS": "1"} if torch.device(device).type == "cpu" else {}
+    with tempfile.TemporaryDirectory(prefix="detr_ranks_") as tmp, _environ(**threads):
+        init = "file://" + os.path.join(tmp, "rendezvous")
+        ctx = mp.start_processes(
+            _rank_main, args=(entry, list(argv or []), dict(model_kwargs), world, device, init),
+            nprocs=world, join=False, start_method="spawn")
+        while not ctx.join():
+            pass
+
+
+def data_parallel_mesh(entry: Callable, argv, model_kwargs: dict, config, args):
+    """The mesh this process trains on (None at one process), or
+    ``SPAWNED`` once ``config.data_parallel`` local ranks, spawned here,
+    have each run ``entry(argv, **model_kwargs)`` to its end."""
+    n = int(config.data_parallel)
+    if n < 1 or config.batch_size % n:
+        raise ValueError(f"--batch_size {config.batch_size} does not split over "
+                         f"--data_parallel {n} ranks")
+    if not torch.distributed.is_initialized():
+        if "WORLD_SIZE" not in os.environ:
+            if n == 1:
+                return None
+            spawn_ranks(entry, argv, model_kwargs, n, args.device)
+            return SPAWNED
+        multihost.initialize(device=args.device)
+    if multihost.world_size() != n:
+        raise ValueError(f"--data_parallel {n} in a world of {multihost.world_size()} ranks")
+    return mesh_lib.make_mesh(n)
+
+
+def shard_loaders(mesh, *datasets) -> None:
+    """Make each ``HostDataset`` (None skipped) yield this rank's rows."""
+    _, index, size = mesh_lib.axis(mesh, "data")
+    for dataset in datasets:
+        if dataset is not None and size > 1:
+            dataset.set_shard(index, size)

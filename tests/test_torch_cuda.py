@@ -1812,3 +1812,152 @@ def test_trainer_step_through_the_attention_op(cuda_device, dtype):
     now = fa.mha.mma_launches if dtype == "bfloat16" else fa.mha.tf32_launches
     assert now - fwd == 18 and maxpool.max_pool_3x3_s2.launches == pool + 1
     assert bool(torch.isfinite(logs[0]["total_loss"]))
+
+
+# Parallelism across processes on the card: two Gloo ranks sharing cuda:0
+# (NCCL refuses two ranks on one device), a reduced DETR (model_dim 64, 2
+# heads of 32, one encoder and one decoder layer), started by
+# torch_ranks.run_ranks (file rendezvous, 60 s collective timeout,
+# every wait bounded).
+CARD_TINY = dict(model_dim=64, num_heads=2, num_encoder_layers=1, num_decoder_layers=1,
+                 dim_feedforward=128, backbone_stage_sizes=(1, 1, 1, 1), dropout=0.0)
+
+CARD_WORKER = '''
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from detr_tensorflow_tpu_torch.models import api
+    from detr_tensorflow_tpu_torch.ops import flash_attention as fa, lap, losses, maxpool
+    from detr_tensorflow_tpu_torch.parallel import tp
+    from detr_tensorflow_tpu_torch.train import Trainer, TrainingConfig
+
+    spec = torch.load(os.path.join(out, "spec.pt"), weights_only=False)
+    config = TrainingConfig(**spec["config"])
+    shape = (2, 1) if sys.argv[4] == "dp" else (1, 2)
+    mesh = make_mesh(2, ("data", "model"), shape)
+    model = api.build_detr(seed=0, device="cuda", **spec["tiny"]).module
+    trainer = Trainer(model, config, seed=0, mesh=mesh)
+    b = {k: torch.as_tensor(v).cuda() for k, v in spec["batch"].items()}
+    before = (fa.mha.tf32_launches, fa.mha.backward_mma_launches,
+              lap.solve_lap_masked.launches, maxpool.max_pool_3x3_s2.launches)
+    if sys.argv[4] == "dp":
+        loss = float(trainer.step(shard_batch(b, mesh))["total_loss"])
+    else:
+        outputs = model(b["images"], train=True)
+        total, _ = losses.detr_loss(outputs, b["boxes"], b["classes"], b["mask"], 91)
+        total.backward()
+        loss = float(total.detach())
+    torch.cuda.synchronize()
+    counts = tuple(a - c for a, c in zip((fa.mha.tf32_launches, fa.mha.backward_mma_launches,
+                   lap.solve_lap_masked.launches, maxpool.max_pool_3x3_s2.launches), before))
+    mg = trainer.model_group
+    grads = {n: (p.grad if mg is None or tp.split_dim(n, p.dim()) is None
+                 else tp.gather_tensor(p.grad, tp.split_dim(n, p.dim()), mg)).cpu()
+             for n, p in model.named_parameters()}
+    torch.save({"loss": loss, "counts": counts, "grads": grads}, os.path.join(out, f"rank{rank}.pt"))
+    multihost.shutdown()
+'''
+
+
+def _card_batch():
+    rng = np.random.default_rng(3)
+    from detr_tensorflow_tpu_torch.data import pad_targets
+
+    boxes, classes, mask = zip(*(
+        pad_targets(np.concatenate([rng.uniform(0.3, 0.7, (n, 2)), rng.uniform(0.1, 0.4, (n, 2))],
+                                   -1), rng.integers(1, 90, size=n), 100) for n in (5, 3, 1, 1)))
+    return {"images": rng.normal(size=(4, 128, 160, 3)).astype(np.float32),
+            "boxes": np.stack(boxes), "classes": np.stack(classes), "mask": np.stack(mask)}
+
+
+@pytest.mark.parametrize("mode", ["dp", "tp"])
+def test_two_gloo_ranks_on_the_card(cuda_device, tmp_path, mode):
+    """DP (2 x b2, 6 and 2 boxes) and TP (1 head a rank) with two Gloo
+    ranks on cuda:0 against one process on the card: the loss within 1e-4
+    relative, each gradient (clipped for DP, whole for TP) within 1e-3 of
+    its norm (a tensor whose exact gradient is zero, every k_proj bias,
+    within 1e-6 of the largest gradient); per rank A-tf32 3 and C 1 a
+    forward, A'-mma 3 and B 1 a step."""
+    from torch_ranks import run_ranks
+
+    from detr_tensorflow_tpu_torch.ops import losses
+    from detr_tensorflow_tpu_torch.train import Trainer, TrainingConfig
+
+    config = dict(background_class=91, train_backbone=True, train_transformers=True,
+                  batch_size=4)
+    spec = {"config": config, "tiny": CARD_TINY, "batch": _card_batch()}
+    torch.save(spec, tmp_path / "spec.pt")
+    run_ranks(CARD_WORKER, 2, tmp_path, mode)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    model = api.build_detr(seed=0, device=cuda_device, **CARD_TINY).module
+    b = {k: torch.as_tensor(v).to(cuda_device) for k, v in spec["batch"].items()}
+    if mode == "dp":
+        loss = float(Trainer(model, TrainingConfig(**config), seed=0).step(b)["total_loss"])
+    else:
+        total, _ = losses.detr_loss(model(b["images"], train=True), b["boxes"], b["classes"],
+                                    b["mask"], 91)
+        total.backward()
+        loss = float(total.detach())
+    grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    scale = max(float(g.norm()) for g in grads.values())
+    for r in ranks:
+        assert abs(r["loss"] - loss) <= 1e-4 * abs(loss)
+        assert r["counts"] == (3, 3, 1, 1)
+        for name, g in grads.items():
+            diff = float((r["grads"][name] - g).norm())
+            assert diff <= 1e-3 * float(g.norm()) or diff <= 1e-6 * scale, name
+
+
+NCCL_WORKER = r'''
+import os, sys
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from detr_tensorflow_tpu_torch.models import api
+from detr_tensorflow_tpu_torch.parallel import make_mesh, multihost
+from detr_tensorflow_tpu_torch.train import Trainer, TrainingConfig
+
+out = sys.argv[1]
+assert multihost.initialize(init_method="file://" + os.path.join(out, "rendezvous"),
+                            num_processes=1, process_id=0, backend="nccl", timeout_s=60)
+spec = torch.load(os.path.join(out, "spec.pt"), weights_only=False)
+model = api.build_detr(seed=0, device="cuda", **spec["tiny"]).module
+trainer = Trainer(model, TrainingConfig(**spec["config"]), seed=0, mesh=make_mesh(1))
+assert trainer.ddp is not None and torch.distributed.get_backend() == "nccl"
+b = {k: torch.as_tensor(v).cuda() for k, v in spec["batch"].items()}
+loss = float(trainer.step(b)["total_loss"])
+torch.save({"loss": loss, "params": {n: p.detach().cpu() for n, p in model.named_parameters()}},
+           os.path.join(out, "nccl.pt"))
+multihost.shutdown()
+'''
+
+
+def test_nccl_world_one_step_on_the_card(cuda_device, tmp_path):
+    """``multihost.initialize`` with NCCL at world size 1 and a
+    ``Trainer(mesh=make_mesh(1))`` step (DDP over the one-rank NCCL group)
+    against the plain Trainer's: the loss within 1e-4 relative, every
+    parameter within 2 lr (Adam's step on a tensor whose exact gradient is
+    zero may take the other sign)."""
+    import os
+    import subprocess
+    import sys
+
+    from detr_tensorflow_tpu_torch.train import Trainer, TrainingConfig
+
+    config = dict(background_class=91, train_backbone=True, train_transformers=True,
+                  batch_size=4)
+    spec = {"config": config, "tiny": CARD_TINY, "batch": _card_batch()}
+    torch.save(spec, tmp_path / "spec.pt")
+    (tmp_path / "nccl.py").write_text(NCCL_WORKER)
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    env.pop("WORLD_SIZE", None)
+    done = subprocess.run([sys.executable, str(tmp_path / "nccl.py"), str(tmp_path)], env=env,
+                          cwd=repo, capture_output=True, text=True, timeout=120)
+    assert done.returncode == 0, done.stdout[-3000:] + done.stderr[-3000:]
+    got = torch.load(tmp_path / "nccl.pt", weights_only=False)
+    model = api.build_detr(seed=0, device=cuda_device, **CARD_TINY).module
+    b = {k: torch.as_tensor(v).to(cuda_device) for k, v in spec["batch"].items()}
+    loss = float(Trainer(model, TrainingConfig(**config), seed=0).step(b)["total_loss"])
+    assert abs(got["loss"] - loss) <= 1e-4 * abs(loss)
+    for n, p in model.named_parameters():
+        assert float((got["params"][n] - p.detach().cpu()).abs().max()) <= 2e-4, n

@@ -252,7 +252,8 @@ def test_quickstart_main_runs(tmp_path):
     ["--ann_dir", "ann", "--multi_scale", "320", "576", "376", "672", "--train_nlayers",
      "--finetuning", "--backbone_depth", "101", "--background_class", "0",
      "--gradient_norm_clipping", "0.5", "--nlayers_lr", "1e-3", "--backbone_lr", "2e-5"],
-], ids=["defaults", "coco_train", "voc_multi_scale"])
+    ["--data_parallel", "2", "--batch_size", "8"],
+], ids=["defaults", "coco_train", "voc_multi_scale", "data_parallel"])
 def test_parser_gives_jax_fields(argv):
     """The same argv through both parsers and ``update_from_args``: every
     field the two configs share is equal, and the data paths too."""
