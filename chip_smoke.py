@@ -618,9 +618,9 @@ def phase_kernels(torch, fa):
     return worst, times
 
 
-def train_attention_inputs(torch, lq, lk, dtype, seed, masked):
+def train_attention_inputs(torch, lq, lk, dtype, seed, masked, b=8):
     rng = np.random.default_rng(seed)
-    b, h, dh = 8, 8, 32
+    h, dh = 8, 32
     q = rng.normal(size=(b, lq, h, dh)) * dh**-0.5
     k, v, dout = (rng.normal(size=s) for s in ((b, lk, h, dh), (b, lk, h, dh), (b, lq, h, dh)))
     to = lambda x: torch.from_numpy(x).to(DEVICE, dtype)  # noqa: E731
@@ -4275,6 +4275,441 @@ def phase_parallel(torch, fa, lap, mp, api, train, losses):
     return res
 
 
+# Phase 18: pipeline parallelism. Two rank processes share the card over
+# Gloo (NCCL refuses two ranks on one device) as the two stages of a
+# ("stage",) mesh, each stage boundary staged through pinned host memory
+# (``parallel/p2p.py``, route "gloo-host"). DETR-R50 at full width and depth,
+# the b8 376x672 fp32 recipe (TF32 off): 1F1B (``Trainer(pipeline_1f1b=)``,
+# stage 0 the prefix and the 6 encoder slots, stage 1 the 6 decoder slots
+# and the loss, 4 microbatches of 2) and GPipe (``DETR(pipeline=)``, each
+# stage 3 encoder and 3 decoder layers), held against one process's
+# sequential step; then each rank's step wall, device time, p2p traffic,
+# parameter bytes and peak memory at 4 and 8 microbatches of 2.
+PIPE_WORLD, PIPE_SEED, PIPE_WALL_STEPS, PIPE_TIMEOUT_S = 2, 9, 6, 300
+PIPE_MICRO = 4  # choose_n_micro(8, 2): microbatches of 2
+# Launches per rank and step, (stage 0, stage 1): 1F1B runs stage 0's
+# encoder slots forward, then again in each backward's re-linearization,
+# and stage 1's decoder slots once with their loss (B once a microbatch);
+# GPipe runs the backbone and the loss on every rank and half of each stack.
+PIPE_1F1B_COUNTS = ({"A-tf32": 2 * 6 * PIPE_MICRO, "A'-mma": 6 * PIPE_MICRO, "B": 0, "C": 1},
+                    {"A-tf32": 12 * PIPE_MICRO, "A'-mma": 12 * PIPE_MICRO, "B": PIPE_MICRO,
+                     "C": 0})
+PIPE_GPIPE_COUNTS = {"A-tf32": 9 * PIPE_MICRO, "A'-mma": 9 * PIPE_MICRO, "B": 1, "C": 1}
+PIPE_TAG = 1 << 30  # the transfer probe's tags, beyond the schedules'
+# Dropout 0.1 follows the trainer's seed: over these seeds the first step's
+# loss, and the first step's gradient between the first two, move with the
+# seed pipelined by at least this share of what they move in one process
+# (the same masks' statistics, drawn per microbatch and slot; a slot whose
+# masks ignored the seed would shrink both).
+PIPE_DROPOUT_SEEDS, PIPE_SEED_SPREAD = (0, 1, 2, 3), 0.1
+
+
+def _pipe_counts(counts):
+    return {k: counts[k] for k in ("A-tf32", "A'-mma", "B", "C")}
+
+
+def _pipe_big_batch(torch, batch):
+    """b16: the b8 batch and another b8 one."""
+    from detr_tensorflow_tpu_torch.train.engine import batch_to_device
+
+    other = batch_to_device(train_batch(PIPE_SEED + 1), DEVICE)
+    return {k: torch.cat([batch[k], other[k]]) for k in batch}
+
+
+def _grad_gap_sq(a, b):
+    """(sum of ||a - b||^2, sum of ||a||^2) over the tensors of two
+    gradient dicts."""
+    return (sum(float((a[n] - b[n]).square().sum()) for n in a),
+            sum(float(g.square().sum()) for g in a.values()))
+
+
+def pipeline_rank(rank, tmp, results):
+    """Process target: stage ``rank`` of PIPE_WORLD on the card (phase 18).
+    Puts its numbers on ``results`` (or its traceback); writes its first
+    1F1B step's gradients, and rank 0 GPipe's outputs and gradients, to
+    ``tmp``."""
+    import traceback
+
+    import torch
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        import torch.distributed as dist
+
+        from detr_tensorflow_tpu_torch import train
+        from detr_tensorflow_tpu_torch.models import api
+        from detr_tensorflow_tpu_torch.ops import flash_attention as fa, lap, losses, maxpool
+        from detr_tensorflow_tpu_torch.parallel import PipelineSpec, make_mesh, multihost, p2p, pp
+        from detr_tensorflow_tpu_torch.train.engine import batch_to_device
+        from detr_tensorflow_tpu_torch.utils import profiling, trees
+
+        multihost.initialize(init_method=f"file://{tmp}/rendezvous_pp", num_processes=PIPE_WORLD,
+                             process_id=rank, backend="gloo", device=DEVICE,
+                             timeout_s=PIPE_TIMEOUT_S)
+        mesh = make_mesh(PIPE_WORLD, ("stage",))
+        out = {"rank": rank, "route": p2p.route(DEVICE)}
+        config = _par_config(train)
+        batch = batch_to_device(train_batch(PIPE_SEED), DEVICE)
+
+        def build(dropout):
+            return api.build_detr(seed=0, device=DEVICE, dropout=dropout).module
+
+        def trainer(dropout, seed=0, n_micro=None):
+            return train.Trainer(build(dropout), config, seed=seed,
+                                 pipeline_1f1b=PipelineSpec(mesh, n_micro=n_micro))
+
+        def wall(fn):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0)
+
+        # (a) 1F1B at dropout 0, the main path: launches counted, p2p traffic.
+        tr = trainer(0.0)
+        first = {}
+        _first_grads(tr, first)
+        reset_counts(fa, lap, maxpool)
+        p2p.reset_stats()
+        losses_seen = [float(tr.step(batch)["total_loss"])]
+        torch.cuda.synchronize()
+        out["counts"] = _pipe_counts(read_counts(fa, lap, maxpool))
+        out["p2p"] = dict(p2p.stats)
+        out["live"] = pp.last_stats["max_live"]
+        losses_seen.append(float(tr.step(batch)["total_loss"]))
+        out["losses"] = losses_seen
+        torch.save(first, os.path.join(tmp, f"pipe_grads{rank}.pt"))
+        params = dict(tr.model.named_parameters())
+        out["stage_bytes"], out["stage_size"] = trees.tree_bytes(params), trees.tree_size(params)
+        del tr, first, params
+        torch.cuda.empty_cache()
+
+        # (b) dropout 0.1: step walls, one step under the profiler, seeds.
+        tr = trainer(DROPOUT)
+        first = {}
+        _first_grads(tr, first)
+        seed_losses, walls = [], []
+        for i in range(PIPE_WALL_STEPS):
+            p2p.reset_stats()
+            logs = []
+            walls.append(wall(lambda: logs.append(float(tr.step(batch)["total_loss"]))))
+            if i == 0:
+                seed_losses.append(logs[0])
+        out["walls"], out["p2p_step"] = walls, dict(p2p.stats)
+        out["finite"] = all(bool(torch.isfinite(g).all()) for g in first.values())
+        dist.barrier()
+        with profiling.trace(os.path.join(tmp, f"trace{rank}")) as prof:
+            tr.step(batch)
+        out["device"] = profiling.device_stats_per_step(prof, 1)
+        del tr, first, prof
+        seed_grads = []
+        for seed in PIPE_DROPOUT_SEEDS:
+            tr = trainer(DROPOUT, seed)
+            if len(seed_grads) < 2:
+                seed_grads.append({})
+                _first_grads(tr, seed_grads[-1])
+            seed_losses.append(float(tr.step(batch)["total_loss"]))
+            del tr
+        out["seed_losses"] = seed_losses
+        out["seed_grad_sq"] = _grad_gap_sq(*seed_grads)
+        del seed_grads
+        torch.cuda.empty_cache()
+
+        # (c) one stage boundary's tree there and back, alone (host clock).
+        tree = {"src": torch.randn(2, 252, 256, device=DEVICE),
+                "pos": torch.randn(2, 252, 256, device=DEVICE),
+                "qpos": torch.randn(2, 100, 256, device=DEVICE)}
+        there = p2p.Link(1 - rank, PIPE_TAG, DEVICE)
+        back = p2p.Link(1 - rank, PIPE_TAG + 64, DEVICE)
+        trips = []
+        for i in range(6):  # the first carries the layout's header too
+
+            def trip():
+                if rank == 0:
+                    there.send(tree, i)
+                    got = back.recv(i)
+                    if not torch.equal(got["src"], tree["src"]):
+                        raise AssertionError("the boundary tree came back changed")
+                else:
+                    back.send(there.recv(i), i)
+                p2p.drain()
+
+            trips.append(wall(trip))
+        out["trip_ms"], out["trip_bytes"] = statistics.median(trips[1:]), p2p.nbytes(
+            p2p.spec_of(tree))
+        del tree
+
+        # (d) peak memory a rank in a training step (Adam's moments made by
+        # the step before) at 4 and 8 microbatches of 2 (b8, b16).
+        big = _pipe_big_batch(torch, batch)
+        peaks = {}
+        for b, n_micro in ((batch, PIPE_MICRO), (big, 2 * PIPE_MICRO)):
+            tr = trainer(0.0, n_micro=n_micro)
+            tr.step(b)  # Adam's moments exist from here on
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tr.step(b)
+            torch.cuda.synchronize()
+            peaks[("1f1b", n_micro)] = torch.cuda.max_memory_allocated() / 2**30
+            del tr
+            torch.cuda.empty_cache()
+            # GPipe through the Trainer on the same mesh (every rank the
+            # whole model, its Adam moments and its gradients made whole).
+            tr = train.Trainer(build(0.0).set_pipeline(PipelineSpec(mesh, n_micro=n_micro)),
+                               config, seed=0, mesh=mesh)
+            tr.step(b)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tr.step(b)
+            torch.cuda.synchronize()
+            peaks[("gpipe", n_micro)] = torch.cuda.max_memory_allocated() / 2**30
+            del tr
+            torch.cuda.empty_cache()
+        out["peaks"] = peaks
+        del big
+
+        # (e) GPipe at dropout 0 through DETR(pipeline=), the main path.
+        model = build(0.0).set_pipeline(PipelineSpec(mesh))
+        reset_counts(fa, lap, maxpool)
+        outputs = model(batch["images"], train=True)
+        total, _ = losses.detr_loss(outputs, batch["boxes"], batch["classes"], batch["mask"],
+                                    BACKGROUND)
+        total.backward()
+        torch.cuda.synchronize()
+        out["gpipe_counts"] = _pipe_counts(read_counts(fa, lap, maxpool))
+        out["gpipe_loss"] = float(total)
+        if rank == 0:
+            torch.save({"outputs": {k: v.detach().cpu() for k, v in outputs.items()},
+                        "grads": _cpu_state((n, p.grad) for n, p in model.named_parameters())},
+                       os.path.join(tmp, "gpipe.pt"))
+        del model, outputs, total
+        multihost.shutdown()
+        results.put(out)
+    except Exception:  # the process's boundary: reported to the parent, which raises
+        results.put({"rank": rank, "error": traceback.format_exc()})
+
+
+def time_pipeline_kernels(torch, fa, lap):
+    """The kernels at the launch shapes of a pipelined step, beside the
+    sequential step's, from CUDA graphs: A-tf32 (dropout 0.1, with the lse)
+    and A'-mma at the three training shapes at B = 2 (a microbatch) and
+    B = 8; B as 4 solves of 12 problems and as one of 48."""
+    out = {}
+    for lq, lk in TRAIN_ATTN_SHAPES:
+        masked = (lq, lk) == (100, 252)
+        for b in (2, TRAIN_BATCH):
+            q, k, v, dout, mask = train_attention_inputs(torch, lq, lk, torch.float32,
+                                                         lq * 3 + lk, masked, b=b)
+            seed = torch.tensor([4242], device=DEVICE)
+            o, lse = fa.launch_forward_tf32(q, k, v, mask, seed, DROPOUT, True)
+            # A'-mma's bound as in time_train_attention, at batch b (3xTF32).
+            nbytes = b * 8 * 32 * (4 * lq + 4 * lk) * 4 + b * 8 * lq * 4 + (b * lk if masked
+                                                                            else 0)
+            out[(lq, lk, b)] = (
+                graph_ms(torch, lambda: fa.launch_forward_tf32(q, k, v, mask, seed, DROPOUT,
+                                                               True)),
+                graph_ms(torch, lambda: fa.launch_backward_mma(q, k, v, o, dout, lse, mask,
+                                                               seed, DROPOUT)),
+                attention_bound(b, lq, lk, "tf32", masked, lse=True),
+                bound_ms(nbytes, {"tf32": 3 * 10 * b * 8 * lq * lk * 32}))
+    cost, mask, _ = lap_problems(3)
+    ct, mt = torch.from_numpy(cost).to(DEVICE), torch.from_numpy(mask).to(DEVICE)
+    part = LAP_PROBLEMS // PIPE_MICRO
+    out["lap"] = (graph_ms(torch, lambda: lap.solve_lap_masked(ct, mt)),
+                  graph_ms(torch, lambda: [lap.solve_lap_masked(ct[i * part:(i + 1) * part],
+                                                                mt[i * part:(i + 1) * part])
+                                           for i in range(PIPE_MICRO)]))
+    return out
+
+
+def phase_pipeline(torch, fa, lap, mp, api, train, losses):
+    """Phase 18: the kernels at the pipelined shapes, one process's
+    sequential references, then the PIPE_WORLD stage ranks on the card, held
+    against them. Returns the numbers it printed and the ranks' launches."""
+    import multiprocessing
+    import queue
+    import tempfile
+
+    from detr_tensorflow_tpu_torch.train.engine import batch_to_device
+    from detr_tensorflow_tpu_torch.utils import profiling
+
+    res = {"kernels": time_pipeline_kernels(torch, fa, lap)}
+    for (lq, lk, b), (f_ms, b_ms, f_bound, b_bound) in sorted(
+            (k, v) for k, v in res["kernels"].items() if k != "lap"):
+        log(f"  (kernels) ({lq},{lk}) B={b}: A-tf32 {f_ms:.4f} ms (bound {f_bound[0]:.4f}, "
+            f"{f_bound[1]}), A'-mma {b_ms:.4f} ms (bound {b_bound[0]:.4f}, {b_bound[1]}); CUDA "
+            f"graphs, dropout {DROPOUT}, bounds as 3xTF32")
+    whole, parts = res["kernels"]["lap"]
+    log(f"  (kernels) B: one solve of {LAP_PROBLEMS} problems {whole:.4f} ms, "
+        f"{PIPE_MICRO} solves of {LAP_PROBLEMS // PIPE_MICRO} {parts:.4f} ms (CUDA graphs)")
+
+    config = _par_config(train)
+    batch = batch_to_device(train_batch(PIPE_SEED), DEVICE)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_pipeline_")
+    # One process, dropout 0: the outputs, the first step's gradients and
+    # two steps' losses; then at dropout 0.1 its step wall and device time.
+    model = api.build_detr(seed=0, device=DEVICE, dropout=0.0).module
+    with torch.no_grad():
+        ref_out = {k: v.cpu() for k, v in model(batch["images"], train=True).items()}
+    trainer = train.Trainer(model, config, seed=0)
+    ref_grads = {}
+    _first_grads(trainer, ref_grads)
+    ref_losses = [float(trainer.step(batch)["total_loss"]) for _ in range(2)]
+    del trainer, model
+    trainer = train.Trainer(api.build_detr(seed=0, device=DEVICE).module, config, seed=0)
+    walls = []
+    for _ in range(PIPE_WALL_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step(batch)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    with profiling.trace(os.path.join(tmp.name, "trace_single")) as prof:
+        trainer.step(batch)
+    res["single"] = (statistics.median(walls[1:]), profiling.device_stats_per_step(prof, 1))
+    del trainer, prof
+    # The same at dropout 0.1 over PIPE_DROPOUT_SEEDS: the first step's
+    # loss, and the first two seeds' first-step gradients.
+    seq_losses, seq_grads = [], []
+    for seed in PIPE_DROPOUT_SEEDS:
+        trainer = train.Trainer(api.build_detr(seed=0, device=DEVICE, dropout=DROPOUT).module,
+                                config, seed=seed)
+        if len(seq_grads) < 2:
+            seq_grads.append({})
+            _first_grads(trainer, seq_grads[-1])
+        seq_losses.append(float(trainer.step(batch)["total_loss"]))
+        del trainer
+    gap_sq, norm_sq = _grad_gap_sq(*seq_grads)
+    res["seq_seeds"] = (seq_losses, (gap_sq / norm_sq) ** 0.5)
+    del seq_grads
+    torch.cuda.empty_cache()
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=pipeline_rank, daemon=True, args=(r, tmp.name, results))
+             for r in range(PIPE_WORLD)]
+    t0 = time.perf_counter()
+    for proc in procs:
+        proc.start()
+    ranks = {}
+    try:
+        deadline = time.perf_counter() + PIPE_TIMEOUT_S
+        while len(ranks) < PIPE_WORLD:
+            try:
+                got = results.get(timeout=5)
+            except queue.Empty:
+                dead = [p for p in procs if p.exitcode not in (None, 0)]
+                if dead or time.perf_counter() > deadline:
+                    raise AssertionError(f"phase 18: {len(dead)} rank(s) died, {len(ranks)} of "
+                                         f"{PIPE_WORLD} reported in {time.perf_counter() - t0:.0f} s")
+                continue
+            if "error" in got:
+                raise AssertionError(f"phase 18, rank {got['rank']}:\n{got['error']}")
+            ranks[got["rank"]] = got
+    finally:
+        for proc in procs:
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
+    res["ranks_s"] = time.perf_counter() - t0
+    r0, r1 = ranks[0], ranks[1]
+    grads = {}
+    for r in range(PIPE_WORLD):
+        grads.update(torch.load(os.path.join(tmp.name, f"pipe_grads{r}.pt")))
+    gpipe = torch.load(os.path.join(tmp.name, "gpipe.pt"))
+    tmp.cleanup()
+
+    # (a) 1F1B against the one-process step.
+    if set(grads) != set(ref_grads):
+        raise AssertionError(f"1F1B gradients of {sorted(set(grads) ^ set(ref_grads))[:4]} "
+                             "missing or extra")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], ref_losses))
+    worst, noise = gradient_agreement(grads, ref_grads)
+    log(f"  (a) 1F1B, 2 stage ranks on one card over Gloo ({r0['route']}), b{TRAIN_BATCH} as "
+        f"{PIPE_MICRO} microbatches: losses {r0['losses']} (rank 1 {r1['losses']}) against one "
+        f"process's {ref_losses}, worst rel {loss_err:.2e} (tol {LOSS_RTOL}); first step's "
+        f"gradients, both stages merged: worst rel err {worst[0]:.2e} ({worst[1]}, tol "
+        f"{TENSOR_GRAD_RTOL}), {len(noise)} tensors within the noise floor; live saved inputs "
+        f"a stage {r0['live']} / {r1['live']}")
+    if r0["losses"] != r1["losses"] or not loss_err <= LOSS_RTOL:
+        raise AssertionError("1F1B steps disagree with the one-process steps")
+    for r, want in zip((r0, r1), PIPE_1F1B_COUNTS):
+        log(f"  launches rank {r['rank']}, one 1F1B step: {r['counts']}")
+        if r["counts"] != want:
+            raise AssertionError(f"rank {r['rank']}: 1F1B launches {r['counts']}, expected {want}")
+
+    # (b) dropout 0.1: deterministic given the seed, and moving with it as
+    # far as one process's step does.
+    s0_again, pipe_losses = r0["seed_losses"][0], r0["seed_losses"][1:]
+    seq_losses, seq_grad_gap = res["seq_seeds"]
+    pipe_spread, seq_spread = statistics.pstdev(pipe_losses), statistics.pstdev(seq_losses)
+    pipe_grad_gap = (sum(r["seed_grad_sq"][0] for r in (r0, r1))
+                     / sum(r["seed_grad_sq"][1] for r in (r0, r1))) ** 0.5
+    stage_gaps = [(r["seed_grad_sq"][0] / r["seed_grad_sq"][1]) ** 0.5 for r in (r0, r1)]
+    log(f"  (b) 1F1B dropout {DROPOUT}: first-step loss over seeds {list(PIPE_DROPOUT_SEEDS)} "
+        f"{[round(v, 6) for v in pipe_losses]} (seed 0 again {s0_again:.6f}; rank 1 "
+        f"{[round(v, 6) for v in r1['seed_losses'][1:]]}), std {pipe_spread:.4f}; one "
+        f"process's {[round(v, 6) for v in seq_losses]}, std {seq_spread:.4f}; first-step "
+        f"gradient, seed 1 against seed 0, ||g1 - g0|| / ||g0|| {pipe_grad_gap:.4f} (stage 0 "
+        f"{stage_gaps[0]:.4f}, stage 1 {stage_gaps[1]:.4f}), one process's "
+        f"{seq_grad_gap:.4f}; required at least {PIPE_SEED_SPREAD} of one process's; "
+        f"gradients finite: {r0['finite']} / {r1['finite']}")
+    if (s0_again != pipe_losses[0] or r0["seed_losses"] != r1["seed_losses"]
+            or not pipe_spread >= PIPE_SEED_SPREAD * seq_spread
+            or not pipe_grad_gap >= PIPE_SEED_SPREAD * seq_grad_gap
+            or not (r0["finite"] and r1["finite"])):
+        raise AssertionError("1F1B dropout: not deterministic given the seed, moving less with "
+                             "the seed than one process's step, or not finite")
+
+    # (c) GPipe against the one-process forward and step.
+    out_err = {k: float((gpipe["outputs"][k] - ref_out[k]).abs().max()) for k in ref_out}
+    g_worst, g_noise = gradient_agreement(gpipe["grads"], ref_grads)
+    g_loss_err = abs(r0["gpipe_loss"] - ref_losses[0]) / abs(ref_losses[0])
+    log(f"  (c) GPipe DETR(pipeline=): loss {r0['gpipe_loss']:.6f} / {r1['gpipe_loss']:.6f} "
+        f"against {ref_losses[0]:.6f} (rel {g_loss_err:.2e}); outputs max abs diff "
+        f"{ {k: f'{v:.2e}' for k, v in out_err.items()} }; gradients worst rel err "
+        f"{g_worst[0]:.2e} ({g_worst[1]}), {len(g_noise)} within the noise floor")
+    if (r0["gpipe_loss"] != r1["gpipe_loss"] or not g_loss_err <= LOSS_RTOL
+            or out_err["pred_boxes"] > BOX_ATOL or out_err["pred_logits"] > LOGIT_ATOL):
+        raise AssertionError("GPipe disagrees with the sequential model")
+    for r in (r0, r1):
+        log(f"  launches rank {r['rank']}, one GPipe forward and backward: {r['gpipe_counts']}")
+        if r["gpipe_counts"] != PIPE_GPIPE_COUNTS:
+            raise AssertionError(f"rank {r['rank']}: GPipe launches {r['gpipe_counts']}, "
+                                 f"expected {PIPE_GPIPE_COUNTS}")
+
+    # (d) readings.
+    single_wall, single_dev = res["single"]
+    for r in (r0, r1, {"device": single_dev}):
+        if r["device"] is None:
+            raise AssertionError("torch.profiler saw no CUDA kernel: no device time")
+    for r in (r0, r1):
+        dev, pst, one = r["device"], r["p2p_step"], r["p2p"]
+        log(f"  (d) rank {r['rank']} (stage {r['rank']}): step wall median of steps "
+            f"2-{PIPE_WALL_STEPS} {statistics.median(r['walls'][1:]):.2f} ms (each "
+            f"{[round(w, 2) for w in r['walls']]}); device time a step "
+            f"{dev['device_ms']:.2f} ms of kernels over {dev['kernels']:.0f} kernels, copies "
+            f"{dev['copy_ms']:.2f} ms, busy span {dev['span_ms']:.2f} ms; p2p a step "
+            f"{pst['bytes_sent'] / 1e6:.3f} MB sent / {pst['bytes_received'] / 1e6:.3f} MB "
+            f"received in {pst['messages']} messages, host time sending {pst['send_ms']:.2f} ms "
+            f"and receiving (waits for the other stage included) {pst['recv_ms']:.2f} ms "
+            f"(the dropout-0 step: {one['bytes_sent'] / 1e6:.3f} / "
+            f"{one['bytes_received'] / 1e6:.3f} MB); parameters {r['stage_size']:,} "
+            f"({r['stage_bytes'] / 1e6:.1f} MB); peak memory GiB "
+            f"{ {f'{k} n_micro {n}': round(v, 3) for (k, n), v in r['peaks'].items()} }")
+    log(f"  (d) one process b{TRAIN_BATCH}: step wall {single_wall:.2f} ms, device time "
+        f"{single_dev['device_ms']:.2f} ms over {single_dev['kernels']:.0f} kernels; one "
+        f"boundary tree ({r0['trip_bytes'] / 1e6:.3f} MB: src, pos, qpos of a microbatch) "
+        f"there and back alone {r0['trip_ms']:.2f} ms (host clock, median of 5)")
+    res.update(ranks={0: r0, 1: r1}, loss_err=loss_err, grad_worst=worst, gpipe_worst=g_worst,
+               launches={k: r0["counts"][k] + r1["counts"][k] + r0["gpipe_counts"][k]
+                         + r1["gpipe_counts"][k] for k in PIPE_GPIPE_COUNTS})
+    return res
+
+
 def _rel_norm(a, b) -> float:
     return float((a - b).norm()) / max(float(b.norm()), 1e-30)
 
@@ -4493,6 +4928,20 @@ def main() -> int:
         f"world-1 largest difference {par['nccl_err']:.3e}; launches on its main paths "
         f"{dict(par_launches)}")
 
+    t = time.perf_counter()
+    pipe = phase_pipeline(torch, fa, lap, maxpool, api, train, losses)
+    pipe_launches = collections.Counter({
+        "flash_attention_fwd_tf32": pipe["launches"]["A-tf32"],
+        "flash_attention_bwd_mma": pipe["launches"]["A'-mma"], "lap": pipe["launches"]["B"],
+        "maxpool": pipe["launches"]["C"]})
+    walls = [statistics.median(pipe["ranks"][r]["walls"][1:]) for r in (0, 1)]
+    log(f"[pipeline] ok in {time.perf_counter() - t:.1f} s ({pipe['ranks_s']:.1f} s in the rank "
+        f"processes); two stages sharing one card, b{TRAIN_BATCH} as {PIPE_MICRO} microbatches: "
+        f"step wall a rank {walls[0]:.2f} / {walls[1]:.2f} ms against one process's "
+        f"{pipe['single'][0]:.2f} ms; 1F1B loss rel err {pipe['loss_err']:.2e}, gradients worst "
+        f"{pipe['grad_worst'][0]:.2e}, GPipe gradients worst {pipe['gpipe_worst'][0]:.2e}; "
+        f"launches on its main paths {dict(pipe_launches)}")
+
     a32, a16 = times[(2, 1232, 1232, "float32")], times[(2, 1232, 1232, "bfloat16")]
     # The training shapes' times: fp32 under (Lq, Lk), bf16 under (Lq, Lk, "bfloat16").
     bwd_times16 = {k[:2]: v for k, v in bwd_times.items() if len(k) == 3}
@@ -4540,7 +4989,8 @@ def main() -> int:
                 "replaces": REPLACES[name],
                 "launches": (launches_ + dc5["launches"][name] + seg["launches"][name]
                              + pan["launches"][name] + jp["launches"][name]
-                             + art["launches"][name] + par_launches[name]),
+                             + art["launches"][name] + par_launches[name]
+                             + pipe_launches[name]),
                 "max_abs_err": err,
                 "ms": ms_, "plain_ms": plain_, "bound_ms": bound, "bound_by": by,
                 "library_ms": library, "measured_at": at}

@@ -1,7 +1,8 @@
 """DETR assembly (port of ``detr_tensorflow_tpu/models/detr.py``):
 backbone -> exact feature mask -> sine positions -> 1x1 projection ->
 transformer -> heads, and with ``masks=True`` the instance-segmentation head
-(``models/segmentation.py``). No pipeline stages. ``backbone_quant=True``
+(``models/segmentation.py``). ``pipeline`` (a ``parallel.pp.PipelineSpec``)
+stages the transformer over processes (GPipe). ``backbone_quant=True``
 runs the int8 post-training-quantized backbone of ``models/quantized.py``
 instead of the fp32 one;
 ``fuse_residual`` and ``fuse_bottleneck`` run the fused backbone kernels
@@ -67,6 +68,11 @@ class DETR(nn.Module):
     recomputes each encoder and decoder layer in the backward, replaying its
     dropout draws; ``backbone_remat=n`` recomputes the first n backbone
     stages. Neither changes the forward or the gradients.
+
+    ``pipeline`` (a ``parallel.pp.PipelineSpec``, or ``set_pipeline``) runs
+    the transformer GPipe-staged over the spec's mesh, every rank holding
+    the whole model (``models/transformer.py``): the same parameter names,
+    outputs and gradients as the sequential model, on every stage rank.
     """
 
     def __init__(self, num_classes: int = 92, num_queries: int = 100,
@@ -79,7 +85,7 @@ class DETR(nn.Module):
                  dropout: float = 0.1, backbone_quant: bool = False,
                  fuse_residual: bool = False, fuse_bottleneck: bool = False,
                  dilation: bool = False, remat: bool = False, backbone_remat: int = 0,
-                 masks: bool = False):
+                 masks: bool = False, pipeline=None):
         super().__init__()
         if head not in HEADS:
             raise ValueError(f"unknown head: {head}")
@@ -88,7 +94,7 @@ class DETR(nn.Module):
         self.model_dim, self.head, self.dtype = model_dim, head, dtype
         self.backbone_depth, self.dilation = backbone_depth, dilation
         self.fuse_residual, self.fuse_bottleneck = fuse_residual, fuse_bottleneck
-        self.masks = masks
+        self.masks, self.dropout, self.num_queries = masks, dropout, num_queries
         stage_sizes = backbone_stage_sizes or STAGE_SIZES[backbone_depth]
         self.backbone = ResNetBackbone(stage_sizes, fuse_residual, fuse_bottleneck,
                                        (False, False, dilation), backbone_remat,
@@ -109,13 +115,22 @@ class DETR(nn.Module):
         if masks:
             self.bbox_attention = MHAttentionMap(model_dim, num_heads, dropout)
             self.mask_head = MaskHead(model_dim, num_heads)
+        self.set_pipeline(pipeline)
 
-    def forward(self, images: torch.Tensor, pixel_mask: Optional[torch.Tensor] = None,
-                train: bool = False, generator: Optional[torch.Generator] = None):
-        """images: (B, H, W, 3) normalized, NHWC. pixel_mask: optional
-        (B, H, W) bool, True = valid; omitted means all valid. ``train``
-        turns on the transformer's dropout, drawn from ``generator`` (a
-        generator on the model's device)."""
+    @property
+    def pipeline(self):
+        return self.transformer.pipeline
+
+    def set_pipeline(self, spec) -> "DETR":
+        """Stage the transformer over ``spec``'s mesh (GPipe), or run it
+        sequentially with None. Returns the model."""
+        self.transformer.pipeline = spec
+        return self
+
+    def features(self, images: torch.Tensor, pixel_mask: Optional[torch.Tensor] = None):
+        """The transformer's inputs: (src (B, h*w, D), pos (B, h*w, D), the
+        key padding mask (B, h*w) or None, and (proj (B, h, w, D), the
+        backbone's NHWC stage outputs or None) for the mask head)."""
         fpn = None
         if self.backbone_quant is not None:
             feats = self.backbone_quant(images, pixel_mask, self.dtype,
@@ -139,16 +154,11 @@ class DETR(nn.Module):
         pos = pos.reshape(b, fh * fw, self.model_dim)
         proj = self.input_proj(feats).permute(0, 2, 3, 1)  # (B, h, w, D)
         src = proj.reshape(b, fh * fw, self.model_dim)
+        return src, pos, key_padding_mask, (proj, fpn)
 
-        hs, memory = self.transformer(src, pos, self.query_embed, key_padding_mask,
-                                      train, generator)
-        memory = memory.reshape(b, fh, fw, self.model_dim)
-        extra = {}
-        if self.masks:
-            attn_maps = self.bbox_attention(hs[-1], memory, key_padding_mask, train, generator)
-            extra["pred_masks"] = self.mask_head(proj, attn_maps, fpn, pixel_mask)
-        if self.head == "none":
-            return {"hs": hs, "memory": memory, **extra}
+    def heads(self, hs: torch.Tensor) -> dict:
+        """The class and box heads over the decoder stack hs (L, B, Q, D):
+        the final layer's predictions and the auxiliary layers', float32."""
         if self.head == "detr":
             logits, boxes = self.class_embed(hs), self.bbox_embed(hs)
         else:
@@ -159,8 +169,26 @@ class DETR(nn.Module):
             "pred_boxes": boxes[-1],
             "aux_logits": logits[:-1],
             "aux_boxes": boxes[:-1],
-            **extra,
         }
+
+    def forward(self, images: torch.Tensor, pixel_mask: Optional[torch.Tensor] = None,
+                train: bool = False, generator: Optional[torch.Generator] = None):
+        """images: (B, H, W, 3) normalized, NHWC. pixel_mask: optional
+        (B, H, W) bool, True = valid; omitted means all valid. ``train``
+        turns on the transformer's dropout, drawn from ``generator`` (a
+        generator on the model's device)."""
+        src, pos, key_padding_mask, (proj, fpn) = self.features(images, pixel_mask)
+        b, fh, fw = proj.shape[:3]
+        hs, memory = self.transformer(src, pos, self.query_embed, key_padding_mask,
+                                      train, generator)
+        memory = memory.reshape(b, fh, fw, self.model_dim)
+        extra = {}
+        if self.masks:
+            attn_maps = self.bbox_attention(hs[-1], memory, key_padding_mask, train, generator)
+            extra["pred_masks"] = self.mask_head(proj, attn_maps, fpn, pixel_mask)
+        if self.head == "none":
+            return {"hs": hs, "memory": memory, **extra}
+        return {**self.heads(hs), **extra}
 
 
 def as_aux_list(outputs):

@@ -1,6 +1,5 @@
 """DETR transformer: post-norm encoder-decoder over batch-first tensors
-(port of ``detr_tensorflow_tpu/models/transformer.py``; no pipeline
-stages).
+(port of ``detr_tensorflow_tpu/models/transformer.py``).
 
 ``attn_impl`` picks the attention of every ``MultiHeadAttention``:
   * ``"auto"``: the CUDA kernels (``ops.flash_attention.mha``) for every
@@ -38,6 +37,18 @@ backward recomputes the layer. ``torch.utils.checkpoint`` restores only
 the global RNG states, so the recompute first sets the caller's generator
 back to where the layer's forward found it, which replays the same keep
 masks and attention seeds, and then returns it to where it stood.
+
+``pipeline`` (a ``parallel.pp.PipelineSpec``) runs the layers GPipe-staged
+over the spec's mesh, with the JAX package's rules: the encoder stack is
+always staged, the decoder stack only when its depth divides by the stage
+count (otherwise it runs sequentially on every rank), and the shared
+``decoder_norm`` is applied to the staged decoder's whole output stack
+(elementwise over D: the sequential per-layer norm). Every rank holds every
+layer, runs its stage's share (``parallel/pp.py``) and gets the whole output
+and every gradient; positions, the key mask, the memory and the query
+positions travel with each microbatch. Dropout draws one seed per layer and
+microbatch from the caller's generator (alike on every rank), which seeds
+that layer's run, its recompute under ``remat_stage`` included.
 """
 
 from __future__ import annotations
@@ -240,6 +251,22 @@ def _recomputed(layer: nn.Module, generator, *args):
     return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
+def _check_tp_axis(spec, layers) -> None:
+    """ValueError unless every layer is split over ``spec.tp_axis`` of the
+    spec's mesh (``parallel.tp.parallelize``), this rank's share."""
+    from ..parallel import mesh as mesh_lib
+
+    names = spec.mesh.mesh_dim_names if spec.mesh is not None else ()
+    if spec.tp_axis not in (names or ()):
+        raise ValueError(f"PipelineSpec.tp_axis {spec.tp_axis!r} is not an axis of the mesh")
+    _, rank, size = mesh_lib.axis(spec.mesh, spec.tp_axis)
+    want = (rank, size) if size > 1 else None
+    if any((None if layer.tp is None else (layer.tp.rank, layer.tp.size)) != want
+           for layer in layers):
+        raise ValueError(f"PipelineSpec.tp_axis {spec.tp_axis!r}: the model is not split over "
+                         "that axis (parallel.tp.parallelize it first)")
+
+
 class Transformer(nn.Module):
     """Encoder-decoder. Inputs: src and pos (B, S, D), query_embed (Q, D).
     Returns hs (L, B, Q, D), every decoder layer's output through the
@@ -249,9 +276,9 @@ class Transformer(nn.Module):
     def __init__(self, model_dim: int = 256, num_heads: int = 8,
                  num_encoder_layers: int = 6, num_decoder_layers: int = 6,
                  dim_feedforward: int = 2048, attn_impl: str = "auto",
-                 dropout: float = 0.1, remat: bool = False):
+                 dropout: float = 0.1, remat: bool = False, pipeline=None):
         super().__init__()
-        self.remat = remat
+        self.remat, self.pipeline, self.dropout = remat, pipeline, dropout
         self.num_encoder_layers = num_encoder_layers
         self.num_decoder_layers = num_decoder_layers
         for i in range(num_encoder_layers):
@@ -271,14 +298,72 @@ class Transformer(nn.Module):
                 return _recomputed(layer, generator, *args, train)
             return layer(*args, train, generator)
 
-        memory = src
-        for i in range(self.num_encoder_layers):
-            memory = run(getattr(self, f"encoder_layer_{i}"), memory, pos, key_padding_mask)
+        if self.pipeline is not None:
+            memory = self._pipelined("encoder", {"src": src, "pos": pos}, key_padding_mask,
+                                     train, generator)["src"]
+        else:
+            memory = src
+            for i in range(self.num_encoder_layers):
+                memory = run(getattr(self, f"encoder_layer_{i}"), memory, pos, key_padding_mask)
         query_pos = query_embed[None].expand(src.shape[0], -1, -1).to(src.dtype)
         tgt = torch.zeros_like(query_pos)
+        if self.pipeline is not None and self.num_decoder_layers % self._stages().size == 0:
+            b = src.shape[0]
+            tree = {"tgt": tgt, "mem": memory, "pos": pos, "qpos": query_pos,
+                    "hs": tgt.new_zeros((b, self.num_decoder_layers) + tuple(tgt.shape[1:]))}
+            hs = self._pipelined("decoder", tree, key_padding_mask, train, generator)["hs"]
+            return self.decoder_norm(hs.movedim(1, 0)), memory
         intermediate = []
         for i in range(self.num_decoder_layers):
             tgt = run(getattr(self, f"decoder_layer_{i}"), tgt, memory, pos, query_pos,
                       key_padding_mask)
             intermediate.append(self.decoder_norm(tgt))
         return torch.stack(intermediate, dim=0), memory
+
+    def _stages(self):
+        from ..parallel import pp
+
+        return pp.stage_of(self.pipeline.mesh, self.pipeline.stage_axis)
+
+    def _pipelined(self, kind: str, tree, key_padding_mask, train, generator):
+        """The encoder (``tree`` src, pos) or decoder (tgt, mem, pos, qpos,
+        hs) stack through ``pp.pipeline_forward``; returns its last stage's
+        src or hs, whole on every rank."""
+        from ..parallel import pp
+
+        spec = self.pipeline
+        stage = self._stages()
+        _, _, data = pp.data_of(spec.mesh, spec.data_axis)
+        n = self.num_encoder_layers if kind == "encoder" else self.num_decoder_layers
+        layers = [getattr(self, f"{kind}_layer_{i}") for i in range(n)]
+        if spec.tp_axis is not None:
+            _check_tp_axis(spec, layers)
+        mine = pp.split_layers_into_stages(list(range(n)), stage.size)[stage.index]
+        b = tree["pos"].shape[0]
+        n_micro = spec.n_micro or pp.choose_n_micro(b * data, stage.size, data)
+        if key_padding_mask is not None:
+            tree = dict(tree, kpm=key_padding_mask)
+        dropout_on = _check_generator(self.dropout, train, generator)
+        seeds = pp.dropout_seeds(generator if dropout_on else None, n, n_micro)
+        aux = None if seeds is None else [[row[i] for i in mine] for row in seeds]
+        device = tree["pos"].device
+
+        def stage_fn(layer_seeds, a):
+            a = dict(a)
+            for j, i in enumerate(mine):
+                gen = pp.seeded(layer_seeds[j], device) if layer_seeds is not None else None
+                if kind == "encoder":
+                    a["src"] = layers[i](a["src"], a["pos"], a.get("kpm"), train, gen)
+                else:
+                    a["tgt"] = layers[i](a["tgt"], a["mem"], a["pos"], a["qpos"], a.get("kpm"),
+                                         train, gen)
+                    a["hs"] = a["hs"].index_copy(1, torch.tensor([i], device=device),
+                                                 a["tgt"][:, None])
+            return a
+
+        params = [p for layer in layers for p in layer.parameters()]
+        out_key = "src" if kind == "encoder" else "hs"
+        return pp.pipeline_forward(
+            stage_fn if aux is not None else (lambda a: stage_fn(None, a)), params, tree,
+            spec.mesh, n_micro=n_micro, stage_axis=spec.stage_axis,
+            remat_stage=spec.remat_stage, out_keys=(out_key,), stage_aux=aux)

@@ -2,8 +2,9 @@
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of
 the process group, with the JAX package's axis names: ``"data"`` (DDP:
-each rank a slice of the batch, gradients all-reduced) and ``"model"``
-(Megatron tensor parallelism, ``parallel/tp.py``). One rank is one device
+each rank a slice of the batch, gradients all-reduced), ``"model"``
+(Megatron tensor parallelism, ``parallel/tp.py``) and ``"stage"`` (pipeline
+stages, ``parallel/pp.py``). One rank is one device
 here, where a JAX process may drive several; so a mesh's size is the
 world size, and ``make_mesh`` needs ``multihost.initialize`` first (at
 world size 1 too, where the group has one rank).
@@ -26,9 +27,10 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 def make_mesh(num_devices: Optional[int] = None, axis_names: Sequence[str] = ("data",),
               axis_sizes: Optional[Tuple[int, ...]] = None) -> DeviceMesh:
     """A mesh over the first ``num_devices`` ranks (all of them by
-    default): 1-D data parallel, or ``axis_names=("data", "model")`` with
-    ``axis_sizes=(d, m)``. Rank r sits at row-major coordinates, so the
-    ``model`` groups are runs of consecutive ranks."""
+    default): 1-D data parallel, ``axis_names=("stage",)`` for a pipeline,
+    or two axes such as ``("data", "model")``, ``("data", "stage")`` or
+    ``("stage", "model")`` with ``axis_sizes``. Rank r sits at row-major
+    coordinates, so the last axis's groups are runs of consecutive ranks."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs the process group: call multihost.initialize first")
     world = dist.get_world_size()

@@ -45,6 +45,7 @@ import torch.distributed as dist
 # is 10 minutes as well.
 DEFAULT_TIMEOUT_S = 600.0
 TIMEOUT_ENV = "DETR_DIST_TIMEOUT_S"
+_timeout_s: Optional[float] = None  # the running process group's, set by ``initialize``
 
 
 def default_backend(device=None) -> str:
@@ -87,15 +88,26 @@ def initialize(coordinator_address: Optional[str] = None,
     if dist.is_initialized():
         raise RuntimeError("the process group is already initialized")
     backend = backend or default_backend(device)
+    global _timeout_s
+    _timeout_s = float(timeout_s or env.get(TIMEOUT_ENV, DEFAULT_TIMEOUT_S))
     if backend == "nccl" or (device is not None and torch.device(device).type == "cuda"):
         local = int(env.get("LOCAL_RANK", process_id % max(1, torch.cuda.device_count())))
         torch.cuda.set_device(local)
     dist.init_process_group(
         backend, init_method=init_method or f"tcp://{coordinator_address}",
         world_size=int(num_processes), rank=int(process_id),
-        timeout=datetime.timedelta(seconds=float(
-            timeout_s or env.get(TIMEOUT_ENV, DEFAULT_TIMEOUT_S))))
+        timeout=datetime.timedelta(seconds=_timeout_s))
     return True
+
+
+def timeout() -> datetime.timedelta:
+    """How long a wait on another rank may last: the process group's timeout
+    (``initialize``'s ``timeout_s``), else ``$DETR_DIST_TIMEOUT_S`` or
+    DEFAULT_TIMEOUT_S. The pipeline schedules bound every receive and every
+    collective on a sub-group by it (a ``DeviceMesh``'s sub-groups are made
+    with torch's 30-minute default)."""
+    seconds = _timeout_s or float(os.environ.get(TIMEOUT_ENV, DEFAULT_TIMEOUT_S))
+    return datetime.timedelta(seconds=seconds)
 
 
 def shutdown() -> None:

@@ -22,8 +22,8 @@ same step on the CPU, for diagnosis against the JAX package at float64.
 ``Trainer`` owns the model's optimizer state and the dropout generator,
 a ``torch.Generator`` on the model's device seeded from an explicit seed:
 every dropout mask and every attention-kernel seed is drawn from it, on
-the device. Left out of this port: the AUTO-layout AOT step and the 1F1B
-schedule.
+the device. Left out of this port: the AUTO-layout AOT step (it works
+around the TPU stack).
 
 ``Trainer(model, config, seed, mesh=)`` trains across processes on a
 ``parallel.make_mesh`` mesh. Its ``data`` axis is DDP (at any size, one
@@ -38,6 +38,18 @@ buffers never change). Its ``model`` axis is Megatron tensor parallelism
 (``parallel/tp.py``), under DDP when both are present. The clip reads the
 norm of each split tensor whole.
 
+``Trainer(model, config, seed, pipeline_1f1b=spec)`` (a
+``parallel.PipelineSpec``) trains through the 1F1B schedule over the spec's
+mesh (``parallel/detr_1f1b.py``): every rank builds the same model, gets
+rank 0's weights and keeps only what its stage computes; each rank's
+optimizer (the same three groups, per-tensor clip and Adam) steps its
+stage's parameters, and the data axis, when the spec names one, sums the
+gradients inside the schedule. Its log is ``total_loss`` and the learning
+rates, as in the JAX package. A masks or non-detr model warns and trains
+through GPipe (``DETR.set_pipeline``) on the same mesh. ``state_dict`` is
+the sequential Trainer's, gathered from the stages (a collective), and
+``load_state_dict`` gives each rank its stage's part.
+
 ``Trainer.prefetch`` copies batches to the card ``depth`` steps ahead:
 from pinned host memory on a side CUDA stream, which the step's stream
 waits on. ``fit`` runs an epoch through it; under a ``PreemptionGuard``
@@ -50,6 +62,7 @@ import collections
 import contextlib
 import hashlib
 import time
+import warnings
 from typing import Callable, Dict, Optional
 
 import torch
@@ -126,6 +139,34 @@ def make_train_step(model, optimizer: opt_lib.GroupOptimizer, config, data_group
     return step_fn
 
 
+def make_1f1b_train_step(model, optimizer: opt_lib.GroupOptimizer, config, mesh, *,
+                         stage_axis: str = "stage", data_axis: Optional[str] = None,
+                         n_micro: Optional[int] = None) -> Callable:
+    """The 1F1B train step: (batch, lrs, generator) -> log, with the
+    gradients of ``parallel.detr_1f1b.detr_1f1b_value_and_grad`` (this
+    rank's stage; ``model`` whole or cut by ``keep_stage``) set as the
+    parameters' ``.grad`` before the optimizer steps. The log is
+    ``total_loss`` and the learning rates only: the components would need
+    the loss again outside the schedule."""
+    from ..parallel.detr_1f1b import detr_1f1b_value_and_grad
+
+    by_name = dict(model.named_parameters())
+
+    def step_fn(batch, lrs: Dict[str, float], generator) -> Dict[str, torch.Tensor]:
+        optimizer.zero_grad()
+        total, grads = detr_1f1b_value_and_grad(
+            model, batch, mesh, background_class=int(config.background_class),
+            n_micro=n_micro, stage_axis=stage_axis, data_axis=data_axis, generator=generator,
+            lap_impl=config.lap_impl)
+        for name, g in grads.items():
+            by_name[name].grad = g
+        optimizer.step(lrs)
+        return {"total_loss": total.detach().float(), "backbone_lr": lrs["backbone"],
+                "transformers_lr": lrs["transformers"], "nlayers_lr": lrs["nlayers"]}
+
+    return step_fn
+
+
 def make_eval_step(model, config, data_group=None) -> Callable:
     """The validation step: batch -> (outputs, log), no dropout, no grad.
     With a ``data_group`` the outputs are the rank's and the log is the
@@ -177,9 +218,16 @@ class Trainer:
     ``model`` stays the unwrapped module; ``variables`` and
     ``state_dict`` hold its names and the whole (gathered) tensors, so a
     checkpoint written at one world size loads at any other.
+
+    ``pipeline_1f1b`` (a ``parallel.PipelineSpec``) trains through the 1F1B
+    schedule on the spec's mesh (``mesh=`` may only repeat it): ``model``
+    becomes this rank's stage (``parallel.detr_1f1b.keep_stage``), and
+    ``variables`` and ``state_dict`` gather the sequential model's whole.
+    A masks or non-detr model warns and trains through GPipe instead.
     """
 
-    def __init__(self, model: torch.nn.Module, config, seed: int = 0, mesh=None):
+    def __init__(self, model: torch.nn.Module, config, seed: int = 0, mesh=None,
+                 pipeline_1f1b=None):
         compute = getattr(model, "dtype", torch.float32)
         master = torch.float64 if compute == torch.float64 else torch.float32
         dtypes = {p.dtype for p in model.parameters()}
@@ -194,6 +242,21 @@ class Trainer:
             raise ValueError("the fused backbone kernels (fuse_residual, fuse_bottleneck) "
                              "are inference only, as in the JAX package: train the unfused "
                              "model and load its weights into a fused one to serve")
+        self.pipeline = None  # the 1F1B spec
+        if pipeline_1f1b is not None:
+            if mesh is not None and mesh is not pipeline_1f1b.mesh:
+                raise ValueError("mesh= and pipeline_1f1b.mesh differ; the state and the 1F1B "
+                                 "step must live on one mesh: pass only the spec (its mesh is "
+                                 "used)")
+            mesh = pipeline_1f1b.mesh
+            if getattr(model, "masks", False) or getattr(model, "head", "detr") != "detr":
+                warnings.warn("pipeline_1f1b: model has masks/non-detr head; routing to the "
+                              "GPipe pipeline schedule (DETR(pipeline=...)); the 1F1B memory "
+                              "bound only applies to head='detr' detection models",
+                              stacklevel=2)
+                model.set_pipeline(pipeline_1f1b)
+            else:
+                self.pipeline = pipeline_1f1b
         self.model = model
         self.config = config
         self.device = model.query_embed.device
@@ -207,8 +270,24 @@ class Trainer:
         self.model_group = tp_lib.ModelGroup(group, rank, size) if size > 1 else None
         if mesh is not None:
             mesh_lib.replicate(model, mesh)
+        if self.pipeline is not None and (self.model_group is not None
+                                          or self.pipeline.tp_axis is not None):
+            raise NotImplementedError("the 1F1B schedule does not split a stage over a "
+                                      "model axis; tensor parallelism inside the stages "
+                                      "runs through GPipe (DETR(pipeline=...))")
         if self.model_group is not None:
             tp_lib.parallelize(model, group, rank, size)
+        if self.pipeline is not None:
+            from ..parallel import detr_1f1b, pp
+
+            if self.pipeline.data_axis not in (None, "data"):
+                raise ValueError("the Trainer's data axis is named 'data'")
+            # The sequential model's optimizer order (its state_dict's), then
+            # this rank's stage alone.
+            self._all_labels = opt_lib.param_labels(model)  # the sequential model's, in order
+            self._state_order = {n: i for i, n in enumerate(model.state_dict())}
+            self.stage = pp.stage_of(mesh, self.pipeline.stage_axis)
+            detr_1f1b.keep_stage(model, self.stage.index, self.stage.size)
         self.generator = torch.Generator(device=self.device)
         self.generator.set_state(rank_generator_state(
             torch.Generator(device=self.device).manual_seed(int(seed)).get_state(),
@@ -216,7 +295,8 @@ class Trainer:
         self.steps = 0
         self.ddp = None
         self._build(config)
-        self.eval_step = make_eval_step(model, config, self.data_group)
+        self.eval_step = None if self.pipeline else make_eval_step(model, config,
+                                                                   self.data_group)
 
     def _build(self, config) -> None:
         """The optimizer (which sets ``requires_grad``), then the DDP wrapper,
@@ -225,6 +305,20 @@ class Trainer:
         self.optimizer = opt_lib.make_optimizer(config, self.model, self.model_group)
         self.ddp = None  # the old wrapper's gradient hooks go with it
         forward = self.model
+        if self.pipeline is not None:
+            # The sequential optimizer's parameter order (its state_dict's).
+            on = {"backbone": config.train_backbone, "transformers": config.train_transformers,
+                  "nlayers": config.train_nlayers}
+            self._full_names = [n for g in opt_lib.GROUPS if on[g]
+                                for n, label in self._all_labels.items() if label == g]
+            self._full_labels = [self._all_labels[n] for n in self._full_names]
+            spec = self.pipeline
+            self.train_step = make_1f1b_train_step(
+                self.model, self.optimizer, config, spec.mesh, stage_axis=spec.stage_axis,
+                data_axis=spec.data_axis or ("data" if self.data_size > 1 else None),
+                n_micro=spec.n_micro)
+            self._lrs = opt_lib.lr_dict(config)
+            return
         if self.data_group is not None and self.optimizer.params:
             import inspect
 
@@ -263,6 +357,9 @@ class Trainer:
         return log
 
     def evaluate(self, batch):
+        if self.eval_step is None:
+            raise NotImplementedError("a 1F1B Trainer holds one stage of the model: evaluate "
+                                      "a model loaded from its state_dict")
         return self.eval_step(batch_to_device(batch, self.device))
 
     def prefetch(self, iterator, depth: int = 2):
@@ -310,8 +407,78 @@ class Trainer:
     def variables(self) -> Dict[str, torch.Tensor]:
         """Parameters and FrozenBN statistics (the model's state_dict, its
         split tensors gathered whole: a collective under tensor
-        parallelism)."""
+        parallelism; under 1F1B every stage's part, a collective too)."""
+        if self.pipeline is not None:
+            return self._gather_stages()["model"]
         return tp_lib.gather_params(self.model.state_dict(), self.model_group)
+
+    def _gather_stages(self) -> dict:
+        """Under 1F1B: the model state and optimizer state by parameter name
+        of every stage, merged (one ``all_gather_object`` over the world
+        group, host tensors). The stages of the replica at index 0 of every
+        other mesh axis contribute; the others' copies are equal."""
+        import torch.distributed as dist
+
+        sd = self.optimizer.state_dict()
+        mesh = self.pipeline.mesh
+        stage_dim = mesh.mesh_dim_names.index(self.pipeline.stage_axis)
+        mine = {"model": {}, "adam": {}, "groups": {}, "acc": {}}
+        if all(c == 0 for d, c in enumerate(mesh.get_coordinate()) if d != stage_dim):
+            names = self.optimizer.names
+            mine["model"] = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
+            mine["acc"] = dict(zip(names, (a.cpu() for a in sd["acc"])))
+            for group in (sd["adam"] or {}).get("param_groups", []):
+                mine["groups"][group["name"]] = {k: v for k, v in group.items() if k != "params"}
+                for i in group["params"]:
+                    if i in sd["adam"]["state"]:
+                        mine["adam"][names[i]] = {k: v.cpu() for k, v in
+                                                  sd["adam"]["state"][i].items()}
+        parts = [None] * dist.get_world_size()
+        dist.all_gather_object(parts, mine)
+        merged = {key: {} for key in mine}
+        for part in parts:
+            for key in mine:
+                merged[key].update(part[key])
+        merged["mini_step"] = sd["mini_step"]
+        return merged
+
+    def _pipeline_state_dict(self) -> dict:
+        """The sequential Trainer's ``state_dict`` from the stages' parts."""
+        merged = self._gather_stages()
+        names, labels = self._full_names, self._full_labels
+        param_groups = [dict(merged["groups"][g], params=[i for i, label in enumerate(labels)
+                                                          if label == g])
+                        for g in opt_lib.GROUPS if g in labels]
+        adam = None
+        if param_groups:
+            adam = {"state": {i: merged["adam"][n] for i, n in enumerate(names)
+                              if n in merged["adam"]}, "param_groups": param_groups}
+        acc = [merged["acc"][n] for n in names] if merged["acc"] else []
+        model = {k: merged["model"][k] for k in sorted(merged["model"], key=self._order)}
+        return {"model": model, "optimizer": {"adam": adam, "mini_step": merged["mini_step"],
+                                              "acc": acc},
+                "steps": self.steps, "generator": self.generator.get_state()}
+
+    def _order(self, name: str):
+        """A state_dict name's rank in the sequential model's order."""
+        return self._state_order.get(name, len(self._state_order))
+
+    def _load_pipeline_state(self, state: dict) -> None:
+        own = self.model.state_dict()
+        self.model.load_state_dict({k: state["model"][k] for k in own})
+        full = {n: i for i, n in enumerate(self._full_names)}
+        names = self.optimizer.names
+        opt = state["optimizer"]
+        adam = None
+        if self.optimizer.adam is not None:
+            by_group = {g["name"]: g for g in opt["adam"]["param_groups"]}
+            local = self.optimizer.adam.state_dict()["param_groups"]
+            adam = {"state": {i: opt["adam"]["state"][full[n]] for i, n in enumerate(names)
+                              if full[n] in opt["adam"]["state"]},
+                    "param_groups": [dict(by_group[g["name"]], params=g["params"])
+                                     for g in local]}
+        acc = [opt["acc"][full[n]] for n in names] if opt["acc"] else []
+        self.optimizer.load_state_dict({"adam": adam, "mini_step": opt["mini_step"], "acc": acc})
 
     def _map_optimizer(self, state: dict, fn) -> dict:
         """``state`` (an optimizer state_dict) with ``fn(dim, tensor)``
@@ -336,7 +503,10 @@ class Trainer:
         dropout generator's state. Logical and unsharded, as the JAX
         package's: split tensors are gathered whole (every rank of the model
         group must call this), and the generator is this rank's (the
-        checkpoint keeps data rank 0's)."""
+        checkpoint keeps data rank 0's). Under 1F1B every rank gets the
+        sequential Trainer's whole state (a collective)."""
+        if self.pipeline is not None:
+            return self._pipeline_state_dict()
         mg = self.model_group
         optimizer = self._map_optimizer(self.optimizer.state_dict(),
                                         lambda d, t: tp_lib.gather_tensor(t, d, mg))
@@ -347,16 +517,19 @@ class Trainer:
         """Load a ``state_dict`` written at any world size: split tensors
         are sliced for this rank, and the generator is data rank 0's state
         as saved, or for data rank r > 0 the one ``rank_generator_state``
-        derives from it."""
-        mg = self.model_group
-        rank, size = (0, 1) if mg is None else (mg.rank, mg.size)
-        self.model.load_state_dict(tp_lib.shard_params(state["model"], rank, size))
+        derives from it. Under 1F1B each rank takes its stage's part."""
+        if self.pipeline is not None:
+            self._load_pipeline_state(state)
+        else:
+            mg = self.model_group
+            rank, size = (0, 1) if mg is None else (mg.rank, mg.size)
+            self.model.load_state_dict(tp_lib.shard_params(state["model"], rank, size))
 
-        def slice_(dim, t):
-            n = t.shape[dim] // size
-            return t.narrow(dim, rank * n, n).contiguous()
+            def slice_(dim, t):
+                n = t.shape[dim] // size
+                return t.narrow(dim, rank * n, n).contiguous()
 
-        self.optimizer.load_state_dict(self._map_optimizer(state["optimizer"], slice_))
+            self.optimizer.load_state_dict(self._map_optimizer(state["optimizer"], slice_))
         self.steps = int(state["steps"])
         self.generator.set_state(rank_generator_state(state["generator"], self.data_rank,
                                                       self.device))

@@ -1961,3 +1961,102 @@ def test_nccl_world_one_step_on_the_card(cuda_device, tmp_path):
     assert abs(got["loss"] - loss) <= 1e-4 * abs(loss)
     for n, p in model.named_parameters():
         assert float((got["params"][n] - p.detach().cpu()).abs().max()) <= 2e-4, n
+
+
+# Pipeline parallelism on the card: two Gloo ranks sharing cuda:0 as the
+# two stages of a ("stage",) mesh, their boundaries staged through pinned
+# host memory (parallel/p2p.py, route "gloo-host").
+PIPE_CARD_WORKER = '''
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from detr_tensorflow_tpu_torch.models import api
+    from detr_tensorflow_tpu_torch.ops import flash_attention as fa, lap, maxpool
+    from detr_tensorflow_tpu_torch.parallel import detr_1f1b_value_and_grad, p2p, pp
+    from detr_tensorflow_tpu_torch.parallel.detr_1f1b import keep_stage
+
+    spec = torch.load(os.path.join(out, "spec.pt"), weights_only=False)
+    mesh = make_mesh(2, ("stage",))
+    result = {"route": p2p.route("cuda")}
+    if sys.argv[4] == "p2p":
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        tree = {"f": torch.randn(3, 5, 7, device="cuda", generator=gen),
+                "h": torch.randn(2, 9, device="cuda", generator=gen).to(torch.bfloat16),
+                "m": torch.rand(4, 3, device="cuda", generator=gen) > 0.5,
+                "i": torch.arange(11, device="cuda") * 7}
+        there, back = p2p.Link(1 - rank, 0, "cuda"), p2p.Link(1 - rank, 64, "cuda")
+        if rank == 0:
+            there.send(tree, 0)
+            got = back.recv(0)
+        else:
+            got = there.recv(0)
+            back.send(got, 0)
+        p2p.drain()
+        result.update(sent={k: v.cpu() for k, v in tree.items()},
+                      got={k: v.cpu() for k, v in got.items()},
+                      devices={k: str(v.device) for k, v in got.items()})
+    else:
+        model = api.build_detr(seed=0, device="cuda", **spec["tiny"]).module
+        stage = pp.stage_of(mesh)
+        keep_stage(model, stage.index, stage.size)
+        b = {k: torch.as_tensor(v).cuda() for k, v in spec["batch"].items()}
+        before = (fa.mha.tf32_launches, fa.mha.backward_mma_launches,
+                  lap.solve_lap_masked.launches, maxpool.max_pool_3x3_s2.launches)
+        loss, grads = detr_1f1b_value_and_grad(model, b, mesh, background_class=91, n_micro=2)
+        torch.cuda.synchronize()
+        counts = tuple(a - c for a, c in zip((fa.mha.tf32_launches, fa.mha.backward_mma_launches,
+                       lap.solve_lap_masked.launches, maxpool.max_pool_3x3_s2.launches), before))
+        result.update(loss=float(loss), counts=counts, grads={n: g.cpu() for n, g in grads.items()})
+    torch.save(result, os.path.join(out, f"rank{rank}.pt"))
+    multihost.shutdown()
+'''
+
+
+def test_pipeline_p2p_round_trip_on_the_card(cuda_device, tmp_path):
+    """A dict of CUDA tensors (float32, bf16, bool, int64) sent from stage 0
+    to stage 1 and back through Gloo's host-staged route arrives bit-equal,
+    on the card."""
+    from torch_ranks import run_ranks
+
+    torch.save({}, tmp_path / "spec.pt")
+    run_ranks(PIPE_CARD_WORKER, 2, tmp_path, "p2p")
+    r0, r1 = (torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2))
+    assert r0["route"] == r1["route"] == "gloo-host"
+    for k, v in r0["sent"].items():
+        assert r0["got"][k].dtype == v.dtype and torch.equal(r0["got"][k], v), k
+        assert torch.equal(r1["got"][k], v), k
+        assert r0["devices"][k].startswith("cuda"), k
+
+
+def test_pipeline_1f1b_on_the_card(cuda_device, tmp_path):
+    """A 2-stage 1F1B step (the reduced DETR: stage 0 the backbone and the
+    encoder layer, stage 1 the decoder layer and the loss, 2 microbatches of
+    2) with A-tf32 and A'-mma inside the stages, against one process's
+    sequential forward and backward on the card: the loss within 1e-4
+    relative, each gradient within 1e-3 of its norm (a tensor whose exact
+    gradient is zero within 1e-6 of the largest gradient); launches per rank
+    A-tf32 4 (forward and re-linearization) / 4, A'-mma 2 / 4, B 0 / 2, C 1 / 0."""
+    from torch_ranks import run_ranks
+
+    from detr_tensorflow_tpu_torch.ops import losses
+
+    spec = {"tiny": CARD_TINY, "batch": _card_batch()}
+    torch.save(spec, tmp_path / "spec.pt")
+    run_ranks(PIPE_CARD_WORKER, 2, tmp_path, "1f1b")
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    model = api.build_detr(seed=0, device=cuda_device, **CARD_TINY).module
+    b = {k: torch.as_tensor(v).to(cuda_device) for k, v in spec["batch"].items()}
+    total, _ = losses.detr_loss(model(b["images"], train=True), b["boxes"], b["classes"],
+                                b["mask"], 91)
+    total.backward()
+    loss = float(total.detach())
+    grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    scale = max(float(g.norm()) for g in grads.values())
+    assert ranks[0]["counts"] == (4, 2, 0, 1) and ranks[1]["counts"] == (4, 4, 2, 0)
+    merged = {}
+    for r in ranks:
+        assert abs(r["loss"] - loss) <= 1e-4 * abs(loss)
+        merged.update(r["grads"])
+    assert set(merged) == set(grads)
+    for name, g in grads.items():
+        diff = float((merged[name] - g).norm())
+        assert diff <= 1e-3 * float(g.norm()) or diff <= 1e-6 * scale, name

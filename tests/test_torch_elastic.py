@@ -208,8 +208,15 @@ def test_launcher_gives_up_after_max_restarts(tmp_path):
 
 def test_launcher_fails_fast_below_min_processes(tmp_path):
     """Losing more workers than min_processes allows fails the run without
-    a relaunch."""
+    a relaunch. Every worker fails, rank 0 first and the other long after
+    (the launcher tears it down before): which ranks a poll sees lost does
+    not hang on when the two launchers happen to poll, so their outcomes
+    compare exactly."""
     script = tmp_path / "allbad.py"
-    script.write_text("import sys, time; time.sleep(0.3); sys.exit(3)\n")
-    run = _both([sys.executable, str(script)], 2, min_processes=2, max_restarts=3)
+    script.write_text(
+        "import os, sys, time\n"
+        f"time.sleep(0.3 if os.environ['{elastic.ENV_RANK}'] == '0' else 60)\n"
+        "sys.exit(3)\n")
+    run = _both([sys.executable, str(script)], 2, min_processes=2, max_restarts=3, grace=2.0)
     assert not run.success and len(run.generations) == 1
+    assert run.generations[0].failed_ranks == [0]

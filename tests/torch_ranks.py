@@ -38,6 +38,14 @@ def run_ranks(script: str, world: int, out_dir, *args) -> list:
     """Run ``COMMON + script`` as ``world`` rank processes (argv: rank,
     world, ``out_dir``, ``args``); return their outputs. Every rank is
     killed if any runs past WAIT_S; a nonzero exit fails the test."""
+    return start_ranks(script, world, out_dir, *args)()
+
+
+def start_ranks(script: str, world: int, out_dir, *args):
+    """``run_ranks`` without waiting: the ranks start now, and the returned
+    function waits for them (bounded as in ``run_ranks``; again, it returns
+    the same outputs) and returns their outputs. The caller may work
+    meanwhile."""
     path = os.path.join(str(out_dir), "worker.py")
     with open(path, "w") as f:
         f.write(COMMON + textwrap.dedent(script))
@@ -48,18 +56,27 @@ def run_ranks(script: str, world: int, out_dir, *args) -> list:
                                *map(str, args)], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True, cwd=REPO, env=env)
              for r in range(world)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=WAIT_S)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{out[-4000:]}"
-    return outs
+
+    done = []
+
+    def wait() -> list:
+        if done:
+            return done[0]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=WAIT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        done.append(outs)
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{out[-4000:]}"
+        return outs
+
+    return wait
 
 
 @pytest.fixture(scope="module", autouse=True)
