@@ -231,6 +231,21 @@ Phases, one status line each; any failure raises and exits non-zero:
      ranks sharing one card: each rank's step wall, the gradient
      all-reduce under ``torch.profiler`` and alone, beside the one-process
      b8 step of phase 9.
+ 18. pipeline: the kernels at the microbatch shapes, one process's
+     references, then two stage ranks sharing the card over Gloo: 1F1B
+     (losses, gradients, dropout), GPipe, launches per rank.
+ 19. visual: full-width DETR-R50 fp32 with seeded weights: (a)
+     ``eval_loop(trainer, batches, config, COCO_CLASS_NAME,
+     evaluation_step=4, visual_log=True)`` on 4 b8 376x672 batches of a
+     synthetic COCO set (per batch A-tf32 18, C 1, B 1), the logger's mAP
+     table equal to a host ``MeanAPEvaluator`` fed the same outputs, losses
+     within 1e-4 of the loop on the plain routes; (b) ``make_run_inference``
+     on 8 seeded 480x640 frames resized to 376x672 (A-tf32 18, C 1 a frame)
+     against the plain-attention model, at the bucket-exact 384x640 against
+     ``Predictor``, a masks model's output drawn by ``numpy_masks_to_image``
+     without cv2; (c) ``hungarian_match`` of one problem (B once) against
+     the batch form and scipy; (d) ``warmup([(800, 1333)], batch=8)``, then
+     b8 requests that build and reserve nothing and launch what it did.
 Kernel C runs in every ``ResNetBackbone`` forward: serving, training and
 fused serving count it (1 per forward or step); the int8 model's stem is
 not a ``ResNetBackbone`` and launches none.
@@ -4710,6 +4725,288 @@ def phase_pipeline(torch, fa, lap, mp, api, train, losses):
     return res
 
 
+# Phase 19: the public surface's last paths on DETR-R50 at full width and
+# depth, fp32 (TF32 off): validation with the logger (VIS_BATCHES b8 376x672
+# batches of a synthetic COCO set, positional as the JAX entry points call
+# eval_loop), the webcam program on VIS_FRAMES seeded frames, one-problem
+# matching, and a Predictor warmed at a batch.
+VIS_BATCHES, VIS_FRAMES, VIS_FRAME_HW = 4, 8, (480, 640)
+VIS_EXACT = (384, 640)  # a bucket-exact webcam size: Predictor runs it unpadded
+VIS_WARM = (800, 1333)
+VIS_SLOTS, VIS_REAL = 100, 23  # the one-problem match: 100 queries, 23 of 100 slots real
+
+
+def _webcam_gaps(outs, refs) -> dict:
+    """Largest gaps of make_run_inference outputs from another run's (per
+    frame, all queries): boxes and scores; inf where labels or keep differ."""
+    gaps = {"boxes": 0.0, "scores": 0.0}
+    for ((b, l, s, k), _), ((rb, rl, rs, rk), _) in zip(outs, refs, strict=True):
+        if not (bool((l == rl).all()) and bool((k == rk).all())):
+            return {key: float("inf") for key in gaps}
+        gaps["boxes"] = max(gaps["boxes"], float((b - rb).abs().max()))
+        gaps["scores"] = max(gaps["scores"], float((s - rs).abs().max()))
+    return gaps
+
+
+def _ap_state(evaluator) -> dict:
+    """Every (kind, IoU, class) accumulator's scores, flags and targets."""
+    return {kind: [[(a.scores, a.trues, a.num_gt_positives) for a in row] for row in rows]
+            for kind, rows in evaluator.data.items()}
+
+
+def phase_visual(torch, fa, lap, mp, api, train, Predictor, nvcc_build):
+    """Phase 19, on DETR-R50 at full width and depth with seeded weights,
+    fp32: (a) ``eval_loop(trainer, batches, config, COCO_CLASS_NAME,
+    evaluation_step=VIS_BATCHES, visual_log=True)`` on b8 376x672 batches of
+    the synthetic COCO loader: launches per batch (A-tf32 18, C 1, B 1), the
+    table ``WandbSender.send_ap_data`` flushes against a host
+    ``MeanAPEvaluator`` fed the same outputs, the losses against the same
+    loop on the plain routes of A and B; (b) ``make_run_inference`` on
+    VIS_FRAMES seeded 480x640 frames resized to 376x672 against the plain
+    attention model, and at the bucket-exact VIS_EXACT against
+    ``Predictor``; a masks model's output drawn by ``numpy_masks_to_image``
+    on the host; (c) ``hungarian_match`` of one problem against row 0 of
+    the batch form and scipy, B launched once; (d) ``warmup([VIS_WARM],
+    batch=8)``, then a b8 request that builds and reserves nothing and
+    launches what the warm-up did. Counts reset just before each run and
+    read just after. Returns the main paths' launches and the readings."""
+    import shutil
+    import tempfile
+
+    from scipy.optimize import linear_sum_assignment
+
+    from detr_tensorflow_tpu_torch import inference, logger
+    from detr_tensorflow_tpu_torch.data import COCO_CLASS_NAME, load_coco_dataset
+    from detr_tensorflow_tpu_torch.data import make_synthetic_coco
+    from detr_tensorflow_tpu_torch.data.transforms import LINEAR, NEAREST, resize
+    from detr_tensorflow_tpu_torch.metrics import MeanAPEvaluator
+    from detr_tensorflow_tpu_torch.ops import boxes as box_ops
+    from detr_tensorflow_tpu_torch.ops import matcher
+    from detr_tensorflow_tpu_torch.webcam_inference import make_run_inference
+
+    res, path_counts = {}, collections.Counter()
+
+    def main_path(label, want):
+        counts = read_counts(fa, lap, mp)
+        want = dict({k: 0 for k in counts}, **want)
+        log(f"  launches {label}: {counts}")
+        if counts != want:
+            raise AssertionError(f"{label}: launches {counts}, expected {want}")
+        path_counts.update(counts)
+        return counts
+
+    # (a) validation with the logger.
+    root = tempfile.mkdtemp(prefix="chip_smoke_visual_")
+    try:
+        make_synthetic_coco(root, n_images=VIS_BATCHES * TRAIN_BATCH, seed=19, sizes=ENTRY_SIZES,
+                            boxes_per_image=ENTRY_BOXES)
+        config = train.TrainingConfig(
+            data=train.DataConfig(data_dir=root, img_dir="images", ann_file="ann.json"),
+            image_size=TRAIN_HW, batch_size=TRAIN_BATCH, background_class=BACKGROUND)
+        valid, _ = load_coco_dataset(config, TRAIN_BATCH, augmentation=False, shuffle=False)
+        batches = list(valid)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if len(batches) != VIS_BATCHES:
+        raise AssertionError(f"{len(batches)} validation batches, expected {VIS_BATCHES}")
+    model = api.build_detr(seed=0, device=DEVICE, dropout=0.0)
+    plain = api.build_detr(seed=0, device=DEVICE, dropout=0.0, attn_impl="plain")
+    with torch.no_grad():  # lean both to the set's categories 1 and 2: an AP above 0
+        for m in (model, plain):
+            m.module.class_embed.bias[1:3] += 4.0
+    trainer = train.Trainer(model.module, config, seed=0)
+    outputs = []
+    evaluate = trainer.evaluate
+
+    def recording(batch):  # the outputs the loop hands to valid_log, kept for the host
+        out, log_ = evaluate(batch)
+        outputs.append({k: out[k].detach().cpu() for k in ("pred_logits", "pred_boxes")})
+        return out, log_
+
+    trainer.evaluate = recording
+    tables, accumulated = [], []
+    sender = logger.WandbSender
+    send = sender.__dict__["send_ap_data"]
+
+    def flush(step, prefix="val/"):  # the evaluator's state, then its table
+        accumulated.append(_ap_state(sender._ap_evaluator))
+        tables.append(send.__get__(None, sender)(step, prefix=prefix))
+        return tables[-1]
+
+    sender.send_ap_data = flush
+    try:
+        reset_counts(fa, lap, mp)  # main path: validation with the logger
+        t = time.perf_counter()
+        logs = train.eval_loop(trainer, batches, config, COCO_CLASS_NAME,
+                               evaluation_step=VIS_BATCHES, visual_log=True)
+        torch.cuda.synchronize()
+        res["eval_s"] = time.perf_counter() - t
+    finally:
+        sender.send_ap_data = send
+    main_path(f"eval_loop over {VIS_BATCHES} b{TRAIN_BATCH} batches with visual_log",
+              {"A-tf32": LAUNCHES_PER_FORWARD * VIS_BATCHES, "C": VIS_BATCHES, "B": VIS_BATCHES})
+    host = MeanAPEvaluator(92)
+    for batch, out in zip(batches, outputs, strict=True):
+        for b in range(TRAIN_BATCH):
+            p_box, p_label, p_score = inference.get_model_inference(
+                {k: v[b:b + 1] for k, v in out.items()}, BACKGROUND, bbox_format="xyxy")
+            n = int(batch["mask"][b].sum())
+            host.add_image(p_box, p_label, p_score,
+                           box_ops.np_xcycwh_to_xyxy(batch["boxes"][b][:n]),
+                           batch["classes"][b][:n])
+    want, want_state = host.compute(), _ap_state(host)
+    pushed = sum(len(c[0]) for c in want_state["box"][0])
+    gt = sum(c[2] for c in want_state["box"][0])
+    log(f"  eval_loop: {len(logs)} batches in {res['eval_s']:.2f} s; the flushed table's box AP "
+        f"{dict(tables[0]['box']) if tables else None} over {pushed} detections and {gt} "
+        f"targets; table and every (class, IoU) accumulator equal to the host evaluator's: "
+        f"{tables == [want] and accumulated == [want_state]}")
+    if len(logs) != VIS_BATCHES or tables != [want] or accumulated != [want_state]:
+        raise AssertionError(f"eval_loop ran {len(logs)} batches and flushed {len(tables)} "
+                             "tables; the logger's table and accumulators must equal the host "
+                             "evaluator's")
+    plain_trainer = train.Trainer(plain.module, config.replace(lap_impl="plain"), seed=0)
+    plain_logs = train.eval_loop(plain_trainer, batches, config, COCO_CLASS_NAME,
+                                 evaluation_step=VIS_BATCHES)
+    loss_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for a, b in zip(logs, plain_logs)
+                   for k in ("total_loss", "label_cost", "giou_loss", "l1_loss"))
+    log(f"  losses per batch {[round(x['total_loss'], 6) for x in logs]}, plain routes "
+        f"{[round(x['total_loss'], 6) for x in plain_logs]}: worst rel {loss_err:.2e} (tol "
+        f"{LOSS_RTOL})")
+    if not loss_err <= LOSS_RTOL:
+        raise AssertionError("eval_loop's losses on the kernels disagree with the plain routes'")
+    del trainer, plain_trainer, outputs
+
+    # (b) the webcam program.
+    frames = random_images([VIS_FRAME_HW] * VIS_FRAMES, seed=19)
+    run, run_plain = make_run_inference(model, BACKGROUND), make_run_inference(plain, BACKGROUND)
+    resized = [resize(f, *TRAIN_HW, LINEAR) for f in frames]
+    run(resized[0][None])  # first call at the shape: cuDNN's plans
+    reset_counts(fa, lap, mp)  # main path: the webcam program, frame by frame
+    walls, outs = [], []
+    for f in resized:
+        t = time.perf_counter()
+        outs.append(run(f[None]))
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t))
+    main_path(f"make_run_inference, {VIS_FRAMES} frames of {TRAIN_HW}",
+              {"A-tf32": LAUNCHES_PER_FORWARD * VIS_FRAMES, "C": VIS_FRAMES})
+    res["webcam_ms"] = statistics.median(walls)
+    gaps = _webcam_gaps(outs, [run_plain(f[None]) for f in resized])
+    kept = sum(int(k.sum()) for (_, _, _, k), _ in outs)
+    log(f"  webcam program b1 {TRAIN_HW}: median {res['webcam_ms']:.2f} ms a frame (upload, "
+        f"forward, postprocess); {kept} detections kept over {VIS_FRAMES} frames; against the "
+        f"plain-attention model: boxes {gaps['boxes']:.3e} (tol {BOX_ATOL}), scores "
+        f"{gaps['scores']:.3e} (tol {LOGIT_ATOL})")
+    if not (gaps["boxes"] <= BOX_ATOL and gaps["scores"] <= LOGIT_ATOL):
+        raise AssertionError(f"webcam program against the plain route: {gaps}")
+    exact = [resize(f, *VIS_EXACT, LINEAR) for f in frames]
+    predictor = Predictor(model, BACKGROUND)
+    dets = predictor(exact)
+    check_detections(dets)
+    ex_gaps = {"boxes": 0.0, "scores": 0.0}
+    for f, det in zip(exact, dets, strict=True):
+        (b, l, s, k), _ = run(f[None])
+        keep = k[0].cpu().numpy()
+        if not np.array_equal(l[0].cpu().numpy()[keep], det.labels):
+            ex_gaps = {key: float("inf") for key in ex_gaps}
+            break
+        if keep.any():
+            ex_gaps["boxes"] = max(ex_gaps["boxes"],
+                                   float(np.abs(b[0].cpu().numpy()[keep] - det.boxes).max()))
+            ex_gaps["scores"] = max(ex_gaps["scores"],
+                                    float(np.abs(s[0].cpu().numpy()[keep] - det.scores).max()))
+    log(f"  webcam program at the bucket-exact {VIS_EXACT} against Predictor on the same "
+        f"frames (one b{VIS_FRAMES} request): boxes {ex_gaps['boxes']:.3e}, scores "
+        f"{ex_gaps['scores']:.3e}")
+    if not (ex_gaps["boxes"] <= BOX_ATOL and ex_gaps["scores"] <= LOGIT_ATOL):
+        raise AssertionError(f"webcam program against Predictor at {VIS_EXACT}: {ex_gaps}")
+    seg = api.build_detr(seed=0, device=DEVICE, dropout=0.0, masks=True)
+    reset_counts(fa, lap, mp)  # main path: the webcam program of a masks model
+    (b, l, s, k), masks = make_run_inference(seg, BACKGROUND)(resized[0][None])
+    torch.cuda.synchronize()
+    main_path("make_run_inference, masks model, 1 frame", {"A-tf32": LAUNCHES_PER_FORWARD, "C": 1})
+    keep = k[0].cpu().numpy()
+    kept_masks = masks[0].cpu().numpy()[keep]
+    drawn = inference.numpy_masks_to_image(resized[0], kept_masks, labels=l[0].cpu().numpy()[keep])
+    covered = np.zeros(TRAIN_HW, bool)
+    for m in kept_masks:
+        covered |= resize(m.astype(np.uint8), *TRAIN_HW, NEAREST) > 0
+    changed = (drawn != resized[0]).any(-1)
+    log(f"  numpy_masks_to_image on the host: {len(kept_masks)} masks of {masks.shape[2:]} "
+        f"drawn on {TRAIN_HW}, {covered.mean():.2%} of pixels covered, {changed.mean():.2%} "
+        f"changed, cv2 imported: {'cv2' in sys.modules}")
+    if (drawn.shape != resized[0].shape or drawn.dtype != np.uint8 or (changed & ~covered).any()
+            or (covered.any() and not changed.any())):
+        raise AssertionError("numpy_masks_to_image drew outside its masks or not at all")
+    del seg, masks
+
+    # (c) one-problem matching on the card.
+    rng = np.random.default_rng(19)
+    t_box = np.zeros((VIS_SLOTS, 4), np.float32)
+    t_box[:VIS_REAL] = np.concatenate([rng.uniform(0.2, 0.8, (VIS_REAL, 2)),
+                                       rng.uniform(0.05, 0.5, (VIS_REAL, 2))], -1)
+    t_class = np.zeros(VIS_SLOTS, np.int64)
+    t_class[:VIS_REAL] = rng.integers(1, 91, VIS_REAL)
+    problem = [torch.from_numpy(x).to(DEVICE) for x in (
+        np.concatenate([rng.uniform(0.2, 0.8, (100, 2)), rng.uniform(0.05, 0.5, (100, 2))],
+                       -1).astype(np.float32),
+        rng.normal(size=(100, 92)).astype(np.float32), t_box, t_class,
+        np.arange(VIS_SLOTS) < VIS_REAL)]
+    torch.cuda.synchronize()
+    reset_counts(fa, lap, mp)  # main path: one problem's match
+    match = matcher.hungarian_match(*problem)
+    torch.cuda.synchronize()
+    main_path("hungarian_match of one 100x100 problem", {"B": 1})
+    batch_match = matcher.hungarian_match_batch(*(x[None] for x in problem))
+    cost = matcher.cost_matrix(*problem).cpu().numpy()
+    scipy_cols = linear_sum_assignment(cost.T[:VIS_REAL])[1]
+    got = match["pred_of_target"].cpu().numpy()
+    same_row0 = all(torch.equal(match[k], batch_match[k][0]) for k in match)
+    log(f"  hungarian_match: {VIS_REAL} real targets of {VIS_SLOTS} slots; equal to row 0 of "
+        f"the batch form: {same_row0}; to scipy: {np.array_equal(got[:VIS_REAL], scipy_cols)}")
+    if not (same_row0 and np.array_equal(got[:VIS_REAL], scipy_cols)
+            and (got[VIS_REAL:] == -1).all()):
+        raise AssertionError("one-problem matching disagrees with the batch form or scipy")
+
+    # (d) warm-up at a batch.
+    reset_counts(fa, lap, mp)  # main path: the warm-up
+    t = time.perf_counter()
+    predictor.warmup([VIS_WARM], batch=TRAIN_BATCH)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    warm = main_path(f"warmup([{VIS_WARM}], batch={TRAIN_BATCH})",
+                     {"A-tf32": LAUNCHES_PER_FORWARD, "C": 1})
+    images = random_images([VIS_WARM] * TRAIN_BATCH, seed=20)
+    builds = set(nvcc_build._builds)
+    segments = torch.cuda.memory_stats()["segment.all.allocated"]
+    request_ms = []
+    for i in range(2):
+        reset_counts(fa, lap, mp)  # main path: a b8 request after the warm-up
+        t = time.perf_counter()
+        dets = predictor(images)
+        torch.cuda.synchronize()
+        request_ms.append(1e3 * (time.perf_counter() - t))
+        counts = main_path(f"b{TRAIN_BATCH} request {i + 1} after the warm-up", warm)
+        if i == 0:
+            new_segments = torch.cuda.memory_stats()["segment.all.allocated"] - segments
+            new_builds = set(nvcc_build._builds) - builds
+    check_detections(dets)
+    res.update(warm_s=warm_s, request_ms=request_ms)
+    log(f"  warmup([{VIS_WARM}], batch={TRAIN_BATCH}) {warm_s:.2f} s; the b{TRAIN_BATCH} "
+        f"request after it {request_ms[0]:.2f} ms, the next {request_ms[1]:.2f} ms; kernel "
+        f"libraries built by the request: {sorted(new_builds)}; device memory segments "
+        f"reserved by it: {new_segments}; launches equal the warm-up's: {counts == warm}")
+    warm_bucket = tuple(-(-x // 128) * 128 for x in VIS_WARM)
+    if new_builds or new_segments or predictor.buckets != {warm_bucket, VIS_EXACT}:
+        raise AssertionError(f"the request after the warm-up built {sorted(new_builds)} and "
+                             f"reserved {new_segments} segments (buckets {predictor.buckets})")
+    res["launches"] = collections.Counter({
+        "flash_attention_fwd_tf32": path_counts["A-tf32"], "lap": path_counts["B"],
+        "maxpool": path_counts["C"]})
+    return res
+
+
 def _rel_norm(a, b) -> float:
     return float((a - b).norm()) / max(float(b.norm()), 1e-30)
 
@@ -4942,6 +5239,15 @@ def main() -> int:
         f"{pipe['grad_worst'][0]:.2e}, GPipe gradients worst {pipe['gpipe_worst'][0]:.2e}; "
         f"launches on its main paths {dict(pipe_launches)}")
 
+    t = time.perf_counter()
+    vis = phase_visual(torch, fa, lap, maxpool, api, train, Predictor, nvcc_build)
+    log(f"[visual] ok in {time.perf_counter() - t:.1f} s; eval_loop with visual_log over "
+        f"{VIS_BATCHES} b{TRAIN_BATCH} batches {vis['eval_s']:.2f} s; webcam program b1 "
+        f"{TRAIN_HW[0]}x{TRAIN_HW[1]} median {vis['webcam_ms']:.2f} ms a frame; warmup at "
+        f"b{TRAIN_BATCH} {vis['warm_s']:.2f} s, then b{TRAIN_BATCH} {VIS_WARM[0]}x{VIS_WARM[1]} "
+        f"requests {vis['request_ms'][0]:.2f} / {vis['request_ms'][1]:.2f} ms; launches on its "
+        f"main paths {dict(vis['launches'])}")
+
     a32, a16 = times[(2, 1232, 1232, "float32")], times[(2, 1232, 1232, "bfloat16")]
     # The training shapes' times: fp32 under (Lq, Lk), bf16 under (Lq, Lk, "bfloat16").
     bwd_times16 = {k[:2]: v for k, v in bwd_times.items() if len(k) == 3}
@@ -4990,7 +5296,7 @@ def main() -> int:
                 "launches": (launches_ + dc5["launches"][name] + seg["launches"][name]
                              + pan["launches"][name] + jp["launches"][name]
                              + art["launches"][name] + par_launches[name]
-                             + pipe_launches[name]),
+                             + pipe_launches[name] + vis["launches"][name]),
                 "max_abs_err": err,
                 "ms": ms_, "plain_ms": plain_, "bound_ms": bound, "bound_by": by,
                 "library_ms": library, "measured_at": at}

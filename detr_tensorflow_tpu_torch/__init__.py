@@ -10,6 +10,15 @@ serving kernels are ``torch.library`` ops, so ``export_predictor`` writes
 those programs without the model's code.
 """
 
+from . import ops  # noqa: F401
+from . import models  # noqa: F401
+from . import data  # noqa: F401
+from . import train  # noqa: F401
+from . import parallel  # noqa: F401
+from . import metrics  # noqa: F401
+from . import logger  # noqa: F401
+from . import utils  # noqa: F401
+from . import inference  # noqa: F401
 from .models import DETR, DetrModel, as_aux_list, build_detr, get_detr_model  # noqa: F401
 from .predictor import Detection, Predictor  # noqa: F401
 from .export import export_predictor, load_predictor  # noqa: F401

@@ -72,7 +72,8 @@ def main(argv=None, **model_kwargs) -> Trainer:
                            **model_kwargs)
     shard_loaders(mesh, train_dt, valid_dt)
     trainer = Trainer(model.module, config, seed=args.seed, mesh=mesh)
-    run_epochs(trainer, train_dt, valid_dt, config, args, evaluation_step=200)
+    run_epochs(trainer, train_dt, valid_dt, config, args, evaluation_step=200,
+               class_names=class_names)
     return trainer
 
 

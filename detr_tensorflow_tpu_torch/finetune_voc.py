@@ -50,7 +50,7 @@ def main(argv=None, **model_kwargs) -> Trainer:
             trainer.set_learning_rates(transformers=1e-4, nlayers=1e-4)
 
     run_epochs(trainer, train_dt, valid_dt, config, args, evaluation_step=100,
-               before_epoch=unfreeze)
+               before_epoch=unfreeze, class_names=class_names)
     return trainer
 
 

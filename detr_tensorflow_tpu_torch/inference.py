@@ -1,7 +1,6 @@
-"""Batched postprocess, the instance masks' postprocess and the
-reference's single-image inference (port of
-``detr_tensorflow_tpu/inference.py``; its cv2 drawing helpers are not
-ported).
+"""Batched postprocess, the instance masks' postprocess, the reference's
+single-image inference and the drawing helpers (port of
+``detr_tensorflow_tpu/inference.py``).
 
 Mask probabilities leave the stride-4 head at the padded canvas's stride-4
 lattice. COCO scores masks at each image's own size: the valid stride-4
@@ -13,6 +12,11 @@ its numpy twin for the host (the JAX package takes cv2 there, which the
 card's machine lacks; the two agree to float32 rounding). The panoptic
 merge at full resolution, ``merge_full_res``, runs on the device too, twin
 of the host's ``np_merge_full_res``.
+
+Drawing is host work on uint8 RGB images: ``numpy_masks_to_image`` blends
+instance masks, resized with ``data/transforms.resize_masks`` (cv2's
+INTER_NEAREST bit for bit), so it needs no cv2; ``numpy_bbox_to_image``
+draws boxes and labels with cv2, imported when it is called.
 """
 
 from __future__ import annotations
@@ -219,3 +223,75 @@ def np_merge_full_res(up_probs: np.ndarray, scores: np.ndarray, keep: np.ndarray
     best_q = weighted.argmax(-1).astype(np.int32)
     best_prob = np.take_along_axis(up_probs, best_q[..., None], axis=-1)[..., 0]
     return np.where((best_prob > mask_threshold) & keep[best_q], best_q, -1)
+
+
+# A colour per class id (mod 200): the JAX package's draw, so both packages
+# paint a class alike.
+_CLASS_COLORS = np.random.RandomState(0).randint(0, 255, (200, 3))
+
+
+def _as_uint8(image: np.ndarray, config, unnormalize: bool) -> np.ndarray:
+    from .data.processing import denormalize_image
+
+    image = np.asarray(image)
+    if unnormalize and config is not None and image.dtype != np.uint8:
+        return denormalize_image(image, config)
+    if image.dtype != np.uint8:
+        return np.clip(image * 255.0, 0, 255).astype(np.uint8)
+    return image
+
+
+def numpy_masks_to_image(image: np.ndarray, masks: np.ndarray, labels=None, alpha: float = 0.45,
+                         config=None, unnormalize: bool = True) -> np.ndarray:
+    """Alpha-blend instance masks onto an image; uint8 RGB out.
+
+    ``image`` (H, W, 3) is uint8, or normalized float (denormalized by
+    ``config``'s method, else scaled by 255); ``masks`` (N, h, w) bool or
+    float at any size, a mask of another size cast to uint8 and
+    nearest-resized to the image; ``labels`` (N,) pick each mask's colour
+    (default: its index)."""
+    from .data.transforms import resize_masks
+
+    image = np.ascontiguousarray(_as_uint8(image, config, unnormalize)).astype(np.float32)
+    h, w = image.shape[:2]
+    masks = np.asarray(masks)
+    if labels is None:
+        labels = np.arange(len(masks))
+    for i, m in enumerate(masks):
+        if m.shape != (h, w):
+            m = resize_masks(m.astype(np.uint8)[None], h, w)[0]
+        sel = m > 0.5
+        if not sel.any():
+            continue
+        color = _CLASS_COLORS[int(labels[i]) % 200].astype(np.float32)
+        image[sel] = (1.0 - alpha) * image[sel] + alpha * color
+    return np.clip(image, 0, 255).astype(np.uint8)
+
+
+def numpy_bbox_to_image(image: np.ndarray, bbox_list: np.ndarray, labels=None, scores=None,
+                        class_name=(), config=None, unnormalize: bool = True) -> np.ndarray:
+    """Draw normalized xcycwh boxes, largest first, each with its class name
+    (the id past ``class_name``) and score on a filled tab; uint8 RGB out.
+    ``image`` as in ``numpy_masks_to_image``. Needs cv2."""
+    import cv2
+
+    image = np.ascontiguousarray(_as_uint8(image, config, unnormalize))
+    h, w = image.shape[:2]
+    bbox_list = np.asarray(bbox_list).reshape(-1, 4)
+    if labels is None:
+        labels = np.zeros((len(bbox_list),), int)
+    xyxy = bbox_ops.np_xcycwh_to_xyxy(bbox_ops.np_rescale_bbox_xcycwh(bbox_list, (h, w)))
+    areas = (xyxy[:, 2] - xyxy[:, 0]) * (xyxy[:, 3] - xyxy[:, 1])
+    for b in np.argsort(areas)[::-1]:
+        x1, y1, x2, y2 = (int(v) for v in xyxy[b])
+        x1, y1 = max(0, x1), max(0, y1)
+        x2, y2 = min(w, x2), min(h, y2)
+        class_id = int(labels[int(b)])
+        name = class_name[class_id] if class_id < len(class_name) else str(class_id)
+        if scores is not None and len(scores) > 0:
+            name = f"{name}:{float(scores[b]):.2f}"
+        color = tuple(int(c) for c in _CLASS_COLORS[class_id % 200])
+        cv2.rectangle(image, (x1, y1), (x2, y2), color, 2)
+        cv2.rectangle(image, (x1, y1 - 14), (x1 + 8 * len(name), y1), color, -1)
+        cv2.putText(image, name, (x1 + 1, y1 - 3), cv2.FONT_HERSHEY_SIMPLEX, 0.4, (0, 0, 0), 1)
+    return image

@@ -146,7 +146,8 @@ class ResNetStage(nn.Module):
 class ResNetBackbone(nn.Module):
     """ResNet feature extractor: (B, H, W, 3) NHWC in, NCHW
     (B, 2048, H/32, W/32) out (H/16, W/16 with the last stage dilated) in
-    channels_last memory (sizes rounded up at each halving).
+    channels_last memory (sizes rounded up at each halving). The convs
+    compute in the images' dtype; a ``dtype`` casts the images to it first.
 
     ``return_interm=True`` returns ``(c5, {"c2": .., "c3": .., "c4": ..})``:
     the outputs of the first three stages (strides 4, 8 and 16; with DC5
@@ -155,9 +156,11 @@ class ResNetBackbone(nn.Module):
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), fuse_residual: bool = False,
                  fuse_bottleneck: bool = False,
                  replace_stride_with_dilation: Sequence[bool] = (False, False, False),
-                 remat_stages: int = 0, return_interm: bool = False):
+                 remat_stages: int = 0, return_interm: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.remat_stages, self.return_interm = remat_stages, return_interm
+        self.stage_sizes, self.dtype = tuple(stage_sizes), dtype
         dilate = (False,) + tuple(replace_stride_with_dilation)
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = FrozenBatchNorm(64)
@@ -175,6 +178,8 @@ class ResNetBackbone(nn.Module):
     def forward(self, images: torch.Tensor, pixel_mask: Optional[torch.Tensor] = None):
         """pixel_mask (B, H, W) bool, True = valid. The stem needs no mask:
         the image itself is zero at padded pixels."""
+        if self.dtype is not None:
+            images = images.to(self.dtype)
         x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         x = F.relu(self.bn1(self.conv1(x)))
         if pixel_mask is not None:
@@ -193,3 +198,17 @@ class ResNetBackbone(nn.Module):
             if self.return_interm and s < 4:
                 interm[f"c{s + 1}"] = x
         return (x, interm) if self.return_interm else x
+
+
+def resnet50_backbone(dtype: torch.dtype = torch.float32, dilation: bool = False
+                      ) -> ResNetBackbone:
+    """DETR-R50's backbone (DC5 with ``dilation``)."""
+    return ResNetBackbone((3, 4, 6, 3), replace_stride_with_dilation=(False, False, dilation),
+                          dtype=dtype)
+
+
+def resnet101_backbone(dtype: torch.dtype = torch.float32, dilation: bool = False
+                       ) -> ResNetBackbone:
+    """DETR-R101's backbone (DC5 with ``dilation``)."""
+    return ResNetBackbone((3, 4, 23, 3), replace_stride_with_dilation=(False, False, dilation),
+                          dtype=dtype)

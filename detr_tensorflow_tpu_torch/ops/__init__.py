@@ -1,1 +1,6 @@
-"""Tensor ops of the PyTorch port; ``flash_attention`` holds a CUDA kernel."""
+"""Tensor ops of the PyTorch port: box geometry, Hungarian matching, set
+losses, and the hand-written CUDA kernels with their plain versions."""
+
+from . import boxes  # noqa: F401
+from . import losses  # noqa: F401
+from . import matcher  # noqa: F401

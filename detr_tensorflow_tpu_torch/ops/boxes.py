@@ -19,13 +19,35 @@ def xcycwh_to_xyxy(b: torch.Tensor, clip: bool = True) -> torch.Tensor:
     return out.clamp(0.0, 1.0) if clip else out
 
 
+def xyxy_to_xcycwh(b: torch.Tensor) -> torch.Tensor:
+    """[xmin, ymin, xmax, ymax] -> [xc, yc, w, h]."""
+    mins, maxs = b[..., :2], b[..., 2:]
+    return torch.cat([mins + (maxs - mins) / 2.0, maxs - mins], dim=-1)
+
+
 def xyxy_to_yxyx(b: torch.Tensor) -> torch.Tensor:
     """Swap the x/y pairs; also maps yxyx back to xyxy."""
     return b[..., [1, 0, 3, 2]]
 
 
+yxyx_to_xyxy = xyxy_to_yxyx
+
+
 def xcycwh_to_yxyx(b: torch.Tensor, clip: bool = True) -> torch.Tensor:
     return xyxy_to_yxyx(xcycwh_to_xyxy(b, clip=clip))
+
+
+def yxyx_to_xcycwh(b: torch.Tensor) -> torch.Tensor:
+    return xyxy_to_xcycwh(yxyx_to_xyxy(b))
+
+
+# The reference's names (detr_tf/bbox.py).
+xcycwh_to_xy_min_xy_max = xcycwh_to_xyxy
+xy_min_xy_max_to_xcycwh = xyxy_to_xcycwh
+xy_min_xy_max_to_yx_min_yx_max = xyxy_to_yxyx
+yx_min_yx_max_to_xy_min_xy_max = yxyx_to_xyxy
+xcycwh_to_yx_min_yx_max = xcycwh_to_yxyx
+yx_min_yx_max_to_xcycwh = yxyx_to_xcycwh
 
 
 def area(b: torch.Tensor) -> torch.Tensor:
@@ -81,7 +103,7 @@ def elementwise_giou(box_a: torch.Tensor, box_b: torch.Tensor) -> torch.Tensor:
     return inter / union - (enclose - union) / enclose
 
 
-# numpy twins for the host data pipeline and the AP bookkeeping.
+# numpy twins for the host data pipeline, the AP bookkeeping and drawing.
 def np_xcycwh_to_xyxy(b: np.ndarray) -> np.ndarray:
     b = np.asarray(b)
     return np.concatenate([b[..., :2] - b[..., 2:] / 2.0, b[..., :2] + b[..., 2:] / 2.0], axis=-1)
@@ -97,3 +119,27 @@ def np_yxyx_to_xyxy(b: np.ndarray) -> np.ndarray:
     """Swap the axes of corner boxes (involutive: xyxy -> yxyx as well)."""
     b = np.asarray(b)
     return np.stack([b[..., 1], b[..., 0], b[..., 3], b[..., 2]], axis=-1)
+
+
+def np_rescale_bbox_xcycwh(b: np.ndarray, img_size) -> np.ndarray:
+    """Normalized xcycwh (or xyxy) boxes to pixels; ``img_size`` is
+    (height, width)."""
+    h, w = img_size[0], img_size[1]
+    return np.asarray(b) * np.array([w, h, w, h])
+
+
+np_rescale_bbox_xy_min_xy_max = np_rescale_bbox_xcycwh
+
+
+def np_rescale_bbox_yx_min_yx_max(b: np.ndarray, img_size) -> np.ndarray:
+    h, w = img_size[0], img_size[1]
+    return np.asarray(b) * np.array([h, w, h, w])
+
+
+np_xcycwh_to_xy_min_xy_max = np_xcycwh_to_xyxy
+np_yx_min_yx_max_to_xy_min_xy_max = np_yxyx_to_xyxy
+
+
+def bbox_xcycwh_to_x1y1x2y2(bbox_xcycwh: np.ndarray) -> np.ndarray:
+    """Pixel xcycwh boxes -> int32 xyxy corners, truncated (for drawing)."""
+    return np_xcycwh_to_xyxy(np.asarray(bbox_xcycwh, np.float64)).astype(np.int32)

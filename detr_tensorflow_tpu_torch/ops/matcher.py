@@ -11,6 +11,10 @@ host round trip and no host sync; a CPU tensor takes its plain version.
 ``lap_impl`` is ``"auto" | "kernel" | "plain"``: "auto" and "kernel" call
 ``lap.solve_lap_masked`` (the kernel for a CUDA tensor, the plain version
 for a CPU tensor), "plain" always the plain version.
+
+``solve_lap_masked``, ``solve_lap`` and ``hungarian_match`` are the JAX
+package's one-problem forms: each is one batch-of-one call into the batch
+forms, so on the card it launches the LAP kernel once.
 """
 
 from __future__ import annotations
@@ -54,6 +58,29 @@ def solve_lap_masked_batch(cost: torch.Tensor, row_mask: torch.Tensor,
     flat_mask = row_mask.reshape(-1, r)
     solve = lap.reference_solve_lap_masked if impl == "plain" else lap.solve_lap_masked
     return solve(flat_cost, flat_mask).reshape(lead + (r,))
+
+
+def solve_lap_masked(cost: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
+    """One partial LAP: (R, C) costs, R <= C, and an (R,) bool prefix-form
+    row mask -> (R,) int32 column per real row, -1 for masked rows."""
+    return solve_lap_masked_batch(cost[None], row_mask[None])[0]
+
+
+def solve_lap(cost: torch.Tensor) -> torch.Tensor:
+    """One square LAP: the column assigned to every row of (N, N) costs."""
+    n = cost.shape[0]
+    if cost.shape != (n, n):
+        raise ValueError(f"solve_lap needs a square cost matrix, got {tuple(cost.shape)}")
+    return solve_lap_masked(cost, torch.ones(n, dtype=torch.bool, device=cost.device))
+
+
+def hungarian_match(p_bbox, p_logits, t_bbox, t_class, t_mask):
+    """``hungarian_match_batch`` of one image: (Q, 4), (Q, C), (T, 4), (T,)
+    and (T,) in; target_of_pred (Q,), pred_of_target (T,) and pred_matched
+    (Q,) out."""
+    match = hungarian_match_batch(p_bbox[None], p_logits[None], t_bbox[None], t_class[None],
+                                  t_mask[None])
+    return {k: v[0] for k, v in match.items()}
 
 
 def hungarian_match_batch(p_bbox, p_logits, t_bbox, t_class, t_mask, impl: str = "auto"):

@@ -19,6 +19,7 @@ from .pp import (  # noqa: F401
     pipeline_forward,
     pipeline_train_1f1b,
     pipeline_transformer_encoder,
+    scan_layers,
     split_layers_into_stages,
 )
 from .detr_1f1b import detr_1f1b_value_and_grad  # noqa: F401

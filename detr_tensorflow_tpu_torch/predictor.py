@@ -132,19 +132,23 @@ class Predictor:
                 inputs.append(torch.from_numpy(masks).to(device))
             return program(*inputs)
 
-    def warmup(self, shapes: Sequence[Tuple[int, int]]) -> None:
-        """Run each (height, width) bucket once on zeros, so the first
-        request does not pay for a kernel build, a library set-up or, in a
-        bf16 model, the casts of its float32 parameters (the copies are
-        cached until the weights change, ``models/layers.py``). A model
-        with ``fuse_bottleneck`` also runs it without a pixel mask: a batch
-        that fills its bucket runs unmasked, the only route of kernel E;
-        every other model runs the same kernels either way. With ``masks``
-        the warm-up also resizes one image's masks to the bucket."""
+    def warmup(self, shapes: Sequence[Tuple[int, int]], batch: int = 1) -> None:
+        """Run each (height, width) bucket once on ``batch`` zero images, so
+        the first request of that batch does not pay for a kernel build, a
+        library set-up at its shapes (cuDNN's plans, the allocator's
+        blocks) or, in a bf16 model, the casts of its float32 parameters
+        (the copies are cached until the weights change,
+        ``models/layers.py``). A model with ``fuse_bottleneck`` also runs it
+        without a pixel mask, at the same batch: a batch that fills its
+        bucket runs unmasked, the only route of kernel E; every other model
+        runs the same kernels either way. With ``masks`` the warm-up also
+        resizes one image's masks to the bucket."""
+        if batch < 1:
+            raise ValueError(f"warmup batch must be at least 1, got {batch}")
         for h, w in shapes:
             ph, pw = self._bucket(h, w)
-            frames = np.zeros((1, ph, pw, 3), np.uint8)
-            _, probs = self._run(frames, np.ones((1, ph, pw), bool))
+            frames = np.zeros((batch, ph, pw, 3), np.uint8)
+            _, probs = self._run(frames, np.ones((batch, ph, pw), bool))
             if probs is not None:
                 inference.kept_masks(probs[0], np.ones(probs.shape[1], bool), h, w,
                                      self.mask_threshold)

@@ -574,12 +574,13 @@ class PreemptionGuard:
         return False
 
 
-def fit(trainer: Trainer, train_dataset, config, epoch_nb: int, log_fn=None,
+def fit(trainer: Trainer, train_dataset, config, epoch_nb: int, class_names=None, log_fn=None,
         log_every: int = 100, checkpoint_every: Optional[int] = None,
         preemption_guard: Optional[PreemptionGuard] = None) -> bool:
     """One epoch over ``train_dataset``, an iterable of native batches, fed
-    through ``trainer.prefetch``. The log is read back (a host sync) only
-    every ``log_every`` steps; with ``checkpoint_every`` and
+    through ``trainer.prefetch``. ``class_names`` is taken where the JAX
+    package takes it, and not used there either. The log is read back (a
+    host sync) only every ``log_every`` steps; with ``checkpoint_every`` and
     ``config.checkpoint_dir`` the full state is saved periodically. A
     ``PreemptionGuard`` (the caller's, or a fresh one when
     ``config.checkpoint_dir`` is set) turns SIGTERM/SIGINT into
@@ -623,16 +624,24 @@ def _fit_inner(trainer, train_dataset, config, epoch_nb, log_fn, log_every, chec
     return True
 
 
-def eval_loop(trainer: Trainer, valid_dataset, config, evaluation_step: int = 200,
-              log_fn=None):
+def eval_loop(trainer: Trainer, valid_dataset, config, class_names=None,
+              evaluation_step: int = 200, log_fn=None, visual_log: bool = False):
     """Validation loss over at most ``evaluation_step`` batches; returns the
-    per-batch logs as host floats. Across processes each rank evaluates its
-    slice, the logs are the global batch's, and only the primary prints and
-    calls ``log_fn``."""
+    per-batch logs as host floats. With ``visual_log`` each batch's outputs
+    also go to ``logger.valid_log``, which accumulates the validation mAP
+    and flushes it (to wandb, when present) on batch ``evaluation_step - 1``.
+    The arguments are the JAX ``eval_loop``'s, in its order. Across
+    processes each rank evaluates its slice, the logs are the global
+    batch's, and only the primary prints, logs and calls ``log_fn``."""
     primary = multihost.is_primary()
     logs = []
     for val_step, batch in enumerate(valid_dataset):
-        _, log = trainer.evaluate(batch)
+        outputs, log = trainer.evaluate(batch)
+        if visual_log and primary:
+            from ..logger import valid_log
+
+            valid_log(batch, outputs, config, val_step, trainer.steps, class_names,
+                      evaluation_step=evaluation_step)
         host = _host_log(log)
         logs.append(host)
         if val_step % 10 == 0 and primary:

@@ -51,10 +51,12 @@ def entry_parser(description: str, epochs: int = 100) -> argparse.ArgumentParser
 
 
 def run_epochs(trainer: Trainer, train_dt, valid_dt, config, args, evaluation_step: int,
-               before_epoch: Optional[Callable[[int], None]] = None) -> bool:
+               before_epoch: Optional[Callable[[int], None]] = None,
+               class_names=None) -> bool:
     """``args.epochs`` times: a validation pass over at most
     ``evaluation_step`` batches (``--evaluation_steps`` overrides it), then
-    one training epoch (at most ``--steps_per_epoch`` steps). A
+    one training epoch (at most ``--steps_per_epoch`` steps), each given the
+    dataset's ``class_names`` as the JAX entry points give them. A
     ``valid_dt`` of None skips the validation pass. Returns False when an
     epoch was preempted."""
     if args.evaluation_steps is not None:
@@ -63,10 +65,10 @@ def run_epochs(trainer: Trainer, train_dt, valid_dt, config, args, evaluation_st
         if before_epoch is not None:
             before_epoch(epoch)
         if evaluation_step > 0 and valid_dt is not None:
-            eval_loop(trainer, valid_dt, config, evaluation_step=evaluation_step)
+            eval_loop(trainer, valid_dt, config, class_names, evaluation_step=evaluation_step)
         data = (train_dt if args.steps_per_epoch is None
                 else itertools.islice(train_dt, args.steps_per_epoch))
-        if not fit(trainer, data, config, epoch):
+        if not fit(trainer, data, config, epoch, class_names):
             return False
         if config.checkpoint_dir:
             save_checkpoint(trainer, config.checkpoint_dir)

@@ -16,6 +16,7 @@ import torch
 from detr_tensorflow_tpu.ops.pallas import flash_attention as jax_fa
 from detr_tensorflow_tpu_torch.models.transformer import MultiHeadAttention
 from detr_tensorflow_tpu_torch.ops import flash_attention as fa
+from torch_ranks import one_torch_thread  # noqa: F401  (autouse)
 
 # fp32 tolerance of the JAX kernel's own test (tests/test_pallas_attention.py).
 ATOL, RTOL = 2e-5, 1e-4

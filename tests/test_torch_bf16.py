@@ -40,6 +40,7 @@ from detr_tensorflow_tpu_torch.train.engine import batch_to_device, forward_loss
 from test_torch_models import SMALL, _pixel_mask
 from test_torch_models import random_variables as random_variables_for
 from test_torch_training import LRS, TINY, make_batch, random_variables
+from torch_ranks import one_torch_thread  # noqa: F401  (autouse)
 
 GAP_FACTOR = 2.0
 # Per tensor, a gradient or an update is held at a wider factor: the port's

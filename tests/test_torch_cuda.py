@@ -2060,3 +2060,89 @@ def test_pipeline_1f1b_on_the_card(cuda_device, tmp_path):
     for name, g in grads.items():
         diff = float((merged[name] - g).norm())
         assert diff <= 1e-3 * float(g.norm()) or diff <= 1e-6 * scale, name
+
+
+def test_single_problem_hungarian_match_on_the_card(cuda_device):
+    """``matcher.hungarian_match`` of one image (100 queries, 23 real of 100
+    target slots) on the card: one launch of B, the result row 0 of the
+    batch form's and the real targets' assignment scipy's."""
+    from scipy.optimize import linear_sum_assignment
+
+    from detr_tensorflow_tpu_torch.ops import matcher
+
+    rng = np.random.default_rng(27)
+    n, slots = 23, 100
+    t_box = np.zeros((slots, 4), np.float32)
+    t_box[:n] = np.concatenate([rng.uniform(0.2, 0.8, (n, 2)), rng.uniform(0.05, 0.5, (n, 2))], -1)
+    t_class = np.zeros(slots, np.int64)
+    t_class[:n] = rng.integers(1, 91, n)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (
+        np.concatenate([rng.uniform(0.2, 0.8, (100, 2)), rng.uniform(0.05, 0.5, (100, 2))],
+                       -1).astype(np.float32),
+        rng.normal(size=(100, 92)).astype(np.float32), t_box, t_class, np.arange(slots) < n)]
+    before = _lap_counts()
+    match = matcher.hungarian_match(*args)
+    torch.cuda.synchronize()
+    assert _lap_counts(before) == (1, 0, 0)
+    batch = matcher.hungarian_match_batch(*(a[None] for a in args))
+    for key, value in match.items():
+        assert value.device.type == "cuda" and torch.equal(value, batch[key][0]), key
+    cost = matcher.cost_matrix(*args).cpu().numpy()
+    got = match["pred_of_target"].cpu().numpy()
+    np.testing.assert_array_equal(got[:n], linear_sum_assignment(cost.T[:n])[1])
+    assert (got[n:] == -1).all() and int(match["pred_matched"].sum()) == n
+
+
+def test_warmup_at_a_batch_leaves_the_request_nothing_to_build(cuda_device):
+    """``Predictor.warmup(shapes, batch=8)``: a b8 request of that bucket
+    after it builds no kernel library, reserves no device memory segment and
+    launches what the warm-up launched (A-tf32 18, C 1)."""
+    from detr_tensorflow_tpu_torch.ops import nvcc_build
+    from detr_tensorflow_tpu_torch.predictor import Predictor
+
+    model = api.build_detr(backbone_stage_sizes=(1, 1, 1, 1), device=cuda_device)
+    predictor = Predictor(model, background_class=91)
+    before, pool = _forward_counts(), maxpool.max_pool_3x3_s2.launches
+    predictor.warmup([(200, 300)], batch=8)
+    torch.cuda.synchronize()
+    warm = (_forward_counts(before), maxpool.max_pool_3x3_s2.launches - pool)
+    assert warm == ((0, 0, 18), 1) and predictor.buckets == {(256, 384)}
+    builds = set(nvcc_build._builds)
+    segments = torch.cuda.memory_stats()["segment.all.allocated"]
+    rng = np.random.default_rng(28)
+    images = [rng.integers(0, 256, (200, 300, 3), dtype=np.uint8) for _ in range(8)]
+    before, pool = _forward_counts(), maxpool.max_pool_3x3_s2.launches
+    dets = predictor(images)
+    torch.cuda.synchronize()
+    assert (_forward_counts(before), maxpool.max_pool_3x3_s2.launches - pool) == warm
+    assert set(nvcc_build._builds) == builds
+    assert torch.cuda.memory_stats()["segment.all.allocated"] == segments
+    assert len(dets) == 8 and predictor.buckets == {(256, 384)}
+
+
+def test_visual_webcam_program_matches_predictor_at_a_bucket_exact_size(cuda_device):
+    """``webcam_inference.make_run_inference`` frame by frame at 384x640 (a
+    bucket-exact size, so Predictor runs it unpadded too) against one b4
+    Predictor request on the same resized frames: equal labels, boxes within
+    5e-4 and scores within 5e-3; A-tf32 18 and C 1 a frame."""
+    from detr_tensorflow_tpu_torch.data.transforms import LINEAR, resize
+    from detr_tensorflow_tpu_torch.predictor import Predictor
+    from detr_tensorflow_tpu_torch.webcam_inference import make_run_inference
+
+    model = api.build_detr(backbone_stage_sizes=(1, 1, 1, 1), device=cuda_device)
+    rng = np.random.default_rng(29)
+    frames = [resize(rng.integers(0, 256, (480, 640, 3), dtype=np.uint8), 384, 640, LINEAR)
+              for _ in range(4)]
+    dets = Predictor(model, background_class=91)(frames)
+    run = make_run_inference(model, 91)
+    for frame, det in zip(frames, dets):
+        before, pool = _forward_counts(), maxpool.max_pool_3x3_s2.launches
+        (boxes, labels, scores, keep), masks = run(frame[None])
+        torch.cuda.synchronize()
+        assert (_forward_counts(before), maxpool.max_pool_3x3_s2.launches - pool) == (
+            (0, 0, 18), 1)
+        assert masks is None and boxes.device.type == "cuda"
+        k = keep[0].cpu().numpy()
+        np.testing.assert_array_equal(labels[0].cpu().numpy()[k], det.labels)
+        np.testing.assert_allclose(boxes[0].cpu().numpy()[k], det.boxes, atol=5e-4, rtol=0)
+        np.testing.assert_allclose(scores[0].cpu().numpy()[k], det.scores, atol=5e-3, rtol=0)

@@ -41,6 +41,7 @@ from detr_tensorflow_tpu_torch.train import Trainer, TrainingConfig, config as p
 from test_torch_bf16 import FORWARD_ATOL, GAP_FACTOR
 from test_torch_models import _pixel_mask, close, random_variables
 from test_torch_training import LRS, make_batch
+from torch_ranks import one_torch_thread  # noqa: F401  (autouse)
 
 STAGES = (1, 1, 1, 2)
 DILATE = (False, False, True)

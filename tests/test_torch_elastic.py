@@ -19,6 +19,7 @@ import sys
 
 from detr_tensorflow_tpu_torch.parallel import elastic
 from detr_tensorflow_tpu_torch.parallel.elastic import ElasticLauncher
+from torch_ranks import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WAIT_S = 120

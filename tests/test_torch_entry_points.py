@@ -39,6 +39,7 @@ from detr_tensorflow_tpu_torch.train import (
     DataConfig, PreemptionGuard, Trainer, TrainingConfig, fit, latest_step, restore_latest,
     training_config_parser, workflow,
 )
+from torch_ranks import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The tiny model of the JAX package's script tests (tests/test_scripts.py),

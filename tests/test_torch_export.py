@@ -34,6 +34,7 @@ from detr_tensorflow_tpu_torch.models.layers import FrozenBatchNorm
 from detr_tensorflow_tpu_torch.models.weights import to_jax_variables
 from detr_tensorflow_tpu_torch.ops import library
 from detr_tensorflow_tpu_torch.predictor import Predictor
+from torch_ranks import one_torch_thread  # noqa: F401  (autouse)
 
 CONFIG = dict(num_classes=5, num_queries=6, head="detr", backbone_stage_sizes=(1, 1, 1, 1),
               model_dim=64, num_heads=2, num_encoder_layers=1, num_decoder_layers=1,

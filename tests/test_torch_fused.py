@@ -35,6 +35,7 @@ from detr_tensorflow_tpu_torch.ops import maxpool
 from detr_tensorflow_tpu_torch.predictor import Predictor
 from detr_tensorflow_tpu_torch.train import Trainer, TrainingConfig
 from test_torch_models import BOX_ATOL, GOLDEN_RTOL, LOGIT_ATOL, _pixel_mask, close, random_variables
+from torch_ranks import one_torch_thread  # noqa: F401  (autouse)
 
 # The JAX test's reduced DETR (tests/test_pallas_attention.py): layer1 has
 # one identity block, the other stages none.

@@ -7,7 +7,7 @@ image's edges; at stride 2 the even columns and the odd ones as two
 blocks; TMA's 64-byte swizzle), the W slices of one kernel row, the window
 row each lane hands ``ldmatrix.x4`` for each of the nine taps, the
 ``mma.sync.m16n8k32`` fragments (the models of
-``tests/test_torch_int8_plan.py``), the cluster ranks' shares of C and
+``tests/test_torch_int8_emulation.py``), the cluster ranks' shares of C and
 their exchange, and the pixels and channels stored at ragged patches. It
 must equal the plain version exactly, and must not when the swizzle or a
 tap's offset is broken. It also counts the bank conflicts of every
@@ -18,7 +18,9 @@ import pytest
 import torch
 
 from detr_tensorflow_tpu_torch.ops import int8_conv as conv
-from test_torch_int8_plan import LANE, SMS, _ldmatrix_x4, _mma_m16n8k32
+from test_torch_int8_emulation import LANE, _ldmatrix_x4, _mma_m16n8k32
+from test_torch_int8_plan import SMS
+from torch_ranks import one_torch_thread  # noqa: F401  (autouse)
 
 # (H, W, C, stride, launches) of kernel G in one b1 896x1408 int8 DETR-R50
 # forward (K = C): every 3x3 of the four layers.

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 
 from detr_tensorflow_tpu_torch.data import image_io, jpeg
+from torch_ranks import one_torch_thread  # noqa: F401  (autouse)
 
 FIXTURES = Path(__file__).parent / "data" / "jpeg"
 EXPECTED = json.loads((FIXTURES / "expected.json").read_text())

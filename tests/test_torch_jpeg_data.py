@@ -30,10 +30,12 @@ from detr_tensorflow_tpu.train import TrainingConfig as JaxConfig
 from detr_tensorflow_tpu_torch import finetune_hardhat
 from detr_tensorflow_tpu_torch.data import coco, image_io, load_tfcsv_dataset, panoptic, voc
 from detr_tensorflow_tpu_torch.train import DataConfig, TrainingConfig
-from test_torch_data import NORMALIZED_LEVEL, _compare_batches
+from test_torch_data import NORMALIZED_LEVEL
+from test_torch_data_loaders import _compare_batches
 from test_torch_entry_points import TINY as ENTRY_TINY
 from test_torch_jpeg import CV2_IMAGEIO_LEVELS, fixtures
 from test_torch_panoptic import _assert_batches_equal, _id_png
+from torch_ranks import one_torch_thread  # noqa: F401  (autouse)
 
 REFERENCE_LIBRARIES = ("imageio", "imageio.v2", "PIL", "PIL.Image", "cv2", "pandas")
 SIZES = [(70, 90), (64, 96), (90, 70), (57, 83)]

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from detr_tensorflow_tpu_torch.ops import lap
+from torch_ranks import one_torch_thread  # noqa: F401  (autouse)
 
 CSRC = Path(__file__).resolve().parent.parent / "detr_tensorflow_tpu_torch" / "csrc"
 

@@ -43,6 +43,7 @@ from detr_tensorflow_tpu_torch.predictor import Predictor
 from detr_tensorflow_tpu_torch.train import Trainer, TrainingConfig
 from test_torch_serving import BOX_ATOL, SCORE_ATOL
 from test_torch_training import make_batch, random_variables
+from torch_ranks import one_torch_thread  # noqa: F401  (autouse)
 
 SEG = dict(num_classes=5, num_queries=6, model_dim=64, num_heads=2, num_encoder_layers=1,
            num_decoder_layers=1, dim_feedforward=64, backbone_stage_sizes=(1, 1, 1, 1),

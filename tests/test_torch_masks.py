@@ -29,6 +29,7 @@ from detr_tensorflow_tpu_torch import inference
 from detr_tensorflow_tpu_torch.data import coco, masks, processing, synthetic, transforms
 from detr_tensorflow_tpu_torch.ops import losses
 from detr_tensorflow_tpu_torch.train import DataConfig, TrainingConfig
+from torch_ranks import one_torch_thread  # noqa: F401  (autouse)
 
 PROB_ATOL = 1e-5  # resized mask probabilities against cv2's float resize
 LOSS_RTOL = 1e-6

@@ -21,6 +21,7 @@ from detr_tensorflow_tpu.ops import matcher as jax_matcher
 from detr_tensorflow_tpu.ops.pallas.lap import solve_lap_masked_pallas
 from detr_tensorflow_tpu_torch.data import processing
 from detr_tensorflow_tpu_torch.ops import boxes, lap, losses, matcher
+from torch_ranks import one_torch_thread  # noqa: F401  (autouse)
 
 # fp32, the same formulas in another framework: summation order only.
 ATOL, RTOL = 1e-5, 1e-5

@@ -10,6 +10,7 @@ import pytest
 from detr_tensorflow_tpu.metrics import ap as jax_ap
 from detr_tensorflow_tpu.metrics import coco_protocol as jax_cp
 from detr_tensorflow_tpu_torch.metrics import ap, coco_protocol
+from torch_ranks import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _images(seed, n_images=12, num_classes=6, crowd=False, many=False):

@@ -24,6 +24,7 @@ from detr_tensorflow_tpu.models import transformer as jax_transformer
 from detr_tensorflow_tpu.models import weights as jax_weights
 from detr_tensorflow_tpu_torch.models import api, detr, layers, position, resnet, transformer
 from detr_tensorflow_tpu_torch.models.weights import from_jax_variables, load_variables_npz
+from torch_ranks import one_torch_thread  # noqa: F401  (autouse)
 
 MODULE_ATOL = MODULE_RTOL = 1e-4
 # Golden tolerances of tests/test_golden_torch.py (full-depth fp32 parity).

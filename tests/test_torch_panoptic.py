@@ -44,6 +44,7 @@ from detr_tensorflow_tpu_torch.train import DataConfig, Trainer, TrainingConfig
 from detr_tensorflow_tpu_torch.train.checkpoint import restore_latest, save_checkpoint
 from test_torch_data import NORMALIZED_LEVEL
 from test_torch_training import random_variables
+from torch_ranks import one_torch_thread  # noqa: F401  (autouse)
 
 H, W = 61, 77  # odd sizes on purpose
 # The JAX panoptic test's tiny segmentation model (tests/test_panoptic.py).

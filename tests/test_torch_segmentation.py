@@ -32,6 +32,7 @@ from test_torch_bf16 import GAP_FACTOR
 from test_torch_models import BOX_ATOL, GOLDEN_RTOL, LOGIT_ATOL, _pixel_mask, random_variables
 from test_torch_quantized import _c5_agrees
 from test_torch_weights import to_hf
+from torch_ranks import one_torch_thread  # noqa: F401  (autouse)
 
 SEG = dict(num_classes=7, num_queries=6, model_dim=32, num_heads=2, num_encoder_layers=1,
            num_decoder_layers=1, dim_feedforward=64, backbone_stage_sizes=(1, 1, 1, 1),

@@ -31,6 +31,7 @@ from detr_tensorflow_tpu_torch.train import (
     TrainingConfig, Trainer, eval_loop, fit, latest_step, restore_latest, save_checkpoint,
 )
 from detr_tensorflow_tpu_torch.train import optimizers as opt_lib
+from torch_ranks import one_torch_thread  # noqa: F401  (autouse)
 
 # tests/test_engine.py's tiny DETR, widened to d 64 and 2 heads (the port's
 # attention takes head_dim 32 or 64 only).

@@ -30,6 +30,7 @@ from detr_tensorflow_tpu_torch.models import weights
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 from chip_smoke import facebook_state_dict  # noqa: E402
+from torch_ranks import one_torch_thread  # noqa: F401  (autouse)
 
 # Golden tolerances of tests/test_golden_torch.py (full-depth fp32 parity).
 BOX_ATOL, LOGIT_ATOL = 5e-4, 5e-3
